@@ -1,0 +1,139 @@
+"""Command-line interface of the PyTorch port: ``deepliif-tpu-torch test``.
+
+Same options, output file names and scoring JSON as ``deepliif-tpu test``
+(deepliif_tpu/cli.py), plus ``--device`` (default cuda). The other commands
+are not ported yet (ROADMAP Queue 1 item 5). click is imported when the
+command line is built, not when this module is imported.
+
+    python -m deepliif_tpu_torch.cli test --input-dir imgs --tile-size 512 \\
+        --model-dir model --output-dir out --device cuda
+"""
+
+from __future__ import annotations
+
+import glob
+import json
+import os
+
+
+def allowed_file(filename):
+    excluding = ['Hema', 'DAPI', 'DAPILap2', 'Ki67', 'Seg', 'Marked',
+                 'SegRefined', 'SegOverlaid', 'Marker', 'Lap2']
+    name, ext = os.path.splitext(filename)
+    return ext in ('.png', '.jpg', '.tif', '.jpeg') and \
+        name.split('_')[-1] not in excluding
+
+
+def _not_ported(option, item):
+    return NotImplementedError(f'{option} is not ported to deepliif_tpu_torch '
+                               f'yet (ROADMAP Queue 1 item {item})')
+
+
+def run_test(input_dir, output_dir, tile_size, model_dir, filename_pattern='*',
+             epoch='latest', seg_intermediate=False, seg_only=False,
+             mod_only=False, btoa=False, max_batch=None, precision=None,
+             int8_scope=None, device_quant='auto', device='cuda', echo=print):
+    """Tiled inference + quantification over a directory of images."""
+    from PIL import Image
+    from deepliif_tpu.config import get_opt, print_options
+    from .models import infer_modalities
+
+    if mod_only:
+        seg_only = seg_intermediate = False
+    elif seg_intermediate and seg_only:
+        seg_intermediate = False
+    if precision not in (None, 'float32'):
+        raise _not_ported(f'--precision {precision}', 7)
+    if int8_scope is not None:
+        raise _not_ported('--int8-scope', 7)
+    if seg_only:
+        raise _not_ported('--seg-only', 3)
+    if seg_intermediate:
+        raise _not_ported('--seg-intermediate', 3)
+    if device_quant == 'on':
+        raise _not_ported('--device-quant on', 8)
+
+    output_dir = output_dir or input_dir
+    os.makedirs(output_dir, exist_ok=True)
+    if filename_pattern == '*':
+        image_files = [fn for fn in os.listdir(input_dir) if allowed_file(fn)]
+    else:
+        image_files = [os.path.basename(f) for f in
+                       glob.glob(os.path.join(input_dir, filename_pattern))]
+    echo(f'{len(image_files)} image files')
+
+    opt = get_opt(model_dir, mode='test')
+    opt.BtoA = btoa
+    opt.epoch = epoch
+    seg_weights = getattr(opt, 'seg_weights', None)
+    print_options(opt)
+
+    for filename in image_files:
+        img = Image.open(os.path.join(input_dir, filename)).convert('RGB')
+        images, scoring = infer_modalities(
+            img, tile_size, model_dir, opt=opt, mod_only=mod_only,
+            seg_weights=seg_weights, max_batch=max_batch, device=device)
+        stem = filename.rsplit('.', 1)[0]
+        for name, im in images.items():
+            im.save(os.path.join(output_dir, f'{stem}_{name}.png'))
+        if scoring is not None:
+            with open(os.path.join(output_dir, f'{stem}.json'), 'w') as f:
+                json.dump(scoring, f, indent=2)
+        echo(f'processed {filename}')
+
+
+def make_cli():
+    import click
+
+    @click.group()
+    def cli():
+        """DeepLIIF on PyTorch and CUDA (port of deepliif-tpu)."""
+
+    @cli.command()
+    @click.option('--input-dir', default='./Sample_Large_Tissues/',
+                  help='reads images from here')
+    @click.option('--output-dir', help='saves results here')
+    @click.option('--tile-size', type=click.IntRange(min=1), required=True)
+    @click.option('--model-dir', default='./model-server/DeepLIIF_Latest_Model/')
+    @click.option('--filename-pattern', default='*')
+    @click.option('--eager-mode', is_flag=True,
+                  help='kept for CLI parity; there is one eager path')
+    @click.option('--epoch', default='latest')
+    @click.option('--seg-intermediate', is_flag=True)
+    @click.option('--seg-only', is_flag=True)
+    @click.option('--mod-only', is_flag=True)
+    @click.option('--color-dapi', is_flag=True)
+    @click.option('--color-marker', is_flag=True)
+    @click.option('--btoa', '--BtoA', 'btoa', is_flag=True)
+    @click.option('--max-batch', default=None, type=int,
+                  help='tile-batch bucket cap (default 16)')
+    @click.option('--precision', default=None,
+                  type=click.Choice(['float32', 'bfloat16', 'int8']),
+                  help='compute precision; only float32 is ported')
+    @click.option('--int8-scope', default=None,
+                  type=click.Choice(['all', 'resblocks']))
+    @click.option('--device-quant', type=click.Choice(['auto', 'on', 'off']),
+                  default='auto', is_flag=False, flag_value='on',
+                  help='quantification engine; the port runs the host path '
+                       '(auto/off), on is not ported yet')
+    @click.option('--gpu-ids', default=None, help='ignored (torch compat)')
+    @click.option('--device', default='cuda',
+                  help='torch device to run on, e.g. cuda, cuda:1 or cpu')
+    def test(input_dir, output_dir, tile_size, model_dir, filename_pattern,
+             eager_mode, epoch, seg_intermediate, seg_only, mod_only,
+             color_dapi, color_marker, btoa, max_batch, precision, int8_scope,
+             device_quant, gpu_ids, device):
+        """Run tiled inference + quantification over a directory of images."""
+        run_test(input_dir, output_dir, tile_size, model_dir, filename_pattern,
+                 epoch, seg_intermediate, seg_only, mod_only, btoa, max_batch,
+                 precision, int8_scope, device_quant, device, echo=click.echo)
+
+    return cli
+
+
+def main():
+    make_cli()()
+
+
+if __name__ == '__main__':
+    main()

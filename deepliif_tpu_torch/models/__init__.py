@@ -1,0 +1,315 @@
+"""The batched tile-inference engine, DeepLIIF family, float32.
+
+Port of deepliif_tpu/models/__init__.py for the flagship path:
+
+  init_nets  -> InferenceSession (cached per model dir): options + the
+                generator ensemble on ``device`` (native .npz or reference
+                .pth/.pt weights)
+  run_tiles  -> (N, ts, ts, 3) uint8 tiles -> dict of uint8 outputs; empty
+                tiles (gray variance < 9) are skipped on host and filled with
+                the model's background colors
+  inference / infer_modalities / postprocess -> same API surface and output
+                key names as the JAX package; postprocess runs the shared
+                host quantifier (deepliif_tpu.postprocessing)
+
+The device is always explicit (``device='cuda'`` by default, never chosen
+by what is available). Not ported yet (ROADMAP Queue 1): the other model
+families, bf16/int8, seg-only and seg-intermediate outputs, device
+quantification, and the TPU engine's mesh and async copy pipeline.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+
+import numpy as np
+import torch
+
+from deepliif_tpu.config import get_opt
+from deepliif_tpu.utils import luma_u8
+from deepliif_tpu.utils.tiler import InferenceTiler
+
+from ..utils import checkpoints
+from . import deepliif as dl
+
+_FAMILIES = ('DeepLIIF', 'DeepLIIFKD')
+
+
+def _bucket(n, max_batch=16):
+    """Pad a batch count to a power-of-two bucket, clamped to max_batch."""
+    b = 1
+    while b < n and b < max_batch:
+        b *= 2
+    return min(b, max_batch)
+
+
+def _not_ported(what, item):
+    return NotImplementedError(f'{what} is not ported to deepliif_tpu_torch '
+                               f'yet (ROADMAP Queue 1 item {item})')
+
+
+def configure_device(device):
+    """Numerics settings of an f32 session on a CUDA device, process-wide:
+    cuDNN would run f32 convs in TF32 (about 3 significant digits) by
+    default, so TF32 is turned off for convs and matmuls; cuDNN picks
+    deterministic algorithms and no autotuning, so outputs are byte-equal
+    run to run."""
+    if device.type == 'cuda':
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+
+
+class InferenceSession:
+    """A loaded DeepLIIF model on ``device``, ready for batched tile
+    inference. Output keys: G1..Gm (modalities) and GS (seg)."""
+
+    def __init__(self, model_dir, opt=None, phase='test', max_batch=None,
+                 epoch='latest', precision=None, device='cuda'):
+        self.model_dir = model_dir
+        self.opt = opt if opt is not None else get_opt(model_dir, mode=phase)
+        if precision not in (None, 'float32'):
+            raise _not_ported(f'--precision {precision}', 7)
+        self.model = getattr(self.opt, 'model', 'DeepLIIF')
+        if self.model not in _FAMILIES:
+            raise _not_ported(f'model family {self.model}', 10)
+        self.epoch = str(epoch)
+        self.device = torch.device(device)
+        configure_device(self.device)
+        self.d = dl.def_from_opt(self.opt)
+        self.max_batch = 16 if max_batch is None else max_batch
+        self.nets = self._load_nets(model_dir).to(self.device).eval()
+
+    def _load_nets(self, model_dir):
+        nets_ = dl.DeepLIIFNets(self.d)
+        ep = self.epoch
+        if checkpoints.has_native_checkpoint(model_dir, ep):
+            checkpoints.load_group_npz(
+                os.path.join(model_dir, f'{ep}_net_G.npz'), nets_.G)
+            if self.d.seg_gen:
+                checkpoints.load_group_npz(
+                    os.path.join(model_dir, f'{ep}_net_GS.npz'), nets_.GS)
+            return nets_
+        # reference torch model dir; seg nets are GS0..GSm, or G51..G55 in
+        # legacy dirs (deepliif_tpu.config.init_input_and_mod_id)
+        mod_id_seg = getattr(self.opt, 'mod_id_seg', 'S') or 'S'
+        input_id = int(getattr(self.opt, 'input_id', 0))
+        names = [f'G{i + 1}' for i in range(len(nets_.G))]
+        names += [f'G{mod_id_seg}{input_id + i}' for i in range(len(nets_.GS))]
+        for name, net in zip(names, list(nets_.G) + list(nets_.GS)):
+            path = checkpoints.find_net_file(model_dir, name, ep)
+            if path is None:
+                raise FileNotFoundError(f'missing checkpoint for {name} in '
+                                        f'{model_dir}')
+            checkpoints.load_reference_state_dict(net, path)
+        return nets_
+
+    def _mod_keys(self):
+        return [f'G{i + 1}' for i in range(self.d.modalities_no)]
+
+    def forward(self, tiles_u8, seg_weights=None, mod_only=False):
+        """One batch (B, s, s, 3) uint8 on any device -> dict of uint8
+        outputs on the session's device: 'mods' (M, B, s, s, 3), 'seg'."""
+        x = tiles_u8.to(self.device).float() / 127.5 - 1.0
+        with torch.no_grad():
+            res = dl.inference_forward(self.nets, x, self.d,
+                                       seg_weights=seg_weights,
+                                       seg_gen=self.d.seg_gen and not mod_only)
+        return {k: _quantize_u8(v) for k, v in res.items()}
+
+    def run_tiles(self, tiles_u8, seg_weights=None, seg_only=False,
+                  mod_only=False, return_intermediate=False):
+        """tiles_u8: (N, s, s, 3) uint8 -> dict of (N, s, s, 3) uint8 outputs
+        keyed by net id (G1..Gm, GS). Empty tiles are detected on host and
+        filled with background colors (reference run_wrapper)."""
+        if seg_only:
+            raise _not_ported('--seg-only', 3)
+        if return_intermediate:
+            raise _not_ported('--seg-intermediate', 3)
+        n = tiles_u8.shape[0]
+        m = self.d.modalities_no
+        # empty-tile detection: luma variance excluding pure 0/255 pixels
+        # (reference image_variance_gray)
+        gray = luma_u8(tiles_u8).astype(np.float32)
+        valid = (gray != 0) & (gray != 255)
+        cnt = valid.sum(axis=(1, 2))
+        s = np.where(valid, gray, 0).sum(axis=(1, 2))
+        s2 = np.where(valid, gray * gray, 0).sum(axis=(1, 2))
+        with np.errstate(divide='ignore', invalid='ignore'):
+            mean = s / cnt
+            variance = np.where(cnt > 0, s2 / cnt - mean * mean, 0.0)
+        nonempty = np.where(variance >= 9.0)[0]
+
+        out = {}
+        th, tw = tiles_u8.shape[1:3]
+        mod_keys = self._mod_keys()
+        bg = getattr(self.opt, 'background_colors',
+                     [(10, 10, 10)] * m) or [(10, 10, 10)] * m
+        for i, mk in enumerate(mod_keys):
+            color = tuple(bg[i]) if i < len(bg) else (10, 10, 10)
+            out[mk] = np.tile(np.asarray(color, np.uint8)[None, None, None, :],
+                              (n, th, tw, 1))
+        want_seg = self.d.seg_gen and not mod_only
+        if want_seg:
+            out['GS'] = np.zeros((n, th, tw, 3), np.uint8)
+
+        pos = 0
+        while pos < len(nonempty):
+            b = _bucket(len(nonempty) - pos, self.max_batch)
+            chunk = tiles_u8[nonempty[pos:pos + b]]
+            nvalid = chunk.shape[0]
+            if nvalid < b:
+                chunk = np.concatenate([chunk, np.zeros(
+                    (b - nvalid,) + chunk.shape[1:], chunk.dtype)])
+            res = self.forward(torch.from_numpy(np.ascontiguousarray(chunk)),
+                               seg_weights, mod_only)
+            idx = nonempty[pos:pos + nvalid]
+            mods = res['mods'].cpu().numpy()
+            for i, mk in enumerate(mod_keys):
+                out[mk][idx] = mods[i][:nvalid]
+            if want_seg:
+                out['GS'][idx] = res['seg'].cpu().numpy()[:nvalid]
+            pos += nvalid
+        return out
+
+
+def _quantize_u8(y):
+    """tanh range -> uint8 with a truncating cast (reference tensor2im)."""
+    return ((y.float() + 1.0) * 127.5).to(torch.uint8)
+
+
+def init_nets(model_dir, phase='test', epoch='latest', max_batch=None,
+              precision=None, device='cuda'):
+    """Cached session construction, one per (model dir, options, device)."""
+    return _init_nets_cached(model_dir, phase, str(epoch), max_batch,
+                             precision, str(device))
+
+
+@functools.lru_cache(maxsize=8)
+def _init_nets_cached(model_dir, phase, epoch, max_batch, precision, device):
+    return InferenceSession(model_dir, phase=phase, epoch=epoch,
+                            max_batch=max_batch, precision=precision,
+                            device=device)
+
+
+def find_marker_key(d):
+    for k in d:
+        if k is not None and 'Marker' in k:
+            return k
+    return None
+
+
+def inference(img, tile_size, overlap_size, model_path, use_torchserve=False,
+              eager_mode=False, color_dapi=False, color_marker=False, opt=None,
+              return_seg_intermediate=False, seg_only=False, mod_only=False,
+              seg_weights=None, opt_args=None, session=None, max_batch=None,
+              precision=None, device='cuda'):
+    """Tiled ensemble inference on a PIL image; returns {name: PIL.Image}
+    with the reference output key names: 'mod{i}-{Name}' per modality plus
+    'Seg'."""
+    from PIL import Image
+
+    if session is None:
+        session = init_nets(model_path,
+                            epoch=str(getattr(opt, 'epoch', 'latest') if opt
+                                      is not None else 'latest'),
+                            max_batch=max_batch, precision=precision,
+                            device=device)
+    opt = session.opt if opt is None else opt
+    if opt_args:
+        for k, v in opt_args.items():
+            setattr(opt, k, v)
+
+    if getattr(opt, 'seg_gen', True) is False:
+        seg_only = False
+        return_seg_intermediate = False
+    if getattr(opt, 'input_no', 1) > 1:
+        raise _not_ported('multi-input models', 10)
+
+    orig = np.asarray(img.convert('RGB'))
+    scale_size = getattr(opt, 'scale_size', tile_size)
+    tiler = InferenceTiler(orig, tile_size, overlap_size)
+    tiles = tiler.tiles()
+
+    def _resize(batch, size):
+        if batch.shape[1] == size:
+            return batch
+        return np.stack([np.asarray(Image.fromarray(t).resize(
+            (size, size), Image.BICUBIC)) for t in batch])
+
+    results_net = session.run_tiles(
+        _resize(tiles, scale_size), seg_weights=seg_weights,
+        seg_only=seg_only, mod_only=mod_only,
+        return_intermediate=return_seg_intermediate)
+    for key, batch in results_net.items():
+        tiler.stitch_batch(key, _resize(batch, tile_size))
+    results = {k: Image.fromarray(v) for k, v in tiler.results().items()}
+
+    # output naming (reference models/__init__.py:502-565)
+    m = opt.modalities_no
+    input_no = getattr(opt, 'input_no', 1)
+    modality_names = getattr(opt, 'modalities_names',
+                             [f'mod{i}' for i in range(m + 1)])
+    l_modname = [f'mod{i + 1}' for i in range(m)]
+    if l_modname != list(modality_names[input_no:]):
+        l_modname = [f'mod{i + 1}-{nm}' for i, nm in
+                     enumerate(modality_names[input_no:])]
+    d_modname2id = {nm: f'G{i + 1}' for i, nm in enumerate(l_modname)}
+    if not mod_only and getattr(opt, 'seg_gen', True):
+        d_modname2id['Seg'] = 'GS'
+    return {nm: results[mid] for nm, mid in d_modname2id.items()
+            if mid in results}
+
+
+def postprocess(orig, images, tile_size, model, seg_thresh=120,
+                size_thresh='default', marker_thresh=None,
+                size_thresh_upper=None, device_quant=False):
+    """Quantification on host: overlay/refined masks + IHC scoring dict
+    (deepliif_tpu.postprocessing). Resolution from tile size: >384 -> 40x,
+    >192 -> 20x, else 10x."""
+    from PIL import Image
+    from deepliif_tpu import postprocessing as pp
+
+    if device_quant:
+        raise _not_ported('device quantification (--device-quant on)', 8)
+    if model not in _FAMILIES:
+        raise _not_ported(f'postprocess for {model}', 10)
+    resolution = '40x' if tile_size > 384 else ('20x' if tile_size > 192 else '10x')
+    marker = images.get(find_marker_key(images))
+    overlay, refined, scoring = pp.compute_final_results(
+        np.asarray(orig.convert('RGB') if hasattr(orig, 'convert') else orig),
+        np.asarray(images['Seg']),
+        # reference grayscale convention: per-pixel max over RGB
+        pp.to_array(marker, True) if marker is not None else None,
+        resolution, size_thresh, marker_thresh, size_thresh_upper, seg_thresh)
+    return ({'SegOverlaid': Image.fromarray(overlay),
+             'SegRefined': Image.fromarray(refined)}, scoring)
+
+
+def infer_modalities(img, tile_size, model_dir, eager_mode=False,
+                     color_dapi=False, color_marker=False, opt=None,
+                     return_seg_intermediate=False, seg_only=False,
+                     mod_only=False, seg_weights=None, max_batch=None,
+                     device_quant=False, precision=None, device='cuda'):
+    """Full tile-to-scoring pipeline: inference, then host postprocess.
+    ``color_dapi`` / ``color_marker`` are accepted and inert, as in the
+    reference and the JAX package."""
+    session = init_nets(model_dir,
+                        epoch=str(getattr(opt, 'epoch', 'latest') if opt
+                                  is not None else 'latest'),
+                        max_batch=max_batch, precision=precision,
+                        device=device)
+    opt = session.opt if opt is None else opt
+    images = inference(
+        img, tile_size=tile_size, overlap_size=tile_size // 16,
+        model_path=model_dir, opt=opt,
+        return_seg_intermediate=return_seg_intermediate,
+        seg_only=seg_only, mod_only=mod_only, seg_weights=seg_weights,
+        session=session)
+    if getattr(opt, 'seg_gen', True) and not mod_only:
+        post_images, scoring = postprocess(img, images, tile_size, opt.model,
+                                           device_quant=device_quant)
+        return {**images, **post_images}, scoring
+    return images, None

@@ -1,0 +1,1 @@
+"""Ops of the port: hand-written CUDA kernels with their plain PyTorch twins."""

@@ -1,0 +1,159 @@
+"""Checkpoints into the port's modules, and the weight bridge to JAX trees.
+
+Native model dirs hold one ``{epoch}_net_{group}.npz`` per net group (G,
+GS, ...), written by deepliif_tpu.utils.checkpoints: keys are the JAX
+param-tree paths joined by '/', and a group of identical architectures is
+stacked along a leading net axis. (Groups of mixed architectures, saved as
+lists keyed '0/...', are not read yet.) Reference model dirs hold torch
+state dicts (``{epoch}_net_{name}.pth`` or TorchScript ``{name}.pt``) that
+load into the modules as they are.
+
+``params_from_jax`` / ``params_to_jax`` map one net's JAX param tree (numpy
+arrays, NHWC/HWIO layouts) to and from the module's state dict; they are
+the inverse of deepliif_tpu.utils.torch_import's conv_from_torch,
+convT_from_torch and norm_from_torch:
+
+  conv            HWIO                -> OIHW  (transpose 3, 2, 0, 1)
+  conv_transpose  HWIO, spatially
+                  flipped             -> IOHW  (transpose 2, 3, 0, 1 + flip)
+  norm            scale / bias        -> weight / bias
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+_RUNNING_STATS = ('running_mean', 'running_var', 'num_batches_tracked')
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def params_from_jax(net, tree):
+    """JAX param tree of one net (numpy or array-likes) -> state dict of
+    ``net`` (float32 torch tensors)."""
+    sd = {}
+    for path, prefix, kind in net.jax_layout():
+        p = _get(tree, path)
+        if kind == 'norm':
+            sd[f'{prefix}.weight'] = np.asarray(p['scale'])
+            sd[f'{prefix}.bias'] = np.asarray(p['bias'])
+            continue
+        w = np.asarray(p['w'])
+        if kind == 'conv':
+            sd[f'{prefix}.weight'] = w.transpose(3, 2, 0, 1)
+        else:
+            sd[f'{prefix}.weight'] = w.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+        if 'b' in p:
+            sd[f'{prefix}.bias'] = np.asarray(p['b'])
+    return {k: torch.from_numpy(np.array(v, np.float32, order='C'))
+            for k, v in sd.items()}
+
+
+def params_to_jax(net, state_dict=None):
+    """State dict of ``net`` (default: its own) -> JAX param tree of numpy
+    float32 arrays, as deepliif_tpu.utils.torch_import builds it."""
+    sd = net.state_dict() if state_dict is None else state_dict
+
+    def arr(key):
+        return sd[key].detach().cpu().numpy()
+
+    tree = {}
+    for path, prefix, kind in net.jax_layout():
+        if kind == 'norm':
+            node = {'scale': arr(f'{prefix}.weight'),
+                    'bias': arr(f'{prefix}.bias')}
+        else:
+            w = arr(f'{prefix}.weight')
+            w = (w.transpose(2, 3, 1, 0) if kind == 'conv'
+                 else w[:, :, ::-1, ::-1].transpose(2, 3, 0, 1))
+            node = {'w': np.ascontiguousarray(w)}
+            if f'{prefix}.bias' in sd:
+                node['b'] = arr(f'{prefix}.bias')
+        parent = tree
+        for k in path[:-1]:
+            parent = parent.setdefault(k, {})
+        parent[path[-1]] = node
+    return tree
+
+
+def flatten_tree(tree, prefix=''):
+    """Nested dict -> {'a/b/w': array} in sorted key order, the npz key
+    scheme of deepliif_tpu.utils.checkpoints (empty dicts and None carry no
+    leaves)."""
+    flat = {}
+    for k in sorted(tree):
+        v = tree[k]
+        key = f'{prefix}{k}'
+        if isinstance(v, dict):
+            flat.update(flatten_tree(v, key + '/'))
+        elif v is not None:
+            flat[key] = np.asarray(v)
+    return flat
+
+
+def unflatten(flat):
+    tree = {}
+    for key, v in flat.items():
+        *parents, leaf = key.split('/')
+        node = tree
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return tree
+
+
+def group_trees(flat, n_nets):
+    """Flat stacked npz group -> list of ``n_nets`` per-net trees (indexing
+    the leading net axis)."""
+    for k, v in flat.items():
+        if v.ndim == 0 or v.shape[0] != n_nets:
+            raise ValueError(f'{k}: expected a group of {n_nets} stacked nets, '
+                             f'got shape {v.shape}')
+    return [unflatten({k: v[i] for k, v in flat.items()})
+            for i in range(n_nets)]
+
+
+def load_group_npz(path, nets):
+    """Load a native ``{epoch}_net_{group}.npz`` into the list of modules
+    ``nets`` (strict: every key of every module must be present)."""
+    with np.load(path) as data:
+        flat = {k: data[k] for k in data.files}
+    for net, tree in zip(nets, group_trees(flat, len(nets))):
+        net.load_state_dict(params_from_jax(net, tree), strict=True)
+
+
+def has_native_checkpoint(model_dir, epoch='latest'):
+    return os.path.exists(os.path.join(model_dir, f'{epoch}_net_G.npz'))
+
+
+def find_net_file(model_dir, name, epoch='latest'):
+    """Reference net checkpoint: eager {epoch}_net_{name}.pth, else {name}.pt."""
+    pth = os.path.join(model_dir, f'{epoch}_net_{name}.pth')
+    if os.path.exists(pth):
+        return pth
+    pt = os.path.join(model_dir, f'{name}.pt')
+    if os.path.exists(pt):
+        return pt
+    return None
+
+
+def load_reference_state_dict(net, path):
+    """Load a reference ``.pth`` state dict or TorchScript ``.pt`` archive
+    into ``net`` with ``strict=True``. A DataParallel 'module.' prefix is
+    stripped, and BatchNorm running statistics are dropped: inference uses
+    per-sample statistics (layers.batch_stat_norm)."""
+    if path.endswith('.pt'):
+        sd = torch.jit.load(path, map_location='cpu').state_dict()
+    else:
+        sd = torch.load(path, map_location='cpu', weights_only=True)
+    sd = {(k[len('module.'):] if k.startswith('module.') else k): v
+          for k, v in sd.items()}
+    sd = {k: v for k, v in sd.items() if k.rsplit('.', 1)[-1] not in _RUNNING_STATS}
+    net.load_state_dict(sd, strict=True)

@@ -1,0 +1,49 @@
+"""The port never imports jax, not even through an import chain: a fresh
+interpreter imports the port, runs a tiny run_tiles on the CPU from a
+native model dir, and finds no jax module loaded."""
+
+import json
+import os
+import subprocess
+import sys
+
+from conftest import cpu_subprocess_env
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = r'''
+import json, os, sys
+import numpy as np
+import deepliif_tpu_torch
+from deepliif_tpu_torch import cli, models, nets
+from deepliif_tpu_torch.models import deepliif as dl
+from deepliif_tpu_torch.ops import fused_resblock
+from deepliif_tpu_torch.utils import checkpoints as ck
+
+md = sys.argv[1]
+cfg = {'model': 'DeepLIIF', 'modalities_no': 1, 'netG': 'resnet_2blocks',
+       'net_gs': 'unet_32', 'ngf': 8, 'padding': 'zero', 'scale_size': 32,
+       'seg_weights': [0.5, 0.5], 'modalities_names': ['IHC', 'Marker']}
+with open(os.path.join(md, 'config.json'), 'w') as f:
+    json.dump(cfg, f)
+d = dl.DeepLIIFDef(modalities_no=1, net_g=('resnet_2blocks',),
+                   net_gs=('unet_32',) * 2, ngf=8, seg_weights=(0.5, 0.5))
+ens = dl.DeepLIIFNets(d)
+for group, mods in (('G', ens.G), ('GS', ens.GS)):
+    flat = [ck.flatten_tree(ck.params_to_jax(n)) for n in mods]
+    np.savez(os.path.join(md, f'latest_net_{group}.npz'),
+             **{k: np.stack([f[k] for f in flat]) for k in flat[0]})
+tiles = np.random.default_rng(0).integers(0, 255, (2, 32, 32, 3), np.uint8)
+out = models.InferenceSession(md, device='cpu').run_tiles(tiles)
+assert sorted(out) == ['G1', 'GS'], sorted(out)
+print(json.dumps(sorted(m for m in sys.modules
+                        if m == 'jax' or m.startswith(('jax.', 'jaxlib')))))
+'''
+
+
+def test_port_imports_no_jax(tmp_path):
+    res = subprocess.run([sys.executable, '-c', SCRIPT, str(tmp_path)],
+                         capture_output=True, text=True, cwd=REPO, timeout=300,
+                         env=cpu_subprocess_env())
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
