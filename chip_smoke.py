@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch port on one CUDA card: builds the hand-written
 kernels from this checkout, checks each against its plain PyTorch version
-at the shapes of the main path, then drives flagship DeepLIIF f32 inference
+at the shapes of the main path, then drives flagship DeepLIIF inference
 (4 x resnet_9blocks + 5 x unet_512, ngf 64, 512^2 tiles, random weights from
-a seed) end to end through the port's user entry points.
+a seed) end to end through the port's user entry points, at float32,
+bfloat16 and int8 (ResNet-trunk scope, per-chunk dynamic scales).
 
     python3 chip_smoke.py            # needs one CUDA card; exits 0 on success
 
@@ -14,6 +15,7 @@ Any failure exits non-zero before that line. There is no CPU path.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -26,17 +28,49 @@ import torch
 
 SEED = 0
 TILE, OVERLAP, BATCH = 512, 32, 16
-# Kernel vs plain float32 tolerances. y: the repo's f32 layer tolerance
+# float32 kernel vs plain tolerances. y: the repo's f32 layer tolerance
 # (1e-4 absolute). stats: max |delta| over the largest |stat| of its kind,
 # 1e-4, because the two versions sum 16384 float32 terms per (sample,
 # channel) in different orders and sum(y) cancels.
 Y_TOL, STATS_TOL = 1e-4, 1e-4
-# one full-width translator, kernel trunk vs plain trunk, on the tanh output:
-# 18 convs and 18 norms in the chain, each within the layer tolerance
-TRANSLATOR_TOL = 1e-4
+# bfloat16 kernel vs plain: y within one bf16 ulp of the plain y (both
+# round an f32 sum of the same exact products, taken in other orders);
+# stats as for float32.
+BF16_ULP = 2.0 ** -7
+# int8 kernel vs plain: y bit-equal (the integer sums are exact and the
+# rounding points fixed); stats within 1e-5 of the largest stat of their
+# kind, because the float32 sums of the dequantized values run in another
+# order (the plain version sums with torch's reductions).
+INT8_STATS_TOL = 1e-5
+# 9-block chains, kernel vs plain: max |delta| over the largest |y| and
+# mean |delta| over mean |y|, at most 2**-5 and 2**-8 for bf16, 2**-3 and
+# 2**-4 for int8. Each conv agrees (bf16 within an ulp, int8 bit-equal,
+# checked above), but the float32 stats differ in the last bits, which can
+# round a norm scale to the next bf16 value; in int8 that flips
+# quantization steps, and one flipped value can move a chunk's max and so
+# re-quantize the whole chunk. Through 18 norms the two chains drift apart
+# to about int8's own noise (measured on these seeded inputs: bf16 max
+# 0.014, mean 0.0019; int8 static max 0.021, mean 0.0072; int8 dynamic
+# max 0.027, mean 0.017). A broken kernel moves every element by O(1).
+CHAIN_TOL = {'bfloat16': (2.0 ** -5, 2.0 ** -8), 'int8': (2.0 ** -3, 2.0 ** -4)}
+# one full-width translator, kernel trunk vs plain trunk, on the tanh
+# output: float32 within the layer tolerance (absolute). bf16/int8 relative
+# to their own rounding noise, read from the same translator at float32:
+# the kernel trunk may move the output by at most half the mean |delta|
+# that the plain trunk's precision shows against float32, and by at most
+# its max |delta| (measured on this seed: bf16 mean 0.0020 against 0.0104,
+# max 0.055 against 0.145; int8 0 against 0.035 and 0.33).
+TRANSLATOR_TOL_F32 = 1e-4
+TRANSLATOR_NOISE_SHARE = 0.5
 KERNEL_SHAPE = (4, 128, 128, 256)    # flagship trunk: (S, 512/4, 512/4, 4*64)
 TIMING_SHAPE = (16, 128, 128, 256)   # the same at batch 16
 LAUNCHES_PER_FORWARD = 4 * 9 * 2     # nets x blocks x convs
+# published H100 SXM peaks at 700 W (dense): FP32 outside the tensor cores,
+# bf16 and int8 tensor cores; HBM3 bandwidth
+PEAK_OPS = {'float32': 67e12, 'bfloat16': 989e12, 'int8': 1979e12}
+PEAK_BYTES = 3.35e12
+OUTPUTS = {'mod1-Hema', 'mod2-DAPI', 'mod3-Lap2', 'mod4-Marker', 'Seg',
+           'SegOverlaid', 'SegRefined'}
 
 
 def phase(name, **info):
@@ -75,71 +109,287 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def in_turns(fns, iters):
+    """Times each of ``fns`` ({name: fn}) in turns a, b, b, a (...), and
+    returns ({name: [ms, ms]}, {name: mean ms})."""
+    order = list(fns) + list(fns)[::-1]
+    runs = {k: [] for k in fns}
+    for k in order:
+        runs[k].append(cuda_ms(fns[k], iters[k] if isinstance(iters, dict)
+                               else iters))
+    return runs, {k: sum(v) / len(v) for k, v in runs.items()}
+
+
 def stats_rel(got, ref):
     return max(((got[:, q] - ref[:, q]).abs().max()
                 / ref[:, q].abs().max()).item() for q in range(2))
 
 
-def kernel_checks(FR):
-    gen = torch.Generator().manual_seed(SEED)
+def bound(kind, shape, elem_bytes, w_bytes):
+    """Least time (ms) for one trunk conv at ``shape``: ops over the peak
+    of the type, or bytes (x read once, w read once, y written once, the
+    stats written once) over HBM bandwidth, whichever is larger."""
+    s, h, w, c = shape
+    ops = 2.0 * s * h * w * c * c * 9
+    nbytes = 2 * s * h * w * c * elem_bytes + 9 * c * c * w_bytes + s * 2 * c * 4
+    t_ops, t_bytes = ops / PEAK_OPS[kind], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ('operations' if t_ops >= t_bytes
+                                       else 'bytes')
+
+
+class Rand:
+    def __init__(self, seed):
+        self.gen = torch.Generator().manual_seed(seed)
+
+    def __call__(self, *shape, std=1.0, mean=0.0):
+        return (mean + std * torch.randn(shape, generator=self.gen)).cuda()
+
+    def int8_weights(self, c):
+        """Per-output-channel int8 quantization of an N(0, 0.02) HWIO conv."""
+        from deepliif_tpu_torch.ops import quant
+        return quant.quantize_conv_int8(self(3, 3, c, c, std=0.02))
+
+    def blocks(self, c, n, dtype):
+        def norm():
+            return {'scale': self(c, std=0.02, mean=1.0),
+                    'bias': self(c, std=0.01)}
+        out = []
+        for _ in range(n):
+            b = {'norm1': norm(), 'norm2': norm()}
+            for j in (1, 2):
+                if dtype == 'int8':
+                    b[f'w{j}q'], b[f'w{j}s'] = self.int8_weights(c)
+                else:
+                    b[f'w{j}'] = self(3, 3, c, c, std=0.02).to(dtype)
+            out.append(b)
+        return out
+
+
+def chain_check(got, want, kind, **info):
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    rel = (d.max() / want.abs().max()).item()
+    mean_rel = (d.mean() / want.abs().mean()).item()
+    phase('resblock_chain_vs_plain', blocks=9, max_rel_err=rel,
+          mean_rel_err=mean_rel, byte_equal=bool(torch.equal(got, want)),
+          **info)
+    check(rel <= CHAIN_TOL[kind][0] and mean_rel <= CHAIN_TOL[kind][1],
+          f'{kind} chain error {rel} (mean {mean_rel})')
+
+
+def determinism(conv, x, kw, per_sample, what):
+    """Two launches byte-equal; sample 1 alone byte-equal to sample 1 in
+    the batch (``per_sample``: the per-sample keyword arguments)."""
+    y, st = conv(x, **kw)
+    y2, st2 = conv(x, **kw)
+    check(torch.equal(y, y2) and torch.equal(st, st2),
+          f'{what}: two launches differ')
+    kw1 = dict(kw, **{k: (v[1:2].contiguous() if v is not None else None)
+                      for k, v in per_sample.items()})
+    y1, st1 = conv(x[1:2].contiguous(), **kw1)
+    check(torch.equal(y1[0], y[1]) and torch.equal(st1[0], st[1]),
+          f'{what}: sample alone differs from the sample in the batch')
+
+
+def kernel_checks_f32(FR, rnd):
     s, h, w, c = KERNEL_SHAPE
-
-    def rand(*shape, std=1.0, mean=0.0):
-        return (mean + std * torch.randn(shape, generator=gen)).cuda()
-
-    x = rand(*KERNEL_SHAPE)
-    wt = rand(3, 3, c, c, std=0.02)
-    sc, bi = rand(s, c, std=0.1, mean=1.0), rand(s, c, std=0.1)
+    x = rnd(*KERNEL_SHAPE)
+    wt = rnd(3, 3, c, c, std=0.02)
+    sc, bi = rnd(s, c, std=0.1, mean=1.0), rnd(s, c, std=0.1)
     worst = 0.0
     for padding in ('zero', 'reflect'):
         for affine in (False, True):
-            kw = dict(padding=padding, in_relu=affine,
+            kw = dict(w=wt, padding=padding, in_relu=affine,
                       in_scale=sc if affine else None,
                       in_bias=bi if affine else None)
-            y, st = FR.conv3x3_stats(x, wt, **kw)
-            y_ref, st_ref = FR.conv3x3_stats_reference(x, wt, **kw)
+            y, st = FR.conv3x3_stats(x, **kw)
+            y_ref, st_ref = FR.conv3x3_stats_reference(x, **kw)
             torch.cuda.synchronize()
             err = (y - y_ref).abs().max().item()
             rel = stats_rel(st, st_ref)
             worst = max(worst, err)
-            phase('kernel_vs_plain', shape=list(KERNEL_SHAPE), padding=padding,
+            phase('kernel_vs_plain', kernel='conv3x3_stats f32',
+                  shape=list(KERNEL_SHAPE), padding=padding,
                   affine_relu=affine, max_abs_err_y=err, stats_rel_err=rel)
             check(err < Y_TOL, f'y error {err} >= {Y_TOL}')
             check(rel < STATS_TOL, f'stats error {rel} >= {STATS_TOL}')
-            y2, st2 = FR.conv3x3_stats(x, wt, **kw)
-            check(torch.equal(y, y2) and torch.equal(st, st2),
-                  'two launches differ')
-            kw1 = dict(kw, in_scale=sc[1:2].contiguous() if affine else None,
-                       in_bias=bi[1:2].contiguous() if affine else None)
-            y1, st1 = FR.conv3x3_stats(x[1:2].contiguous(), wt, **kw1)
-            check(torch.equal(y1[0], y[1]) and torch.equal(st1[0], st[1]),
-                  'sample alone differs from the sample in the batch')
-    phase('kernel_deterministic', two_launches_byte_equal=True,
-          batch_invariant=True)
+            determinism(FR.conv3x3_stats, x, kw,
+                        {'in_scale': kw['in_scale'], 'in_bias': kw['in_bias']},
+                        'conv3x3_stats f32')
+    phase('kernel_deterministic', kernel='conv3x3_stats f32',
+          two_launches_byte_equal=True, batch_invariant=True)
 
-    blocks = [{'w1': rand(3, 3, c, c, std=0.02), 'w2': rand(3, 3, c, c, std=0.02),
-               'norm1': {'scale': rand(c, std=0.02, mean=1.0), 'bias': rand(c, std=0.01)},
-               'norm2': {'scale': rand(c, std=0.02, mean=1.0), 'bias': rand(c, std=0.01)}}
-              for _ in range(9)]
+    blocks = rnd.blocks(c, 9, torch.float32)
     for padding in ('zero', 'reflect'):
         got = FR.resblock_chain(x, blocks, padding=padding)
         want = FR.resblock_chain_reference(x, blocks, padding=padding)
         err = (got - want).abs().max().item()
-        phase('resblock_chain_vs_plain', blocks=9, padding=padding,
-              max_abs_err=err)
+        phase('resblock_chain_vs_plain', kernel='conv3x3_stats f32', blocks=9,
+              padding=padding, max_abs_err=err)
         check(err < Y_TOL, f'9-block chain error {err} >= {Y_TOL}')
+    return worst
 
-    xt = torch.randn(TIMING_SHAPE, generator=gen).cuda()
-    times = {'kernel': [], 'plain': []}
-    for name in ('plain', 'kernel', 'kernel', 'plain'):
-        fn = FR.conv3x3_stats if name == 'kernel' else FR.conv3x3_stats_reference
-        times[name].append(cuda_ms(lambda: fn(xt, wt, padding='zero'), 10))
-    ms = {k: sum(v) / len(v) for k, v in times.items()}
-    gflop = 2 * np.prod(TIMING_SHAPE) * c * 9 / 1e9
-    phase('kernel_timing', shape=list(TIMING_SHAPE), runs_ms=times,
-          kernel_ms=ms['kernel'], plain_ms=ms['plain'],
-          kernel_tflops=gflop / ms['kernel'], plain_tflops=gflop / ms['plain'])
-    return worst, ms
+
+def kernel_checks_bf16(FR, rnd):
+    s, h, w, c = KERNEL_SHAPE
+    x = rnd(*KERNEL_SHAPE).to(torch.bfloat16)
+    wt = rnd(3, 3, c, c, std=0.02).to(torch.bfloat16)
+    sc, bi = rnd(s, c, std=0.1, mean=1.0), rnd(s, c, std=0.1)
+    worst = 0.0
+    for padding in ('zero', 'reflect'):
+        for affine in (False, True):
+            kw = dict(w=wt, padding=padding, in_relu=affine,
+                      in_scale=sc if affine else None,
+                      in_bias=bi if affine else None)
+            y, st = FR.conv3x3_stats(x, **kw)
+            y_ref, st_ref = FR.conv3x3_stats_reference(x, **kw)
+            torch.cuda.synchronize()
+            d = (y.float() - y_ref.float()).abs()
+            err = d.max().item()
+            ulps = (d / (BF16_ULP * y_ref.float().abs() + 1e-6)).max().item()
+            rel = stats_rel(st, st_ref)
+            worst = max(worst, err)
+            phase('kernel_vs_plain', kernel='conv3x3_stats bf16',
+                  shape=list(KERNEL_SHAPE), padding=padding,
+                  affine_relu=affine, max_abs_err_y=err,
+                  y_bit_equal=bool(err == 0.0), max_err_in_ulps=ulps,
+                  stats_rel_err=rel)
+            check(ulps <= 1.0, f'bf16 y off by {ulps} ulp')
+            check(rel < STATS_TOL, f'bf16 stats error {rel} >= {STATS_TOL}')
+            determinism(FR.conv3x3_stats, x, kw,
+                        {'in_scale': kw['in_scale'], 'in_bias': kw['in_bias']},
+                        'conv3x3_stats bf16')
+    phase('kernel_deterministic', kernel='conv3x3_stats bf16',
+          two_launches_byte_equal=True, batch_invariant=True)
+
+    blocks = rnd.blocks(c, 9, torch.bfloat16)
+    for padding in ('zero', 'reflect'):
+        chain_check(FR.resblock_chain(x, blocks, padding=padding),
+                    FR.resblock_chain_reference(x, blocks, padding=padding),
+                    'bfloat16', kernel='conv3x3_stats bf16', padding=padding)
+    return worst
+
+
+def kernel_checks_int8(FR, rnd):
+    s, h, w, c = KERNEL_SHAPE
+    x = rnd(*KERNEL_SHAPE).to(torch.bfloat16)
+    wq, ws = rnd.int8_weights(c)
+    # static: a random positive per-input-channel 1/a_s
+    inv_a = 127.0 / (2.0 + 2.0 * torch.rand(c, generator=rnd.gen)).cuda()
+    sc, bi = rnd(s, c, std=0.1, mean=1.0), rnd(s, c, std=0.1)
+    worst = 0.0
+    for dynamic in (False, True):
+        for padding in ('zero', 'reflect'):
+            for affine in (False, True):
+                kw = dict(w_q=wq, deq=ws, inv_a=None if dynamic else inv_a,
+                          padding=padding, in_relu=affine, dynamic=dynamic,
+                          in_scale=sc if affine else None,
+                          in_bias=bi if affine else None)
+                y, st = FR.conv3x3_stats_int8(x, **kw)
+                y_ref, st_ref = FR.conv3x3_stats_int8_reference(x, **kw)
+                torch.cuda.synchronize()
+                rel = stats_rel(st, st_ref)
+                err = (y.float() - y_ref.float()).abs().max().item()
+                worst = max(worst, err)
+                phase('kernel_vs_plain', kernel='conv3x3_stats_int8',
+                      mode='dynamic' if dynamic else 'static',
+                      shape=list(KERNEL_SHAPE), padding=padding,
+                      affine_relu=affine, y_bit_equal=bool(torch.equal(y, y_ref)),
+                      max_abs_err_y=err, stats_rel_err=rel)
+                check(torch.equal(y, y_ref), 'int8 y differs from the plain y')
+                check(rel < INT8_STATS_TOL,
+                      f'int8 stats error {rel} >= {INT8_STATS_TOL}')
+                determinism(FR.conv3x3_stats_int8, x, kw,
+                            {'in_scale': kw['in_scale'],
+                             'in_bias': kw['in_bias']}, 'conv3x3_stats_int8')
+    phase('kernel_deterministic', kernel='conv3x3_stats_int8',
+          two_launches_byte_equal=True, batch_invariant=True)
+
+    # the dynamic scale per (sample, 16-row chunk) is exactly the chunk's
+    # max |u|: an identity kernel (center tap = I, deq = 1) returns
+    # round(+-127 * 127/m) * m/127 = +-m at the argmax. Each chunk of H =
+    # 128 (8 chunks) gets its own spike, inside the chunk and larger than
+    # its halo rows, so its window max is the spike.
+    xi = rnd(s, h, w, c)
+    spikes = torch.zeros(s, h // 16)
+    for i in range(s):
+        for r in range(h // 16):
+            val = float(8 + i + 0.5 * r)      # bf16-exact, distinct
+            xi[i, r * 16 + 5, (3 * r) % w, (7 * r) % c] = -val if r % 2 else val
+            spikes[i, r] = val
+    xi = xi.to(torch.bfloat16)
+    eye = torch.zeros(3, 3, c, c, dtype=torch.int8, device=xi.device)
+    eye[1, 1] = torch.eye(c, dtype=torch.int8, device=xi.device)
+    yi, _ = FR.conv3x3_stats_int8(xi, eye, torch.ones(c, device=xi.device),
+                                  padding='reflect', dynamic=True)
+    xf = torch.nn.functional.pad(xi.float().permute(0, 3, 1, 2),
+                                 (0, 0, 1, 1), mode='reflect')
+    got = yi.float().abs().reshape(s, h // 16, 16, w, c).amax(dim=(2, 3, 4))
+    host = torch.stack([xf[:, :, r * 16:r * 16 + 18].abs().amax(dim=(1, 2, 3))
+                        for r in range(h // 16)], dim=1)
+    phase('int8_dynamic_scale_exact', chunks=h // 16,
+          kernel_m=got.flatten().tolist(), host_max=host.flatten().tolist())
+    check(torch.equal(got.cpu(), host.cpu()) and torch.equal(host.cpu(), spikes),
+          'dynamic scale per chunk is not the chunk window max')
+
+    for dynamic in (False, True):
+        blocks = rnd.blocks(c, 9, 'int8')
+        for b in blocks:
+            if not dynamic:
+                b['a1'] = b['a2'] = 4.0 / 127.0
+        for padding in ('zero', 'reflect'):
+            chain_check(
+                FR.resblock_chain_int8(x, blocks, padding=padding,
+                                       dynamic=dynamic),
+                FR.resblock_chain_int8_reference(x, blocks, padding=padding,
+                                                 dynamic=dynamic),
+                'int8', kernel='conv3x3_stats_int8', padding=padding,
+                mode='dynamic' if dynamic else 'static')
+    return worst
+
+
+def kernel_timing(FR, rnd):
+    """Each kernel against its plain version (and the library call where
+    one computes the same function) at (16, 128, 128, 256), zero padding,
+    with the norm affine and ReLU of a block's second conv, in turns."""
+    import torch.nn.functional as F
+
+    s, h, w, c = TIMING_SHAPE
+    x32 = rnd(*TIMING_SHAPE)
+    w32 = rnd(3, 3, c, c, std=0.02)
+    sc, bi = rnd(s, c, std=0.1, mean=1.0), rnd(s, c, std=0.1)
+    aff = dict(padding='zero', in_scale=sc, in_bias=bi, in_relu=True)
+    out = {}
+    for name, dt in (('float32', torch.float32), ('bfloat16', torch.bfloat16)):
+        x, wt = x32.to(dt), w32.to(dt)
+        xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1))
+        wo = wt.permute(3, 2, 0, 1).contiguous()
+        runs, ms = in_turns({
+            'plain': lambda: FR.conv3x3_stats_reference(x, wt, **aff),
+            'kernel': lambda: FR.conv3x3_stats(x, wt, **aff),
+            'library': lambda: F.conv2d(xp, wo)}, 5)
+        out[name] = ms
+        phase('kernel_timing', kernel=f'conv3x3_stats {name}',
+              shape=list(TIMING_SHAPE), runs_ms=runs,
+              **{f'{k}_ms': v for k, v in ms.items()},
+              library_call='F.conv2d on the padded input (cuDNN, TF32 off)')
+    xb = x32.to(torch.bfloat16)
+    wq, ws = rnd.int8_weights(c)
+    runs, ms = in_turns({
+        'plain': lambda: FR.conv3x3_stats_int8_reference(
+            xb, wq, ws, dynamic=True, **aff),
+        'kernel': lambda: FR.conv3x3_stats_int8(xb, wq, ws, dynamic=True,
+                                                **aff)},
+        {'plain': 2, 'kernel': 5})
+    ms_static = cuda_ms(lambda: FR.conv3x3_stats_int8(
+        xb, wq, ws, torch.ones(c, device=xb.device), **aff), 5)
+    out['int8'] = dict(ms, library=None)
+    phase('kernel_timing', kernel='conv3x3_stats_int8', mode='dynamic',
+          shape=list(TIMING_SHAPE), runs_ms=runs,
+          **{f'{k}_ms': v for k, v in ms.items()},
+          kernel_static_ms=ms_static,
+          library_call='none: no single PyTorch call computes an int8 conv')
+    return out
 
 
 def write_flagship_model_dir(md, dl, ck):
@@ -187,99 +437,155 @@ def ihc_like_image(size, seed):
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def slice_checks(M, dl, ck, FR):
-    from PIL import Image
+def launch_counts(FR):
+    return {'float32': FR.conv3x3_stats.launches,
+            'bfloat16': FR.conv3x3_stats.launches_bf16,
+            'int8': FR.conv3x3_stats_int8.launches}
 
-    with tempfile.TemporaryDirectory() as md:
-        t0 = time.perf_counter()
-        write_flagship_model_dir(md, dl, ck)
-        session = M.init_nets(md, device='cuda', max_batch=BATCH)
-        phase('model_dir', seconds=time.perf_counter() - t0, ngf=session.d.ngf,
-              net_g=session.d.net_g, net_gs=session.d.net_gs)
 
-        img = Image.fromarray(ihc_like_image(2 * TILE, SEED))
-        forwards = []
-        run_batch = session.forward
-        session.forward = lambda *a, **k: forwards.append(1) or run_batch(*a, **k)
+def reset_counts(FR):
+    FR.conv3x3_stats.launches = 0
+    FR.conv3x3_stats.launches_bf16 = 0
+    FR.conv3x3_stats_int8.launches = 0
 
-        # the main path, through the user entry point: tiler, run_tiles,
-        # stitch, host postprocess
-        torch.cuda.synchronize()
-        FR.conv3x3_stats.launches = 0
-        t0 = time.perf_counter()
-        images, scoring = M.infer_modalities(img, TILE, md, device='cuda',
-                                             max_batch=BATCH)
-        torch.cuda.synchronize()
-        launches = FR.conv3x3_stats.launches
-        seconds = time.perf_counter() - t0
-        n_forwards = len(forwards)
-        phase('main_path', seconds=seconds, batch_forwards=n_forwards,
-              kernel_launches=launches, outputs=sorted(images),
-              scoring=scoring)
-        check(n_forwards >= 1, 'no batch forward ran')
-        check(launches == LAUNCHES_PER_FORWARD * n_forwards,
-              f'{launches} kernel launches for {n_forwards} forwards')
-        want = {'mod1-Hema', 'mod2-DAPI', 'mod3-Lap2', 'mod4-Marker', 'Seg',
-                'SegOverlaid', 'SegRefined'}
-        check(set(images) == want, f'outputs {sorted(images)}')
-        for k, im in images.items():
-            a = np.asarray(im)
-            check(a.shape == (2 * TILE, 2 * TILE, 3) and a.dtype == np.uint8,
-                  f'{k}: {a.shape} {a.dtype}')
-        check({'num_total', 'num_pos', 'num_neg', 'percent_pos'} <= set(scoring),
-              f'scoring keys {sorted(scoring)}')
 
-        images2, scoring2 = M.infer_modalities(img, TILE, md, device='cuda',
-                                               max_batch=BATCH)
-        same = all(np.array_equal(np.asarray(images[k]), np.asarray(images2[k]))
-                   for k in images) and scoring == scoring2
-        phase('run_to_run', byte_equal=same)
-        check(same, 'two runs differ')
-
-        # one full-width translator: kernel trunk vs the plain trunk composed
-        # from the module's public pieces
-        net = session.nets.G[0]
-        tiles = np.stack([np.asarray(img)[y:y + TILE, x:x + TILE]
-                          for y, x in ((0, 0), (TILE, TILE))])
-        xin = (torch.from_numpy(tiles).cuda().float() / 127.5 - 1.0).permute(0, 3, 1, 2)
-        with torch.no_grad():
-            got = net(xin)
-            want_t = net.tail(FR.resblock_chain_reference(
-                net.head(xin), net.trunk_blocks(), padding=net.padding_type))
-        err = (got - want_t).abs().max().item()
-        phase('translator_vs_plain_trunk', shape=list(got.shape),
-              finite=bool(torch.isfinite(got).all()), max_abs_err=err)
-        check(bool(torch.isfinite(got).all()), 'non-finite translator output')
-        check(err < TRANSLATOR_TOL, f'translator error {err} >= {TRANSLATOR_TOL}')
-
-        # throughput and per-net time at batch 16
-        rng = np.random.default_rng(SEED + 1)
-        big = np.asarray(img)
-        origins = rng.integers(0, 2 * TILE - TILE + 1, (BATCH, 2))
-        batch = np.stack([big[y:y + TILE, x:x + TILE] for y, x in origins])
+def throughput(session, batch, iters=3):
+    session.run_tiles(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(iters):
         session.run_tiles(batch)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        iters = 3
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            session.run_tiles(batch)
-        seconds = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
-        phase('throughput', batch=BATCH, tiles_per_s=BATCH * iters / seconds,
-              seconds_per_batch=seconds / iters, peak_mem_bytes=peak,
-              peak_mem_gib=peak / 2 ** 30)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    return {'batch': len(batch), 'tiles_per_s': len(batch) * iters / seconds,
+            'seconds_per_batch': seconds / iters, 'peak_mem_bytes': peak,
+            'peak_mem_gib': peak / 2 ** 30}
 
-        xb = (torch.from_numpy(batch).cuda().float() / 127.5 - 1.0).permute(0, 3, 1, 2)
-        with torch.no_grad():
-            ms = {'translator': cuda_ms(lambda: net(xb), 2),
-                  'translator_trunk': cuda_ms(
-                      lambda: net.trunk(net.head(xb)), 2),
-                  'seg_unet_512': cuda_ms(lambda: session.nets.GS[0](xb), 2)}
-        phase('per_net_ms', batch=BATCH, **ms,
-              ensemble_estimate_ms=4 * ms['translator'] + 5 * ms['seg_unet_512'])
-        session.forward = run_batch
-        return launches
+
+def float32_twin(net, x):
+    """The same translator at float32 with its float32 kernel trunk: the
+    reference that a lower precision's own rounding noise is read from."""
+    saved = net.compute_dtype, net.int8_mode
+    net.compute_dtype, net.int8_mode = torch.float32, None
+    try:
+        return net(x.float()).float()
+    finally:
+        net.compute_dtype, net.int8_mode = saved
+
+
+def slice_checks(M, FR, md, img, precision):
+    """The main path at ``precision`` through the user entry point, then
+    run-to-run equality, the launch count, a full-width translator against
+    its plain-trunk twin, batch invariance, throughput and per-net times."""
+    scope = 'resblocks' if precision == 'int8' else None
+    kw = dict(device='cuda', max_batch=BATCH, precision=precision,
+              int8_scope=scope)
+    t0 = time.perf_counter()
+    session = M.init_nets(md, **kw)
+    phase('session', precision=precision, seconds=time.perf_counter() - t0,
+          ngf=session.d.ngf, net_g=session.d.net_g, net_gs=session.d.net_gs,
+          dtype=session.d.dtype, int8_mode=session.nets.G[0].int8_mode)
+    forwards = []
+    run_batch = session.forward
+    session.forward = lambda *a, **k: forwards.append(1) or run_batch(*a, **k)
+
+    # the main path, through the user entry point: tiler, run_tiles,
+    # stitch, host postprocess; counts read just before and just after
+    torch.cuda.synchronize()
+    reset_counts(FR)
+    t0 = time.perf_counter()
+    images, scoring = M.infer_modalities(img, TILE, md, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts(FR)
+    n_forwards = len(forwards)
+    phase('main_path', precision=precision, seconds=seconds,
+          batch_forwards=n_forwards, kernel_launches=counts,
+          outputs=sorted(images), scoring=scoring)
+    check(n_forwards >= 1, 'no batch forward ran')
+    for kind, n in counts.items():
+        want = LAUNCHES_PER_FORWARD * n_forwards if kind == precision else 0
+        check(n == want, f'{precision} path: {n} {kind} kernel launches for '
+                         f'{n_forwards} forwards, want {want}')
+    check(set(images) == OUTPUTS, f'outputs {sorted(images)}')
+    for k, im in images.items():
+        a = np.asarray(im)
+        check(a.shape == (2 * TILE, 2 * TILE, 3) and a.dtype == np.uint8,
+              f'{k}: {a.shape} {a.dtype}')
+    check({'num_total', 'num_pos', 'num_neg', 'percent_pos'} <= set(scoring),
+          f'scoring keys {sorted(scoring)}')
+
+    images2, scoring2 = M.infer_modalities(img, TILE, md, **kw)
+    same = all(np.array_equal(np.asarray(images[k]), np.asarray(images2[k]))
+               for k in images) and scoring == scoring2
+    phase('run_to_run', precision=precision, byte_equal=same)
+    check(same, 'two runs differ')
+
+    # one full-width translator: kernel trunk vs the plain trunk composed
+    # from the module's public pieces
+    net = session.nets.G[0]
+    tiles = np.stack([np.asarray(img)[y:y + TILE, x:x + TILE]
+                      for y, x in ((0, 0), (TILE, TILE))])
+    xin = (torch.from_numpy(tiles).cuda().float() / 127.5 - 1.0).permute(
+        0, 3, 1, 2).to(session.d.dtype)
+    with torch.no_grad():
+        got = net(xin).float()
+        trunk_in = net.head(xin)
+        if net.int8_mode is None:
+            plain = FR.resblock_chain_reference(
+                trunk_in, net.trunk_blocks(), padding=net.padding_type)
+        else:
+            plain = FR.resblock_chain_int8_reference(
+                trunk_in, net.trunk_blocks(), padding=net.padding_type,
+                dynamic=net.int8_mode == 'dynamic')
+        want = net.tail(plain).float()
+        noise = None if precision == 'float32' else \
+            (want - float32_twin(net, xin)).abs()
+    d = (got - want).abs()
+    err, mean_err = d.max().item(), d.mean().item()
+    noise_max, noise_mean = (None, None) if noise is None else \
+        (noise.max().item(), noise.mean().item())
+    phase('translator_vs_plain_trunk', precision=precision,
+          shape=list(got.shape), finite=bool(torch.isfinite(got).all()),
+          max_abs_err=err, mean_abs_err=mean_err,
+          plain_vs_float32_max=noise_max, plain_vs_float32_mean=noise_mean)
+    check(bool(torch.isfinite(got).all()), 'non-finite translator output')
+    if noise is None:
+        check(err <= TRANSLATOR_TOL_F32,
+              f'translator error {err} > {TRANSLATOR_TOL_F32}')
+    else:
+        check(mean_err <= TRANSLATOR_NOISE_SHARE * noise_mean
+              and err <= noise_max,
+              f'translator error mean {mean_err}, max {err} against '
+              f'{precision} noise mean {noise_mean}, max {noise_max}')
+
+    rng = np.random.default_rng(SEED + 1)
+    big = np.asarray(img)
+    origins = rng.integers(0, 2 * TILE - TILE + 1, (BATCH, 2))
+    batch = np.stack([big[y:y + TILE, x:x + TILE] for y, x in origins])
+
+    # batch invariance of the whole path: one tile alone vs in a batch
+    full = session.run_tiles(batch)
+    alone = session.run_tiles(batch[3:4])
+    inv = {k: bool(np.array_equal(full[k][3], alone[k][0])) for k in full}
+    phase('batch_invariance', precision=precision, tile_alone_vs_in_batch=inv,
+          byte_equal=all(inv.values()))
+
+    tput = throughput(session, batch)
+    phase('throughput', precision=precision, default_max_batch=session.max_batch
+          == M.DEFAULT_MAX_BATCH, **tput)
+
+    xb = (torch.from_numpy(batch).cuda().float() / 127.5 - 1.0).permute(
+        0, 3, 1, 2).to(session.d.dtype)
+    with torch.no_grad():
+        ms = {'translator': cuda_ms(lambda: net(xb), 2),
+              'translator_trunk': cuda_ms(lambda: net.trunk(net.head(xb)), 2),
+              'seg_unet_512': cuda_ms(lambda: session.nets.GS[0](xb), 2)}
+    phase('per_net_ms', precision=precision, batch=BATCH, **ms,
+          ensemble_estimate_ms=4 * ms['translator'] + 5 * ms['seg_unet_512'])
+    del session.forward            # the class's method again
+    return counts[precision], tput
 
 
 def main():
@@ -289,28 +595,61 @@ def main():
     phase('device', nvidia_smi=smi, torch=torch.__version__,
           cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
           count=torch.cuda.device_count())
+    t_start = time.perf_counter()
 
+    from PIL import Image
     from deepliif_tpu_torch import models as M
     from deepliif_tpu_torch.models import deepliif as dl
     from deepliif_tpu_torch.ops import cuda_build, fused_resblock as FR
     from deepliif_tpu_torch.utils import checkpoints as ck
 
-    M.configure_device(torch.device('cuda'))   # TF32 off for the plain f32 path
+    M.configure_device(torch.device('cuda'))   # TF32 off for the plain paths
     t0 = time.perf_counter()
     FR.build()
-    phase('build', seconds=time.perf_counter() - t0,
+    phase('build', seconds=time.perf_counter() - t0, parallel=True,
           nvcc_seconds=cuda_build.build_seconds)
 
-    max_err, ms = kernel_checks(FR)
-    launches = slice_checks(M, dl, ck, FR)
-    check('jax' not in sys.modules, 'jax was imported')
+    rnd = Rand(SEED)
+    err = {'float32': kernel_checks_f32(FR, rnd),
+           'bfloat16': kernel_checks_bf16(FR, rnd),
+           'int8': kernel_checks_int8(FR, rnd)}
+    ms = kernel_timing(FR, rnd)
 
-    print(json.dumps({'kernels': [{
-        'name': 'conv3x3_stats', 'route': 'cuda',
-        'source': 'deepliif_tpu_torch/csrc/conv3x3_stats.cu',
-        'replaces': 'deepliif_tpu/ops/fused_resblock.py:158',
-        'launches': launches, 'max_abs_err': max_err,
-        'ms': ms['kernel'], 'plain_ms': ms['plain']}]}))
+    launches, tput = {}, {}
+    img = Image.fromarray(ihc_like_image(2 * TILE, SEED))
+    with tempfile.TemporaryDirectory() as md:
+        write_flagship_model_dir(md, dl, ck)
+        for precision in ('float32', 'bfloat16', 'int8'):
+            launches[precision], tput[precision] = slice_checks(
+                M, FR, md, img, precision)
+            # one session on the card at a time, so that peak memory is
+            # the next precision's own
+            M._init_nets_cached.cache_clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    loaded = sorted(m for m in sys.modules if m == 'jax' or m == 'deepliif_tpu'
+                    or m.startswith(('jax.', 'jaxlib', 'deepliif_tpu.')))
+    phase('imports', jax_or_deepliif_tpu_modules=loaded,
+          seconds_total=time.perf_counter() - t_start)
+    check(not loaded, f'jax or deepliif_tpu was imported: {loaded}')
+
+    report = []
+    for name, kind, src, replaces, elem, wb in (
+            ('conv3x3_stats', 'float32', 'conv3x3_stats.cu', ':158', 4, 4),
+            ('conv3x3_stats', 'bfloat16', 'conv3x3_stats.cu', ':158', 2, 2),
+            ('conv3x3_stats_int8', 'int8', 'conv3x3_stats_int8.cu', ':348',
+             2, 1)):
+        bound_ms, bound_by = bound(kind, TIMING_SHAPE, elem, wb)
+        report.append({
+            'name': f'{name} ({kind})' if name == 'conv3x3_stats' else name,
+            'route': 'cuda', 'source': f'deepliif_tpu_torch/csrc/{src}',
+            'replaces': f'deepliif_tpu/ops/fused_resblock.py{replaces}',
+            'launches': launches[kind], 'max_abs_err': err[kind],
+            'ms': ms[kind]['kernel'], 'plain_ms': ms[kind]['plain'],
+            'bound_ms': bound_ms, 'bound_by': bound_by,
+            'library_ms': ms[kind]['library']})
+    print(json.dumps({'kernels': report}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

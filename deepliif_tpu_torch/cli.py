@@ -1,12 +1,16 @@
 """Command-line interface of the PyTorch port: ``deepliif-tpu-torch test``.
 
 Same options, output file names and scoring JSON as ``deepliif-tpu test``
-(deepliif_tpu/cli.py), plus ``--device`` (default cuda). The other commands
-are not ported yet (ROADMAP Queue 1 item 5). click is imported when the
-command line is built, not when this module is imported.
+(deepliif_tpu/cli.py), plus ``--device`` (default cuda).
+``--precision {float32,bfloat16,int8}`` picks the compute precision; int8
+needs ``--int8-scope resblocks`` (scope 'all', the JAX package's default,
+raises). The other commands are not ported yet (ROADMAP.md: "Serving",
+"WSI", "Training", "Stats"). click is imported when the command line is
+built, not when this module is imported.
 
     python -m deepliif_tpu_torch.cli test --input-dir imgs --tile-size 512 \\
-        --model-dir model --output-dir out --device cuda
+        --model-dir model --output-dir out --device cuda \\
+        --precision int8 --int8-scope resblocks
 """
 
 from __future__ import annotations
@@ -24,34 +28,26 @@ def allowed_file(filename):
         name.split('_')[-1] not in excluding
 
 
-def _not_ported(option, item):
-    return NotImplementedError(f'{option} is not ported to deepliif_tpu_torch '
-                               f'yet (ROADMAP Queue 1 item {item})')
-
-
 def run_test(input_dir, output_dir, tile_size, model_dir, filename_pattern='*',
              epoch='latest', seg_intermediate=False, seg_only=False,
              mod_only=False, btoa=False, max_batch=None, precision=None,
              int8_scope=None, device_quant='auto', device='cuda', echo=print):
     """Tiled inference + quantification over a directory of images."""
     from PIL import Image
-    from deepliif_tpu.config import get_opt, print_options
+    from . import roadmap
+    from .config import get_opt, print_options
     from .models import infer_modalities
 
     if mod_only:
         seg_only = seg_intermediate = False
     elif seg_intermediate and seg_only:
         seg_intermediate = False
-    if precision not in (None, 'float32'):
-        raise _not_ported(f'--precision {precision}', 7)
-    if int8_scope is not None:
-        raise _not_ported('--int8-scope', 7)
     if seg_only:
-        raise _not_ported('--seg-only', 3)
+        raise roadmap.not_ported('--seg-only', roadmap.SEG_ONLY)
     if seg_intermediate:
-        raise _not_ported('--seg-intermediate', 3)
+        raise roadmap.not_ported('--seg-intermediate', roadmap.SEG_ONLY)
     if device_quant == 'on':
-        raise _not_ported('--device-quant on', 8)
+        raise roadmap.not_ported('--device-quant on', roadmap.DEVICE_QUANT)
 
     output_dir = output_dir or input_dir
     os.makedirs(output_dir, exist_ok=True)
@@ -72,7 +68,8 @@ def run_test(input_dir, output_dir, tile_size, model_dir, filename_pattern='*',
         img = Image.open(os.path.join(input_dir, filename)).convert('RGB')
         images, scoring = infer_modalities(
             img, tile_size, model_dir, opt=opt, mod_only=mod_only,
-            seg_weights=seg_weights, max_batch=max_batch, device=device)
+            seg_weights=seg_weights, max_batch=max_batch,
+            precision=precision, device=device, int8_scope=int8_scope)
         stem = filename.rsplit('.', 1)[0]
         for name, im in images.items():
             im.save(os.path.join(output_dir, f'{stem}_{name}.png'))
@@ -106,12 +103,18 @@ def make_cli():
     @click.option('--color-marker', is_flag=True)
     @click.option('--btoa', '--BtoA', 'btoa', is_flag=True)
     @click.option('--max-batch', default=None, type=int,
-                  help='tile-batch bucket cap (default 16)')
+                  help='tile-batch bucket cap (default 16, measured on '
+                       'one H100: models.DEFAULT_MAX_BATCH)')
     @click.option('--precision', default=None,
                   type=click.Choice(['float32', 'bfloat16', 'int8']),
-                  help='compute precision; only float32 is ported')
+                  help='override the model dir compute precision; int8 '
+                       'needs --int8-scope resblocks')
     @click.option('--int8-scope', default=None,
-                  type=click.Choice(['all', 'resblocks']))
+                  type=click.Choice(['all', 'resblocks']),
+                  help='which convs --precision int8 quantizes: resblocks '
+                       '(the ResNet-trunk convs, on the int8 kernel; every '
+                       'other conv runs bf16); all (the default, as in the '
+                       'JAX package) is not ported yet and raises')
     @click.option('--device-quant', type=click.Choice(['auto', 'on', 'off']),
                   default='auto', is_flag=False, flag_value='on',
                   help='quantification engine; the port runs the host path '

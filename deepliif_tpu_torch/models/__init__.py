@@ -1,36 +1,45 @@
-"""The batched tile-inference engine, DeepLIIF family, float32.
+"""The batched tile-inference engine, DeepLIIF family, at float32,
+bfloat16 and int8 (ResNet-trunk scope).
 
 Port of deepliif_tpu/models/__init__.py for the flagship path:
 
-  init_nets  -> InferenceSession (cached per model dir): options + the
-                generator ensemble on ``device`` (native .npz or reference
-                .pth/.pt weights)
+  init_nets  -> InferenceSession (cached per model dir and options): options
+                + the generator ensemble on ``device`` (native .npz or
+                reference .pth/.pt weights) in the session's precision
   run_tiles  -> (N, ts, ts, 3) uint8 tiles -> dict of uint8 outputs; empty
                 tiles (gray variance < 9) are skipped on host and filled with
                 the model's background colors
   inference / infer_modalities / postprocess -> same API surface and output
-                key names as the JAX package; postprocess runs the shared
-                host quantifier (deepliif_tpu.postprocessing)
+                key names as the JAX package; postprocess runs the port's
+                host quantifier (``deepliif_tpu_torch.postprocessing``)
+
+Precision: ``precision=`` (or the model dir's ``precision`` option) is
+float32, bfloat16 or int8. int8 takes an explicit ``int8_scope``; only
+'resblocks' is ported (the 72 ResNet-trunk convs of the flagship run the
+int8 kernel, every other conv runs bf16), with static scales from the model
+dir's act_scales.json or per-chunk dynamic scales without it.
 
 The device is always explicit (``device='cuda'`` by default, never chosen
-by what is available). Not ported yet (ROADMAP Queue 1): the other model
-families, bf16/int8, seg-only and seg-intermediate outputs, device
-quantification, and the TPU engine's mesh and async copy pipeline.
+by what is available). Not ported yet (ROADMAP.md): the other model
+families, int8 scope 'all' and calibration, seg-only and seg-intermediate
+outputs, device quantification, and the TPU engine's mesh and async copy
+pipeline.
 """
 
 from __future__ import annotations
 
+import copy
 import functools
 import os
 
 import numpy as np
 import torch
 
-from deepliif_tpu.config import get_opt
-from deepliif_tpu.utils import luma_u8
-from deepliif_tpu.utils.tiler import InferenceTiler
-
-from ..utils import checkpoints
+from .. import roadmap
+from ..config import get_opt
+from ..ops import quant
+from ..utils import checkpoints, luma_u8
+from ..utils.tiler import InferenceTiler
 from . import deepliif as dl
 
 _FAMILIES = ('DeepLIIF', 'DeepLIIFKD')
@@ -44,13 +53,16 @@ def _bucket(n, max_batch=16):
     return min(b, max_batch)
 
 
-def _not_ported(what, item):
-    return NotImplementedError(f'{what} is not ported to deepliif_tpu_torch '
-                               f'yet (ROADMAP Queue 1 item {item})')
+# default tile-batch cap (--max-batch overrides): on one H100 the batch
+# sweep (experiments/torch_batch_sweep.py, PERF.md) found tiles/s within
+# about 10 % from batch 8 to 64 at every precision, best at 16 for bf16 and
+# int8 and 2.5 % below the best for f32, and peak memory growing with the
+# batch. (The JAX package's 128 for bf16 is a TPU v5e figure.)
+DEFAULT_MAX_BATCH = 16
 
 
 def configure_device(device):
-    """Numerics settings of an f32 session on a CUDA device, process-wide:
+    """Numerics settings of a session on a CUDA device, process-wide:
     cuDNN would run f32 convs in TF32 (about 3 significant digits) by
     default, so TF32 is turned off for convs and matmuls; cuDNN picks
     deterministic algorithms and no autotuning, so outputs are byte-equal
@@ -64,23 +76,42 @@ def configure_device(device):
 
 class InferenceSession:
     """A loaded DeepLIIF model on ``device``, ready for batched tile
-    inference. Output keys: G1..Gm (modalities) and GS (seg)."""
+    inference. Output keys: G1..Gm (modalities) and GS (seg).
+
+    ``precision`` (default: the model dir's ``precision`` option, else
+    float32) is float32, bfloat16 or int8; int8 needs ``int8_scope``
+    'resblocks' (scope 'all', the JAX package's default, raises)."""
 
     def __init__(self, model_dir, opt=None, phase='test', max_batch=None,
-                 epoch='latest', precision=None, device='cuda'):
+                 epoch='latest', precision=None, device='cuda',
+                 int8_scope=None):
         self.model_dir = model_dir
         self.opt = opt if opt is not None else get_opt(model_dir, mode=phase)
-        if precision not in (None, 'float32'):
-            raise _not_ported(f'--precision {precision}', 7)
+        if precision is not None and precision != getattr(
+                self.opt, 'precision', 'float32'):
+            self.opt = copy.copy(self.opt)   # get_opt is cached: keep the
+            self.opt.precision = precision   # shared instance unchanged
+        self.precision = getattr(self.opt, 'precision', None) or 'float32'
         self.model = getattr(self.opt, 'model', 'DeepLIIF')
         if self.model not in _FAMILIES:
-            raise _not_ported(f'model family {self.model}', 10)
+            raise roadmap.not_ported(f'model family {self.model}',
+                                     roadmap.FAMILIES)
+        if self.precision == 'int8':
+            scope = int8_scope or 'all'
+            quant.int8_scope_predicate(scope)      # validates the name
+            if scope != 'resblocks':
+                raise roadmap.not_ported(
+                    f'--int8-scope {scope} (use --int8-scope resblocks)',
+                    roadmap.INT8_ALL)
         self.epoch = str(epoch)
         self.device = torch.device(device)
         configure_device(self.device)
         self.d = dl.def_from_opt(self.opt)
-        self.max_batch = 16 if max_batch is None else max_batch
-        self.nets = self._load_nets(model_dir).to(self.device).eval()
+        self.max_batch = DEFAULT_MAX_BATCH if max_batch is None else max_batch
+        nets_ = self._load_nets(model_dir)
+        if self.d.quant_int8:
+            dl.quantize_translators(nets_, quant.load_act_scales(model_dir))
+        self.nets = nets_.to(self.device).eval()
 
     def _load_nets(self, model_dir):
         nets_ = dl.DeepLIIFNets(self.d)
@@ -93,7 +124,7 @@ class InferenceSession:
                     os.path.join(model_dir, f'{ep}_net_GS.npz'), nets_.GS)
             return nets_
         # reference torch model dir; seg nets are GS0..GSm, or G51..G55 in
-        # legacy dirs (deepliif_tpu.config.init_input_and_mod_id)
+        # legacy dirs (config.init_input_and_mod_id)
         mod_id_seg = getattr(self.opt, 'mod_id_seg', 'S') or 'S'
         input_id = int(getattr(self.opt, 'input_id', 0))
         names = [f'G{i + 1}' for i in range(len(nets_.G))]
@@ -112,7 +143,8 @@ class InferenceSession:
     def forward(self, tiles_u8, seg_weights=None, mod_only=False):
         """One batch (B, s, s, 3) uint8 on any device -> dict of uint8
         outputs on the session's device: 'mods' (M, B, s, s, 3), 'seg'."""
-        x = tiles_u8.to(self.device).float() / 127.5 - 1.0
+        # normalized in float32, then cast to the compute dtype
+        x = (tiles_u8.to(self.device).float() / 127.5 - 1.0).to(self.d.dtype)
         with torch.no_grad():
             res = dl.inference_forward(self.nets, x, self.d,
                                        seg_weights=seg_weights,
@@ -125,9 +157,9 @@ class InferenceSession:
         keyed by net id (G1..Gm, GS). Empty tiles are detected on host and
         filled with background colors (reference run_wrapper)."""
         if seg_only:
-            raise _not_ported('--seg-only', 3)
+            raise roadmap.not_ported('--seg-only', roadmap.SEG_ONLY)
         if return_intermediate:
-            raise _not_ported('--seg-intermediate', 3)
+            raise roadmap.not_ported('--seg-intermediate', roadmap.SEG_ONLY)
         n = tiles_u8.shape[0]
         m = self.d.modalities_no
         # empty-tile detection: luma variance excluding pure 0/255 pixels
@@ -176,22 +208,24 @@ class InferenceSession:
 
 
 def _quantize_u8(y):
-    """tanh range -> uint8 with a truncating cast (reference tensor2im)."""
+    """tanh range -> uint8 with a truncating cast (reference tensor2im),
+    through float32."""
     return ((y.float() + 1.0) * 127.5).to(torch.uint8)
 
 
 def init_nets(model_dir, phase='test', epoch='latest', max_batch=None,
-              precision=None, device='cuda'):
+              precision=None, device='cuda', int8_scope=None):
     """Cached session construction, one per (model dir, options, device)."""
     return _init_nets_cached(model_dir, phase, str(epoch), max_batch,
-                             precision, str(device))
+                             precision, str(device), int8_scope)
 
 
 @functools.lru_cache(maxsize=8)
-def _init_nets_cached(model_dir, phase, epoch, max_batch, precision, device):
+def _init_nets_cached(model_dir, phase, epoch, max_batch, precision, device,
+                      int8_scope):
     return InferenceSession(model_dir, phase=phase, epoch=epoch,
                             max_batch=max_batch, precision=precision,
-                            device=device)
+                            device=device, int8_scope=int8_scope)
 
 
 def find_marker_key(d):
@@ -205,7 +239,7 @@ def inference(img, tile_size, overlap_size, model_path, use_torchserve=False,
               eager_mode=False, color_dapi=False, color_marker=False, opt=None,
               return_seg_intermediate=False, seg_only=False, mod_only=False,
               seg_weights=None, opt_args=None, session=None, max_batch=None,
-              precision=None, device='cuda'):
+              precision=None, device='cuda', int8_scope=None):
     """Tiled ensemble inference on a PIL image; returns {name: PIL.Image}
     with the reference output key names: 'mod{i}-{Name}' per modality plus
     'Seg'."""
@@ -216,7 +250,7 @@ def inference(img, tile_size, overlap_size, model_path, use_torchserve=False,
                             epoch=str(getattr(opt, 'epoch', 'latest') if opt
                                       is not None else 'latest'),
                             max_batch=max_batch, precision=precision,
-                            device=device)
+                            device=device, int8_scope=int8_scope)
     opt = session.opt if opt is None else opt
     if opt_args:
         for k, v in opt_args.items():
@@ -226,7 +260,7 @@ def inference(img, tile_size, overlap_size, model_path, use_torchserve=False,
         seg_only = False
         return_seg_intermediate = False
     if getattr(opt, 'input_no', 1) > 1:
-        raise _not_ported('multi-input models', 10)
+        raise roadmap.not_ported('multi-input models', roadmap.FAMILIES)
 
     orig = np.asarray(img.convert('RGB'))
     scale_size = getattr(opt, 'scale_size', tile_size)
@@ -267,15 +301,16 @@ def postprocess(orig, images, tile_size, model, seg_thresh=120,
                 size_thresh='default', marker_thresh=None,
                 size_thresh_upper=None, device_quant=False):
     """Quantification on host: overlay/refined masks + IHC scoring dict
-    (deepliif_tpu.postprocessing). Resolution from tile size: >384 -> 40x,
-    >192 -> 20x, else 10x."""
+    (``deepliif_tpu_torch.postprocessing``). Resolution from tile size:
+    >384 -> 40x, >192 -> 20x, else 10x."""
     from PIL import Image
-    from deepliif_tpu import postprocessing as pp
+    from .. import postprocessing as pp
 
     if device_quant:
-        raise _not_ported('device quantification (--device-quant on)', 8)
+        raise roadmap.not_ported('device quantification (--device-quant on)',
+                                 roadmap.DEVICE_QUANT)
     if model not in _FAMILIES:
-        raise _not_ported(f'postprocess for {model}', 10)
+        raise roadmap.not_ported(f'postprocess for {model}', roadmap.FAMILIES)
     resolution = '40x' if tile_size > 384 else ('20x' if tile_size > 192 else '10x')
     marker = images.get(find_marker_key(images))
     overlay, refined, scoring = pp.compute_final_results(
@@ -292,7 +327,8 @@ def infer_modalities(img, tile_size, model_dir, eager_mode=False,
                      color_dapi=False, color_marker=False, opt=None,
                      return_seg_intermediate=False, seg_only=False,
                      mod_only=False, seg_weights=None, max_batch=None,
-                     device_quant=False, precision=None, device='cuda'):
+                     device_quant=False, precision=None, device='cuda',
+                     int8_scope=None):
     """Full tile-to-scoring pipeline: inference, then host postprocess.
     ``color_dapi`` / ``color_marker`` are accepted and inert, as in the
     reference and the JAX package."""
@@ -300,7 +336,7 @@ def infer_modalities(img, tile_size, model_dir, eager_mode=False,
                         epoch=str(getattr(opt, 'epoch', 'latest') if opt
                                   is not None else 'latest'),
                         max_batch=max_batch, precision=precision,
-                        device=device)
+                        device=device, int8_scope=int8_scope)
     opt = session.opt if opt is None else opt
     images = inference(
         img, tile_size=tile_size, overlap_size=tile_size // 16,

@@ -10,8 +10,14 @@ mods come back (M, B, H, W, C) and seg (B, H, W, C). The nets themselves
 run NCHW in channels_last memory, which is the same bytes as NHWC, so the
 boundary is a view.
 
-Not ported yet: ``seg_only_forward``, ``forward_with_branches`` (ROADMAP
-Queue 1 item 3) and training.
+Precision (``DeepLIIFDef.dtype`` / ``quant_int8``, from the model's
+``precision`` option as in the JAX package): float32; bfloat16, where every
+net runs in bf16 with float32 norm statistics; int8, which runs bf16
+around an int8 ResNet trunk (``quantize_translators``, scope
+``resblocks`` only).
+
+Not ported yet: ``seg_only_forward``, ``forward_with_branches`` (ROADMAP.md,
+"Seg-only and intermediates") and training ("Training").
 """
 
 from __future__ import annotations
@@ -21,7 +27,8 @@ import dataclasses
 import torch
 from torch import nn
 
-from .. import nets
+from .. import nets, roadmap
+from ..ops import quant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +47,14 @@ class DeepLIIFDef:
     padding_type: str = 'zero'       # translation generators (cli default 'zero')
     upsample: str = 'convtranspose'
     seg_weights: tuple = (0.25, 0.15, 0.25, 0.1, 0.25)
+    dtype: torch.dtype = torch.float32   # compute dtype of every net
+    quant_int8: bool = False             # int8 trunk (--precision int8)
+
+
+# compute dtype per --precision: int8 runs everything around the quantized
+# trunk in bf16 (deepliif_tpu/models/deepliif.py def_from_opt)
+PRECISIONS = {'float32': torch.float32, 'bfloat16': torch.bfloat16,
+              'int8': torch.bfloat16}
 
 
 def def_from_opt(opt) -> DeepLIIFDef:
@@ -50,10 +65,10 @@ def def_from_opt(opt) -> DeepLIIFDef:
     net_gs = getattr(opt, 'net_gs', 'unet_512')
     if isinstance(net_gs, str):
         net_gs = (net_gs,) * (m + 1)
-    precision = getattr(opt, 'precision', 'float32')
-    if precision != 'float32':
-        raise NotImplementedError(f'precision {precision} is not ported yet '
-                                  '(ROADMAP Queue 1 item 7)')
+    precision = getattr(opt, 'precision', 'float32') or 'float32'
+    if precision not in PRECISIONS:
+        raise ValueError(f'unknown precision [{precision}] (expected one '
+                         f'of {sorted(PRECISIONS)})')
     return DeepLIIFDef(
         modalities_no=m,
         seg_gen=getattr(opt, 'seg_gen', True),
@@ -69,6 +84,8 @@ def def_from_opt(opt) -> DeepLIIFDef:
         upsample=getattr(opt, 'upsample', 'convtranspose'),
         seg_weights=tuple(getattr(opt, 'seg_weights',
                                   (0.25, 0.15, 0.25, 0.1, 0.25))),
+        dtype=PRECISIONS[precision],
+        quant_int8=precision == 'int8',
     )
 
 
@@ -89,17 +106,35 @@ class DeepLIIFNets(nn.Module):
             nets.define_g(cin, d.output_nc, d.ngf, arch, d.norm, d.use_dropout,
                           'reflect', 'convtranspose')
             for arch in (d.net_gs if d.seg_gen else ()))
+        for net in list(self.G) + list(self.GS):
+            net.compute_dtype = d.dtype
+
+
+def quantize_translators(nets_, act_scales=None):
+    """int8 at scope 'resblocks': quantize the resblock convs of every
+    translator (``ResnetGenerator.set_int8_trunk``); every other conv keeps
+    the compute dtype. ``act_scales``: the JAX package's act_scales.json
+    dict ({'G/res{i}_conv{j}': max |x|}, one vector shared by the
+    translators of the stacked group) or None for dynamic scales."""
+    for i, g in enumerate(nets_.G):
+        if not isinstance(g, nets.ResnetGenerator):
+            raise roadmap.not_ported(f'int8 translator {type(g).__name__} '
+                                     '(the XLA int8 path)', roadmap.INT8_ALL)
+        g.set_int8_trunk({k[len('G/'):]: v
+                          for k, v in (act_scales or {}).items()
+                          if k.startswith('G/')
+                          and quant.int8_scope_predicate('resblocks')(k)})
 
 
 def generator_forward(nets_, x, d: DeepLIIFDef, *, seg_weights=None,
                       seg_gen=None):
     """Inference ensemble forward: x (B, H, W, C) -> (mods (M, B, H, W, C),
-    seg (B, H, W, C) or None). ``seg_gen=False`` skips the seg branches."""
+    seg (B, H, W, C) or None), in the compute dtype ``d.dtype`` (x is cast
+    to it). ``seg_gen=False`` skips the seg branches."""
     if nets_.training:
-        raise NotImplementedError('training is not ported (ROADMAP Queue 1 '
-                                  'item 11): call .eval()')
+        raise roadmap.not_ported('training (call .eval())', roadmap.TRAINING)
     seg_gen = d.seg_gen if seg_gen is None else seg_gen
-    xc = x.permute(0, 3, 1, 2)          # NCHW view, channels_last memory
+    xc = x.to(d.dtype).permute(0, 3, 1, 2)   # NCHW view, channels_last memory
     mods = [g(xc) for g in nets_.G]
     mods_nhwc = torch.stack([y.permute(0, 2, 3, 1) for y in mods])
     if not seg_gen:

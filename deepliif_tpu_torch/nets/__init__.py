@@ -4,6 +4,7 @@ unet_32..unet_512. Returns an ``nn.Module`` in the reference layout."""
 
 from __future__ import annotations
 
+from .. import roadmap
 from .resnet import ResnetGenerator
 from .unet import UnetGenerator
 
@@ -22,5 +23,4 @@ def define_g(input_nc, output_nc, ngf=64, net_g='resnet_9blocks', norm='batch',
         size = int(net_g.split('_')[1])
         return UnetGenerator(input_nc, output_nc, UNET_DOWNS[size], ngf, norm,
                              use_dropout)
-    raise NotImplementedError(f'Generator [{net_g}] is not ported yet '
-                              '(ROADMAP Queue 1 item 10)')
+    raise roadmap.not_ported(f'Generator [{net_g}]', roadmap.FAMILIES)

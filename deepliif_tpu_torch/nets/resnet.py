@@ -8,9 +8,13 @@ layers in ``model.N.conv_block.M`` (Dropout slot included), so reference
 ``.pth`` files load with ``load_state_dict(strict=True)``.
 
 Inference runs the residual trunk through
-``ops.fused_resblock.resblock_chain`` in NHWC: the CUDA kernel for a CUDA
-tensor, its plain twin for a CPU tensor. The head and tail are stock
-PyTorch convs with the per-sample batch-stat norm of ``layers``.
+``ops.fused_resblock.resblock_chain`` in NHWC (float32 or bfloat16, the
+net's ``compute_dtype``), or ``resblock_chain_int8`` once
+``set_int8_trunk`` has quantized the trunk convs: the CUDA kernels for a
+CUDA tensor, their plain twins for a CPU tensor. The head and tail are
+stock PyTorch convs with the per-sample batch-stat norm of ``layers``.
+Parameters stay float32; conv weights are cast to the compute dtype, and
+the trunk weights laid out (and quantized), once per weight version.
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops import fused_resblock as FR
+from .. import roadmap
+from ..ops import fused_resblock as FR, quant
 from . import layers as L
 
 
@@ -79,13 +84,12 @@ class ResnetGenerator(nn.Module):
                  upsample='convtranspose'):
         super().__init__()
         if norm != 'batch':
-            raise NotImplementedError(f'norm [{norm}] not ported (ROADMAP '
-                                      'Queue 1 item 10)')
+            raise roadmap.not_ported(f'norm [{norm}]', roadmap.FAMILIES)
         if padding_type not in ('reflect', 'zero'):
             raise NotImplementedError(f'padding [{padding_type}] not ported')
         if upsample != 'convtranspose':
-            raise NotImplementedError(f'upsample [{upsample}] not ported '
-                                      '(ROADMAP Queue 1 item 10)')
+            raise roadmap.not_ported(f'upsample [{upsample}]',
+                                     roadmap.FAMILIES)
         self.padding_type = padding_type
         self.n_blocks = n_blocks
         layers = [_pad(3, padding_type), nn.Conv2d(input_nc, ngf, 7, bias=False),
@@ -103,6 +107,12 @@ class ResnetGenerator(nn.Module):
                        _bn(ngf * mult // 2), nn.ReLU(True)]
         layers += [_pad(3, padding_type), nn.Conv2d(ngf, output_nc, 7), nn.Tanh()]
         self.model = nn.Sequential(*layers)
+        self.compute_dtype = torch.float32
+        # int8 trunk (set_int8_trunk): None, 'static' or 'dynamic', and the
+        # calibrated max |x| per resblock conv in static mode
+        self.int8_mode = None
+        self._int8_scales = {}
+        self._casts = L.CastCache()
         self._trunk_key = None
         self._trunk = None
 
@@ -137,58 +147,127 @@ class ResnetGenerator(nn.Module):
         out.append(('tail_conv', f'model.{idx + 1}', 'conv'))
         return [((name,), prefix, kind) for name, prefix, kind in out]
 
+    # -- precision ----------------------------------------------------------
+
+    def set_int8_trunk(self, act_scales=None):
+        """Quantize the resblock convs to int8 (scope 'resblocks'; every
+        other conv keeps the compute dtype). ``act_scales`` maps
+        'res{i}_conv{j}' to the calibrated max |x| of that conv's input
+        (scalar or (C,)): the trunk runs static when every resblock conv
+        has one, dynamic (per-chunk scales, no calibration) when none has,
+        and anything else raises, as the JAX package would leave it to its
+        unfused XLA int8 path, which is not ported."""
+        act_scales = act_scales or {}
+        names = [f'res{i}_conv{j}' for i in range(self.n_blocks)
+                 for j in (1, 2)]
+        have = [n for n in names if n in act_scales]
+        if len(have) == len(names):
+            self.int8_mode = 'static'
+        elif not have:
+            self.int8_mode = 'dynamic'
+        else:
+            raise roadmap.not_ported(
+                f'int8 with activation scales for {len(have)} of the '
+                f'{len(names)} resblock convs (the unfused XLA int8 path)',
+                roadmap.INT8_ALL)
+        self._int8_scales = {n: act_scales[n] for n in have}
+        self._trunk_key = None
+
+    def _cast(self):
+        """Function param -> param in the compute dtype (cached casts of
+        the head/tail conv weights and the tail bias)."""
+        if self.compute_dtype == torch.float32:
+            return lambda p: p
+        m = self.model
+        up = 10 + self.n_blocks
+        params = [m[1].weight, m[4].weight, m[7].weight, m[up].weight,
+                  m[up + 3].weight, m[up + 7].weight, m[up + 7].bias]
+        casts = self._casts.get({id(p): p for p in params},
+                                self.compute_dtype)
+        return lambda p: casts[id(p)]
+
     # -- inference ----------------------------------------------------------
 
     def trunk_blocks(self):
-        """The residual blocks in ``resblock_chain`` form: HWIO weights laid
-        out once (rebuilt only when a weight changes or moves) and the live
-        norm parameters."""
+        """The residual blocks in ``resblock_chain`` form (or
+        ``resblock_chain_int8`` form with an int8 trunk): HWIO weights laid
+        out, cast or quantized once (rebuilt only when a weight changes or
+        moves, or the precision does) and the live float32 norm
+        parameters."""
         blocks = self.blocks
-        key = tuple((b.conv1.weight.data_ptr(), b.conv1.weight._version,
-                     b.conv2.weight.data_ptr(), b.conv2.weight._version)
-                    for b in blocks)
+        key = (self.compute_dtype, self.int8_mode) + tuple(
+            (b.conv1.weight.data_ptr(), b.conv1.weight._version,
+             b.conv2.weight.data_ptr(), b.conv2.weight._version)
+            for b in blocks)
         if key != self._trunk_key:
             with torch.no_grad():
-                self._trunk = [
-                    {'w1': b.conv1.weight.detach().permute(2, 3, 1, 0).contiguous(),
-                     'w2': b.conv2.weight.detach().permute(2, 3, 1, 0).contiguous()}
-                    for b in blocks]
+                self._trunk = [self._trunk_block(i, b)
+                               for i, b in enumerate(blocks)]
             self._trunk_key = key
         return [{**t, 'norm1': {'scale': b.norm1.weight, 'bias': b.norm1.bias},
                  'norm2': {'scale': b.norm2.weight, 'bias': b.norm2.bias}}
                 for t, b in zip(self._trunk, blocks)]
 
+    def _trunk_block(self, i, b):
+        out = {}
+        for j, conv in ((1, b.conv1), (2, b.conv2)):
+            w = conv.weight.detach().permute(2, 3, 1, 0).contiguous()
+            if self.int8_mode == 'static':
+                out[f'w{j}q'], out[f'w{j}s'], out[f'a{j}'] = \
+                    quant.quantize_conv_int8_static(
+                        w, self._int8_scales[f'res{i}_conv{j}'])
+            elif self.int8_mode == 'dynamic':
+                out[f'w{j}q'], out[f'w{j}s'] = quant.quantize_conv_int8(w)
+            else:
+                out[f'w{j}'] = w.to(self.compute_dtype)
+        return out
+
     def head(self, x):
         """(B, C_in, H, W) -> trunk input (B, H/4, W/4, 4 ngf), NHWC."""
         m = self.model
+        cast = self._cast()
         x = L.pad2d(x, 3, self.padding_type)
-        x = L.conv2d(x, m[1].weight)
+        x = L.conv2d(x, cast(m[1].weight))
         x = L.relu(L.batch_stat_norm(x, m[2].weight, m[2].bias))
         for idx in (4, 7):
-            x = L.conv2d(x, m[idx].weight, None, 2, 1)
+            x = L.conv2d(x, cast(m[idx].weight), None, 2, 1)
             x = L.relu(L.batch_stat_norm(x, m[idx + 1].weight, m[idx + 1].bias))
         return x.permute(0, 2, 3, 1).contiguous()
 
     def trunk(self, x):
         """NHWC trunk through the fused resblock chain."""
-        return FR.resblock_chain(x, self.trunk_blocks(),
-                                 padding=self.padding_type)
+        if self.int8_mode is None:
+            return FR.resblock_chain(x, self.trunk_blocks(),
+                                     padding=self.padding_type)
+        _, h, w, c = x.shape
+        if c % 128 or h % 16 or w % 16:
+            # the JAX package's fused-kernel gate (deepliif_tpu/nets/
+            # resnet.py _fused_ok); past it, it runs the XLA int8 path
+            raise roadmap.not_ported(
+                f'int8 trunk at {h}x{w}x{c} (the fused kernel needs C % 128 '
+                f'== 0 and H, W % 16 == 0; else the unfused XLA int8 path)',
+                roadmap.INT8_ALL)
+        return FR.resblock_chain_int8(x, self.trunk_blocks(),
+                                      padding=self.padding_type,
+                                      dynamic=self.int8_mode == 'dynamic')
 
     def tail(self, x):
         """NHWC trunk output -> (B, C_out, H, W) in [-1, 1]."""
         m = self.model
+        cast = self._cast()
         x = x.permute(0, 3, 1, 2)
         idx = 10 + self.n_blocks
         for _ in range(2):
-            x = L.conv_transpose2d(x, m[idx].weight, None, 2, 1, 1)
+            x = L.conv_transpose2d(x, cast(m[idx].weight), None, 2, 1, 1)
             x = L.relu(L.batch_stat_norm(x, m[idx + 1].weight, m[idx + 1].bias))
             idx += 3
         x = L.pad2d(x, 3, self.padding_type)
-        x = L.conv2d(x, m[idx + 1].weight, m[idx + 1].bias)
+        x = L.conv2d(x, cast(m[idx + 1].weight), cast(m[idx + 1].bias))
         return L.tanh(x)
 
     def forward(self, x):
+        """(B, C_in, H, W) in any float dtype -> output in the compute
+        dtype."""
         if self.training:
-            raise NotImplementedError('training is not ported (ROADMAP Queue 1 '
-                                      'item 11): call .eval()')
-        return self.tail(self.trunk(self.head(x)))
+            raise roadmap.not_ported('training', roadmap.TRAINING)
+        return self.tail(self.trunk(self.head(x.to(self.compute_dtype))))

@@ -8,7 +8,9 @@ layers, nested under ``model.model``, so reference state dicts load with
 LeakyReLU(0.2) before downconvs, ReLU before upconvs, skip = concat(x,
 up(x)) along channels, tanh output; num_downs 5..9 -> unet_32..unet_512.
 Dropout sits only on the intermediate ngf*8 blocks (depths 4..num_downs-2)
-and is inert at inference.
+and is inert at inference. The net runs in its ``compute_dtype`` (float32
+or bfloat16): parameters stay float32, conv weights and biases are cast
+once per weight version, norm statistics are taken in float32.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .. import roadmap
 from . import layers as L
 
 
@@ -68,23 +71,26 @@ class UnetSkipConnectionBlock(nn.Module):
                     for p, prefix, kind in m[sub].jax_layout(path + ('sub',))]
         return out
 
-    def forward(self, x):
+    def run(self, x, cast):
+        """Block forward; ``cast`` maps a conv parameter to the tensor to
+        use (its compute-dtype copy)."""
         m = self.model
         if self.outermost:
-            h = L.conv2d(x, m[0].weight, None, 2, 1)
-            h = L.relu(m[1](h))
-            h = L.conv_transpose2d(h, m[3].weight, m[3].bias, 2, 1, 0)
+            h = L.conv2d(x, cast(m[0].weight), None, 2, 1)
+            h = L.relu(m[1].run(h, cast))
+            h = L.conv_transpose2d(h, cast(m[3].weight), cast(m[3].bias), 2,
+                                   1, 0)
             return L.tanh(h)
         h = L.leaky_relu(x, 0.2)
-        h = L.conv2d(h, m[1].weight, None, 2, 1)
+        h = L.conv2d(h, cast(m[1].weight), None, 2, 1)
         if self.innermost:
             h = L.relu(h)
-            h = L.conv_transpose2d(h, m[3].weight, None, 2, 1, 0)
+            h = L.conv_transpose2d(h, cast(m[3].weight), None, 2, 1, 0)
             h = L.batch_stat_norm(h, m[4].weight, m[4].bias)
         else:
             h = L.batch_stat_norm(h, m[2].weight, m[2].bias)
-            h = L.relu(m[3](h))
-            h = L.conv_transpose2d(h, m[5].weight, None, 2, 1, 0)
+            h = L.relu(m[3].run(h, cast))
+            h = L.conv_transpose2d(h, cast(m[5].weight), None, 2, 1, 0)
             h = L.batch_stat_norm(h, m[6].weight, m[6].bias)
         return torch.cat([x, h], dim=1)
 
@@ -94,8 +100,7 @@ class UnetGenerator(nn.Module):
                  use_dropout=True):
         super().__init__()
         if norm != 'batch':
-            raise NotImplementedError(f'norm [{norm}] not ported (ROADMAP '
-                                      'Queue 1 item 10)')
+            raise roadmap.not_ported(f'norm [{norm}]', roadmap.FAMILIES)
         blk = UnetSkipConnectionBlock(ngf * 8, ngf * 8, innermost=True)
         for _ in range(num_downs - 5):
             blk = UnetSkipConnectionBlock(ngf * 8, ngf * 8, submodule=blk,
@@ -105,13 +110,28 @@ class UnetGenerator(nn.Module):
         blk = UnetSkipConnectionBlock(ngf, ngf * 2, submodule=blk)
         self.model = UnetSkipConnectionBlock(output_nc, ngf, input_nc,
                                              submodule=blk, outermost=True)
+        self.compute_dtype = torch.float32
+        self._casts = L.CastCache()
 
     def jax_layout(self):
         return [(p, f'model.{prefix}', kind)
                 for p, prefix, kind in self.model.jax_layout()]
 
+    def _cast(self):
+        """Function param -> param in the compute dtype (cached casts of
+        every conv and conv-transpose weight and bias)."""
+        if self.compute_dtype == torch.float32:
+            return lambda p: p
+        params = [p for mod in self.modules()
+                  if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d))
+                  for p in (mod.weight, mod.bias) if p is not None]
+        casts = self._casts.get({id(p): p for p in params},
+                                self.compute_dtype)
+        return lambda p: casts[id(p)]
+
     def forward(self, x):
+        """(B, C_in, H, W) in any float dtype -> output in the compute
+        dtype."""
         if self.training:
-            raise NotImplementedError('training is not ported (ROADMAP Queue 1 '
-                                      'item 11): call .eval()')
-        return self.model(x)
+            raise roadmap.not_ported('training', roadmap.TRAINING)
+        return self.model.run(x.to(self.compute_dtype), self._cast())

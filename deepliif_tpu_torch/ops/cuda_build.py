@@ -4,13 +4,16 @@ Each library is compiled from ``deepliif_tpu_torch/csrc`` with nvcc for
 Hopper (``sm_90a``) into a shared library with a plain C interface and
 loaded with ctypes. The build runs at first use, goes into
 ``deepliif_tpu_torch/_build/`` (git-ignored) and is keyed by a hash of the
-sources and flags, so an edited source is rebuilt and an unchanged one is
-reused. A missing nvcc or a failed build raises: there is no fallback.
+sources, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source is rebuilt and an unchanged one is reused. ``build`` starts one nvcc
+per library, all at once. A missing nvcc or a failed build raises: there is
+no fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -40,28 +43,50 @@ def _nvcc():
                        'at first use')
 
 
+def _lib_path(name, sources):
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for p in [os.path.join(CSRC, s) for s in sources] + sorted(
+            glob.glob(os.path.join(CSRC, '*.cuh'))):
+        with open(p, 'rb') as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f'lib{name}-{h.hexdigest()[:16]}.so')
+
+
+def build(libs):
+    """Compile the libraries ``libs`` ({name: [source file names under
+    csrc/]}) that are not built yet, one nvcc process each, all started
+    together; returns {name: ctypes handle}."""
+    todo = {name: srcs for name, srcs in libs.items() if name not in _loaded}
+    procs = {}
+    try:
+        for name, srcs in todo.items():
+            path = _lib_path(name, srcs)
+            if os.path.exists(path):
+                continue
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f'{path}.tmp-{os.getpid()}'
+            cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp,
+                   *[os.path.join(CSRC, s) for s in srcs]]
+            procs[name] = (path, tmp, time.perf_counter(),
+                           subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True))
+        for name, (path, tmp, t0, proc) in procs.items():
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f'nvcc failed building {name}:\n{out}\n{err}')
+            os.replace(tmp, path)
+            build_seconds[name] = time.perf_counter() - t0
+    finally:
+        for _, _, _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, srcs in todo.items():
+        _loaded[name] = ctypes.CDLL(_lib_path(name, srcs))
+    return {name: _loaded[name] for name in libs}
+
+
 def load(name, sources):
     """ctypes handle of library ``name`` built from ``sources`` (file names
     under csrc/). Builds once per process and per source hash."""
-    if name in _loaded:
-        return _loaded[name]
-    paths = [os.path.join(CSRC, s) for s in sources]
-    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for p in paths:
-        with open(p, 'rb') as f:
-            h.update(f.read())
-    lib_path = os.path.join(BUILD_DIR, f'lib{name}-{h.hexdigest()[:16]}.so')
-    if not os.path.exists(lib_path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f'{lib_path}.tmp-{os.getpid()}'
-        t0 = time.perf_counter()
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, *paths],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f'nvcc failed building {name}:\n'
-                               f'{res.stdout}\n{res.stderr}')
-        os.replace(tmp, lib_path)
-        build_seconds[name] = time.perf_counter() - t0
-    lib = ctypes.CDLL(lib_path)
-    _loaded[name] = lib
-    return lib
+    return build({name: sources})[name]

@@ -1,0 +1,25 @@
+"""The error for what the port does not run yet. Each message names the
+ROADMAP.md heading of the item that ports it (by title, so the message
+stays right when the queue is renumbered)."""
+
+from __future__ import annotations
+
+SEG_ONLY = 'Seg-only and intermediates'
+INT8_ALL = 'int8 scope all'
+DEVICE_QUANT = 'Device quantification'
+FAMILIES = 'Other families'
+SERVING = 'Serving'
+WSI = 'WSI'
+TRAINING = 'Training'
+STATS = 'Stats'
+
+ITEMS = (SEG_ONLY, INT8_ALL, DEVICE_QUANT, FAMILIES, SERVING, WSI, TRAINING,
+         STATS)
+
+
+def not_ported(what, item):
+    """NotImplementedError for ``what``, naming ROADMAP.md item ``item``."""
+    if item not in ITEMS:
+        raise ValueError(f'unknown ROADMAP item {item!r}')
+    return NotImplementedError(f'{what} is not ported to deepliif_tpu_torch '
+                               f'yet (ROADMAP.md, "{item}")')

@@ -1,6 +1,9 @@
-"""The port never imports jax, not even through an import chain: a fresh
-interpreter imports the port, runs a tiny run_tiles on the CPU from a
-native model dir, and finds no jax module loaded."""
+"""The port imports neither jax nor anything of the JAX package
+``deepliif_tpu``, not even through an import chain: a fresh interpreter
+imports the port, runs a tiny run_tiles on the CPU from a native model dir
+(bfloat16 and int8 too) and the host postprocess (the port's own config,
+tiler, quantifier and native helper), and finds no ``jax``, ``jaxlib`` or
+``deepliif_tpu`` / ``deepliif_tpu.*`` module loaded."""
 
 import json
 import os
@@ -14,30 +17,41 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = r'''
 import json, os, sys
 import numpy as np
+from PIL import Image
 import deepliif_tpu_torch
-from deepliif_tpu_torch import cli, models, nets
+from deepliif_tpu_torch import cli, config, models, native, nets, postprocessing
 from deepliif_tpu_torch.models import deepliif as dl
-from deepliif_tpu_torch.ops import fused_resblock
-from deepliif_tpu_torch.utils import checkpoints as ck
+from deepliif_tpu_torch.ops import fused_resblock, quant
+from deepliif_tpu_torch.utils import checkpoints as ck, tiler
 
 md = sys.argv[1]
 cfg = {'model': 'DeepLIIF', 'modalities_no': 1, 'netG': 'resnet_2blocks',
-       'net_gs': 'unet_32', 'ngf': 8, 'padding': 'zero', 'scale_size': 32,
+       'net_gs': 'unet_32', 'ngf': 32, 'padding': 'zero', 'scale_size': 64,
        'seg_weights': [0.5, 0.5], 'modalities_names': ['IHC', 'Marker']}
 with open(os.path.join(md, 'config.json'), 'w') as f:
     json.dump(cfg, f)
 d = dl.DeepLIIFDef(modalities_no=1, net_g=('resnet_2blocks',),
-                   net_gs=('unet_32',) * 2, ngf=8, seg_weights=(0.5, 0.5))
+                   net_gs=('unet_32',) * 2, ngf=32, seg_weights=(0.5, 0.5))
 ens = dl.DeepLIIFNets(d)
 for group, mods in (('G', ens.G), ('GS', ens.GS)):
     flat = [ck.flatten_tree(ck.params_to_jax(n)) for n in mods]
     np.savez(os.path.join(md, f'latest_net_{group}.npz'),
              **{k: np.stack([f[k] for f in flat]) for k in flat[0]})
-tiles = np.random.default_rng(0).integers(0, 255, (2, 32, 32, 3), np.uint8)
-out = models.InferenceSession(md, device='cpu').run_tiles(tiles)
-assert sorted(out) == ['G1', 'GS'], sorted(out)
+tiles = np.random.default_rng(0).integers(0, 255, (2, 64, 64, 3), np.uint8)
+for precision in ('float32', 'bfloat16', 'int8'):
+    out = models.InferenceSession(
+        md, device='cpu', precision=precision,
+        int8_scope='resblocks' if precision == 'int8' else None).run_tiles(tiles)
+    assert sorted(out) == ['G1', 'GS'], sorted(out)
+images = {'Seg': Image.fromarray(out['GS'][0]),
+          'mod1-Marker': Image.fromarray(out['G1'][0])}
+_, scoring = models.postprocess(Image.fromarray(tiles[0]), images, 64,
+                                'DeepLIIF')
+assert 'num_total' in scoring, scoring
+assert native.label8(np.ones((4, 4), np.uint8)) is not None
 print(json.dumps(sorted(m for m in sys.modules
-                        if m == 'jax' or m.startswith(('jax.', 'jaxlib')))))
+                        if m in ('jax', 'deepliif_tpu')
+                        or m.startswith(('jax.', 'jaxlib', 'deepliif_tpu.')))))
 '''
 
 
