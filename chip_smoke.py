@@ -3,7 +3,10 @@ kernels from this checkout, checks each against its plain PyTorch version
 at the shapes of the main path, then drives flagship DeepLIIF inference
 (4 x resnet_9blocks + 5 x unet_512, ngf 64, 512^2 tiles, random weights from
 a seed) end to end through the port's user entry points, at float32,
-bfloat16 and int8 (ResNet-trunk scope, per-chunk dynamic scales).
+bfloat16, int8 (ResNet-trunk scope, per-chunk dynamic scales) and bfloat16
+with the fused translator stages (``fuse_stages``). Every path must give a
+tile the same outputs alone as inside a batch of 16 (``batch_invariance``;
+the engine runs every forward at its one batch shape of 16 tiles).
 
     python3 chip_smoke.py            # needs one CUDA card; exits 0 on success
 
@@ -15,6 +18,7 @@ Any failure exits non-zero before that line. There is no CPU path.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -62,9 +66,40 @@ CHAIN_TOL = {'bfloat16': (2.0 ** -5, 2.0 ** -8), 'int8': (2.0 ** -3, 2.0 ** -4)}
 # max 0.055 against 0.145; int8 0 against 0.035 and 0.33).
 TRANSLATOR_TOL_F32 = 1e-4
 TRANSLATOR_NOISE_SHARE = 0.5
+# the fused stages against the unfused ones (both bf16, the same trunk
+# kernel): two bf16 realizations of one function that differ by design
+# (the fused stages take their norm statistics from the float32 conv
+# accumulator, the unfused norms from the bf16-rounded conv output), so
+# the bound is bf16's own noise (mean and max |delta| of the unfused
+# translator against its float32 twin), and the fused translator may be no
+# further from the float32 twin than the unfused one, up to 5 %. (On the
+# CPU at full width, 128^2 tiles: fused vs unfused 0.55 of the noise mean,
+# fused vs float32 0.01207 against 0.01210 for unfused.) A broken stage
+# kernel moves every element by O(1).
+FUSED_VS_F32_MARGIN = 1.05
 KERNEL_SHAPE = (4, 128, 128, 256)    # flagship trunk: (S, 512/4, 512/4, 4*64)
 TIMING_SHAPE = (16, 128, 128, 256)   # the same at batch 16
 LAUNCHES_PER_FORWARD = 4 * 9 * 2     # nets x blocks x convs
+# the fused translator stages at batch 16: (call, kernel, x shape, Cout,
+# input affine + ReLU); each kernel runs twice per translator
+STAGE_CALLS = (
+    ('down0', 'conv3x3_s2_stats', (BATCH, TILE, TILE, 64), 128, True),
+    ('down1', 'conv3x3_s2_stats', (BATCH, TILE // 2, TILE // 2, 128), 256, True),
+    ('up0', 'convtranspose3_s2_stats', (BATCH, TILE // 4, TILE // 4, 256), 128,
+     False),
+    ('up1', 'convtranspose3_s2_stats', (BATCH, TILE // 2, TILE // 2, 128), 64,
+     True))
+STAGE_LAUNCHES_PER_FORWARD = 4 * 2   # nets x calls of each stage kernel
+# stage kernels vs plain: y within one bf16 ulp, stats within 1e-5 of the
+# largest stat of their kind (float32 sums of up to 512^2 terms in
+# different orders)
+STAGE_STATS_TOL = 1e-5
+# plane_sums launches per batch forward (two per norm): a translator has 5
+# norms, a unet_512 15 (innermost up, 4 x (down, up), 3 x (down, up)); the
+# fused stages take only the head's statistics through plane_sums (one)
+PLANE_PER_FORWARD = {False: 4 * 5 * 2 + 5 * 15 * 2, True: 4 + 5 * 15 * 2}
+# plane_sums vs plain: sums of 512^2 float32 terms in different orders
+PLANE_TOL = 1e-5
 # published H100 SXM peaks at 700 W (dense): FP32 outside the tensor cores,
 # bf16 and int8 tensor cores; HBM3 bandwidth
 PEAK_OPS = {'float32': 67e12, 'bfloat16': 989e12, 'int8': 1979e12}
@@ -140,9 +175,15 @@ def bound(kind, shape, elem_bytes, w_bytes):
 class Rand:
     def __init__(self, seed):
         self.gen = torch.Generator().manual_seed(seed)
+        self.gen_cuda = torch.Generator(device='cuda').manual_seed(seed)
 
     def __call__(self, *shape, std=1.0, mean=0.0):
         return (mean + std * torch.randn(shape, generator=self.gen)).cuda()
+
+    def big(self, *shape, dtype=torch.bfloat16):
+        """N(0, 1) drawn on the card (activation-sized tensors)."""
+        return torch.randn(shape, generator=self.gen_cuda,
+                           device='cuda').to(dtype)
 
     def int8_weights(self, c):
         """Per-output-channel int8 quantization of an N(0, 0.02) HWIO conv."""
@@ -392,6 +433,147 @@ def kernel_timing(FR, rnd):
     return out
 
 
+def stage_bound(kernel, shape, cout):
+    """(ms for the operations, ms for the bytes) of one stage call: 9 bf16
+    MACs per (input pixel, cin, cout) for the conv-transpose (its 4 output
+    phases take 1 + 2 + 2 + 4 taps), per (output pixel, cin, cout) for the
+    stride-2 conv, over the bf16 peak; x and y once, w once, the stats once
+    over HBM. The call's bound is the larger."""
+    s, h, w, cin = shape
+    ho, wo = (h // 2, w // 2) if kernel == 'conv3x3_s2_stats' else (h, w)
+    ops = 2.0 * s * ho * wo * cin * cout * 9
+    out_px = s * h * w * (4 if kernel == 'convtranspose3_s2_stats' else 0.25)
+    nbytes = 2 * (s * h * w * cin + out_px * cout + 9 * cin * cout) \
+        + s * 2 * cout * 4
+    return ops / PEAK_OPS['bfloat16'] * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def kernel_checks_stages(FS, FR, rnd):
+    """The two stage kernels at the four flagship calls of a batch-16
+    forward: against the plain version, run to run and per sample, then
+    timed in turns against the plain version and the library call (cuDNN
+    bf16 on the affined input, no stats). Returns {kernel: sums over its
+    two calls: their bounds, and the limit that weighs more in them}."""
+    import torch.nn.functional as F
+    from deepliif_tpu_torch.utils.checkpoints import weight_from_hwio
+
+    library = {'conv3x3_s2_stats': lambda u, w: F.conv2d(
+                   u, weight_from_hwio(w, 'conv'), stride=2, padding=1),
+               'convtranspose3_s2_stats': lambda u, w: F.conv_transpose2d(
+                   u, weight_from_hwio(w, 'convT'), stride=2, padding=1,
+                   output_padding=1)}
+    out = {}
+    for call, name, shape, cout, affine in STAGE_CALLS:
+        s, _, _, cin = shape
+        x = rnd.big(*shape)
+        wt = rnd(3, 3, cin, cout, std=0.02).to(torch.bfloat16)
+        kw = dict(in_scale=rnd(s, cin, std=0.1, mean=1.0),
+                  in_bias=rnd(s, cin, std=0.1), in_relu=True) if affine else {}
+        kernel = getattr(FS, name)
+        plain = getattr(FS, f'{name}_reference')
+        y, st = kernel(x, wt, **kw)
+        y_ref, st_ref = plain(x, wt, **kw)
+        torch.cuda.synchronize()
+        d = (y.float() - y_ref.float()).abs()
+        err = d.max().item()
+        ulps = (d / (BF16_ULP * y_ref.float().abs() + 1e-6)).max().item()
+        rel = stats_rel(st, st_ref)
+        phase('kernel_vs_plain', kernel=name, call=call, shape=list(shape),
+              cout=cout, affine_relu=affine, max_abs_err_y=err,
+              y_bit_equal=bool(err == 0.0), max_err_in_ulps=ulps,
+              stats_rel_err=rel)
+        check(ulps <= 1.0, f'{name} {call}: y off by {ulps} ulp')
+        check(rel < STAGE_STATS_TOL,
+              f'{name} {call}: stats error {rel} >= {STAGE_STATS_TOL}')
+        determinism(lambda xx, **k: kernel(xx, wt, **k), x, kw,
+                    {k: v for k, v in kw.items() if k != 'in_relu'},
+                    f'{name} {call}')
+        phase('kernel_deterministic', kernel=name, call=call,
+              two_launches_byte_equal=True, batch_invariant=True)
+        del y, st, y_ref, st_ref, d
+
+        u = FR._transform(x, kw.get('in_scale'), kw.get('in_bias'),
+                          affine).permute(0, 3, 1, 2)
+        runs, ms = in_turns({'plain': lambda: plain(x, wt, **kw),
+                             'kernel': lambda: kernel(x, wt, **kw),
+                             'library': lambda: library[name](u, wt)}, 3)
+        t_ops, t_bytes = stage_bound(name, shape, cout)
+        phase('kernel_timing', kernel=name, call=call, shape=list(shape),
+              cout=cout, runs_ms=runs, **{f'{k}_ms': v for k, v in ms.items()},
+              bound_ms=max(t_ops, t_bytes),
+              bound_by='operations' if t_ops >= t_bytes else 'bytes',
+              library_call=('F.conv2d' if name == 'conv3x3_s2_stats' else
+                            'F.conv_transpose2d')
+              + ' (cuDNN bf16) on the affined input, no stats')
+        tot = out.setdefault(name, dict(calls=[], err=0.0, ms=0.0,
+                                        plain_ms=0.0, library_ms=0.0,
+                                        bound_ms=0.0, t_ops=0.0, t_bytes=0.0))
+        tot['calls'].append(call)
+        tot['err'] = max(tot['err'], err)
+        tot['ms'] += ms['kernel']
+        tot['plain_ms'] += ms['plain']
+        tot['library_ms'] += ms['library']
+        tot['bound_ms'] += max(t_ops, t_bytes)
+        tot['t_ops'] += t_ops
+        tot['t_bytes'] += t_bytes
+        tot['bound_by'] = ('operations' if tot['t_ops'] >= tot['t_bytes']
+                           else 'bytes')
+        del x, u
+        torch.cuda.empty_cache()
+    return out
+
+
+def kernel_checks_plane(L, rnd):
+    """plane_sums (the norm statistics, two passes) at the head conv output
+    of a batch-16 forward, float32 and bfloat16: against the plain version,
+    run to run and per sample, timed against the plain version and
+    torch.var_mean. Returns the bfloat16 numbers."""
+    shape = (BATCH, 64, TILE, TILE)
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = rnd.big(BATCH, TILE, TILE, 64, dtype=dt).permute(0, 3, 1, 2)
+        x = x + 0.5                         # a mean that is not zero
+        x = x.contiguous(memory_format=torch.channels_last)
+        n = TILE * TILE
+
+        def two_pass(sums):
+            mean = sums(x)[:, 0] / n
+            return mean, sums(x, mean)[:, 1] / n
+        got = two_pass(L.plane_sums)
+        ref = two_pass(L.plane_sums_reference)
+        torch.cuda.synchronize()
+        err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+        rel = max(((g - r).abs().max() / r.abs().max()).item()
+                  for g, r in zip(got, ref))
+        phase('kernel_vs_plain', kernel='plane_stats', dtype=str(dt),
+              shape=list(shape), mean_var_max_abs_err=err,
+              mean_var_rel_err=rel)
+        check(rel < PLANE_TOL, f'plane_stats error {rel} >= {PLANE_TOL}')
+        again = two_pass(L.plane_sums)
+        alone = L.plane_sums(x[1:2])
+        check(all(torch.equal(a, b) for a, b in zip(got, again))
+              and torch.equal(alone[0], L.plane_sums(x)[1]),
+              'plane_stats: not byte-equal run to run or alone vs in batch')
+        phase('kernel_deterministic', kernel='plane_stats', dtype=str(dt),
+              two_launches_byte_equal=True, batch_invariant=True)
+        runs, ms = in_turns({
+            'plain': lambda: two_pass(L.plane_sums_reference),
+            'kernel': lambda: two_pass(L.plane_sums),
+            'library': lambda: torch.var_mean(x, dim=(2, 3), correction=0)},
+            3)
+        elem = 4 if dt == torch.float32 else 2
+        bound_ms = x.numel() * elem / PEAK_BYTES * 1e3   # x read once
+        phase('kernel_timing', kernel='plane_stats', dtype=str(dt),
+              shape=list(shape), runs_ms=runs,
+              **{f'{k}_ms': v for k, v in ms.items()}, bound_ms=bound_ms,
+              bound_by='bytes', what='the two passes of one norm',
+              library_call='torch.var_mean over (H, W), correction=0')
+        out = dict(err=err, ms=ms['kernel'], plain_ms=ms['plain'],
+                   library_ms=ms['library'], bound_ms=bound_ms)
+        del x
+    return out
+
+
 def write_flagship_model_dir(md, dl, ck):
     """DeepLIIFDef() defaults in the native npz layout, weights at the
     reference init (conv ~ N(0, 0.02), norm scale ~ N(1, 0.02), biases 0)
@@ -437,16 +619,36 @@ def ihc_like_image(size, seed):
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def launch_counts(FR):
+def launch_counts(K):
+    FR, FS, L = K
     return {'float32': FR.conv3x3_stats.launches,
             'bfloat16': FR.conv3x3_stats.launches_bf16,
-            'int8': FR.conv3x3_stats_int8.launches}
+            'int8': FR.conv3x3_stats_int8.launches,
+            'conv3x3_s2_stats': FS.conv3x3_s2_stats.launches,
+            'convtranspose3_s2_stats': FS.convtranspose3_s2_stats.launches,
+            'plane_stats': L.plane_sums.launches}
 
 
-def reset_counts(FR):
+def reset_counts(K):
+    FR, FS, L = K
     FR.conv3x3_stats.launches = 0
     FR.conv3x3_stats.launches_bf16 = 0
     FR.conv3x3_stats_int8.launches = 0
+    FS.conv3x3_s2_stats.launches = 0
+    FS.convtranspose3_s2_stats.launches = 0
+    L.plane_sums.launches = 0
+
+
+def expected_counts(precision, fused, n_forwards):
+    """Launches of each kernel per main-path run: the trunk kernel of the
+    precision, the stage kernels on the fused path only, plane_sums for
+    every norm statistic."""
+    want = {kind: 0 for kind in ('float32', 'bfloat16', 'int8')}
+    want[precision] = LAUNCHES_PER_FORWARD
+    for name in ('conv3x3_s2_stats', 'convtranspose3_s2_stats'):
+        want[name] = STAGE_LAUNCHES_PER_FORWARD if fused else 0
+    want['plane_stats'] = PLANE_PER_FORWARD[fused]
+    return {k: v * n_forwards for k, v in want.items()}
 
 
 def throughput(session, batch, iters=3):
@@ -463,29 +665,44 @@ def throughput(session, batch, iters=3):
             'peak_mem_gib': peak / 2 ** 30}
 
 
+@contextlib.contextmanager
+def net_attrs(net, **attrs):
+    """``net`` with ``attrs`` set for the duration of the block."""
+    saved = {k: getattr(net, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(net, k, v)
+    try:
+        yield net
+    finally:
+        for k, v in saved.items():
+            setattr(net, k, v)
+
+
 def float32_twin(net, x):
     """The same translator at float32 with its float32 kernel trunk: the
     reference that a lower precision's own rounding noise is read from."""
-    saved = net.compute_dtype, net.int8_mode
-    net.compute_dtype, net.int8_mode = torch.float32, None
-    try:
+    with net_attrs(net, compute_dtype=torch.float32, int8_mode=None,
+                   fuse_stages=False):
         return net(x.float()).float()
-    finally:
-        net.compute_dtype, net.int8_mode = saved
 
 
-def slice_checks(M, FR, md, img, precision):
-    """The main path at ``precision`` through the user entry point, then
-    run-to-run equality, the launch count, a full-width translator against
-    its plain-trunk twin, batch invariance, throughput and per-net times."""
+def slice_checks(M, K, md, img, precision, fuse_stages=False):
+    """The main path at ``precision`` (with the fused translator stages
+    when ``fuse_stages``) through the user entry point, then run-to-run
+    equality, the launch counts, a full-width translator against its twin
+    (plain trunk, or the unfused stages), batch invariance, throughput and
+    per-net times."""
+    FR = K[0]
+    path = precision + (' fuse_stages' if fuse_stages else '')
     scope = 'resblocks' if precision == 'int8' else None
     kw = dict(device='cuda', max_batch=BATCH, precision=precision,
-              int8_scope=scope)
+              int8_scope=scope, fuse_stages=fuse_stages)
     t0 = time.perf_counter()
     session = M.init_nets(md, **kw)
-    phase('session', precision=precision, seconds=time.perf_counter() - t0,
+    phase('session', path=path, seconds=time.perf_counter() - t0,
           ngf=session.d.ngf, net_g=session.d.net_g, net_gs=session.d.net_gs,
-          dtype=session.d.dtype, int8_mode=session.nets.G[0].int8_mode)
+          dtype=session.d.dtype, int8_mode=session.nets.G[0].int8_mode,
+          fuse_stages=session.nets.G[0].fuse_stages)
     forwards = []
     run_batch = session.forward
     session.forward = lambda *a, **k: forwards.append(1) or run_batch(*a, **k)
@@ -493,21 +710,19 @@ def slice_checks(M, FR, md, img, precision):
     # the main path, through the user entry point: tiler, run_tiles,
     # stitch, host postprocess; counts read just before and just after
     torch.cuda.synchronize()
-    reset_counts(FR)
+    reset_counts(K)
     t0 = time.perf_counter()
     images, scoring = M.infer_modalities(img, TILE, md, **kw)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = launch_counts(FR)
+    counts = launch_counts(K)
     n_forwards = len(forwards)
-    phase('main_path', precision=precision, seconds=seconds,
-          batch_forwards=n_forwards, kernel_launches=counts,
-          outputs=sorted(images), scoring=scoring)
+    phase('main_path', path=path, seconds=seconds, batch_forwards=n_forwards,
+          kernel_launches=counts, outputs=sorted(images), scoring=scoring)
     check(n_forwards >= 1, 'no batch forward ran')
-    for kind, n in counts.items():
-        want = LAUNCHES_PER_FORWARD * n_forwards if kind == precision else 0
-        check(n == want, f'{precision} path: {n} {kind} kernel launches for '
-                         f'{n_forwards} forwards, want {want}')
+    want = expected_counts(precision, fuse_stages, n_forwards)
+    check(counts == want, f'{path} path: kernel launches {counts} for '
+                          f'{n_forwards} forwards, want {want}')
     check(set(images) == OUTPUTS, f'outputs {sorted(images)}')
     for k, im in images.items():
         a = np.asarray(im)
@@ -519,11 +734,12 @@ def slice_checks(M, FR, md, img, precision):
     images2, scoring2 = M.infer_modalities(img, TILE, md, **kw)
     same = all(np.array_equal(np.asarray(images[k]), np.asarray(images2[k]))
                for k in images) and scoring == scoring2
-    phase('run_to_run', precision=precision, byte_equal=same)
+    phase('run_to_run', path=path, byte_equal=same)
     check(same, 'two runs differ')
 
-    # one full-width translator: kernel trunk vs the plain trunk composed
-    # from the module's public pieces
+    # one full-width translator against its twin: the plain trunk composed
+    # from the module's public pieces, or (fused stages) the unfused stages
+    # with the same trunk kernel
     net = session.nets.G[0]
     tiles = np.stack([np.asarray(img)[y:y + TILE, x:x + TILE]
                       for y, x in ((0, 0), (TILE, TILE))])
@@ -531,29 +747,43 @@ def slice_checks(M, FR, md, img, precision):
         0, 3, 1, 2).to(session.d.dtype)
     with torch.no_grad():
         got = net(xin).float()
-        trunk_in = net.head(xin)
-        if net.int8_mode is None:
-            plain = FR.resblock_chain_reference(
-                trunk_in, net.trunk_blocks(), padding=net.padding_type)
+        if fuse_stages:
+            with net_attrs(net, fuse_stages=False):
+                want = net(xin).float()
         else:
-            plain = FR.resblock_chain_int8_reference(
-                trunk_in, net.trunk_blocks(), padding=net.padding_type,
-                dynamic=net.int8_mode == 'dynamic')
-        want = net.tail(plain).float()
-        noise = None if precision == 'float32' else \
-            (want - float32_twin(net, xin)).abs()
+            trunk_in = net.head(xin)
+            if net.int8_mode is None:
+                plain = FR.resblock_chain_reference(
+                    trunk_in, net.trunk_blocks(), padding=net.padding_type)
+            else:
+                plain = FR.resblock_chain_int8_reference(
+                    trunk_in, net.trunk_blocks(), padding=net.padding_type,
+                    dynamic=net.int8_mode == 'dynamic')
+            want = net.tail(plain).float()
+        twin = None if precision == 'float32' else float32_twin(net, xin)
+    noise = None if twin is None else (want - twin).abs()
     d = (got - want).abs()
     err, mean_err = d.max().item(), d.mean().item()
     noise_max, noise_mean = (None, None) if noise is None else \
         (noise.max().item(), noise.mean().item())
-    phase('translator_vs_plain_trunk', precision=precision,
-          shape=list(got.shape), finite=bool(torch.isfinite(got).all()),
-          max_abs_err=err, mean_abs_err=mean_err,
-          plain_vs_float32_max=noise_max, plain_vs_float32_mean=noise_mean)
+    phase('translator_vs_unfused_stages' if fuse_stages else
+          'translator_vs_plain_trunk', path=path, shape=list(got.shape),
+          finite=bool(torch.isfinite(got).all()), max_abs_err=err,
+          mean_abs_err=mean_err, twin_vs_float32_max=noise_max,
+          twin_vs_float32_mean=noise_mean)
     check(bool(torch.isfinite(got).all()), 'non-finite translator output')
     if noise is None:
         check(err <= TRANSLATOR_TOL_F32,
               f'translator error {err} > {TRANSLATOR_TOL_F32}')
+    elif fuse_stages:
+        got_vs_f32 = (got - twin).abs().mean().item()
+        phase('translator_vs_float32', path=path, fused_mean_abs=got_vs_f32,
+              unfused_mean_abs=noise_mean)
+        check(mean_err <= noise_mean and err <= noise_max
+              and got_vs_f32 <= FUSED_VS_F32_MARGIN * noise_mean,
+              f'fused translator: vs unfused mean {mean_err}, max {err}, vs '
+              f'float32 mean {got_vs_f32}, against bf16 noise mean '
+              f'{noise_mean}, max {noise_max}')
     else:
         check(mean_err <= TRANSLATOR_NOISE_SHARE * noise_mean
               and err <= noise_max,
@@ -569,11 +799,16 @@ def slice_checks(M, FR, md, img, precision):
     full = session.run_tiles(batch)
     alone = session.run_tiles(batch[3:4])
     inv = {k: bool(np.array_equal(full[k][3], alone[k][0])) for k in full}
-    phase('batch_invariance', precision=precision, tile_alone_vs_in_batch=inv,
+    phase('batch_invariance', path=path, tile_alone_vs_in_batch=inv,
           byte_equal=all(inv.values()))
+    check(all(inv.values()), f'{path}: a tile alone differs from the same '
+                             f'tile in a batch of {BATCH}: {inv}')
 
     tput = throughput(session, batch)
-    phase('throughput', precision=precision, default_max_batch=session.max_batch
+    t0 = time.perf_counter()
+    session.run_tiles(batch[3:4])
+    tput['one_tile_ms'] = (time.perf_counter() - t0) * 1e3
+    phase('throughput', path=path, default_max_batch=session.max_batch
           == M.DEFAULT_MAX_BATCH, **tput)
 
     xb = (torch.from_numpy(batch).cuda().float() / 127.5 - 1.0).permute(
@@ -582,10 +817,10 @@ def slice_checks(M, FR, md, img, precision):
         ms = {'translator': cuda_ms(lambda: net(xb), 2),
               'translator_trunk': cuda_ms(lambda: net.trunk(net.head(xb)), 2),
               'seg_unet_512': cuda_ms(lambda: session.nets.GS[0](xb), 2)}
-    phase('per_net_ms', precision=precision, batch=BATCH, **ms,
+    phase('per_net_ms', path=path, batch=BATCH, **ms,
           ensemble_estimate_ms=4 * ms['translator'] + 5 * ms['seg_unet_512'])
     del session.forward            # the class's method again
-    return counts[precision], tput
+    return counts, tput
 
 
 def main():
@@ -599,13 +834,16 @@ def main():
 
     from PIL import Image
     from deepliif_tpu_torch import models as M
+    from deepliif_tpu_torch.labs import fused_stages as FS
     from deepliif_tpu_torch.models import deepliif as dl
+    from deepliif_tpu_torch.nets import layers as L
     from deepliif_tpu_torch.ops import cuda_build, fused_resblock as FR
     from deepliif_tpu_torch.utils import checkpoints as ck
 
     M.configure_device(torch.device('cuda'))   # TF32 off for the plain paths
     t0 = time.perf_counter()
-    FR.build()
+    # every kernel library of the path, one nvcc each, all started together
+    cuda_build.build({**FR._LIBS, **FS._LIBS, **L._LIBS})
     phase('build', seconds=time.perf_counter() - t0, parallel=True,
           nvcc_seconds=cuda_build.build_seconds)
 
@@ -614,16 +852,22 @@ def main():
            'bfloat16': kernel_checks_bf16(FR, rnd),
            'int8': kernel_checks_int8(FR, rnd)}
     ms = kernel_timing(FR, rnd)
+    stages = kernel_checks_stages(FS, FR, rnd)
+    plane = kernel_checks_plane(L, rnd)
+    phase('kernel_checks', seconds=time.perf_counter() - t0)
 
     launches, tput = {}, {}
     img = Image.fromarray(ihc_like_image(2 * TILE, SEED))
+    K = (FR, FS, L)
     with tempfile.TemporaryDirectory() as md:
         write_flagship_model_dir(md, dl, ck)
-        for precision in ('float32', 'bfloat16', 'int8'):
-            launches[precision], tput[precision] = slice_checks(
-                M, FR, md, img, precision)
+        for precision, fused in (('float32', False), ('bfloat16', False),
+                                 ('int8', False), ('bfloat16', True)):
+            key = 'fused' if fused else precision
+            launches[key], tput[key] = slice_checks(M, K, md, img, precision,
+                                                    fused)
             # one session on the card at a time, so that peak memory is
-            # the next precision's own
+            # the next path's own
             M._init_nets_cached.cache_clear()
             gc.collect()
             torch.cuda.empty_cache()
@@ -645,10 +889,33 @@ def main():
             'name': f'{name} ({kind})' if name == 'conv3x3_stats' else name,
             'route': 'cuda', 'source': f'deepliif_tpu_torch/csrc/{src}',
             'replaces': f'deepliif_tpu/ops/fused_resblock.py{replaces}',
-            'launches': launches[kind], 'max_abs_err': err[kind],
+            'launches': launches[kind][kind], 'max_abs_err': err[kind],
             'ms': ms[kind]['kernel'], 'plain_ms': ms[kind]['plain'],
             'bound_ms': bound_ms, 'bound_by': bound_by,
             'library_ms': ms[kind]['library']})
+    for name, replaces in (('conv3x3_s2_stats', ':141'),
+                           ('convtranspose3_s2_stats', ':292')):
+        st = stages[name]
+        report.append({
+            'name': name, 'route': 'cuda',
+            'source': f'deepliif_tpu_torch/csrc/{name}.cu',
+            'replaces': f'deepliif_tpu/labs/fused_stages.py{replaces}',
+            'launches': launches['fused'][name], 'max_abs_err': st['err'],
+            'ms': st['ms'], 'plain_ms': st['plain_ms'],
+            'bound_ms': st['bound_ms'], 'bound_by': st['bound_by'],
+            'library_ms': st['library_ms'],
+            'per': f'its two calls per translator ({", ".join(st["calls"])})'
+                   f', summed, at batch {BATCH}'})
+    report.append({
+        'name': 'plane_stats', 'route': 'cuda',
+        'source': 'deepliif_tpu_torch/csrc/plane_stats.cu',
+        'replaces': 'deepliif_tpu/nets/layers.py:541 (XLA reductions of '
+                    'batch_stat_norm; no TPU kernel)',
+        'launches': launches['float32']['plane_stats'],
+        'max_abs_err': plane['err'], 'ms': plane['ms'],
+        'plain_ms': plane['plain_ms'], 'bound_ms': plane['bound_ms'],
+        'bound_by': 'bytes', 'library_ms': plane['library_ms'],
+        'per': f'one norm (two passes) of ({BATCH}, 64, {TILE}, {TILE}) bf16'})
     print(json.dumps({'kernels': report}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

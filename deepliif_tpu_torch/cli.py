@@ -4,9 +4,11 @@ Same options, output file names and scoring JSON as ``deepliif-tpu test``
 (deepliif_tpu/cli.py), plus ``--device`` (default cuda).
 ``--precision {float32,bfloat16,int8}`` picks the compute precision; int8
 needs ``--int8-scope resblocks`` (scope 'all', the JAX package's default,
-raises). The other commands are not ported yet (ROADMAP.md: "Serving",
-"WSI", "Training", "Stats"). click is imported when the command line is
-built, not when this module is imported.
+raises). ``--fuse-stages`` (bfloat16 only) runs the translators' fused
+stages, the counterpart of the JAX package's ``DEEPLIIF_FUSE_STAGES=1``.
+The other commands are not ported yet (ROADMAP.md: "Serving", "WSI",
+"Training", "Stats"). click is imported when the command line is built,
+not when this module is imported.
 
     python -m deepliif_tpu_torch.cli test --input-dir imgs --tile-size 512 \\
         --model-dir model --output-dir out --device cuda \\
@@ -31,7 +33,8 @@ def allowed_file(filename):
 def run_test(input_dir, output_dir, tile_size, model_dir, filename_pattern='*',
              epoch='latest', seg_intermediate=False, seg_only=False,
              mod_only=False, btoa=False, max_batch=None, precision=None,
-             int8_scope=None, device_quant='auto', device='cuda', echo=print):
+             int8_scope=None, device_quant='auto', device='cuda',
+             fuse_stages=None, echo=print):
     """Tiled inference + quantification over a directory of images."""
     from PIL import Image
     from . import roadmap
@@ -69,7 +72,8 @@ def run_test(input_dir, output_dir, tile_size, model_dir, filename_pattern='*',
         images, scoring = infer_modalities(
             img, tile_size, model_dir, opt=opt, mod_only=mod_only,
             seg_weights=seg_weights, max_batch=max_batch,
-            precision=precision, device=device, int8_scope=int8_scope)
+            precision=precision, device=device, int8_scope=int8_scope,
+            fuse_stages=fuse_stages)
         stem = filename.rsplit('.', 1)[0]
         for name, im in images.items():
             im.save(os.path.join(output_dir, f'{stem}_{name}.png'))
@@ -122,14 +126,19 @@ def make_cli():
     @click.option('--gpu-ids', default=None, help='ignored (torch compat)')
     @click.option('--device', default='cuda',
                   help='torch device to run on, e.g. cuda, cuda:1 or cpu')
+    @click.option('--fuse-stages', is_flag=True, default=None,
+                  help='run the translators\' fused stages (the hand '
+                       'kernels for the down convs and up conv-transposes); '
+                       'needs --precision bfloat16')
     def test(input_dir, output_dir, tile_size, model_dir, filename_pattern,
              eager_mode, epoch, seg_intermediate, seg_only, mod_only,
              color_dapi, color_marker, btoa, max_batch, precision, int8_scope,
-             device_quant, gpu_ids, device):
+             device_quant, gpu_ids, device, fuse_stages):
         """Run tiled inference + quantification over a directory of images."""
         run_test(input_dir, output_dir, tile_size, model_dir, filename_pattern,
                  epoch, seg_intermediate, seg_only, mod_only, btoa, max_batch,
-                 precision, int8_scope, device_quant, device, echo=click.echo)
+                 precision, int8_scope, device_quant, device,
+                 fuse_stages=fuse_stages, echo=click.echo)
 
     return cli
 

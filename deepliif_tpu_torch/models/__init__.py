@@ -18,6 +18,9 @@ float32, bfloat16 or int8. int8 takes an explicit ``int8_scope``; only
 'resblocks' is ported (the 72 ResNet-trunk convs of the flagship run the
 int8 kernel, every other conv runs bf16), with static scales from the model
 dir's act_scales.json or per-chunk dynamic scales without it.
+``fuse_stages=True`` (or the model dir's ``fuse_stages`` option; bfloat16
+only) runs the translators through their fused stages, the counterpart of
+the JAX package's ``DEEPLIIF_FUSE_STAGES=1``.
 
 The device is always explicit (``device='cuda'`` by default, never chosen
 by what is available). Not ported yet (ROADMAP.md): the other model
@@ -57,7 +60,8 @@ def _bucket(n, max_batch=16):
 # sweep (experiments/torch_batch_sweep.py, PERF.md) found tiles/s within
 # about 10 % from batch 8 to 64 at every precision, best at 16 for bf16 and
 # int8 and 2.5 % below the best for f32, and peak memory growing with the
-# batch. (The JAX package's 128 for bf16 is a TPU v5e figure.)
+# batch. (The JAX package's 128 for bf16 is a TPU v5e figure.) On CUDA
+# every forward runs max_batch tiles (InferenceSession.batch_size).
 DEFAULT_MAX_BATCH = 16
 
 
@@ -66,7 +70,8 @@ def configure_device(device):
     cuDNN would run f32 convs in TF32 (about 3 significant digits) by
     default, so TF32 is turned off for convs and matmuls; cuDNN picks
     deterministic algorithms and no autotuning, so outputs are byte-equal
-    run to run."""
+    run to run (and, with one batch shape per session, ``batch_size``,
+    independent of the batch)."""
     if device.type == 'cuda':
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -80,17 +85,21 @@ class InferenceSession:
 
     ``precision`` (default: the model dir's ``precision`` option, else
     float32) is float32, bfloat16 or int8; int8 needs ``int8_scope``
-    'resblocks' (scope 'all', the JAX package's default, raises)."""
+    'resblocks' (scope 'all', the JAX package's default, raises).
+    ``fuse_stages`` (default: the model dir's option, else False) runs the
+    translators' fused stages; it needs bfloat16 and raises ValueError
+    otherwise."""
 
     def __init__(self, model_dir, opt=None, phase='test', max_batch=None,
                  epoch='latest', precision=None, device='cuda',
-                 int8_scope=None):
+                 int8_scope=None, fuse_stages=None):
         self.model_dir = model_dir
         self.opt = opt if opt is not None else get_opt(model_dir, mode=phase)
-        if precision is not None and precision != getattr(
-                self.opt, 'precision', 'float32'):
-            self.opt = copy.copy(self.opt)   # get_opt is cached: keep the
-            self.opt.precision = precision   # shared instance unchanged
+        for name, value in (('precision', precision),
+                            ('fuse_stages', fuse_stages)):
+            if value is not None and value != getattr(self.opt, name, None):
+                self.opt = copy.copy(self.opt)   # get_opt is cached: keep
+                setattr(self.opt, name, value)   # the shared one unchanged
         self.precision = getattr(self.opt, 'precision', None) or 'float32'
         self.model = getattr(self.opt, 'model', 'DeepLIIF')
         if self.model not in _FAMILIES:
@@ -139,6 +148,19 @@ class InferenceSession:
 
     def _mod_keys(self):
         return [f'G{i + 1}' for i in range(self.d.modalities_no)]
+
+    def batch_size(self, n):
+        """Tiles per forward for ``n`` waiting tiles (short batches are
+        padded). On CUDA always ``max_batch``: cuDNN picks its conv
+        algorithm, and so its summation order, by the shape of the call,
+        so one batch shape per session keeps a tile's outputs independent
+        of the batch it rides in (on one H100 this cost nothing at batch 16,
+        where running each conv on one sample cost up to 41 %; a lone tile
+        pays for a full batch: PERF.md). On the CPU the power-of-two
+        bucket (there ``nets.layers`` runs each conv on one sample)."""
+        if self.device.type == 'cuda':
+            return self.max_batch
+        return _bucket(n, self.max_batch)
 
     def forward(self, tiles_u8, seg_weights=None, mod_only=False):
         """One batch (B, s, s, 3) uint8 on any device -> dict of uint8
@@ -189,7 +211,7 @@ class InferenceSession:
 
         pos = 0
         while pos < len(nonempty):
-            b = _bucket(len(nonempty) - pos, self.max_batch)
+            b = self.batch_size(len(nonempty) - pos)
             chunk = tiles_u8[nonempty[pos:pos + b]]
             nvalid = chunk.shape[0]
             if nvalid < b:
@@ -214,18 +236,20 @@ def _quantize_u8(y):
 
 
 def init_nets(model_dir, phase='test', epoch='latest', max_batch=None,
-              precision=None, device='cuda', int8_scope=None):
+              precision=None, device='cuda', int8_scope=None,
+              fuse_stages=None):
     """Cached session construction, one per (model dir, options, device)."""
     return _init_nets_cached(model_dir, phase, str(epoch), max_batch,
-                             precision, str(device), int8_scope)
+                             precision, str(device), int8_scope, fuse_stages)
 
 
 @functools.lru_cache(maxsize=8)
 def _init_nets_cached(model_dir, phase, epoch, max_batch, precision, device,
-                      int8_scope):
+                      int8_scope, fuse_stages):
     return InferenceSession(model_dir, phase=phase, epoch=epoch,
                             max_batch=max_batch, precision=precision,
-                            device=device, int8_scope=int8_scope)
+                            device=device, int8_scope=int8_scope,
+                            fuse_stages=fuse_stages)
 
 
 def find_marker_key(d):
@@ -239,7 +263,8 @@ def inference(img, tile_size, overlap_size, model_path, use_torchserve=False,
               eager_mode=False, color_dapi=False, color_marker=False, opt=None,
               return_seg_intermediate=False, seg_only=False, mod_only=False,
               seg_weights=None, opt_args=None, session=None, max_batch=None,
-              precision=None, device='cuda', int8_scope=None):
+              precision=None, device='cuda', int8_scope=None,
+              fuse_stages=None):
     """Tiled ensemble inference on a PIL image; returns {name: PIL.Image}
     with the reference output key names: 'mod{i}-{Name}' per modality plus
     'Seg'."""
@@ -250,7 +275,8 @@ def inference(img, tile_size, overlap_size, model_path, use_torchserve=False,
                             epoch=str(getattr(opt, 'epoch', 'latest') if opt
                                       is not None else 'latest'),
                             max_batch=max_batch, precision=precision,
-                            device=device, int8_scope=int8_scope)
+                            device=device, int8_scope=int8_scope,
+                            fuse_stages=fuse_stages)
     opt = session.opt if opt is None else opt
     if opt_args:
         for k, v in opt_args.items():
@@ -328,7 +354,7 @@ def infer_modalities(img, tile_size, model_dir, eager_mode=False,
                      return_seg_intermediate=False, seg_only=False,
                      mod_only=False, seg_weights=None, max_batch=None,
                      device_quant=False, precision=None, device='cuda',
-                     int8_scope=None):
+                     int8_scope=None, fuse_stages=None):
     """Full tile-to-scoring pipeline: inference, then host postprocess.
     ``color_dapi`` / ``color_marker`` are accepted and inert, as in the
     reference and the JAX package."""
@@ -336,7 +362,8 @@ def infer_modalities(img, tile_size, model_dir, eager_mode=False,
                         epoch=str(getattr(opt, 'epoch', 'latest') if opt
                                   is not None else 'latest'),
                         max_batch=max_batch, precision=precision,
-                        device=device, int8_scope=int8_scope)
+                        device=device, int8_scope=int8_scope,
+                        fuse_stages=fuse_stages)
     opt = session.opt if opt is None else opt
     images = inference(
         img, tile_size=tile_size, overlap_size=tile_size // 16,

@@ -14,7 +14,10 @@ Precision (``DeepLIIFDef.dtype`` / ``quant_int8``, from the model's
 ``precision`` option as in the JAX package): float32; bfloat16, where every
 net runs in bf16 with float32 norm statistics; int8, which runs bf16
 around an int8 ResNet trunk (``quantize_translators``, scope
-``resblocks`` only).
+``resblocks`` only). ``DeepLIIFDef.fuse_stages`` (the model's
+``fuse_stages`` option; bfloat16 only, raises otherwise) runs the
+translators through their fused stages (``nets.resnet``), the counterpart
+of the JAX package's ``DEEPLIIF_FUSE_STAGES=1``.
 
 Not ported yet: ``seg_only_forward``, ``forward_with_branches`` (ROADMAP.md,
 "Seg-only and intermediates") and training ("Training").
@@ -49,6 +52,7 @@ class DeepLIIFDef:
     seg_weights: tuple = (0.25, 0.15, 0.25, 0.1, 0.25)
     dtype: torch.dtype = torch.float32   # compute dtype of every net
     quant_int8: bool = False             # int8 trunk (--precision int8)
+    fuse_stages: bool = False            # fused translator stages (bf16)
 
 
 # compute dtype per --precision: int8 runs everything around the quantized
@@ -86,6 +90,7 @@ def def_from_opt(opt) -> DeepLIIFDef:
                                   (0.25, 0.15, 0.25, 0.1, 0.25))),
         dtype=PRECISIONS[precision],
         quant_int8=precision == 'int8',
+        fuse_stages=bool(getattr(opt, 'fuse_stages', False)),
     )
 
 
@@ -108,6 +113,13 @@ class DeepLIIFNets(nn.Module):
             for arch in (d.net_gs if d.seg_gen else ()))
         for net in list(self.G) + list(self.GS):
             net.compute_dtype = d.dtype
+        if d.fuse_stages:
+            nets.resnet.fused_stages_gate(d.dtype, d.quant_int8, 4 * d.ngf)
+            for g in self.G:
+                if not isinstance(g, nets.ResnetGenerator):
+                    raise ValueError(f'fuse_stages needs ResNet translators, '
+                                     f'got {type(g).__name__}')
+                g.fuse_stages = True
 
 
 def quantize_translators(nets_, act_scales=None):

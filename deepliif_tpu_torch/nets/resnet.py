@@ -15,6 +15,14 @@ CUDA tensor, their plain twins for a CPU tensor. The head and tail are
 stock PyTorch convs with the per-sample batch-stat norm of ``layers``.
 Parameters stay float32; conv weights are cast to the compute dtype, and
 the trunk weights laid out (and quantized), once per weight version.
+
+``fuse_stages = True`` (bfloat16 only) runs the fused translator stages
+instead, the counterpart of the JAX package's ``_apply_fused``
+(``DEEPLIIF_FUSE_STAGES=1``): the down convs and up conv-transposes run
+the kernels of ``labs.fused_stages``, each applying the previous norm's
+affine and ReLU to its input and taking its own output statistics, so no
+norm makes a pass of its own. Where the JAX package would fall back to the
+unfused path (``fused_stages_gate``), the port raises.
 """
 
 from __future__ import annotations
@@ -23,8 +31,36 @@ import torch
 from torch import nn
 
 from .. import roadmap
+from ..labs import fused_stages as FS
 from ..ops import fused_resblock as FR, quant
+from ..utils.checkpoints import weight_to_hwio
 from . import layers as L
+
+
+def fused_stages_gate(dtype, int8=False, trunk_c=None, hw=None):
+    """Raise ValueError where the fused translator stages do not apply:
+    the gate of the JAX package (deepliif_tpu/nets/resnet.py apply,
+    :217-230; there, it falls back to the unfused path without a word)
+    for a compute ``dtype``, an int8 trunk, the trunk width ``trunk_c``
+    and the input size ``hw`` (H, W), each checked when given."""
+    if int8:
+        raise ValueError(
+            'fuse_stages does not run at int8: the JAX package\'s gate passes '
+            'there (its int8 compute dtype is bfloat16) and its fused path '
+            'then runs the trunk in bfloat16 on the float weights, dropping '
+            'the int8 trunk without a word; the port refuses')
+    if dtype != torch.bfloat16:
+        raise ValueError(f'fuse_stages runs in bfloat16 only (the JAX gate '
+                         f'x.dtype == bfloat16), got {dtype}')
+    if trunk_c is not None and trunk_c % 128:
+        raise ValueError(f'fuse_stages needs a trunk width C % 128 == 0 (the '
+                         f'JAX gate), got C={trunk_c}')
+    if hw is not None:
+        h, w = hw
+        if h % 16 or w % 16 or (h // 4) % 16 or (w // 4) % 16:
+            raise ValueError(f'fuse_stages needs H, W % 16 == 0 at the input '
+                             f'and at the trunk (H/4, W/4; the JAX gate), '
+                             f'got {h}x{w}')
 
 
 def _bn(c):
@@ -108,11 +144,13 @@ class ResnetGenerator(nn.Module):
         layers += [_pad(3, padding_type), nn.Conv2d(ngf, output_nc, 7), nn.Tanh()]
         self.model = nn.Sequential(*layers)
         self.compute_dtype = torch.float32
+        self.fuse_stages = False
         # int8 trunk (set_int8_trunk): None, 'static' or 'dynamic', and the
         # calibrated max |x| per resblock conv in static mode
         self.int8_mode = None
         self._int8_scales = {}
         self._casts = L.CastCache()
+        self._stage_casts = L.CastCache()
         self._trunk_key = None
         self._trunk = None
 
@@ -265,9 +303,65 @@ class ResnetGenerator(nn.Module):
         x = L.conv2d(x, cast(m[idx + 1].weight), cast(m[idx + 1].bias))
         return L.tanh(x)
 
+    # -- fused translator stages ------------------------------------------
+
+    def stage_weights(self):
+        """The down-conv and up-conv-transpose kernels in the JAX HWIO
+        layout (``weight_to_hwio``), cast to the compute dtype once per
+        weight version."""
+        m, up = self.model, 10 + self.n_blocks
+        convs = {'down0': m[4], 'down1': m[7], 'up0': m[up], 'up1': m[up + 3]}
+        return self._stage_casts.get(
+            {k: c.weight for k, c in convs.items()}, self.compute_dtype,
+            lambda k, w: weight_to_hwio(w, 'convT' if k.startswith('up')
+                                        else 'conv'))
+
+    def fused_stages(self, x):
+        """(B, C_in, H, W) bfloat16 -> output through the fused stages (the
+        JAX package's ``_apply_fused``): head conv (cuDNN), its statistics
+        (``plane_sums``), down0 and down1 (``conv3x3_s2_stats``, each with
+        the previous norm's affine and ReLU), the norm affine and ReLU, the
+        trunk, up0 (``convtranspose3_s2_stats``, no affine) and up1 (with
+        up0's), the norm affine and ReLU, pad, tail conv + bias (cuDNN),
+        tanh."""
+        m, up = self.model, 10 + self.n_blocks
+        _, _, h0, w0 = x.shape
+        fused_stages_gate(self.compute_dtype, self.int8_mode is not None,
+                          m[7].weight.shape[0], (h0, w0))
+        cast, w = self._cast(), self.stage_weights()
+
+        def norm(st, bn, div):
+            return FR.finalize_norm(st, bn.weight, bn.bias, h0 // div,
+                                    w0 // div)
+
+        def affine_relu(y, sc, bi):
+            return torch.relu(y * sc.to(y.dtype)[:, None, None]
+                              + bi.to(y.dtype)[:, None, None])
+
+        x = L.conv2d(L.pad2d(x, 3, self.padding_type), cast(m[1].weight))
+        sc, bi = norm(L.plane_sums(x), m[2], 1)
+        x = x.permute(0, 2, 3, 1).contiguous()
+        for i, idx in enumerate((4, 7)):
+            x, st = FS.conv3x3_s2_stats(x, w[f'down{i}'], in_scale=sc,
+                                        in_bias=bi, in_relu=True)
+            sc, bi = norm(st, m[idx + 1], 2 ** (i + 1))
+        x = self.trunk(affine_relu(x, sc, bi))
+        x, st = FS.convtranspose3_s2_stats(x, w['up0'])
+        sc, bi = norm(st, m[up + 1], 2)
+        x, st = FS.convtranspose3_s2_stats(x, w['up1'], in_scale=sc,
+                                           in_bias=bi, in_relu=True)
+        sc, bi = norm(st, m[up + 4], 1)
+        x = affine_relu(x, sc, bi).permute(0, 3, 1, 2)
+        x = L.pad2d(x, 3, self.padding_type)
+        x = L.conv2d(x, cast(m[up + 7].weight), cast(m[up + 7].bias))
+        return L.tanh(x)
+
     def forward(self, x):
         """(B, C_in, H, W) in any float dtype -> output in the compute
         dtype."""
         if self.training:
             raise roadmap.not_ported('training', roadmap.TRAINING)
-        return self.tail(self.trunk(self.head(x.to(self.compute_dtype))))
+        x = x.to(self.compute_dtype)
+        if self.fuse_stages:
+            return self.fused_stages(x)
+        return self.tail(self.trunk(self.head(x)))

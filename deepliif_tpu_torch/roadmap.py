@@ -4,16 +4,17 @@ stays right when the queue is renumbered)."""
 
 from __future__ import annotations
 
-SEG_ONLY = 'Seg-only and intermediates'
-INT8_ALL = 'int8 scope all'
 DEVICE_QUANT = 'Device quantification'
+INT8_ALL = 'int8 scope all'
+SEG_ONLY = 'Seg-only and intermediates'
 FAMILIES = 'Other families'
 SERVING = 'Serving'
 WSI = 'WSI'
 TRAINING = 'Training'
 STATS = 'Stats'
 
-ITEMS = (SEG_ONLY, INT8_ALL, DEVICE_QUANT, FAMILIES, SERVING, WSI, TRAINING,
+# in the order of ROADMAP.md's Queue 1
+ITEMS = (DEVICE_QUANT, INT8_ALL, SEG_ONLY, FAMILIES, SERVING, WSI, TRAINING,
          STATS)
 
 

@@ -11,7 +11,9 @@ load into the modules as they are.
 ``params_from_jax`` / ``params_to_jax`` map one net's JAX param tree (numpy
 arrays, NHWC/HWIO layouts) to and from the module's state dict; they are
 the inverse of deepliif_tpu.utils.torch_import's conv_from_torch,
-convT_from_torch and norm_from_torch:
+convT_from_torch and norm_from_torch. The weight maps (``weight_from_hwio``
+and its inverse ``weight_to_hwio``, which the fused translator stages also
+use) are:
 
   conv            HWIO                -> OIHW  (transpose 3, 2, 0, 1)
   conv_transpose  HWIO, spatially
@@ -35,25 +37,42 @@ def _get(tree, path):
     return tree
 
 
+def weight_from_hwio(w, kind):
+    """A JAX-layout conv weight (HWIO tensor) -> the torch module's layout:
+    kind 'conv' -> OIHW; 'convT' (the JAX conv-transpose kernel, stored in
+    the forward-conv layout, spatially flipped) -> IOHW. A view or a
+    flipped copy; not necessarily contiguous."""
+    if kind == 'conv':
+        return w.permute(3, 2, 0, 1)
+    return w.permute(2, 3, 0, 1).flip(2, 3)
+
+
+def weight_to_hwio(w, kind):
+    """The inverse of ``weight_from_hwio``: a torch conv (OIHW) or
+    conv-transpose (IOHW) weight -> the JAX HWIO layout."""
+    if kind == 'conv':
+        return w.permute(2, 3, 1, 0)
+    return w.flip(2, 3).permute(2, 3, 0, 1)
+
+
 def params_from_jax(net, tree):
     """JAX param tree of one net (numpy or array-likes) -> state dict of
     ``net`` (float32 torch tensors)."""
+    def f32(a):
+        return torch.from_numpy(np.array(a, np.float32, order='C'))
+
     sd = {}
     for path, prefix, kind in net.jax_layout():
         p = _get(tree, path)
         if kind == 'norm':
-            sd[f'{prefix}.weight'] = np.asarray(p['scale'])
-            sd[f'{prefix}.bias'] = np.asarray(p['bias'])
+            sd[f'{prefix}.weight'] = f32(p['scale'])
+            sd[f'{prefix}.bias'] = f32(p['bias'])
             continue
-        w = np.asarray(p['w'])
-        if kind == 'conv':
-            sd[f'{prefix}.weight'] = w.transpose(3, 2, 0, 1)
-        else:
-            sd[f'{prefix}.weight'] = w.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+        sd[f'{prefix}.weight'] = weight_from_hwio(f32(p['w']),
+                                                  kind).contiguous()
         if 'b' in p:
-            sd[f'{prefix}.bias'] = np.asarray(p['b'])
-    return {k: torch.from_numpy(np.array(v, np.float32, order='C'))
-            for k, v in sd.items()}
+            sd[f'{prefix}.bias'] = f32(p['b'])
+    return sd
 
 
 def params_to_jax(net, state_dict=None):
@@ -70,10 +89,8 @@ def params_to_jax(net, state_dict=None):
             node = {'scale': arr(f'{prefix}.weight'),
                     'bias': arr(f'{prefix}.bias')}
         else:
-            w = arr(f'{prefix}.weight')
-            w = (w.transpose(2, 3, 1, 0) if kind == 'conv'
-                 else w[:, :, ::-1, ::-1].transpose(2, 3, 0, 1))
-            node = {'w': np.ascontiguousarray(w)}
+            w = weight_to_hwio(sd[f'{prefix}.weight'].detach().cpu(), kind)
+            node = {'w': np.ascontiguousarray(w.numpy())}
             if f'{prefix}.bias' in sd:
                 node['b'] = arr(f'{prefix}.bias')
         parent = tree

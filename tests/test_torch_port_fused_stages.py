@@ -1,0 +1,275 @@
+"""The fused translator stages of the port (bfloat16, ``fuse_stages``)
+against the JAX package's (``DEEPLIIF_FUSE_STAGES=1``), on the CPU, and the
+fixed-order norm statistics. Inputs are made with numpy from a seed and
+handed to both; the JAX stage kernels run in Pallas interpret mode.
+
+- (a) The plain versions of ``conv3x3_s2_stats`` (2, 64, 64, 16 -> 32) and
+  ``convtranspose3_s2_stats`` (2, 32, 32, 16 -> 12) against the JAX
+  kernels, with and without the input affine, at float32 and bfloat16: y
+  within 1e-4 at float32 (the JAX package's own tolerance,
+  tests/test_fused_stages.py) and within one bf16 ulp at bfloat16 (both
+  round a float32 sum of the same exact products, taken in another order);
+  stats within 1e-5 of the largest stat of their kind (float32 sums in
+  another order; the JAX up kernel also sums per column phase).
+- (b) A ResnetGenerator (ngf 32, 2 blocks, 64^2 input, both paddings)
+  through the port's fused stages against ``resnet.apply(...,
+  allow_fused=True, dtype=bfloat16)`` with ``DEEPLIIF_FUSE_STAGES=1`` and
+  ``DEEPLIIF_FUSED=1``, on the same JAX params; spies show that both sides
+  ran both stage functions. The JAX side runs eagerly
+  (``jax.disable_jit()``): eagerly every bf16 op rounds to bf16, the
+  semantics the port implements (tests/test_torch_port_precision_slice.py).
+  The JAX test of this path (tests/test_fused_stages.py) feeds float32 and
+  so never reaches it. Bounds on the uint8 outputs (the engine's truncating
+  cast): mean |d| <= 0.5 LSB and >= 99 % of pixels within 2 LSB, the bf16
+  bounds of the precision slice.
+- (c) A tiny model dir through ``InferenceSession(precision='bfloat16',
+  fuse_stages=True)`` against the JAX session with the same environment:
+  the same bounds.
+- (d) The gate raises: float32, int8, a refused shape, a U-Net translator.
+- (e) ``plane_sums_reference`` and ``batch_stat_norm`` against the JAX
+  package's two-pass per-sample norm (deepliif_tpu/nets/layers.py
+  batch_stat_norm): statistics within 1e-6 relative, outputs within 1e-5
+  at float32 and one bf16 ulp at bfloat16; per-sample sums independent of
+  the batch.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from deepliif_tpu import models as M_jax
+from deepliif_tpu.labs import fused_stages as FS_jax
+from deepliif_tpu.nets import layers as L_jax, resnet as resnet_jax
+from deepliif_tpu_torch import models as M
+from deepliif_tpu_torch.labs import fused_stages as FS
+from deepliif_tpu_torch.nets import layers as L
+from deepliif_tpu_torch.nets.resnet import ResnetGenerator
+from deepliif_tpu_torch.utils import checkpoints as ck
+from test_torch_port_precision import write_model_dir
+
+BF16_ULP = 2.0 ** -7
+STATS_REL = 1e-5
+F32_TOL = 1e-4
+U8_MEAN, U8_WITHIN_2 = 0.5, 0.99
+
+
+def _cast(a, dtype):
+    """numpy float32 -> (torch tensor, jax array) holding the same values
+    in ``dtype`` ('float32' or 'bfloat16')."""
+    j = jnp.asarray(a, getattr(jnp, dtype))
+    return (torch.from_numpy(np.array(j.astype(jnp.float32)))
+            .to(getattr(torch, dtype)), j)
+
+
+def _np(a):
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+
+def _stats_rel(got, ref):
+    return max(float(np.abs(got[:, q] - ref[:, q]).max()
+                     / np.abs(ref[:, q]).max()) for q in range(2))
+
+
+def _u8(y):
+    """tanh range -> uint8 as the engines quantize (truncating cast)."""
+    return ((np.asarray(y, np.float32) + 1.0) * 127.5).astype(np.uint8)
+
+
+def _assert_u8_close(a, b):
+    d = np.abs(np.asarray(a).astype(np.int16) - np.asarray(b).astype(np.int16))
+    assert d.mean() <= U8_MEAN, d.mean()
+    assert (d <= 2).mean() >= U8_WITHIN_2, (d <= 2).mean()
+
+
+STAGES = {'conv3x3_s2_stats': ((2, 64, 64, 16), 32),
+          'convtranspose3_s2_stats': ((2, 32, 32, 16), 12)}
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('affine', [False, True], ids=['plain', 'affine_relu'])
+@pytest.mark.parametrize('name', sorted(STAGES))
+def test_stage_plain_versions_match_jax(name, affine, dtype):
+    rng = np.random.default_rng(0)
+    shape, cout = STAGES[name]
+    s, cin = shape[0], shape[3]
+    xt, xj = _cast(rng.normal(0, 1, shape).astype(np.float32), dtype)
+    wt, wj = _cast(rng.normal(0, 0.1, (3, 3, cin, cout)).astype(np.float32),
+                   dtype)
+    sc = (1 + 0.1 * rng.normal(0, 1, (s, cin))).astype(np.float32)
+    bi = (0.1 * rng.normal(0, 1, (s, cin))).astype(np.float32)
+    kw_j = dict(in_scale=jnp.asarray(sc), in_bias=jnp.asarray(bi),
+                in_relu=True) if affine else {}
+    kw_t = dict(in_scale=torch.from_numpy(sc), in_bias=torch.from_numpy(bi),
+                in_relu=True) if affine else {}
+    y_ref, st_ref = getattr(FS_jax, name)(xj, wj, chunk_rows=8,
+                                          interpret=True, **kw_j)
+    y, st = getattr(FS, name)(xt, wt, **kw_t)
+    assert y.dtype == xt.dtype and y.shape == y_ref.shape
+    y_ref = _np(y_ref)
+    if dtype == 'float32':
+        assert np.abs(_np(y) - y_ref).max() <= F32_TOL
+    else:
+        assert (np.abs(_np(y) - y_ref) <= BF16_ULP * np.abs(y_ref) + 1e-6).all()
+    assert _stats_rel(st.numpy(), np.asarray(st_ref)) < STATS_REL
+
+
+class _Spy:
+    """Counts the calls of module attributes ``names`` of ``module``."""
+
+    def __init__(self, monkeypatch, module, names):
+        self.calls = {n: 0 for n in names}
+        for n in names:
+            fn = getattr(module, n)
+
+            def wrapped(*a, _fn=fn, _n=n, **k):
+                self.calls[_n] += 1
+                return _fn(*a, **k)
+            monkeypatch.setattr(module, n, wrapped)
+
+
+STAGE_FNS = ('conv3x3_s2_stats', 'convtranspose3_s2_stats')
+
+
+@pytest.fixture
+def jax_fuse_stages(monkeypatch):
+    monkeypatch.setenv('DEEPLIIF_FUSE_STAGES', '1')
+    monkeypatch.setenv('DEEPLIIF_FUSED', '1')
+    monkeypatch.setenv('DEEPLIIF_INFER_DEVICES', '1')
+    return (_Spy(monkeypatch, FS_jax, STAGE_FNS),
+            _Spy(monkeypatch, FS, STAGE_FNS))
+
+
+@pytest.mark.parametrize('padding', ['zero', 'reflect'])
+def test_fused_translator_matches_jax(padding, jax_fuse_stages):
+    spy_jax, spy_port = jax_fuse_stages
+    p = resnet_jax.init(jax.random.PRNGKey(0), 3, 3, ngf=32, n_blocks=2,
+                        padding_type=padding)
+    x = np.random.default_rng(1).uniform(-1, 1, (2, 64, 64, 3)).astype(
+        np.float32)
+    with jax.disable_jit():
+        ref = resnet_jax.apply(p, jnp.asarray(x), n_blocks=2,
+                               padding_type=padding, train=False,
+                               allow_fused=True, dtype=jnp.bfloat16)
+    net = ResnetGenerator(3, 3, 32, 2, padding_type=padding).eval()
+    net.load_state_dict(ck.params_from_jax(
+        net, jax.tree_util.tree_map(np.asarray, p)))
+    net.compute_dtype, net.fuse_stages = torch.bfloat16, True
+    with torch.no_grad():
+        got = net(torch.from_numpy(x).permute(0, 3, 1, 2))
+    assert spy_jax.calls == spy_port.calls == {n: 2 for n in STAGE_FNS}
+    assert got.dtype == torch.bfloat16
+    _assert_u8_close(_u8(got.float().permute(0, 2, 3, 1).numpy()),
+                     _u8(_np(ref)))
+
+
+def test_fused_stage_session_matches_jax(tmp_path, jax_fuse_stages):
+    """Two translators and three seg nets, two 64^2 tiles, run_tiles."""
+    spy_jax, spy_port = jax_fuse_stages
+    md = write_model_dir(tmp_path)
+    tiles = np.random.default_rng(5).integers(0, 255, (2, 64, 64, 3),
+                                              np.uint8)
+    with jax.disable_jit():
+        ref = M_jax.InferenceSession(md, n_devices=1,
+                                     precision='bfloat16').run_tiles(tiles)
+    sess = M.InferenceSession(md, device='cpu', precision='bfloat16',
+                              fuse_stages=True)
+    assert sess.d.fuse_stages and all(g.fuse_stages for g in sess.nets.G)
+    got = sess.run_tiles(tiles)
+    # two translators, two calls of each stage function per translator
+    assert spy_jax.calls == spy_port.calls == {n: 4 for n in STAGE_FNS}
+    assert set(got) == set(ref) == {'G1', 'G2', 'GS'}
+    for k in ref:
+        _assert_u8_close(got[k], ref[k])
+
+
+def test_fuse_stages_gate_raises(tmp_path):
+    md = write_model_dir(tmp_path)
+    with pytest.raises(ValueError, match='bfloat16 only'):
+        M.InferenceSession(md, device='cpu', precision='float32',
+                           fuse_stages=True)
+    with pytest.raises(ValueError, match='int8 trunk without a word'):
+        M.InferenceSession(md, device='cpu', precision='int8',
+                           int8_scope='resblocks', fuse_stages=True)
+    sess = M.InferenceSession(md, device='cpu', precision='bfloat16',
+                              fuse_stages=True)
+    tiles = np.random.default_rng(0).integers(0, 255, (1, 48, 48, 3), np.uint8)
+    with pytest.raises(ValueError, match='H, W % 16'):
+        sess.run_tiles(tiles)
+    with pytest.raises(ValueError, match='C % 128'):
+        net = ResnetGenerator(3, 3, 16, 2).eval()
+        net.compute_dtype, net.fuse_stages = torch.bfloat16, True
+        net(torch.zeros((1, 3, 64, 64)))
+    from deepliif_tpu_torch.models import deepliif as dl
+    with pytest.raises(ValueError, match='ResNet translators'):
+        dl.DeepLIIFNets(dl.DeepLIIFDef(net_g=('unet_32',) * 4,
+                                       dtype=torch.bfloat16,
+                                       fuse_stages=True))
+
+
+def test_cli_fuse_stages_option(tmp_path, monkeypatch):
+    from click.testing import CliRunner
+    from PIL import Image
+    from deepliif_tpu_torch import cli
+
+    spy = _Spy(monkeypatch, FS, STAGE_FNS)
+    (tmp_path / 'model').mkdir()
+    md = write_model_dir(tmp_path / 'model')
+    inp = tmp_path / 'in'
+    inp.mkdir()
+    Image.fromarray(np.random.default_rng(2).integers(
+        0, 255, (128, 128, 3), np.uint8)).save(inp / 'sample.png')
+    res = CliRunner().invoke(cli.make_cli(), [
+        'test', '--input-dir', str(inp), '--output-dir', str(tmp_path / 'out'),
+        '--tile-size', '128', '--model-dir', md, '--device', 'cpu',
+        '--precision', 'bfloat16', '--fuse-stages'])
+    assert res.exit_code == 0, res.output
+    assert spy.calls == {n: 4 for n in STAGE_FNS}      # 2 translators
+    names = sorted(p.name for p in (tmp_path / 'out').iterdir())
+    assert 'sample.json' in names and len(names) == 6, names
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_norm_statistics_match_two_pass_formula(dtype):
+    rng = np.random.default_rng(3)
+    x = rng.normal(0.5, 2.0, (3, 40, 48, 24)).astype(np.float32)   # NHWC
+    xt, xj = _cast(x, dtype)
+    xt = xt.permute(0, 3, 1, 2)                   # NCHW, channels_last memory
+    scale = (1 + 0.1 * rng.normal(0, 1, 24)).astype(np.float32)
+    bias = (0.1 * rng.normal(0, 1, 24)).astype(np.float32)
+
+    # the statistics against the two-pass formula in float64
+    x64 = _np(xj).astype(np.float64)
+    mean64 = x64.mean(axis=(1, 2))
+    st = L.plane_sums_reference(xt).numpy()
+    np.testing.assert_allclose(st[:, 0] / (40 * 48), mean64, rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(st[:, 1], (x64 ** 2).sum(axis=(1, 2)),
+                               rtol=1e-6)
+    centered = L.plane_sums_reference(
+        xt, torch.from_numpy(mean64.astype(np.float32))).numpy()
+    np.testing.assert_allclose(
+        centered[:, 1] / (40 * 48),
+        ((x64 - mean64[:, None, None]) ** 2).mean(axis=(1, 2)), rtol=1e-6)
+
+    # the whole norm against the JAX package's per-sample norm
+    got = _np(L.batch_stat_norm(xt, torch.from_numpy(scale),
+                                torch.from_numpy(bias)).permute(0, 2, 3, 1))
+    ref = _np(L_jax.batch_stat_norm(xj, {'scale': jnp.asarray(scale),
+                                         'bias': jnp.asarray(bias)},
+                                    per_sample=True))
+    if dtype == 'float32':
+        assert np.abs(got - ref).max() <= 1e-5
+    else:
+        # scale and bias round to bf16 and so do the product and the sum:
+        # a float32 statistic one ulp apart can move a value by one ulp
+        assert (np.abs(got - ref) <= BF16_ULP * np.abs(ref) + 1e-6).all()
+
+    # per-sample sums do not depend on the batch
+    for i in range(3):
+        one = L.plane_sums_reference(xt[i:i + 1])
+        assert torch.equal(one[0], L.plane_sums_reference(xt)[i])

@@ -142,6 +142,15 @@ def _roadmap_headings():
                 re.finditer(r'^#{2,6} (.+)$', f.read(), re.M)}
 
 
+def test_roadmap_items_follow_queue_order():
+    """roadmap.ITEMS lists the Queue 1 headings of ROADMAP.md in their
+    order there."""
+    with open(os.path.join(REPO, 'ROADMAP.md')) as f:
+        order = [m.group(1).strip() for m in
+                 re.finditer(r'^#### (.+)$', f.read(), re.M)]
+    assert [h for h in order if h in roadmap.ITEMS] == list(roadmap.ITEMS)
+
+
 def test_not_ported_messages_name_roadmap_headings(tmp_path):
     """Every item a "not ported" error can name is a heading of ROADMAP.md,
     the errors raised name one, and no message of the port cites an item

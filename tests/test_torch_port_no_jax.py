@@ -1,7 +1,8 @@
 """The port imports neither jax nor anything of the JAX package
 ``deepliif_tpu``, not even through an import chain: a fresh interpreter
 imports the port, runs a tiny run_tiles on the CPU from a native model dir
-(bfloat16 and int8 too) and the host postprocess (the port's own config,
+(bfloat16, int8 and the fused translator stages too) and the host
+postprocess (the port's own config,
 tiler, quantifier and native helper), and finds no ``jax``, ``jaxlib`` or
 ``deepliif_tpu`` / ``deepliif_tpu.*`` module loaded."""
 
@@ -20,6 +21,7 @@ import numpy as np
 from PIL import Image
 import deepliif_tpu_torch
 from deepliif_tpu_torch import cli, config, models, native, nets, postprocessing
+from deepliif_tpu_torch.labs import fused_stages
 from deepliif_tpu_torch.models import deepliif as dl
 from deepliif_tpu_torch.ops import fused_resblock, quant
 from deepliif_tpu_torch.utils import checkpoints as ck, tiler
@@ -38,9 +40,10 @@ for group, mods in (('G', ens.G), ('GS', ens.GS)):
     np.savez(os.path.join(md, f'latest_net_{group}.npz'),
              **{k: np.stack([f[k] for f in flat]) for k in flat[0]})
 tiles = np.random.default_rng(0).integers(0, 255, (2, 64, 64, 3), np.uint8)
-for precision in ('float32', 'bfloat16', 'int8'):
+for precision, fused in (('float32', None), ('bfloat16', None),
+                        ('int8', None), ('bfloat16', True)):
     out = models.InferenceSession(
-        md, device='cpu', precision=precision,
+        md, device='cpu', precision=precision, fuse_stages=fused,
         int8_scope='resblocks' if precision == 'int8' else None).run_tiles(tiles)
     assert sorted(out) == ['G1', 'GS'], sorted(out)
 images = {'Seg': Image.fromarray(out['GS'][0]),
