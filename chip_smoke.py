@@ -6,7 +6,11 @@ a seed) end to end through the port's user entry points, at float32,
 bfloat16, int8 (ResNet-trunk scope, per-chunk dynamic scales) and bfloat16
 with the fused translator stages (``fuse_stages``). Every path must give a
 tile the same outputs alone as inside a batch of 16 (``batch_invariance``;
-the engine runs every forward at its one batch shape of 16 tiles).
+the engine runs every forward at its one batch shape of 16 tiles). The
+device quantifier (``device_quant``) is checked on synthetic seg canvases
+of 1536x1280 (an ROI) and 8192x8192 (67.1 MPx) with its labeling kernel
+against the plain labeling and against the host quantifier, and drives the
+float32 main path once more with ``device_quant=True``.
 
     python3 chip_smoke.py            # needs one CUDA card; exits 0 on success
 
@@ -106,6 +110,15 @@ PEAK_OPS = {'float32': 67e12, 'bfloat16': 989e12, 'int8': 1979e12}
 PEAK_BYTES = 3.35e12
 OUTPUTS = {'mod1-Hema', 'mod2-DAPI', 'mod3-Lap2', 'mod4-Marker', 'Seg',
            'SegOverlaid', 'SegRefined'}
+# the device quantifier's synthetic seg canvases: the JAX ROI canvas and the
+# largest canvas the JAX package measured (67.1 MPx); one nucleus per 40 x 40
+# px grid cell and a sparser second layer give 48k cells at 67 MPx, past the
+# 16384 that the KDE keeps
+QUANT_CANVASES = ((1536, 1280), (8192, 8192))
+CELL_GRID = 40
+# labels launched per device-quantifier call: conn 4 on the unknown mask
+# (background flood), conn 8 on the cell mask
+LABEL_PER_QUANT = 2
 
 
 def phase(name, **info):
@@ -620,35 +633,40 @@ def ihc_like_image(size, seed):
 
 
 def launch_counts(K):
-    FR, FS, L = K
+    FR, FS, L, LB = K
     return {'float32': FR.conv3x3_stats.launches,
             'bfloat16': FR.conv3x3_stats.launches_bf16,
             'int8': FR.conv3x3_stats_int8.launches,
             'conv3x3_s2_stats': FS.conv3x3_s2_stats.launches,
             'convtranspose3_s2_stats': FS.convtranspose3_s2_stats.launches,
-            'plane_stats': L.plane_sums.launches}
+            'plane_stats': L.plane_sums.launches,
+            'label_components': LB.label_components.launches}
 
 
 def reset_counts(K):
-    FR, FS, L = K
+    FR, FS, L, LB = K
     FR.conv3x3_stats.launches = 0
     FR.conv3x3_stats.launches_bf16 = 0
     FR.conv3x3_stats_int8.launches = 0
     FS.conv3x3_s2_stats.launches = 0
     FS.convtranspose3_s2_stats.launches = 0
     L.plane_sums.launches = 0
+    LB.label_components.launches = 0
 
 
-def expected_counts(precision, fused, n_forwards):
+def expected_counts(precision, fused, n_forwards, quant_calls=0):
     """Launches of each kernel per main-path run: the trunk kernel of the
     precision, the stage kernels on the fused path only, plane_sums for
-    every norm statistic."""
+    every norm statistic, the labeling kernel twice per device-quantifier
+    call."""
     want = {kind: 0 for kind in ('float32', 'bfloat16', 'int8')}
     want[precision] = LAUNCHES_PER_FORWARD
     for name in ('conv3x3_s2_stats', 'convtranspose3_s2_stats'):
         want[name] = STAGE_LAUNCHES_PER_FORWARD if fused else 0
     want['plane_stats'] = PLANE_PER_FORWARD[fused]
-    return {k: v * n_forwards for k, v in want.items()}
+    want = {k: v * n_forwards for k, v in want.items()}
+    want['label_components'] = LABEL_PER_QUANT * quant_calls
+    return want
 
 
 def throughput(session, batch, iters=3):
@@ -712,7 +730,8 @@ def slice_checks(M, K, md, img, precision, fuse_stages=False):
     torch.cuda.synchronize()
     reset_counts(K)
     t0 = time.perf_counter()
-    images, scoring = M.infer_modalities(img, TILE, md, **kw)
+    images, scoring = M.infer_modalities(img, TILE, md, device_quant=False,
+                                         **kw)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = launch_counts(K)
@@ -731,7 +750,8 @@ def slice_checks(M, K, md, img, precision, fuse_stages=False):
     check({'num_total', 'num_pos', 'num_neg', 'percent_pos'} <= set(scoring),
           f'scoring keys {sorted(scoring)}')
 
-    images2, scoring2 = M.infer_modalities(img, TILE, md, **kw)
+    images2, scoring2 = M.infer_modalities(img, TILE, md, device_quant=False,
+                                           **kw)
     same = all(np.array_equal(np.asarray(images[k]), np.asarray(images2[k]))
                for k in images) and scoring == scoring2
     phase('run_to_run', path=path, byte_equal=same)
@@ -823,6 +843,275 @@ def slice_checks(M, K, md, img, precision, fuse_stages=False):
     return counts, tput
 
 
+def synthetic_seg_canvas(h, w, seed, device='cuda'):
+    """A seg output the size of a slide region with IHC-like nuclei: one
+    disk per CELL_GRID^2 grid cell (radius 4-11 px, inside its cell),
+    positive (red) or negative (blue) at 4:6, a tenth of the large ones with
+    an enclosed 'unknown' hole; a second, sparser layer on the grid shifted
+    by half a cell (radius 1-11 px: specks below the noise gate, and disks
+    that touch or overlap the first layer, merging into mixed components).
+    The marker is noise 0-39 with bright (250-255) or dim (60-120) cells;
+    the original a light noisy background. Returns uint8 tensors on
+    ``device``: orig (h, w, 3), seg (h, w, 3), marker (h, w)."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    yy = torch.arange(h, device=device, dtype=torch.float32)[:, None]
+    xx = torch.arange(w, device=device, dtype=torch.float32)[None, :]
+    seg = torch.zeros((h, w, 3), dtype=torch.uint8, device=device)
+    marker = torch.randint(0, 40, (h, w), generator=gen, device=device,
+                           dtype=torch.uint8)
+    colors = torch.tensor([[25, 30, 230], [230, 25, 30], [0, 100, 0]],
+                          dtype=torch.uint8, device=device)
+    g = CELL_GRID
+    for off, present, r_lo in ((0, 1.0, 4.0), (g // 2, 0.3, 1.0)):
+        gh, gw = (h - off) // g + 1, (w - off) // g + 1
+        r = rng.uniform(r_lo, 11.0, (gh, gw))
+        lo, hi = (r + 1, g - r - 1) if off == 0 else (0.0, float(g))
+        cy = rng.uniform(lo, hi, (gh, gw)) + (np.arange(gh) * g + off)[:, None]
+        cx = rng.uniform(lo, hi, (gh, gw)) + (np.arange(gw) * g + off)[None, :]
+        on = rng.random((gh, gw)) < present
+        kind = (rng.random((gh, gw)) < 0.4).astype(np.int64)
+        kind = np.where((rng.random((gh, gw)) < 0.1) & (r > 7) & (off == 0),
+                        kind + 10, kind)                 # +10: with a hole
+        mval = np.where(rng.random((gh, gw)) < 0.35,
+                        rng.integers(250, 256, (gh, gw)),
+                        rng.integers(60, 121, (gh, gw)))
+        iy = ((torch.arange(h, device=device) - off).clamp(min=0) // g
+              ).clamp(max=gh - 1)[:, None]
+        ix = ((torch.arange(w, device=device) - off).clamp(min=0) // g
+              ).clamp(max=gw - 1)[None, :]
+
+        def at(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)[iy, ix]
+        d2 = (yy - at(cy.astype(np.float32))) ** 2 \
+            + (xx - at(cx.astype(np.float32))) ** 2
+        disk = (d2 < at((r * r).astype(np.float32))) & at(on)
+        k = at(kind)
+        hole = disk & (k >= 10) & (d2 < 2.0)
+        seg = torch.where(disk[..., None], colors[k % 10], seg)
+        seg = torch.where(hole[..., None], colors[2], seg)
+        marker = torch.where(disk, at(mval.astype(np.uint8)), marker)
+        del d2, disk, k, hole
+    base = torch.tensor([215, 205, 200], dtype=torch.int16, device=device)
+    noise = torch.randint(-8, 9, (h, w, 3), generator=gen, device=device,
+                          dtype=torch.int16)
+    orig = (base + noise).clamp(0, 255).to(torch.uint8)
+    return orig, seg, marker
+
+
+def label_masks(LB, seg):
+    """The two masks the quantifier labels: the unknown pixels (conn 4, the
+    background flood) and, after the flood, the cell mask (conn 8)."""
+    mask = LB.posneg_mask(seg, 120)
+    return {4: mask == LB.LABEL_UNKNOWN,
+            8: LB.flood_background(mask) != LB.LABEL_BACKGROUND}
+
+
+def kernel_checks_label(LB, canvases):
+    """label_components at conn 4 and 8 on the masks of each canvas:
+    bit-equal to the plain labeling, byte-equal run to run, timed in turns
+    against it. The bound: the mask read once (1 B/px) and the labels
+    written once (4 B/px) over HBM. Returns {(h, w, conn): numbers}."""
+    out = {}
+    for (h, w), (_, seg, _) in canvases.items():
+        for conn, fg in label_masks(LB, seg).items():
+            c8 = conn == 8
+            got = LB.label_components(fg, conn8=c8)
+            want = LB.label_components_reference(fg, conn8=c8)
+            again = LB.label_components(fg, conn8=c8)
+            torch.cuda.synchronize()
+            err = (got.long() - want.long()).abs().max().item()
+            roots = (got.reshape(-1) == torch.arange(
+                1, h * w + 1, device=got.device, dtype=torch.int32))
+            phase('kernel_vs_plain', kernel='label_components', canvas=[h, w],
+                  conn=conn, fg_share=fg.float().mean().item(),
+                  components=int(roots.sum()), bit_equal=err == 0,
+                  max_abs_err=err)
+            check(err == 0, f'label_components {h}x{w} conn {conn}: labels '
+                             f'differ from the plain labeling by {err}')
+            check(torch.equal(got, again), f'label_components {h}x{w} conn '
+                                           f'{conn}: two launches differ')
+            phase('kernel_deterministic', kernel='label_components',
+                  canvas=[h, w], conn=conn, two_launches_byte_equal=True)
+            del got, want, again, roots
+            runs, ms = in_turns({
+                'plain': lambda: LB.label_components_reference(fg, conn8=c8),
+                'kernel': lambda: LB.label_components(fg, conn8=c8)},
+                {'plain': 1, 'kernel': 5})
+            bound_ms = h * w * (1 + 4) / PEAK_BYTES * 1e3
+            phase('kernel_timing', kernel='label_components', canvas=[h, w],
+                  conn=conn, runs_ms=runs,
+                  **{f'{k}_ms': v for k, v in ms.items()}, bound_ms=bound_ms,
+                  bound_by='bytes',
+                  library_call='none: PyTorch has no connected-components '
+                               'call')
+            out[(h, w, conn)] = dict(err=err, ms=ms['kernel'],
+                                     plain_ms=ms['plain'], bound_ms=bound_ms)
+            torch.cuda.empty_cache()
+    return out
+
+
+def device_quant_checks(LB, pp, canvases):
+    """The device quantifier (size and marker thresholds 'default') on each
+    canvas: with the labeling kernel and with the plain labeling, byte-equal
+    overlay and refined and equal scoring; its time (host clock, results
+    fetched) and peak device memory per MPx; at the ROI canvas the counts of
+    the host quantifier, with and without the marker, and its time."""
+    out = {}
+    kw = dict(size_thresh='default', marker_thresh='default')
+    for (h, w), (orig, seg, marker) in canvases.items():
+        orig_np, marker_np = orig.cpu().numpy(), marker.cpu().numpy()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = LB.compute_final_results_device(orig_np, seg, marker_np, '40x',
+                                              **kw)
+        peak = torch.cuda.max_memory_allocated() - base
+        plain = LB.compute_final_results_device(
+            orig_np, seg, marker_np, '40x',
+            labeler=LB.label_components_reference, **kw)
+        same = (got[2] == plain[2] and np.array_equal(got[0], plain[0])
+                and np.array_equal(got[1], plain[1]))
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            LB.compute_final_results_device(orig_np, seg, marker_np, '40x',
+                                            **kw)
+            secs.append(time.perf_counter() - t0)
+        mpx = h * w / 1e6
+        res = dict(canvas=[h, w], scoring=got[2], seconds_runs=secs,
+                   seconds=sum(secs) / len(secs), peak_mem_bytes=peak,
+                   peak_bytes_per_px=peak / (h * w), mpx=mpx)
+        phase('device_quant', kernel_vs_plain_labeling_equal=same, **res)
+        check(same, f'device quantifier {h}x{w}: the labeling kernel and '
+                    f'the plain labeling give other results: {got[2]} vs '
+                    f'{plain[2]}')
+        check(got[0].shape == (h, w, 3) and got[2]['num_total'] > 0,
+              f'device quantifier {h}x{w}: {got[0].shape} {got[2]}')
+        if (h, w) == QUANT_CANVASES[-1]:
+            check(got[2]['num_total'] > 16384,
+                  f'{got[2]["num_total"]} cells: the KDE compaction to the '
+                  '16384 largest does not run')
+        if (h, w) == QUANT_CANVASES[0]:
+            seg_np = seg.cpu().numpy()
+            for mk, mt in ((None, None), (marker_np, 'default')):
+                dev = LB.compute_final_results_device(orig_np, seg, mk, '40x',
+                                                      marker_thresh=mt)[2]
+                t0 = time.perf_counter()
+                host = pp.compute_final_results(orig_np, seg_np, mk, '40x',
+                                                marker_thresh=mt)[2]
+                host_s = time.perf_counter() - t0
+                counts = {k: (dev[k], host[k])
+                          for k in ('num_total', 'num_pos', 'num_neg')}
+                phase('device_vs_host_quant', canvas=[h, w],
+                      marker=mk is not None, counts_device_host=counts,
+                      thresholds_device=(dev['size_thresh'],
+                                         dev['marker_thresh']),
+                      thresholds_host=(host['size_thresh'],
+                                       host['marker_thresh']),
+                      host_seconds=host_s)
+                check(all(a == b for a, b in counts.values()),
+                      f'device vs host counts at {h}x{w}: {counts}')
+                res['host_seconds'] = host_s
+        out[(h, w)] = res
+        del got, plain
+        torch.cuda.empty_cache()
+    return out
+
+
+def devquant_main_path(M, K, md, img, pp):
+    """The float32 main path with ``device_quant=True`` through the user
+    entry point: the seg tiles stay on the card, are stitched there and
+    quantified there. Against the host-quantifier run of the same session:
+    'Seg' and every modality byte-equal, scoring equal; run to run
+    byte-equal; the launch counts of the float32 path plus two labeling
+    launches; on the canvas it stitched, the labeling kernel bit-equal to
+    the plain labeling, and the plain labeling's quantifier giving the
+    path's overlay, refined and scoring."""
+    kw = dict(device='cuda', max_batch=BATCH, precision='float32')
+    session = M.init_nets(md, **kw)
+    forwards = []
+    run_batch = session.forward
+    session.forward = lambda *a, **k: forwards.append(1) or run_batch(*a, **k)
+    host_images, host_scoring = M.infer_modalities(img, TILE, md,
+                                                   device_quant=False, **kw)
+    torch.cuda.synchronize()
+    reset_counts(K)
+    forwards.clear()
+    t0 = time.perf_counter()
+    images, scoring = M.infer_modalities(img, TILE, md, device_quant=True,
+                                         **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts(K)
+    n_forwards = len(forwards)
+    want = expected_counts('float32', False, n_forwards, quant_calls=1)
+    phase('main_path', path='float32 device_quant', seconds=seconds,
+          batch_forwards=n_forwards, kernel_launches=counts,
+          outputs=sorted(images), scoring=scoring)
+    check(counts == want, f'device_quant path: kernel launches {counts} for '
+                          f'{n_forwards} forwards, want {want}')
+    check(set(images) == OUTPUTS, f'outputs {sorted(images)}')
+    equal = {k: bool(np.array_equal(np.asarray(images[k]),
+                                    np.asarray(host_images[k])))
+             for k in OUTPUTS - {'SegOverlaid', 'SegRefined'}}
+    phase('device_vs_host_quant_path', seg_and_modalities_byte_equal=equal,
+          scoring_equal=scoring == host_scoring, host_scoring=host_scoring)
+    check(all(equal.values()), f'device_quant path differs from the host '
+                               f'quantifier run: {equal}')
+    check(scoring == host_scoring, f'scoring {scoring} vs {host_scoring}')
+    for k in ('SegOverlaid', 'SegRefined'):
+        a = np.asarray(images[k])
+        check(a.shape == (2 * TILE, 2 * TILE, 3) and a.dtype == np.uint8,
+              f'{k}: {a.shape} {a.dtype}')
+
+    # the labeling kernel on the main path's own canvas: the seg canvas
+    # this session stitches on the card, labeled by the kernel and by the
+    # plain labeling (bit-equal), and quantified with the plain labeling
+    # (the main path's overlay, refined and scoring, byte for byte)
+    LB = K[3]
+    _, canvas = M.inference(img, TILE, TILE // 16, md, session=session,
+                            _device_seg=True)
+    check(canvas is not None and canvas.is_cuda
+          and np.array_equal(canvas.cpu().numpy(), np.asarray(images['Seg'])),
+          "the device stitch did not run or differs from 'Seg'")
+    labels = {}
+    for conn, fg in label_masks(LB, canvas).items():
+        got = LB.label_components(fg, conn8=conn == 8)
+        want = LB.label_components_reference(fg, conn8=conn == 8)
+        roots = got.reshape(-1) == torch.arange(
+            1, fg.numel() + 1, device=got.device, dtype=torch.int32)
+        labels[conn] = dict(bit_equal=torch.equal(got, want),
+                            fg_share=fg.float().mean().item(),
+                            components=int(roots.sum()))
+    marker = images.get(M.find_marker_key(images))
+    check(marker is not None, f'no marker among {sorted(images)}')
+    plain = LB.compute_final_results_device(
+        np.asarray(img.convert('RGB')), canvas, pp.to_array(marker, True),
+        '40x', labeler=LB.label_components_reference)     # tile 512: 40x
+    same = (plain[2] == scoring
+            and np.array_equal(plain[0], np.asarray(images['SegOverlaid']))
+            and np.array_equal(plain[1], np.asarray(images['SegRefined'])))
+    phase('kernel_vs_plain', kernel='label_components',
+          canvas=list(canvas.shape[:2]), on='the device_quant main path',
+          labels_by_conn=labels, quantifier_vs_plain_labeling_equal=same)
+    check(all(v['bit_equal'] for v in labels.values()),
+          f'label_components on the main path canvas: labels differ from '
+          f'the plain labeling: {labels}')
+    check(same, f'device_quant main path: overlay, refined or scoring differ '
+                f'from the plain labeling\'s: {scoring} vs {plain[2]}')
+    del canvas, got, want, roots
+
+    images2, scoring2 = M.infer_modalities(img, TILE, md, device_quant=True,
+                                           **kw)
+    same = all(np.array_equal(np.asarray(images[k]), np.asarray(images2[k]))
+               for k in images) and scoring == scoring2
+    phase('run_to_run', path='float32 device_quant', byte_equal=same)
+    check(same, 'two device_quant runs differ')
+    del session.forward
+    return counts
+
+
 def main():
     check(torch.cuda.is_available(), 'torch.cuda.is_available() is false: '
           'chip_smoke.py needs a CUDA card')
@@ -833,17 +1122,18 @@ def main():
     t_start = time.perf_counter()
 
     from PIL import Image
-    from deepliif_tpu_torch import models as M
+    from deepliif_tpu_torch import models as M, postprocessing as pp
     from deepliif_tpu_torch.labs import fused_stages as FS
     from deepliif_tpu_torch.models import deepliif as dl
     from deepliif_tpu_torch.nets import layers as L
     from deepliif_tpu_torch.ops import cuda_build, fused_resblock as FR
+    from deepliif_tpu_torch.ops import labeling as LB
     from deepliif_tpu_torch.utils import checkpoints as ck
 
     M.configure_device(torch.device('cuda'))   # TF32 off for the plain paths
     t0 = time.perf_counter()
     # every kernel library of the path, one nvcc each, all started together
-    cuda_build.build({**FR._LIBS, **FS._LIBS, **L._LIBS})
+    cuda_build.build({**FR._LIBS, **FS._LIBS, **L._LIBS, **LB._LIBS})
     phase('build', seconds=time.perf_counter() - t0, parallel=True,
           nvcc_seconds=cuda_build.build_seconds)
 
@@ -854,11 +1144,17 @@ def main():
     ms = kernel_timing(FR, rnd)
     stages = kernel_checks_stages(FS, FR, rnd)
     plane = kernel_checks_plane(L, rnd)
+    canvases = {hw: synthetic_seg_canvas(*hw, SEED + i)
+                for i, hw in enumerate(QUANT_CANVASES)}
+    label = kernel_checks_label(LB, canvases)
+    quant = device_quant_checks(LB, pp, canvases)
+    del canvases
+    torch.cuda.empty_cache()
     phase('kernel_checks', seconds=time.perf_counter() - t0)
 
     launches, tput = {}, {}
     img = Image.fromarray(ihc_like_image(2 * TILE, SEED))
-    K = (FR, FS, L)
+    K = (FR, FS, L, LB)
     with tempfile.TemporaryDirectory() as md:
         write_flagship_model_dir(md, dl, ck)
         for precision, fused in (('float32', False), ('bfloat16', False),
@@ -866,6 +1162,8 @@ def main():
             key = 'fused' if fused else precision
             launches[key], tput[key] = slice_checks(M, K, md, img, precision,
                                                     fused)
+            if key == 'float32':
+                launches['devquant'] = devquant_main_path(M, K, md, img, pp)
             # one session on the card at a time, so that peak memory is
             # the next path's own
             M._init_nets_cached.cache_clear()
@@ -916,6 +1214,23 @@ def main():
         'plain_ms': plane['plain_ms'], 'bound_ms': plane['bound_ms'],
         'bound_by': 'bytes', 'library_ms': plane['library_ms'],
         'per': f'one norm (two passes) of ({BATCH}, 64, {TILE}, {TILE}) bf16'})
+    big = QUANT_CANVASES[-1]
+    lab = [label[(*big, conn)] for conn in (4, 8)]
+    report.append({
+        'name': 'label_components', 'route': 'cuda',
+        'source': 'deepliif_tpu_torch/csrc/label_cc.cu',
+        'replaces': 'deepliif_tpu/ops/labeling.py:410',
+        'launches': launches['devquant']['label_components'],
+        'max_abs_err': max(v['err'] for v in label.values()),
+        'ms': sum(v['ms'] for v in lab),
+        'plain_ms': sum(v['plain_ms'] for v in lab),
+        'bound_ms': sum(v['bound_ms'] for v in lab), 'bound_by': 'bytes',
+        'library_ms': None, 'canvas': list(big),
+        'per': 'the two launches of one quantifier call (conn 4 on the '
+               'unknown mask, conn 8 on the cell mask), summed',
+        'roi_ms': sum(label[(*QUANT_CANVASES[0], c)]['ms'] for c in (4, 8)),
+        'quantifier_seconds': {f'{h}x{w}': q['seconds']
+                               for (h, w), q in quant.items()}})
     print(json.dumps({'kernels': report}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -6,6 +6,11 @@ Same options, output file names and scoring JSON as ``deepliif-tpu test``
 needs ``--int8-scope resblocks`` (scope 'all', the JAX package's default,
 raises). ``--fuse-stages`` (bfloat16 only) runs the translators' fused
 stages, the counterpart of the JAX package's ``DEEPLIIF_FUSE_STAGES=1``.
+``--device-quant {auto,on,off}`` picks the quantifier: on runs it on the
+session's device (``ops.labeling``), off on the host, auto stitches the seg
+canvas on the device and quantifies there when it is a CUDA device and the
+canvas is at least the measured crossover and fits the card
+(``models._resolve_device_quant``).
 The other commands are not ported yet (ROADMAP.md: "Serving", "WSI",
 "Training", "Stats"). click is imported when the command line is built,
 not when this module is imported.
@@ -49,8 +54,6 @@ def run_test(input_dir, output_dir, tile_size, model_dir, filename_pattern='*',
         raise roadmap.not_ported('--seg-only', roadmap.SEG_ONLY)
     if seg_intermediate:
         raise roadmap.not_ported('--seg-intermediate', roadmap.SEG_ONLY)
-    if device_quant == 'on':
-        raise roadmap.not_ported('--device-quant on', roadmap.DEVICE_QUANT)
 
     output_dir = output_dir or input_dir
     os.makedirs(output_dir, exist_ok=True)
@@ -72,6 +75,7 @@ def run_test(input_dir, output_dir, tile_size, model_dir, filename_pattern='*',
         images, scoring = infer_modalities(
             img, tile_size, model_dir, opt=opt, mod_only=mod_only,
             seg_weights=seg_weights, max_batch=max_batch,
+            device_quant={'on': True, 'off': False}.get(device_quant, 'auto'),
             precision=precision, device=device, int8_scope=int8_scope,
             fuse_stages=fuse_stages)
         stem = filename.rsplit('.', 1)[0]
@@ -121,8 +125,17 @@ def make_cli():
                        'JAX package) is not ported yet and raises')
     @click.option('--device-quant', type=click.Choice(['auto', 'on', 'off']),
                   default='auto', is_flag=False, flag_value='on',
-                  help='quantification engine; the port runs the host path '
-                       '(auto/off), on is not ported yet')
+                  help='quantification engine: on = labeling, thresholds '
+                       'and overlays on the session\'s device (the CUDA '
+                       'labeling kernel on a card), off = host path, auto = '
+                       'device when the seg canvas is on a CUDA device, '
+                       'at least 256x256 (the crossover measured on one '
+                       'H100) and fits the card '
+                       '(models._resolve_device_quant). The '
+                       'device counts equal the host\'s up to 16384 cells; '
+                       'past that its default size threshold comes from '
+                       'the 16384 largest cells, as in the JAX package, '
+                       'and can differ. Bare --device-quant means on.')
     @click.option('--gpu-ids', default=None, help='ignored (torch compat)')
     @click.option('--device', default='cuda',
                   help='torch device to run on, e.g. cuda, cuda:1 or cpu')

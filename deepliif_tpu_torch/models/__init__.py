@@ -11,7 +11,10 @@ Port of deepliif_tpu/models/__init__.py for the flagship path:
                 the model's background colors
   inference / infer_modalities / postprocess -> same API surface and output
                 key names as the JAX package; postprocess runs the port's
-                host quantifier (``deepliif_tpu_torch.postprocessing``)
+                host quantifier (``deepliif_tpu_torch.postprocessing``) or,
+                with ``device_quant``, the device quantifier
+                (``ops.labeling.compute_final_results_device``) on the seg
+                canvas that ``inference`` stitched on the session's device
 
 Precision: ``precision=`` (or the model dir's ``precision`` option) is
 float32, bfloat16 or int8. int8 takes an explicit ``int8_scope``; only
@@ -25,8 +28,8 @@ the JAX package's ``DEEPLIIF_FUSE_STAGES=1``.
 The device is always explicit (``device='cuda'`` by default, never chosen
 by what is available). Not ported yet (ROADMAP.md): the other model
 families, int8 scope 'all' and calibration, seg-only and seg-intermediate
-outputs, device quantification, and the TPU engine's mesh and async copy
-pipeline.
+outputs, and the TPU engine's mesh (mesh-sharded labeling included) and
+async copy pipeline.
 """
 
 from __future__ import annotations
@@ -174,14 +177,24 @@ class InferenceSession:
         return {k: _quantize_u8(v) for k, v in res.items()}
 
     def run_tiles(self, tiles_u8, seg_weights=None, seg_only=False,
-                  mod_only=False, return_intermediate=False):
+                  mod_only=False, return_intermediate=False,
+                  device_keys=()):
         """tiles_u8: (N, s, s, 3) uint8 -> dict of (N, s, s, 3) uint8 outputs
         keyed by net id (G1..Gm, GS). Empty tiles are detected on host and
-        filled with background colors (reference run_wrapper)."""
+        filled with background colors (reference run_wrapper).
+
+        ``device_keys`` (only ``('GS',)``): outputs kept on the session's
+        device, left out of the host dict and returned in a second dict of
+        (N, s, s, 3) uint8 tensors (zeros for empty tiles), for the device
+        stitch and quantifier; the return value is then ``(host_out,
+        device_out)``."""
         if seg_only:
             raise roadmap.not_ported('--seg-only', roadmap.SEG_ONLY)
         if return_intermediate:
             raise roadmap.not_ported('--seg-intermediate', roadmap.SEG_ONLY)
+        if any(k != 'GS' for k in device_keys):
+            raise ValueError(f'device_keys {device_keys}: only GS can stay '
+                             'on the device')
         n = tiles_u8.shape[0]
         m = self.d.modalities_no
         # empty-tile detection: luma variance excluding pure 0/255 pixels
@@ -206,7 +219,11 @@ class InferenceSession:
             out[mk] = np.tile(np.asarray(color, np.uint8)[None, None, None, :],
                               (n, th, tw, 1))
         want_seg = self.d.seg_gen and not mod_only
-        if want_seg:
+        dev_out = {}
+        if want_seg and 'GS' in device_keys:
+            dev_out['GS'] = torch.zeros((n, th, tw, 3), dtype=torch.uint8,
+                                        device=self.device)
+        elif want_seg:
             out['GS'] = np.zeros((n, th, tw, 3), np.uint8)
 
         pos = 0
@@ -223,10 +240,13 @@ class InferenceSession:
             mods = res['mods'].cpu().numpy()
             for i, mk in enumerate(mod_keys):
                 out[mk][idx] = mods[i][:nvalid]
-            if want_seg:
+            if 'GS' in dev_out:
+                dev_out['GS'][torch.from_numpy(idx).to(self.device)] = \
+                    res['seg'][:nvalid]
+            elif want_seg:
                 out['GS'][idx] = res['seg'].cpu().numpy()[:nvalid]
             pos += nvalid
-        return out
+        return (out, dev_out) if device_keys else out
 
 
 def _quantize_u8(y):
@@ -264,10 +284,16 @@ def inference(img, tile_size, overlap_size, model_path, use_torchserve=False,
               return_seg_intermediate=False, seg_only=False, mod_only=False,
               seg_weights=None, opt_args=None, session=None, max_batch=None,
               precision=None, device='cuda', int8_scope=None,
-              fuse_stages=None):
+              fuse_stages=None, _device_seg=False):
     """Tiled ensemble inference on a PIL image; returns {name: PIL.Image}
     with the reference output key names: 'mod{i}-{Name}' per modality plus
-    'Seg'."""
+    'Seg'.
+
+    ``_device_seg`` (truthy): the seg tiles stay on the session's device and
+    are stitched there with the tiler's ownership maps (the bytes of the
+    host stitch); returns ``(images, seg_canvas)``, the canvas a (H, W, 3)
+    uint8 tensor on the device, or None where the device stitch does not
+    apply (resized tiles, padding, no seg). 'Seg' is one fetch of it."""
     from PIL import Image
 
     if session is None:
@@ -299,13 +325,30 @@ def inference(img, tile_size, overlap_size, model_path, use_torchserve=False,
         return np.stack([np.asarray(Image.fromarray(t).resize(
             (size, size), Image.BICUBIC)) for t in batch])
 
-    results_net = session.run_tiles(
-        _resize(tiles, scale_size), seg_weights=seg_weights,
-        seg_only=seg_only, mod_only=mod_only,
-        return_intermediate=return_seg_intermediate)
+    use_device_seg = (
+        _device_seg and getattr(opt, 'seg_gen', True) and not mod_only
+        and not return_seg_intermediate
+        and tiler.pad_size == 0 and scale_size == tile_size)
+    seg_canvas = None
+    if use_device_seg:
+        results_net, dev = session.run_tiles(
+            tiles, seg_weights=seg_weights, seg_only=seg_only,
+            mod_only=mod_only, device_keys=('GS',))
+        tile_idx, ty, tx = (torch.from_numpy(a).to(session.device)
+                            for a in tiler.ownership_maps())
+        seg_canvas = dev['GS'][tile_idx, ty[:, None], tx[None, :]]
+        seg_canvas = seg_canvas[:tiler.orig_height,
+                                :tiler.orig_width].contiguous()
+    else:
+        results_net = session.run_tiles(
+            _resize(tiles, scale_size), seg_weights=seg_weights,
+            seg_only=seg_only, mod_only=mod_only,
+            return_intermediate=return_seg_intermediate)
     for key, batch in results_net.items():
         tiler.stitch_batch(key, _resize(batch, tile_size))
     results = {k: Image.fromarray(v) for k, v in tiler.results().items()}
+    if seg_canvas is not None:
+        results['GS'] = Image.fromarray(seg_canvas.cpu().numpy())
 
     # output naming (reference models/__init__.py:502-565)
     m = opt.modalities_no
@@ -319,32 +362,80 @@ def inference(img, tile_size, overlap_size, model_path, use_torchserve=False,
     d_modname2id = {nm: f'G{i + 1}' for i, nm in enumerate(l_modname)}
     if not mod_only and getattr(opt, 'seg_gen', True):
         d_modname2id['Seg'] = 'GS'
-    return {nm: results[mid] for nm, mid in d_modname2id.items()
-            if mid in results}
+    images = {nm: results[mid] for nm, mid in d_modname2id.items()
+              if mid in results}
+    return (images, seg_canvas) if _device_seg else images
+
+
+# The 'auto' rule's constants, measured on one NVIDIA H100 80GB HBM3 at
+# 700.00 W (experiments/torch_devquant_sweep.py, medians of 3 after a
+# warm-up; PERF.md section 5). Crossover: the host quantifier wins at 128^2
+# (4.6 ms against 15.1: the device pads every canvas to multiples of 256),
+# the device from 256^2 (11.4 ms against 18.5) up to 8192^2 (0.55 s
+# against 23.7 s); nothing between 128^2 and 256^2 was measured. Cap: the
+# device quantifier peaks at 45.2 B/px of device memory; with the stitched
+# seg canvas and its tiles (7 B/px) beside a batch-16 float32 session
+# (5.15 GB) an 80 GB card holds 1.53 G px, below the 2^31 pixels of the
+# labeling kernel's int32 flat indices. The JAX rule's device->host
+# bandwidth bar has no counterpart: fetching the two result canvases would
+# eat the device's gain below 55 MB/s, and the card copies at 8,866 MB/s.
+_DEVICE_QUANT_MIN_PX = 256 * 256
+_DEVICE_QUANT_MAX_PX = 1_500_000_000
+
+
+def _device_quant_fits(h, w):
+    return h * w <= _DEVICE_QUANT_MAX_PX
+
+
+def _resolve_device_quant(device_quant, seg_device):
+    """The 'auto' rule: the device quantifier when the seg canvas is already
+    on a CUDA device (the device stitch ran; a CPU session takes the host
+    path), at least the measured crossover, and fits the card. An explicit
+    True/False always wins."""
+    if device_quant == 'auto':
+        if seg_device is None or seg_device.device.type != 'cuda':
+            return False
+        h, w = int(seg_device.shape[0]), int(seg_device.shape[1])
+        return h * w >= _DEVICE_QUANT_MIN_PX and _device_quant_fits(h, w)
+    return bool(device_quant)
 
 
 def postprocess(orig, images, tile_size, model, seg_thresh=120,
                 size_thresh='default', marker_thresh=None,
-                size_thresh_upper=None, device_quant=False):
-    """Quantification on host: overlay/refined masks + IHC scoring dict
-    (``deepliif_tpu_torch.postprocessing``). Resolution from tile size:
-    >384 -> 40x, >192 -> 20x, else 10x."""
+                size_thresh_upper=None, device_quant=False, seg_device=None,
+                device=None):
+    """Quantification: overlay/refined masks + IHC scoring dict. Resolution
+    from tile size: >384 -> 40x, >192 -> 20x, else 10x.
+
+    ``device_quant`` True runs the device quantifier
+    (``ops.labeling.compute_final_results_device``) on ``seg_device`` (the
+    canvas stitched on the device by ``inference``) or on ``images['Seg']``
+    moved to ``device`` (default: seg_device's device, else cuda); False the
+    host quantifier (``deepliif_tpu_torch.postprocessing``); 'auto' applies
+    ``_resolve_device_quant``."""
     from PIL import Image
     from .. import postprocessing as pp
 
-    if device_quant:
-        raise roadmap.not_ported('device quantification (--device-quant on)',
-                                 roadmap.DEVICE_QUANT)
     if model not in _FAMILIES:
         raise roadmap.not_ported(f'postprocess for {model}', roadmap.FAMILIES)
+    device_quant = _resolve_device_quant(device_quant, seg_device)
     resolution = '40x' if tile_size > 384 else ('20x' if tile_size > 192 else '10x')
     marker = images.get(find_marker_key(images))
-    overlay, refined, scoring = pp.compute_final_results(
+    args = (
         np.asarray(orig.convert('RGB') if hasattr(orig, 'convert') else orig),
         np.asarray(images['Seg']),
         # reference grayscale convention: per-pixel max over RGB
         pp.to_array(marker, True) if marker is not None else None,
         resolution, size_thresh, marker_thresh, size_thresh_upper, seg_thresh)
+    if device_quant:
+        from ..ops.labeling import compute_final_results_device
+        overlay, refined, scoring = compute_final_results_device(
+            args[0], seg_device if seg_device is not None else args[1],
+            args[2], resolution, size_thresh=size_thresh,
+            marker_thresh=marker_thresh, size_thresh_upper=size_thresh_upper,
+            seg_thresh=seg_thresh, device=device)
+    else:
+        overlay, refined, scoring = pp.compute_final_results(*args)
     return ({'SegOverlaid': Image.fromarray(overlay),
              'SegRefined': Image.fromarray(refined)}, scoring)
 
@@ -355,9 +446,11 @@ def infer_modalities(img, tile_size, model_dir, eager_mode=False,
                      mod_only=False, seg_weights=None, max_batch=None,
                      device_quant=False, precision=None, device='cuda',
                      int8_scope=None, fuse_stages=None):
-    """Full tile-to-scoring pipeline: inference, then host postprocess.
-    ``color_dapi`` / ``color_marker`` are accepted and inert, as in the
-    reference and the JAX package."""
+    """Full tile-to-scoring pipeline: inference, then postprocess (host
+    quantifier, or with ``device_quant`` True / 'auto' the device stitch and
+    the device quantifier, as in the JAX package). ``color_dapi`` /
+    ``color_marker`` are accepted and inert, as in the reference and the JAX
+    package."""
     session = init_nets(model_dir,
                         epoch=str(getattr(opt, 'epoch', 'latest') if opt
                                   is not None else 'latest'),
@@ -370,9 +463,14 @@ def infer_modalities(img, tile_size, model_dir, eager_mode=False,
         model_path=model_dir, opt=opt,
         return_seg_intermediate=return_seg_intermediate,
         seg_only=seg_only, mod_only=mod_only, seg_weights=seg_weights,
-        session=session)
+        session=session, _device_seg=device_quant)
+    seg_device = None
+    if device_quant:
+        images, seg_device = images
     if getattr(opt, 'seg_gen', True) and not mod_only:
         post_images, scoring = postprocess(img, images, tile_size, opt.model,
-                                           device_quant=device_quant)
+                                           device_quant=device_quant,
+                                           seg_device=seg_device,
+                                           device=session.device)
         return {**images, **post_images}, scoring
     return images, None

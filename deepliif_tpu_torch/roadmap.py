@@ -4,7 +4,6 @@ stays right when the queue is renumbered)."""
 
 from __future__ import annotations
 
-DEVICE_QUANT = 'Device quantification'
 INT8_ALL = 'int8 scope all'
 SEG_ONLY = 'Seg-only and intermediates'
 FAMILIES = 'Other families'
@@ -14,8 +13,7 @@ TRAINING = 'Training'
 STATS = 'Stats'
 
 # in the order of ROADMAP.md's Queue 1
-ITEMS = (DEVICE_QUANT, INT8_ALL, SEG_ONLY, FAMILIES, SERVING, WSI, TRAINING,
-         STATS)
+ITEMS = (INT8_ALL, SEG_ONLY, FAMILIES, SERVING, WSI, TRAINING, STATS)
 
 
 def not_ported(what, item):

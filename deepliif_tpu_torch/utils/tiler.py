@@ -1,6 +1,6 @@
 """Tiling / stitching for large-image inference: the port's own copy of
-deepliif_tpu/utils/tiler.py (without the device-stitch ownership maps,
-which belong to device quantification, not ported yet).
+deepliif_tpu/utils/tiler.py (with the ownership maps of the device-side
+stitch).
 
 Geometry parity with the reference InferenceTiler
 (reference deepliif/util/__init__.py:129-331): mirror/flip padding for
@@ -174,6 +174,51 @@ class InferenceTiler:
         assert tiles.shape[0] == len(self.coords), (tiles.shape, len(self.coords))
         for (x, y), tile in zip(self.coords, tiles):
             self._paste(key, tile, x, y)
+
+    def ownership_maps(self):
+        """Per-pixel tile ownership for the device-side stitch.
+
+        The 9 paste cases of _paste are separable: the owner of canvas pixel
+        (Y, X) is (last row band containing Y, last col band containing X)
+        in row-major paste order, and the source coordinate within the owner
+        tile is simply (Y - y_band, X - x_band). Returns numpy arrays
+        (tile_idx (H, W) int32, ty (H,) int32, tx (W,) int32) so
+        canvas = tiles[tile_idx, ty[:, None], tx[None, :]] reproduces
+        stitch_batch exactly (pad_size 0 path)."""
+        if self.pad_size != 0:
+            raise ValueError('the device stitch supports pad_size=0 only')
+        H, W, patch = self.image_height, self.image_width, self.patch
+        ys = sorted({y for _, y in self.coords})
+        xs = sorted({x for x, _ in self.coords})
+
+        def owners(origins, p1, p2, size):
+            own = np.zeros(size, np.int32)
+            for k, o in enumerate(origins):
+                start = o if o == 0 else o + p1
+                end = o + p2 + ((patch - p2) if o == size - patch else 0)
+                own[start:end] = k
+            return own
+
+        row_owner = owners(ys, self.p1y, self.p2y, H)
+        col_owner = owners(xs, self.p1x, self.p2x, W)
+        # tile index of (row band, col band) in self.coords order: coords are
+        # row-major over the SAME clamped origins (duplicates collapse to the
+        # same origin, identical content)
+        index_of = {}
+        for i, (x, y) in enumerate(self.coords):
+            index_of[(y, x)] = i  # later duplicates overwrite = last paste
+        ty = np.empty(H, np.int32)
+        tx = np.empty(W, np.int32)
+        for Y in range(H):
+            ty[Y] = Y - ys[row_owner[Y]]
+        for X in range(W):
+            tx[X] = X - xs[col_owner[X]]
+        lut = np.empty((len(ys), len(xs)), np.int32)
+        for r, y in enumerate(ys):
+            for c, x in enumerate(xs):
+                lut[r, c] = index_of[(y, x)]
+        tile_idx = lut[row_owner[:, None], col_owner[None, :]]
+        return tile_idx, ty, tx
 
     def results(self):
         if (self.orig_width, self.orig_height) != (self.image_width, self.image_height):

@@ -164,14 +164,20 @@ def test_not_ported_messages_name_roadmap_headings(tmp_path):
     md = str(tmp_path)
     with open(os.path.join(md, 'config.json'), 'w') as f:
         json.dump(dict(TINY_CFG, model='CycleGAN'), f)
+    deepliif_md = tmp_path / 'deepliif'
+    deepliif_md.mkdir()
+    with open(deepliif_md / 'config.json', 'w') as f:
+        json.dump(TINY_CFG, f)
     for call in (
             lambda: M.InferenceSession(md, device='cpu'),
-            lambda: M.postprocess(None, {}, 512, 'DeepLIIF', device_quant=True),
+            lambda: M.InferenceSession(str(deepliif_md), device='cpu',
+                                       precision='int8', int8_scope='all'),
             lambda: M.postprocess(None, {}, 512, 'SDG'),
             lambda: cli.run_test(str(tmp_path), None, 64, md, seg_only=True,
                                  device='cpu'),
-            lambda: cli.run_test(str(tmp_path), None, 64, md,
-                                 device_quant='on', device='cpu')):
+            lambda: M.InferenceSession.run_tiles(
+                None, np.zeros((1, 64, 64, 3), np.uint8),
+                return_intermediate=True)):
         with pytest.raises(NotImplementedError) as e:
             call()
         errors.append(str(e.value))

@@ -1,10 +1,11 @@
 """The port imports neither jax nor anything of the JAX package
 ``deepliif_tpu``, not even through an import chain: a fresh interpreter
 imports the port, runs a tiny run_tiles on the CPU from a native model dir
-(bfloat16, int8 and the fused translator stages too) and the host
-postprocess (the port's own config,
-tiler, quantifier and native helper), and finds no ``jax``, ``jaxlib`` or
-``deepliif_tpu`` / ``deepliif_tpu.*`` module loaded."""
+(bfloat16, int8 and the fused translator stages too), the host
+postprocess (the port's own config, tiler, quantifier and native helper)
+and the device quantifier on the CPU (``ops.labeling``, the device stitch),
+and finds no ``jax``, ``jaxlib`` or ``deepliif_tpu`` / ``deepliif_tpu.*``
+module loaded."""
 
 import json
 import os
@@ -18,12 +19,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = r'''
 import json, os, sys
 import numpy as np
+import torch
+torch.set_num_threads(1)   # beside the suite's other workers
 from PIL import Image
 import deepliif_tpu_torch
 from deepliif_tpu_torch import cli, config, models, native, nets, postprocessing
 from deepliif_tpu_torch.labs import fused_stages
 from deepliif_tpu_torch.models import deepliif as dl
-from deepliif_tpu_torch.ops import fused_resblock, quant
+from deepliif_tpu_torch.ops import fused_resblock, labeling, quant
 from deepliif_tpu_torch.utils import checkpoints as ck, tiler
 
 md = sys.argv[1]
@@ -51,6 +54,13 @@ images = {'Seg': Image.fromarray(out['GS'][0]),
 _, scoring = models.postprocess(Image.fromarray(tiles[0]), images, 64,
                                 'DeepLIIF')
 assert 'num_total' in scoring, scoring
+_, dev_scoring = models.postprocess(Image.fromarray(tiles[0]), images, 64,
+                                    'DeepLIIF', device_quant=True,
+                                    device='cpu')
+assert dev_scoring == scoring, (dev_scoring, scoring)
+images, dev_scoring = models.infer_modalities(
+    Image.fromarray(tiles[0]), 64, md, device_quant=True, device='cpu')
+assert 'SegOverlaid' in images and 'num_total' in dev_scoring
 assert native.label8(np.ones((4, 4), np.uint8)) is not None
 print(json.dumps(sorted(m for m in sys.modules
                         if m in ('jax', 'deepliif_tpu')
