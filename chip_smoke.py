@@ -4,7 +4,8 @@ at the shapes of the main path, then drives flagship DeepLIIF inference
 (4 x resnet_9blocks + 5 x unet_512, ngf 64, 512^2 tiles, random weights from
 a seed) end to end through the port's user entry points, at float32,
 bfloat16, int8 (ResNet-trunk scope, per-chunk dynamic scales) and bfloat16
-with the fused translator stages (``fuse_stages``). Every path must give a
+with the fused translator stages (``fuse_stages``, which end in the tail
+kernel ``tail_s2d_fused``). Every path must give a
 tile the same outputs alone as inside a batch of 16 (``batch_invariance``;
 the engine runs every forward at its one batch shape of 16 tiles). The
 device quantifier (``device_quant``) is checked on synthetic seg canvases
@@ -98,6 +99,17 @@ STAGE_LAUNCHES_PER_FORWARD = 4 * 2   # nets x calls of each stage kernel
 # largest stat of their kind (float32 sums of up to 512^2 terms in
 # different orders)
 STAGE_STATS_TOL = 1e-5
+# the translator tail (affine -> ReLU -> pad 3 -> 7x7 conv -> bias -> tanh)
+# at batch 16: up1's output (S, 512, 512, ngf) -> 3 channels; one launch per
+# translator on the fused path
+TAIL_SHAPE, TAIL_COUT = (BATCH, TILE, TILE, 64), 3
+TAIL_LAUNCHES_PER_FORWARD = 4
+# tail kernel vs plain: the block form (the conv rounded to bf16) within one
+# bf16 ulp (both round a float32 sum of the same exact products, taken in
+# other orders); the fused form within one bf16 ulp of each of the three
+# values it rounds, |c| + |c + b| + |y| (c the rounded conv, y the output):
+# a conv one ulp apart moves the bf16 sum with the bias by up to that ulp,
+# and tanh passes it on scaled by at most 1
 # plane_sums launches per batch forward (two per norm): a translator has 5
 # norms, a unet_512 15 (innermost up, 4 x (down, up), 3 x (down, up)); the
 # fused stages take only the head's statistics through plane_sums (one)
@@ -233,15 +245,18 @@ def chain_check(got, want, kind, **info):
 
 def determinism(conv, x, kw, per_sample, what):
     """Two launches byte-equal; sample 1 alone byte-equal to sample 1 in
-    the batch (``per_sample``: the per-sample keyword arguments)."""
-    y, st = conv(x, **kw)
-    y2, st2 = conv(x, **kw)
-    check(torch.equal(y, y2) and torch.equal(st, st2),
+    the batch (``per_sample``: the per-sample keyword arguments). ``conv``
+    returns a tensor or a tuple of tensors, each with the batch first."""
+    def run(xx, **k):
+        out = conv(xx, **k)
+        return out if isinstance(out, tuple) else (out,)
+    outs = run(x, **kw)
+    check(all(torch.equal(a, b) for a, b in zip(outs, run(x, **kw))),
           f'{what}: two launches differ')
     kw1 = dict(kw, **{k: (v[1:2].contiguous() if v is not None else None)
                       for k, v in per_sample.items()})
-    y1, st1 = conv(x[1:2].contiguous(), **kw1)
-    check(torch.equal(y1[0], y[1]) and torch.equal(st1[0], st[1]),
+    check(all(torch.equal(a[0], b[1])
+              for a, b in zip(run(x[1:2].contiguous(), **kw1), outs)),
           f'{what}: sample alone differs from the sample in the batch')
 
 
@@ -536,6 +551,113 @@ def kernel_checks_stages(FS, FR, rnd):
     return out
 
 
+def tail_bound(shape, cout):
+    """(ms for the operations over the bf16 tensor-core peak, ms for the
+    bytes, ms for the operations over the FP32 FFMA peak) of one tail call:
+    49 MACs per (output pixel, cin, cout); x and y once, w, b and the
+    affine once over HBM. The call's bound is the larger of the first two;
+    the third is the floor of a kernel on the CUDA cores."""
+    s, h, w, cin = shape
+    ops = 2.0 * s * h * w * cin * cout * 49
+    nbytes = 2 * (s * h * w * (cin + cout) + 49 * cin * cout + cout) \
+        + s * cin * 2 * 4
+    return (ops / PEAK_OPS['bfloat16'] * 1e3, nbytes / PEAK_BYTES * 1e3,
+            ops / PEAK_OPS['float32'] * 1e3)
+
+
+def kernel_checks_tail(FS, FR, rnd):
+    """The tail kernel at the flagship call of a batch-16 forward (up1's
+    output, 64 channels -> 3, with up1's norm affine and ReLU), both
+    paddings: the fused and the block form against their plain versions,
+    run to run and per sample, refusals of what it does not take, then
+    timed in turns against the plain version and the library call (cuDNN
+    bf16 conv with bias, then tanh, on the affined and padded input, as the
+    fused path ran its tail before the kernel). Returns {padding: numbers}."""
+    import torch.nn.functional as F
+    from deepliif_tpu_torch.nets import layers as L
+    from deepliif_tpu_torch.utils.checkpoints import weight_from_hwio
+
+    s, _, _, cin = TAIL_SHAPE
+    wt = rnd(7, 7, cin, TAIL_COUT, std=0.02).to(torch.bfloat16)
+    b = rnd(TAIL_COUT, std=0.1).to(torch.bfloat16)
+    out = {}
+    for padding in ('zero', 'reflect'):
+        x = rnd.big(*TAIL_SHAPE)
+        kw = dict(in_scale=rnd(s, cin, std=0.1, mean=1.0),
+                  in_bias=rnd(s, cin, std=0.1), in_relu=True, padding=padding)
+        y = FS.tail_s2d_fused(x, wt, b, **kw)
+        y_ref = FS.tail_s2d_fused_reference(x, wt, b, **kw)
+        c = FS._tail_conv(x, wt, kw['in_scale'], kw['in_bias'], True,
+                          padding).to(torch.bfloat16).float()
+        sb = (c + b.float()[None, :, None, None]).to(torch.bfloat16).float()
+        torch.cuda.synchronize()
+        d = (y.float() - y_ref.float()).abs()
+        err = d.max().item()
+        ulps = (d / (BF16_ULP * (c.abs() + sb.abs() + y_ref.float().abs())
+                     + 1e-6)).max().item()
+        del y, y_ref, c, sb, d
+        yb = FS.tail_s2d_block(x, wt, **kw)
+        yb_ref = FS.tail_s2d_block_reference(x, wt, **kw)
+        torch.cuda.synchronize()
+        db = (yb.float() - yb_ref.float()).abs()
+        block_ulps = (db / (BF16_ULP * yb_ref.float().abs()
+                            + 1e-6)).max().item()
+        phase('kernel_vs_plain', kernel='tail_s2d', shape=list(TAIL_SHAPE),
+              cout=TAIL_COUT, padding=padding, affine_relu=True,
+              max_abs_err_y=err, y_bit_equal=bool(err == 0.0),
+              max_err_in_ulps=ulps, block_max_abs_err=db.max().item(),
+              block_max_err_in_ulps=block_ulps)
+        check(ulps <= 1.0, f'tail_s2d_fused {padding}: y off by {ulps} of '
+                           'its bound')
+        check(block_ulps <= 1.0, f'tail_s2d_block {padding}: off by '
+                                 f'{block_ulps} ulp')
+        del yb, yb_ref, db
+        per_sample = {'in_scale': kw['in_scale'], 'in_bias': kw['in_bias']}
+        determinism(lambda xx, **k: FS.tail_s2d_fused(xx, wt, b, **k), x, kw,
+                    per_sample, f'tail_s2d_fused {padding}')
+        determinism(lambda xx, **k: FS.tail_s2d_block(xx, wt, **k), x, kw,
+                    per_sample, f'tail_s2d_block {padding}')
+        phase('kernel_deterministic', kernel='tail_s2d', padding=padding,
+              forms=['fused', 'block'], two_launches_byte_equal=True,
+              batch_invariant=True)
+        refused = {}
+        for what, bad in (('float32', x[:2].float()),
+                          ('not contiguous', x[:2].transpose(1, 2))):
+            try:
+                FS.tail_s2d_fused(bad, wt, b, **dict(kw, **{
+                    k: v[:2].contiguous() for k, v in per_sample.items()}))
+                refused[what] = False
+            except TypeError:
+                refused[what] = True
+        phase('kernel_refuses', kernel='tail_s2d', raised=refused)
+        check(all(refused.values()), f'tail_s2d_fused ran on {refused}')
+
+        u = FR._transform(x, kw['in_scale'], kw['in_bias'], True)
+        up = L.pad2d(u.permute(0, 3, 1, 2), 3, padding)
+        del u
+        wo = weight_from_hwio(wt, 'conv')
+        runs, ms = in_turns({
+            'plain': lambda: FS.tail_s2d_fused_reference(x, wt, b, **kw),
+            'kernel': lambda: FS.tail_s2d_fused(x, wt, b, **kw),
+            'library': lambda: torch.tanh(F.conv2d(up, wo, b))}, 3)
+        t_ops, t_bytes, t_ffma = tail_bound(TAIL_SHAPE, TAIL_COUT)
+        out[padding] = dict(err=err, ms=ms['kernel'], plain_ms=ms['plain'],
+                            library_ms=ms['library'],
+                            bound_ms=max(t_ops, t_bytes),
+                            bound_by='operations' if t_ops >= t_bytes
+                            else 'bytes', ffma_floor_ms=t_ffma)
+        phase('kernel_timing', kernel='tail_s2d', shape=list(TAIL_SHAPE),
+              cout=TAIL_COUT, padding=padding, runs_ms=runs,
+              **{f'{k}_ms': v for k, v in ms.items()},
+              bound_ms=out[padding]['bound_ms'],
+              bound_by=out[padding]['bound_by'], ffma_floor_ms=t_ffma,
+              library_call='torch.tanh(F.conv2d(..., bias)) (cuDNN bf16) on '
+                           'the affined and padded input')
+        del x, up
+        torch.cuda.empty_cache()
+    return out
+
+
 def kernel_checks_plane(L, rnd):
     """plane_sums (the norm statistics, two passes) at the head conv output
     of a batch-16 forward, float32 and bfloat16: against the plain version,
@@ -639,6 +761,8 @@ def launch_counts(K):
             'int8': FR.conv3x3_stats_int8.launches,
             'conv3x3_s2_stats': FS.conv3x3_s2_stats.launches,
             'convtranspose3_s2_stats': FS.convtranspose3_s2_stats.launches,
+            'tail_s2d': (FS.tail_s2d_fused.launches
+                         + FS.tail_s2d_block.launches),
             'plane_stats': L.plane_sums.launches,
             'label_components': LB.label_components.launches}
 
@@ -650,19 +774,22 @@ def reset_counts(K):
     FR.conv3x3_stats_int8.launches = 0
     FS.conv3x3_s2_stats.launches = 0
     FS.convtranspose3_s2_stats.launches = 0
+    FS.tail_s2d_fused.launches = 0
+    FS.tail_s2d_block.launches = 0
     L.plane_sums.launches = 0
     LB.label_components.launches = 0
 
 
 def expected_counts(precision, fused, n_forwards, quant_calls=0):
     """Launches of each kernel per main-path run: the trunk kernel of the
-    precision, the stage kernels on the fused path only, plane_sums for
-    every norm statistic, the labeling kernel twice per device-quantifier
-    call."""
+    precision, the stage and tail kernels on the fused path only,
+    plane_sums for every norm statistic, the labeling kernel twice per
+    device-quantifier call."""
     want = {kind: 0 for kind in ('float32', 'bfloat16', 'int8')}
     want[precision] = LAUNCHES_PER_FORWARD
     for name in ('conv3x3_s2_stats', 'convtranspose3_s2_stats'):
         want[name] = STAGE_LAUNCHES_PER_FORWARD if fused else 0
+    want['tail_s2d'] = TAIL_LAUNCHES_PER_FORWARD if fused else 0
     want['plane_stats'] = PLANE_PER_FORWARD[fused]
     want = {k: v * n_forwards for k, v in want.items()}
     want['label_components'] = LABEL_PER_QUANT * quant_calls
@@ -1143,6 +1270,7 @@ def main():
            'int8': kernel_checks_int8(FR, rnd)}
     ms = kernel_timing(FR, rnd)
     stages = kernel_checks_stages(FS, FR, rnd)
+    tail = kernel_checks_tail(FS, FR, rnd)
     plane = kernel_checks_plane(L, rnd)
     canvases = {hw: synthetic_seg_canvas(*hw, SEED + i)
                 for i, hw in enumerate(QUANT_CANVASES)}
@@ -1204,6 +1332,19 @@ def main():
             'library_ms': st['library_ms'],
             'per': f'its two calls per translator ({", ".join(st["calls"])})'
                    f', summed, at batch {BATCH}'})
+    tl = tail['zero']           # the flagship's padding (its config.json)
+    report.append({
+        'name': 'tail_s2d', 'route': 'cuda',
+        'source': 'deepliif_tpu_torch/csrc/tail_s2d.cu',
+        'replaces': 'deepliif_tpu/labs/fused_stages.py:483',
+        'launches': launches['fused']['tail_s2d'],
+        'max_abs_err': max(v['err'] for v in tail.values()),
+        'ms': tl['ms'], 'plain_ms': tl['plain_ms'],
+        'bound_ms': tl['bound_ms'], 'bound_by': tl['bound_by'],
+        'library_ms': tl['library_ms'], 'ffma_floor_ms': tl['ffma_floor_ms'],
+        'reflect_ms': tail['reflect']['ms'],
+        'per': f'one translator tail, ({BATCH}, {TILE}, {TILE}, 64) -> 3, '
+               'zero padding, at batch 16'})
     report.append({
         'name': 'plane_stats', 'route': 'cuda',
         'source': 'deepliif_tpu_torch/csrc/plane_stats.cu',

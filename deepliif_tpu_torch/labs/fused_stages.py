@@ -1,29 +1,35 @@
 """Fused translator-stage kernels for inference: the stride-2 down convs and
 the up conv-transposes of the ResNet translator, each with the previous
 stage's norm affine and ReLU applied to its input and the statistics of
-its output for the next norm.
+its output for the next norm, and the tail (affine, ReLU, 3-px pad, 7x7
+conv, bias, tanh).
 
 Port of deepliif_tpu/labs/fused_stages.py (``conv3x3_s2_stats``,
-``convtranspose3_s2_stats``), the kernels of the JAX package's fused
-translator stages (``DEEPLIIF_FUSE_STAGES=1``; here the ``fuse_stages``
-option, nets/resnet.py). The JAX package's space-to-depth tail kernel
-(``tail_s2d_block`` / ``tail_s2d_fused``) is on no product path there and
-is not ported (ROADMAP.md).
+``convtranspose3_s2_stats``, ``tail_s2d_block`` / ``tail_s2d_fused``), the
+kernels of the JAX package's fused translator stages
+(``DEEPLIIF_FUSE_STAGES=1``; here the ``fuse_stages`` option,
+nets/resnet.py). The JAX fused path ends in XLA's tail conv; the port ends
+it with ``tail_s2d_fused``, the same function with the same bf16 rounding
+points.
 
-``conv3x3_s2_stats`` launches ``csrc/conv3x3_s2_stats.cu`` and
-``convtranspose3_s2_stats`` launches ``csrc/convtranspose3_s2_stats.cu``
-for a CUDA tensor (bfloat16 only, as the JAX path); a CPU tensor runs the
-plain version (``*_reference``, float32 or bfloat16); on any other device,
-dtype or layout they raise. There is no fallback from a kernel to its plain
+``conv3x3_s2_stats`` launches ``csrc/conv3x3_s2_stats.cu``,
+``convtranspose3_s2_stats`` ``csrc/convtranspose3_s2_stats.cu`` and
+``tail_s2d_fused`` / ``tail_s2d_block`` ``csrc/tail_s2d.cu`` for a CUDA
+tensor (bfloat16 only, as the JAX path); a CPU tensor runs the plain
+version (``*_reference``, float32 or bfloat16); on any other device, dtype
+or layout they raise. There is no fallback from a kernel to its plain
 version.
 
 Tensors keep the JAX package's layout: activations NHWC (S, H, W, C),
-weights HWIO (3, 3, Cin, Cout) (the conv-transpose's in the forward-conv
-layout, spatially flipped: ``utils.checkpoints.weight_to_hwio``), norm
-affine (S, Cin), stats (S, 2, Cout) as [sum, sum of squares]. The weight is
-cast to x.dtype; the affine runs in x.dtype (scale and bias rounded to it,
-the product and the sum each rounded); the conv sums float32 products; y is
-rounded to x.dtype and the stats come from the float32 conv output.
+weights HWIO (3, 3, Cin, Cout) or (7, 7, Cin, Cout) (the conv-transpose's
+in the forward-conv layout, spatially flipped:
+``utils.checkpoints.weight_to_hwio``), norm affine (S, Cin), stats (S, 2,
+Cout) as [sum, sum of squares]. The weight is cast to x.dtype; the affine
+runs in x.dtype (scale and bias rounded to it, the product and the sum
+each rounded); the conv sums float32 products; y is rounded to x.dtype and
+the stats come from the float32 conv output. The one exception to the
+layout is the output of ``tail_s2d_fused``: (S, Cout, H, W), the layout
+the generator returns.
 """
 
 from __future__ import annotations
@@ -35,11 +41,14 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import cuda_build
-from ..ops.fused_resblock import _check_affine, _stats, _transform
+from ..ops.fused_resblock import (_check_affine, _check_padding, _stats,
+                                  _transform)
 from ..utils.checkpoints import weight_from_hwio
 
 _LIBS = {'conv3x3_s2_stats': ['conv3x3_s2_stats.cu'],
-         'convtranspose3_s2_stats': ['convtranspose3_s2_stats.cu']}
+         'convtranspose3_s2_stats': ['convtranspose3_s2_stats.cu'],
+         'tail_s2d': ['tail_s2d.cu']}
+TAIL_K, TAIL_COUT = 7, 3      # the kernel's 7x7 conv and its output width
 
 
 @functools.cache
@@ -51,6 +60,15 @@ def _lib(name):
     fn = getattr(lib, f'{name}_bf16')
     fn.argtypes = [p] * 7 + [i] * 7 + [p]
     fn.restype = i
+    return lib
+
+
+@functools.cache
+def _tail_lib():
+    lib = cuda_build.load('tail_s2d', _LIBS['tail_s2d'])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tail_s2d_bf16.argtypes = [p] * 6 + [i] * 9 + [p]
+    lib.tail_s2d_bf16.restype = i
     return lib
 
 
@@ -171,3 +189,135 @@ def convtranspose3_s2_stats(x, w, *, in_scale=None, in_bias=None,
 
 
 convtranspose3_s2_stats.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# tail: (affine -> relu ->) pad 3 -> 7x7 conv (-> + bias -> tanh)
+# ---------------------------------------------------------------------------
+
+def _tail_conv(x, w, in_scale, in_bias, in_relu, padding):
+    """affine -> ReLU in x.dtype, pad 3 (reflect, or zero after the
+    affine), a float32 7x7 conv of the HWIO weight cast to x.dtype:
+    (S, Cout, H, W) float32."""
+    _check_padding(padding)
+    u = _transform(x, in_scale, in_bias, in_relu).permute(0, 3, 1, 2).float()
+    u = F.pad(u, (3, 3, 3, 3), mode='reflect' if padding == 'reflect'
+              else 'constant')
+    return F.conv2d(u, weight_from_hwio(w.to(x.dtype).float(), 'conv'))
+
+
+def _to_blocks(y):
+    """(S, Cout, H, W) -> the JAX block layout (S, H/8, W/8, 64 Cout):
+    [s, i, j, (a * 8 + b) * Cout + c] = y[s, c, 8 i + a, 8 j + b]."""
+    s_n, c, h, w = y.shape
+    return (y.reshape(s_n, c, h // 8, 8, w // 8, 8).permute(0, 2, 4, 3, 5, 1)
+            .reshape(s_n, h // 8, w // 8, 64 * c))
+
+
+def tail_s2d_fused_reference(x, w, b=None, *, in_scale=None, in_bias=None,
+                             in_relu=False, padding='reflect'):
+    """Plain PyTorch version of ``tail_s2d_fused`` (same signature and
+    result): the float32 conv rounded to x.dtype, ``b`` added in x.dtype,
+    tanh."""
+    y = _tail_conv(x, w, in_scale, in_bias, in_relu, padding).to(x.dtype)
+    if b is not None:
+        y = y + b.to(x.dtype)[None, :, None, None]
+    return torch.tanh(y)
+
+
+def tail_s2d_block_reference(x, w, *, in_scale=None, in_bias=None,
+                             in_relu=False, padding='reflect'):
+    """Plain PyTorch version of ``tail_s2d_block`` (same signature and
+    result): the float32 conv rounded to x.dtype, in the block layout."""
+    return _to_blocks(_tail_conv(x, w, in_scale, in_bias, in_relu,
+                                 padding).to(x.dtype))
+
+
+def _tail_launch(x, w, b, in_scale, in_bias, in_relu, padding, fused):
+    _check_padding(padding)
+    if x.dtype != torch.bfloat16 or x.dim() != 4 or not x.is_contiguous():
+        raise TypeError(f'tail_s2d kernel takes contiguous NHWC bfloat16 x, '
+                        f'got {x.dtype} {tuple(x.shape)}')
+    s_n, h, w_n, cin = x.shape
+    if tuple(w.shape) != (TAIL_K, TAIL_K, cin, TAIL_COUT):
+        raise ValueError(f'the tail_s2d kernel takes w ({TAIL_K}, {TAIL_K}, '
+                         f'{cin}, {TAIL_COUT}) HWIO, got {tuple(w.shape)}')
+    if padding == 'reflect' and (h < 4 or w_n < 4):
+        raise ValueError(f'reflect padding by 3 needs H, W >= 4, got '
+                         f'{h}x{w_n}')
+    for name, t in (('w', w), ('b', b)):
+        if t is not None and t.device != x.device:
+            raise ValueError(f'x on {x.device}, {name} on {t.device}')
+    if b is not None and tuple(b.shape) != (TAIL_COUT,):
+        raise ValueError(f'b must be ({TAIL_COUT},), got {tuple(b.shape)}')
+    w = w.to(torch.bfloat16).contiguous()
+    b = None if b is None else b.to(torch.bfloat16).contiguous()
+    if cin % 8 or x.data_ptr() % 16:
+        raise ValueError(f'the tail_s2d kernel needs Cin % 8 == 0 and a '
+                         f'16-byte aligned x (Cin={cin})')
+    _check_affine(in_scale, in_bias, s_n, cin, x.device)
+    lib = _tail_lib()
+    y = torch.empty((s_n, TAIL_COUT, h, w_n), dtype=x.dtype, device=x.device)
+    has_affine = in_scale is not None
+    with torch.cuda.device(x.device):
+        err = lib.tail_s2d_bf16(
+            x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
+            in_scale.data_ptr() if has_affine else None,
+            in_bias.data_ptr() if has_affine else None, y.data_ptr(),
+            s_n, h, w_n, cin, TAIL_COUT, int(has_affine), int(bool(in_relu)),
+            int(padding == 'reflect'), int(fused),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'tail_s2d kernel launch failed: cudaError {err}')
+    return y
+
+
+def tail_s2d_fused(x, w, b=None, *, in_scale=None, in_bias=None,
+                   in_relu=False, padding='reflect'):
+    """Fused (affine -> relu ->) pad 3 -> 7x7 conv -> + bias -> tanh: the
+    translator tail, tanh(conv2d(pad2d(norm_relu(x), 3, padding), w) + b)
+    with the conv rounded to x.dtype before the bias.
+
+    x: (S, H, W, Cin); w: (7, 7, Cin, Cout) HWIO; b: (Cout,) or None;
+    in_scale/in_bias: (S, Cin) float32 or None; padding 'reflect' or
+    'zero' (after the affine). Returns (S, Cout, H, W) in x.dtype. A CPU
+    tensor runs the plain version; a CUDA tensor (bfloat16, Cin % 8 == 0,
+    Cout == 3) launches the kernel on the current stream and counts it in
+    ``tail_s2d_fused.launches``, or raises."""
+    if x.device.type == 'cpu':
+        return tail_s2d_fused_reference(x, w, b, in_scale=in_scale,
+                                        in_bias=in_bias, in_relu=in_relu,
+                                        padding=padding)
+    if x.device.type != 'cuda':
+        raise ValueError(f'tail_s2d_fused runs on cpu or cuda, got '
+                         f'{x.device}')
+    y = _tail_launch(x, w, b, in_scale, in_bias, in_relu, padding, True)
+    tail_s2d_fused.launches += 1
+    return y
+
+
+tail_s2d_fused.launches = 0
+
+
+def tail_s2d_block(x, w, *, in_scale=None, in_bias=None, in_relu=False,
+                   padding='reflect'):
+    """The conv part of ``tail_s2d_fused`` in the JAX block layout: (S,
+    H/8, W/8, 64 Cout) in x.dtype, no bias or tanh; H and W % 8 == 0. A
+    CUDA tensor launches the same kernel with its bias and tanh off and
+    counts it in ``tail_s2d_block.launches``."""
+    if x.shape[1] % 8 or x.shape[2] % 8:
+        raise ValueError(f'tail_s2d_block needs H, W % 8 == 0, got '
+                         f'{tuple(x.shape)}')
+    if x.device.type == 'cpu':
+        return tail_s2d_block_reference(x, w, in_scale=in_scale,
+                                        in_bias=in_bias, in_relu=in_relu,
+                                        padding=padding)
+    if x.device.type != 'cuda':
+        raise ValueError(f'tail_s2d_block runs on cpu or cuda, got '
+                         f'{x.device}')
+    y = _tail_launch(x, w, None, in_scale, in_bias, in_relu, padding, False)
+    tail_s2d_block.launches += 1
+    return _to_blocks(y)
+
+
+tail_s2d_block.launches = 0

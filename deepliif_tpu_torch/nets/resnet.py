@@ -21,8 +21,11 @@ instead, the counterpart of the JAX package's ``_apply_fused``
 (``DEEPLIIF_FUSE_STAGES=1``): the down convs and up conv-transposes run
 the kernels of ``labs.fused_stages``, each applying the previous norm's
 affine and ReLU to its input and taking its own output statistics, so no
-norm makes a pass of its own. Where the JAX package would fall back to the
-unfused path (``fused_stages_gate``), the port raises.
+norm makes a pass of its own, and the tail kernel applies up1's norm
+affine and ReLU, the pad, the 7x7 conv, the bias and tanh in one pass
+(the JAX fused path runs that tail in XLA, with the same rounding points).
+Where the JAX package would fall back to the unfused path
+(``fused_stages_gate``), the port raises.
 """
 
 from __future__ import annotations
@@ -306,15 +309,19 @@ class ResnetGenerator(nn.Module):
     # -- fused translator stages ------------------------------------------
 
     def stage_weights(self):
-        """The down-conv and up-conv-transpose kernels in the JAX HWIO
-        layout (``weight_to_hwio``), cast to the compute dtype once per
-        weight version."""
+        """The down-conv, up-conv-transpose and tail kernels in the JAX HWIO
+        layout (``weight_to_hwio``) and the tail bias, cast to the compute
+        dtype once per weight version."""
         m, up = self.model, 10 + self.n_blocks
-        convs = {'down0': m[4], 'down1': m[7], 'up0': m[up], 'up1': m[up + 3]}
-        return self._stage_casts.get(
-            {k: c.weight for k, c in convs.items()}, self.compute_dtype,
-            lambda k, w: weight_to_hwio(w, 'convT' if k.startswith('up')
-                                        else 'conv'))
+        tensors = {'down0': m[4].weight, 'down1': m[7].weight,
+                   'up0': m[up].weight, 'up1': m[up + 3].weight,
+                   'tail': m[up + 7].weight, 'tail_b': m[up + 7].bias}
+
+        def layout(k, t):
+            if k == 'tail_b':
+                return t
+            return weight_to_hwio(t, 'convT' if k.startswith('up') else 'conv')
+        return self._stage_casts.get(tensors, self.compute_dtype, layout)
 
     def fused_stages(self, x):
         """(B, C_in, H, W) bfloat16 -> output through the fused stages (the
@@ -322,8 +329,9 @@ class ResnetGenerator(nn.Module):
         (``plane_sums``), down0 and down1 (``conv3x3_s2_stats``, each with
         the previous norm's affine and ReLU), the norm affine and ReLU, the
         trunk, up0 (``convtranspose3_s2_stats``, no affine) and up1 (with
-        up0's), the norm affine and ReLU, pad, tail conv + bias (cuDNN),
-        tanh."""
+        up0's), then the tail (``tail_s2d_fused``: up1's norm affine and
+        ReLU, pad 3, 7x7 conv, bias, tanh), which returns (B, C_out, H,
+        W)."""
         m, up = self.model, 10 + self.n_blocks
         _, _, h0, w0 = x.shape
         fused_stages_gate(self.compute_dtype, self.int8_mode is not None,
@@ -351,10 +359,9 @@ class ResnetGenerator(nn.Module):
         x, st = FS.convtranspose3_s2_stats(x, w['up1'], in_scale=sc,
                                            in_bias=bi, in_relu=True)
         sc, bi = norm(st, m[up + 4], 1)
-        x = affine_relu(x, sc, bi).permute(0, 3, 1, 2)
-        x = L.pad2d(x, 3, self.padding_type)
-        x = L.conv2d(x, cast(m[up + 7].weight), cast(m[up + 7].bias))
-        return L.tanh(x)
+        return FS.tail_s2d_fused(x, w['tail'], w['tail_b'], in_scale=sc,
+                                 in_bias=bi, in_relu=True,
+                                 padding=self.padding_type)
 
     def forward(self, x):
         """(B, C_in, H, W) in any float dtype -> output in the compute

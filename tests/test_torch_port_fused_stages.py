@@ -15,7 +15,10 @@ handed to both; the JAX stage kernels run in Pallas interpret mode.
   through the port's fused stages against ``resnet.apply(...,
   allow_fused=True, dtype=bfloat16)`` with ``DEEPLIIF_FUSE_STAGES=1`` and
   ``DEEPLIIF_FUSED=1``, on the same JAX params; spies show that both sides
-  ran both stage functions. The JAX side runs eagerly
+  ran both stage functions and that the port ended in its tail kernel
+  (``tail_s2d_fused``, once per translator), where the JAX fused path ends
+  in XLA's tail conv (deepliif_tpu/nets/resnet.py ``_apply_fused``) and so
+  calls its ``tail_s2d_fused`` never. The JAX side runs eagerly
   (``jax.disable_jit()``): eagerly every bf16 op rounds to bf16, the
   semantics the port implements (tests/test_torch_port_precision_slice.py).
   The JAX test of this path (tests/test_fused_stages.py) feeds float32 and
@@ -133,6 +136,11 @@ class _Spy:
 
 
 STAGE_FNS = ('conv3x3_s2_stats', 'convtranspose3_s2_stats')
+SPIED = STAGE_FNS + ('tail_s2d_fused',)
+
+
+def _calls(stage, tail):
+    return {**{n: stage for n in STAGE_FNS}, 'tail_s2d_fused': tail}
 
 
 @pytest.fixture
@@ -140,8 +148,8 @@ def jax_fuse_stages(monkeypatch):
     monkeypatch.setenv('DEEPLIIF_FUSE_STAGES', '1')
     monkeypatch.setenv('DEEPLIIF_FUSED', '1')
     monkeypatch.setenv('DEEPLIIF_INFER_DEVICES', '1')
-    return (_Spy(monkeypatch, FS_jax, STAGE_FNS),
-            _Spy(monkeypatch, FS, STAGE_FNS))
+    return (_Spy(monkeypatch, FS_jax, SPIED),
+            _Spy(monkeypatch, FS, SPIED))
 
 
 @pytest.mark.parametrize('padding', ['zero', 'reflect'])
@@ -161,7 +169,9 @@ def test_fused_translator_matches_jax(padding, jax_fuse_stages):
     net.compute_dtype, net.fuse_stages = torch.bfloat16, True
     with torch.no_grad():
         got = net(torch.from_numpy(x).permute(0, 3, 1, 2))
-    assert spy_jax.calls == spy_port.calls == {n: 2 for n in STAGE_FNS}
+    # the JAX fused path ends in XLA's tail conv: its tail kernel runs 0 times
+    assert spy_jax.calls == _calls(2, 0)
+    assert spy_port.calls == _calls(2, 1)
     assert got.dtype == torch.bfloat16
     _assert_u8_close(_u8(got.float().permute(0, 2, 3, 1).numpy()),
                      _u8(_np(ref)))
@@ -180,8 +190,11 @@ def test_fused_stage_session_matches_jax(tmp_path, jax_fuse_stages):
                               fuse_stages=True)
     assert sess.d.fuse_stages and all(g.fuse_stages for g in sess.nets.G)
     got = sess.run_tiles(tiles)
-    # two translators, two calls of each stage function per translator
-    assert spy_jax.calls == spy_port.calls == {n: 4 for n in STAGE_FNS}
+    # two translators, two calls of each stage function and (the port
+    # only: the JAX fused path ends in XLA's tail conv) one of the tail
+    # kernel per translator
+    assert spy_jax.calls == _calls(4, 0)
+    assert spy_port.calls == _calls(4, 2)
     assert set(got) == set(ref) == {'G1', 'G2', 'GS'}
     for k in ref:
         _assert_u8_close(got[k], ref[k])
@@ -216,7 +229,7 @@ def test_cli_fuse_stages_option(tmp_path, monkeypatch):
     from PIL import Image
     from deepliif_tpu_torch import cli
 
-    spy = _Spy(monkeypatch, FS, STAGE_FNS)
+    spy = _Spy(monkeypatch, FS, SPIED)
     (tmp_path / 'model').mkdir()
     md = write_model_dir(tmp_path / 'model')
     inp = tmp_path / 'in'
@@ -228,7 +241,7 @@ def test_cli_fuse_stages_option(tmp_path, monkeypatch):
         '--tile-size', '128', '--model-dir', md, '--device', 'cpu',
         '--precision', 'bfloat16', '--fuse-stages'])
     assert res.exit_code == 0, res.output
-    assert spy.calls == {n: 4 for n in STAGE_FNS}      # 2 translators
+    assert spy.calls == _calls(4, 2)                   # 2 translators
     names = sorted(p.name for p in (tmp_path / 'out').iterdir())
     assert 'sample.json' in names and len(names) == 6, names
 
