@@ -1,14 +1,15 @@
-// Pieces shared by the fused 3x3 conv kernels of this directory
-// (conv3x3_stats.cu: float32 and bfloat16; conv3x3_stats_int8.cu; the
-// stride-2 translator stages conv3x3_s2_stats.cu and
-// convtranspose3_s2_stats.cu; the bfloat16 tensor-core mainloop
-// conv3x3_wgmma.cuh) and by plane_stats.cu: the output tiling of the CUDA-core
-// kernels, the halo source rule, cp.async wrappers, bfloat16 rounding
-// helpers and the fixed-order per-(sample, channel) statistics.
+// Pieces shared by the fused conv kernels of this directory
+// (conv3x3_stats.cu: float32 on CUDA cores, bfloat16 on the tensor-core
+// mainloop conv3x3_wgmma.cuh, which also runs the stride-2 translator
+// stages conv3x3_s2_stats.cu and convtranspose3_s2_stats.cu;
+// conv3x3_stats_int8.cu; tail_s2d.cu) and by plane_stats.cu: the output
+// tiling of the CUDA-core trunk kernels, the halo source rule, cp.async
+// wrappers, bfloat16 rounding helpers and the fixed-order per-(sample,
+// channel) statistics.
 //
-// The CUDA-core kernels (conv3x3_stats, conv3x3_stats_int8,
-// convtranspose3_s2_stats) tile the output the same way (conv3x3_wgmma.cuh
-// tiles its own): one block per (spatial tile
+// The CUDA-core trunk kernels (conv3x3_stats float32, conv3x3_stats_int8)
+// tile the output the same way (conv3x3_wgmma.cuh tiles its own): one
+// block per (spatial tile
 // of TH x TW pixels, BN output channels, sample), 256 threads, each owning
 // 2 x 4 pixels x 8 output channels. A warp holds 8 pixel groups x 4 channel
 // groups. Pixel group pg owns tile rows 2*(pg/4) + {0,1} and columns
@@ -127,8 +128,8 @@ __device__ __forceinline__ float affine_bf16(float u, float sc, float bi) {
 
 // 8 bf16 input channels k0..k0+7 of one pixel (one 16-byte load) -> floats
 // after the optional norm affine (in bf16, as affine_bf16) and ReLU, for the
-// sample whose (S, C) affine rows start at scale/bias. Used by the stride-2
-// stage kernels, which stage their input without cp.async.
+// sample whose (S, C) affine rows start at scale/bias. Used by the tail
+// kernel, which stages its input without cp.async.
 __device__ __forceinline__ void unpack8_affine_relu(
     uint4 v, const float* __restrict__ scale, const float* __restrict__ bias,
     int k0, bool has_affine, bool in_relu, float (&u)[8]) {
@@ -141,18 +142,6 @@ __device__ __forceinline__ void unpack8_affine_relu(
                          bf16_round(bias[k0 + k]));
     if (in_relu) u[k] = fmaxf(u[k], 0.f);
   }
-}
-
-// The 8 bf16 weights of a thread's channel group (channels cg*4 + 0..3 and
-// 64 + cg*4 + 0..3 of a BN-wide row in shared memory), widened to float.
-__device__ __forceinline__ void load_w8_bf16(const __nv_bfloat16* wrow, int cg,
-                                             float (&b)[8]) {
-  const uint2 b0 = *reinterpret_cast<const uint2*>(wrow + cg * 4);
-  const uint2 b1 = *reinterpret_cast<const uint2*>(wrow + 64 + cg * 4);
-  b[0] = bf16_lo(b0.x); b[1] = bf16_hi(b0.x);
-  b[2] = bf16_lo(b0.y); b[3] = bf16_hi(b0.y);
-  b[4] = bf16_lo(b1.x); b[5] = bf16_hi(b1.x);
-  b[6] = bf16_lo(b1.y); b[7] = bf16_hi(b1.y);
 }
 
 // ---- statistics: per-channel partial sums over this block's pixels, in a

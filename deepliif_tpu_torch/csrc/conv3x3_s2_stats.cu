@@ -27,15 +27,20 @@
 // by its bytes and down1 by its operations.
 //
 // Design: the implicit-GEMM wgmma mainloop of conv3x3_wgmma.cuh at stride
-// 2: 16 x 16 output pixels x 128 output channels per block, the input slab
-// of 33 x 33 pixels split into 4 phase planes so that a tap reads adjacent
-// pixels of one plane, 16 input channels per cp.async stage; per-tile
-// partial statistics in a fixed order, summed in tile order by a second
-// kernel. No float atomics, so y and the stats are bitwise reproducible and
-// do not depend on the batch a sample rides in.
+// 2 (CONV_S2): 16 x 16 output pixels x 128 output channels per block, the
+// input slab of 33 x 33 pixels of 16 channels per stage loaded by the TMA
+// engine as 4 phase planes (rows and columns of one parity each) so that a
+// tap reads adjacent pixels of one plane, a 2-slot ring (a stage is 73 KB);
+// per-tile partial statistics in a fixed order, summed in tile order by a
+// second kernel. No float atomics, so y and the stats are bitwise
+// reproducible and do not depend on the batch a sample rides in.
 
 #include "conv3x3_common.cuh"
 #include "conv3x3_wgmma.cuh"
+
+namespace {
+using G = conv3x3_wgmma::Geom<conv3x3_wgmma::CONV_S2, 128, 2>;
+}
 
 extern "C" {
 
@@ -47,7 +52,7 @@ int conv3x3_s2_stats_num_tiles(int H, int W) {
 
 // Bytes of the packed-weight workspace that conv3x3_s2_stats_bf16 takes.
 long conv3x3_s2_stats_wpack_bytes(int Cin, int Cout) {
-  return conv3x3_wgmma::wpack_bytes(Cin, Cout);
+  return conv3x3_wgmma::wpack_bytes<G>(Cin, Cout);
 }
 
 // Launch the kernels on `stream`; returns the cudaError_t of the launches
@@ -59,10 +64,11 @@ int conv3x3_s2_stats_bf16(const void* x, const void* w, void* wpack,
                           int W, int Cin, int Cout, int has_affine,
                           int in_relu, void* stream) {
   using bf16 = __nv_bfloat16;
-  return conv3x3_wgmma::launch(
+  return conv3x3_wgmma::launch<G>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), wpack,
       in_scale, in_bias, static_cast<bf16*>(y), partial, stats, S, H, W, Cin,
-      Cout, has_affine != 0, in_relu != 0, static_cast<cudaStream_t>(stream));
+      Cout, false, has_affine != 0, in_relu != 0,
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

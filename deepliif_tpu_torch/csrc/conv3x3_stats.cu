@@ -25,11 +25,21 @@
 //
 // What bounds it: at the flagship shape (128 x 128 x 256 per tile) one conv
 // is 2 * 128*128 * 256*256 * 9 = 19.3 GFLOP per tile against 33.6 MB (f32)
-// or 16.8 MB (bf16) of activation traffic in and out: compute-bound. This
-// kernel runs on the FFMA pipe (67 TFLOP/s published for the H100 SXM at
-// 700 W) in both types; bf16 tensor cores (989 TFLOP/s) are later work.
+// or 16.8 MB (bf16) of activation traffic in and out: compute-bound, on the
+// FFMA pipe in float32 (67 TFLOP/s published for the H100 SXM at 700 W), on
+// the bf16 tensor cores (989 TFLOP/s) in bfloat16.
 //
-// Design (simple first):
+// bfloat16: the implicit-GEMM wgmma mainloop of conv3x3_wgmma.cuh at stride
+// 1 (CONV_S1): 16 x 16 output pixels x 128 output channels per item, an 18
+// x 18 input slab of 16 channels per stage loaded by the TMA engine (zeros
+// outside x; reflect padding copies the halo pixels from their sources in
+// the slab, and the producer transforms them like any other pixel), a
+// 4-slot ring (a stage is 47 KB) that the producer fills 3 stages ahead;
+// per-tile partial statistics in a fixed order, summed in tile order. It
+// rounds y once from an f32 sum of the same exact products as the plain
+// version, in another order: within one bf16 ulp of it.
+//
+// float32, design (simple first):
 //  * tiling and thread layout as in conv3x3_common.cuh; a thread reads its
 //    4 x 6 float input window per input channel from shared memory once
 //    (float4 + float2 per row) and reuses it for all 9 taps;
@@ -37,46 +47,31 @@
 //    stages: while the block runs the 9 * BK rank-1 updates of one stage,
 //    cp.async copies the next (TH+2) x (TW+2) x BK input tile (halo rows
 //    and columns from their reflected sources, zero-filled where padding
-//    is zero) and the next 9 x BK x BN weight slice into the other.
-//    float32 lands in the float input planes and each thread applies the
-//    affine and ReLU in place to the values it copied; bfloat16 lands as 16
-//    bytes per pixel (8 channels) in a raw buffer, and the thread that
-//    copied it converts it (affine in bf16, ReLU) into the float planes.
-//    The zero padding stays zero. bf16 weights stay bf16 in shared memory
-//    and are widened as they are read;
-//  * ragged edges (H % TH, W % TW, C % BN, C % BK) are masked; float32
-//    takes any shape, bfloat16 needs C % 8 == 0 (16-byte copies);
+//    is zero) and the next 9 x BK x BN weight slice into the other; each
+//    thread applies the affine and ReLU in place to the values it copied.
+//    The zero padding stays zero;
+//  * ragged edges (H % TH, W % TW, C % BN, C % BK) are masked; any shape;
 //  * statistics: the TPU grid is sequential and accumulates across row
 //    chunks; here blocks run in parallel, so each block writes per-channel
 //    partial sums for its tile in a fixed order and a second kernel sums
 //    them in tile order (conv3x3_common.cuh). No float atomics.
 //
-// Left for later: tensor cores (wgmma on bf16, e.g. the mainloop of
-// conv3x3_wgmma.cuh at stride 1, once chip_smoke.py's 9-block chain bound,
-// which only a kernel summing in cuDNN's order meets today, is settled; or
-// split-TF32 operands for float32), TMA loads and deeper pipelines, a persistent schedule, and
-// fusing the stats reduction into the epilogue of the last block.
-
-#include <type_traits>
+// Left for later: float32 on the tensor cores (split-TF32 operands), TMA
+// loads and deeper pipelines, a persistent schedule, and fusing the stats
+// reduction into the epilogue of the last block.
 
 #include "conv3x3_common.cuh"
+#include "conv3x3_wgmma.cuh"
 
 namespace {
 
 using namespace conv3x3;
-using bf16 = __nv_bfloat16;
 
 constexpr int BK = 8;                // input channels per shared-memory stage
-
-template <typename T>
-struct Stage {
-  static constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  static constexpr int W_BYTES = 9 * BK * BN * (int)sizeof(T);
-  static constexpr int IN_BYTES = BK * IN_STRIDE * 4;         // float planes
-  static constexpr int RAW_BYTES = kBf16 ? IH * IW * BK * 2 : 0;
-  static constexpr int BYTES = W_BYTES + IN_BYTES + RAW_BYTES;
-  static constexpr int SMEM = 2 * BYTES;   // f32: 89,088; bf16: 57,984
-};
+// a stage: the 9 x BK x BN weight slice and BK float input planes
+constexpr int W_BYTES = 9 * BK * BN * 4;
+constexpr int STAGE_BYTES = W_BYTES + BK * IN_STRIDE * 4;
+constexpr int SMEM = 2 * STAGE_BYTES;   // 89,088
 
 // Position of input-tile element e (channel k, tile row/col) and whether it
 // has a source value (false: zero padding, past the halo, or channel >= C).
@@ -99,43 +94,26 @@ __device__ __forceinline__ InElem in_elem(int e, int k0, int r0, int c0,
   return q;
 }
 
-// Pixel e (0 .. IH*IW) of the bf16 input tile: plane offset and source.
-struct InPix {
-  int dst, gr, gc;
-  bool ok;
-};
-
-__device__ __forceinline__ InPix in_pix(int e, int r0, int c0, int H, int W,
-                                        bool reflect) {
-  InPix q;
-  const int row = e / IW;
-  const int col = e % IW;
-  q.dst = row * IWP + col;
-  q.gr = src_index(r0 - 1 + row, H, reflect);
-  q.gc = src_index(c0 - 1 + col, W, reflect);
-  q.ok = q.gr >= 0 && q.gc >= 0;
-  return q;
-}
-
 // Issues the copies of input channels [k0, k0 + BK) into one stage.
-template <typename T>
+// The loops stay rolled: unrolled, they spill registers.
 __device__ __forceinline__ void load_stage(
-    char* stage, const T* xs, const T* __restrict__ w, int k0, int r0,
+    char* stage, const float* xs, const float* __restrict__ w, int k0, int r0,
     int c0, int n0, int H, int W, int C, bool reflect, bool vec_w, int t) {
-  T* w_s = reinterpret_cast<T*>(stage);
-  if constexpr (Stage<T>::kBf16) {
-    bf16* raw = reinterpret_cast<bf16*>(stage + Stage<T>::W_BYTES +
-                                        Stage<T>::IN_BYTES);
-    // C % 8 == 0 and BK == 8: a pixel's 8 channels are one 16-byte copy
-    for (int e = t; e < IH * IW; e += NT) {
-      const InPix q = in_pix(e, r0, c0, H, W, reflect);
-      cp_async16(&raw[e * BK],
-                 q.ok ? xs + ((size_t)q.gr * W + q.gc) * C + k0 : xs, q.ok);
-    }
-    for (int e = t; e < 9 * BK * BN / 8; e += NT) {   // 8 output channels
-      const int n = (e % (BN / 8)) * 8;
-      const int k = (e / (BN / 8)) % BK;
-      const int tap = e / (BN / 8 * BK);
+  float* w_s = reinterpret_cast<float*>(stage);
+  float* in_s = reinterpret_cast<float*>(stage + W_BYTES);
+#pragma unroll 1
+  for (int e = t; e < BK * IH * IW; e += NT) {
+    const InElem q = in_elem(e, k0, r0, c0, H, W, C, reflect);
+    cp_async4(&in_s[q.dst],
+              q.ok ? xs + ((size_t)q.gr * W + q.gc) * C + k0 + q.k : xs,
+              q.ok);
+  }
+  if (vec_w) {  // C % 4 == 0: 16-byte copies of 4 output channels
+#pragma unroll 1
+    for (int e = t; e < 9 * BK * BN / 4; e += NT) {
+      const int n = (e % (BN / 4)) * 4;
+      const int k = (e / (BN / 4)) % BK;
+      const int tap = e / (BN / 4 * BK);
       const int ci = k0 + k;
       const int co = n0 + n;
       const bool ok = ci < C && co < C;
@@ -143,120 +121,51 @@ __device__ __forceinline__ void load_stage(
                  ok ? w + ((size_t)tap * C + ci) * C + co : w, ok);
     }
   } else {
-    float* in_s = reinterpret_cast<float*>(stage + Stage<T>::W_BYTES);
-    // the float32 loops stay rolled: unrolled, they spill registers
 #pragma unroll 1
-    for (int e = t; e < BK * IH * IW; e += NT) {
-      const InElem q = in_elem(e, k0, r0, c0, H, W, C, reflect);
-      cp_async4(&in_s[q.dst],
-                q.ok ? xs + ((size_t)q.gr * W + q.gc) * C + k0 + q.k : xs,
-                q.ok);
-    }
-    if (vec_w) {  // C % 4 == 0: 16-byte copies of 4 output channels
-#pragma unroll 1
-      for (int e = t; e < 9 * BK * BN / 4; e += NT) {
-        const int n = (e % (BN / 4)) * 4;
-        const int k = (e / (BN / 4)) % BK;
-        const int tap = e / (BN / 4 * BK);
-        const int ci = k0 + k;
-        const int co = n0 + n;
-        const bool ok = ci < C && co < C;
-        cp_async16(&w_s[(tap * BK + k) * BN + n],
-                   ok ? w + ((size_t)tap * C + ci) * C + co : w, ok);
-      }
-    } else {
-#pragma unroll 1
-      for (int e = t; e < 9 * BK * BN; e += NT) {
-        const int n = e % BN;
-        const int k = (e / BN) % BK;
-        const int tap = e / (BN * BK);
-        const int ci = k0 + k;
-        const int co = n0 + n;
-        const bool ok = ci < C && co < C;
-        cp_async4(&w_s[e], ok ? w + ((size_t)tap * C + ci) * C + co : w, ok);
-      }
+    for (int e = t; e < 9 * BK * BN; e += NT) {
+      const int n = e % BN;
+      const int k = (e / BN) % BK;
+      const int tap = e / (BN * BK);
+      const int ci = k0 + k;
+      const int co = n0 + n;
+      const bool ok = ci < C && co < C;
+      cp_async4(&w_s[e], ok ? w + ((size_t)tap * C + ci) * C + co : w, ok);
     }
   }
 }
 
-// After this thread's copies of a stage landed: the affine and ReLU on the
-// values it copied, into the float input planes (padding stays zero).
-template <typename T>
+// After this thread's copies of a stage landed: the affine and ReLU in
+// place on the values it copied (padding stays zero).
 __device__ __forceinline__ void transform_stage(
     char* stage, const float* __restrict__ in_scale,
     const float* __restrict__ in_bias, int s, int k0, int r0, int c0, int H,
     int W, int C, bool reflect, bool has_affine, bool in_relu, int t) {
-  float* in_s = reinterpret_cast<float*>(stage + Stage<T>::W_BYTES);
-  if constexpr (Stage<T>::kBf16) {
-    const bf16* raw = reinterpret_cast<const bf16*>(
-        stage + Stage<T>::W_BYTES + Stage<T>::IN_BYTES);
-    for (int e = t; e < IH * IW; e += NT) {
-      const InPix q = in_pix(e, r0, c0, H, W, reflect);
-      float* dst = in_s + q.dst;
-      if (!q.ok) {
-#pragma unroll
-        for (int k = 0; k < BK; ++k) dst[k * IN_STRIDE] = 0.f;
-        continue;
-      }
-      const uint4 v = *reinterpret_cast<const uint4*>(&raw[e * BK]);
-      const unsigned words[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int k = 0; k < BK; ++k) {
-        float u = (k % 2 == 0) ? bf16_lo(words[k / 2]) : bf16_hi(words[k / 2]);
-        if (has_affine) {
-          const size_t i = (size_t)s * C + k0 + k;
-          u = affine_bf16(u, bf16_round(in_scale[i]), bf16_round(in_bias[i]));
-        }
-        if (in_relu) u = fmaxf(u, 0.f);
-        dst[k * IN_STRIDE] = u;
-      }
-    }
-  } else {
-    if (!has_affine && !in_relu) return;
+  if (!has_affine && !in_relu) return;
+  float* in_s = reinterpret_cast<float*>(stage + W_BYTES);
 #pragma unroll 1
-    for (int e = t; e < BK * IH * IW; e += NT) {
-      const InElem q = in_elem(e, k0, r0, c0, H, W, C, reflect);
-      if (!q.ok) continue;
-      float& v = in_s[q.dst];
-      if (has_affine)
-        v = v * in_scale[(size_t)s * C + k0 + q.k] +
-            in_bias[(size_t)s * C + k0 + q.k];
-      if (in_relu) v = fmaxf(v, 0.f);
-    }
+  for (int e = t; e < BK * IH * IW; e += NT) {
+    const InElem q = in_elem(e, k0, r0, c0, H, W, C, reflect);
+    if (!q.ok) continue;
+    float& v = in_s[q.dst];
+    if (has_affine)
+      v = v * in_scale[(size_t)s * C + k0 + q.k] +
+          in_bias[(size_t)s * C + k0 + q.k];
+    if (in_relu) v = fmaxf(v, 0.f);
   }
 }
 
-// 8 weights of tap row `wrow` for channel group cg, widened to float
-template <typename T>
-__device__ __forceinline__ void load_b(const T* wrow, int cg, float (&b)[8]) {
-  if constexpr (Stage<T>::kBf16) {
-    const uint2 b0 = *reinterpret_cast<const uint2*>(wrow + cg * 4);
-    const uint2 b1 = *reinterpret_cast<const uint2*>(wrow + 64 + cg * 4);
-    b[0] = bf16_lo(b0.x); b[1] = bf16_hi(b0.x);
-    b[2] = bf16_lo(b0.y); b[3] = bf16_hi(b0.y);
-    b[4] = bf16_lo(b1.x); b[5] = bf16_hi(b1.x);
-    b[6] = bf16_lo(b1.y); b[7] = bf16_hi(b1.y);
-  } else {
-    const float4 b0 = *reinterpret_cast<const float4*>(wrow + cg * 4);
-    const float4 b1 = *reinterpret_cast<const float4*>(wrow + 64 + cg * 4);
-    b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
-    b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
-  }
-}
-
-template <typename T>
 __global__ void __launch_bounds__(NT, 2)
-conv3x3_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
+conv3x3_stats_kernel(const float* __restrict__ x, const float* __restrict__ w,
                      const float* __restrict__ in_scale,
                      const float* __restrict__ in_bias,
-                     T* __restrict__ y, float* __restrict__ partial,
+                     float* __restrict__ y, float* __restrict__ partial,
                      int H, int W, int C, int tiles_w, int n_tiles,
                      bool reflect, bool has_affine, bool in_relu) {
-  extern __shared__ __align__(16) char smem[];  // 2 x [w_s | in_s (| raw)]
+  extern __shared__ __align__(16) char smem[];  // 2 x [w_s | in_s]
   const Tile q = tile_of_block(tiles_w);
   const int t = q.t;
   const bool vec_w = C % 4 == 0;
-  const T* xs = x + (size_t)q.s * H * W * C;
+  const float* xs = x + (size_t)q.s * H * W * C;
 
   float acc[8][8];   // [pixel (2 rows x 4 columns)][channel]
 #pragma unroll
@@ -265,24 +174,23 @@ conv3x3_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
   const int n_chunks = (C + BK - 1) / BK;
-  load_stage<T>(smem, xs, w, 0, q.r0, q.c0, q.n0, H, W, C, reflect, vec_w, t);
+  load_stage(smem, xs, w, 0, q.r0, q.c0, q.n0, H, W, C, reflect, vec_w, t);
   cp_async_commit();
   for (int chunk = 0; chunk < n_chunks; ++chunk) {
-    char* stage = smem + (chunk & 1) * Stage<T>::BYTES;
+    char* stage = smem + (chunk & 1) * STAGE_BYTES;
     if (chunk + 1 < n_chunks)
-      load_stage<T>(smem + ((chunk + 1) & 1) * Stage<T>::BYTES, xs, w,
-                    (chunk + 1) * BK, q.r0, q.c0, q.n0, H, W, C, reflect,
-                    vec_w, t);
+      load_stage(smem + ((chunk + 1) & 1) * STAGE_BYTES, xs, w,
+                 (chunk + 1) * BK, q.r0, q.c0, q.n0, H, W, C, reflect, vec_w,
+                 t);
     cp_async_commit();
     cp_async_wait_prev();
     const int k0 = chunk * BK;
-    transform_stage<T>(stage, in_scale, in_bias, q.s, k0, q.r0, q.c0, H, W,
-                       C, reflect, has_affine, in_relu, t);
+    transform_stage(stage, in_scale, in_bias, q.s, k0, q.r0, q.c0, H, W, C,
+                    reflect, has_affine, in_relu, t);
     __syncthreads();
 
-    const T* w_s = reinterpret_cast<const T*>(stage);
-    const float* in_s =
-        reinterpret_cast<const float*>(stage + Stage<T>::W_BYTES);
+    const float* w_s = reinterpret_cast<const float*>(stage);
+    const float* in_s = reinterpret_cast<const float*>(stage + W_BYTES);
 #pragma unroll 1
     for (int k = 0; k < BK; ++k) {
       const float* ik = in_s + k * IN_STRIDE + q.pr * IWP + q.pc;
@@ -298,8 +206,12 @@ conv3x3_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
       for (int tap = 0; tap < 9; ++tap) {
         const int ky = tap / 3;
         const int kx = tap % 3;
-        float b[8];
-        load_b<T>(&w_s[(tap * BK + k) * BN], q.cg, b);
+        // 8 weights of this tap row for channel group cg
+        const float* wrow = &w_s[(tap * BK + k) * BN];
+        const float4 b0 = *reinterpret_cast<const float4*>(wrow + q.cg * 4);
+        const float4 b1 =
+            *reinterpret_cast<const float4*>(wrow + 64 + q.cg * 4);
+        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -322,32 +234,13 @@ conv3x3_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
     const int gr = q.r0 + q.pr + p / 4;
     const int gc = q.c0 + q.pc + p % 4;
     if (gr < H && gc < W) {
-      T* yp = y + (((size_t)q.s * H + gr) * W + gc) * C;
-      if constexpr (Stage<T>::kBf16) {
+      float* yp = y + (((size_t)q.s * H + gr) * W + gc) * C;
 #pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          psum[n] += acc[p][n];
-          psq[n] += acc[p][n] * acc[p][n];
-        }
-        // C % 8 == 0: a group of 4 channels is all in range or all out
-#pragma unroll
-        for (int g = 0; g < 2; ++g) {
-          const int co = out_channel(q, 4 * g);
-          if (co < C) {
-            uint2 pk;
-            pk.x = pack_bf16x2(acc[p][4 * g], acc[p][4 * g + 1]);
-            pk.y = pack_bf16x2(acc[p][4 * g + 2], acc[p][4 * g + 3]);
-            *reinterpret_cast<uint2*>(yp + co) = pk;
-          }
-        }
-      } else {
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const int co = out_channel(q, n);
-          if (co < C) yp[co] = acc[p][n];
-          psum[n] += acc[p][n];
-          psq[n] += acc[p][n] * acc[p][n];
-        }
+      for (int n = 0; n < 8; ++n) {
+        const int co = out_channel(q, n);
+        if (co < C) yp[co] = acc[p][n];
+        psum[n] += acc[p][n];
+        psq[n] += acc[p][n] * acc[p][n];
       }
     }
   }
@@ -356,22 +249,42 @@ conv3x3_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
                       C, n_tiles);
 }
 
-template <typename T>
-int launch(const T* x, const T* w, const float* in_scale,
-           const float* in_bias, T* y, float* partial, float* stats, int S,
-           int H, int W, int C, int reflect, int has_affine, int in_relu,
-           void* stream) {
-  if (Stage<T>::kBf16 && C % 8 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+// the bfloat16 trunk on the tensor cores
+using GBf16 = conv3x3_wgmma::Geom<conv3x3_wgmma::CONV_S1, 128, 4>;
+
+}  // namespace
+
+extern "C" {
+
+// Number of spatial tiles per sample of the float32 kernel: the wrapper
+// sizes the partial-sum scratch (S, n_tiles, 2, C) with it.
+int conv3x3_stats_num_tiles(int H, int W) { return num_tiles(H, W); }
+
+// The same for the bfloat16 kernel, and the bytes of the packed-weight
+// workspace it takes.
+int conv3x3_stats_bf16_num_tiles(int H, int W) {
+  return conv3x3_wgmma::num_tiles(H, W);
+}
+
+long conv3x3_stats_bf16_wpack_bytes(int C) {
+  return conv3x3_wgmma::wpack_bytes<GBf16>(C, C);
+}
+
+// Launch both kernels on `stream` and return the cudaError_t of the
+// launches (0 on success). in_scale/in_bias may be null when has_affine is
+// 0.
+int conv3x3_stats_f32(const float* x, const float* w, const float* in_scale,
+                      const float* in_bias, float* y, float* partial,
+                      float* stats, int S, int H, int W, int C, int reflect,
+                      int has_affine, int in_relu, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int tiles_w = (W + TW - 1) / TW;
   const int n_tiles = num_tiles(H, W);
   const dim3 grid(n_tiles, (C + BN - 1) / BN, S);
   cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_stats_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Stage<T>::SMEM);
+      conv3x3_stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  conv3x3_stats_kernel<T><<<grid, NT, Stage<T>::SMEM, st>>>(
+  conv3x3_stats_kernel<<<grid, NT, SMEM, st>>>(
       x, w, in_scale, in_bias, y, partial, H, W, C, tiles_w, n_tiles,
       reflect != 0, has_affine != 0, in_relu != 0);
   err = cudaGetLastError();
@@ -380,32 +293,19 @@ int launch(const T* x, const T* w, const float* in_scale,
                                               st));
 }
 
-}  // namespace
-
-extern "C" {
-
-// Number of spatial tiles per sample: the wrapper sizes the partial-sum
-// scratch (S, n_tiles, 2, C) with it.
-int conv3x3_stats_num_tiles(int H, int W) { return num_tiles(H, W); }
-
-// Launch both kernels on `stream` and return the cudaError_t of the
-// launches (0 on success). in_scale/in_bias may be null when has_affine is
-// 0. The bf16 entry takes and returns bf16 x, w and y (C % 8 == 0).
-int conv3x3_stats_f32(const float* x, const float* w, const float* in_scale,
-                      const float* in_bias, float* y, float* partial,
-                      float* stats, int S, int H, int W, int C, int reflect,
-                      int has_affine, int in_relu, void* stream) {
-  return launch<float>(x, w, in_scale, in_bias, y, partial, stats, S, H, W,
-                       C, reflect, has_affine, in_relu, stream);
-}
-
-int conv3x3_stats_bf16(const void* x, const void* w, const float* in_scale,
-                       const float* in_bias, void* y, float* partial,
-                       float* stats, int S, int H, int W, int C, int reflect,
-                       int has_affine, int in_relu, void* stream) {
-  return launch<bf16>(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-                      in_scale, in_bias, static_cast<bf16*>(y), partial,
-                      stats, S, H, W, C, reflect, has_affine, in_relu, stream);
+// bfloat16 x, w and y (C % 8 == 0, 16-byte aligned); wpack is a 16-byte
+// aligned workspace of conv3x3_stats_bf16_wpack_bytes(C) bytes.
+int conv3x3_stats_bf16(const void* x, const void* w, void* wpack,
+                       const float* in_scale, const float* in_bias, void* y,
+                       float* partial, float* stats, int S, int H, int W,
+                       int C, int reflect, int has_affine, int in_relu,
+                       void* stream) {
+  using bf16 = __nv_bfloat16;
+  return conv3x3_wgmma::launch<GBf16>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), wpack,
+      in_scale, in_bias, static_cast<bf16*>(y), partial, stats, S, H, W, C, C,
+      reflect != 0, has_affine != 0, in_relu != 0,
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,73 +1,103 @@
 // Implicit-GEMM 3x3 convolution on Hopper's tensor cores (wgmma, sm_90a),
 // bfloat16 in, float32 accumulation, fused with the input's norm affine and
-// ReLU and with per-(sample, channel) output statistics, at stride 2 with
-// zero padding: the translator's down stages (conv3x3_s2_stats.cu; replaces
-// deepliif_tpu/labs/fused_stages.py::_down_kernel).
+// ReLU and with per-(sample, channel) output statistics. Three kinds
+// (Geom<KIND, BN, NST>):
+//  * CONV_S1: stride 1, reflect or zero pad 1, the ResNet trunk
+//    (conv3x3_stats.cu bf16; replaces deepliif_tpu/ops/fused_resblock.py
+//    ::_kernel);
+//  * CONV_S2: stride 2, zero pad 1, the translator's down stages
+//    (conv3x3_s2_stats.cu; replaces deepliif_tpu/labs/fused_stages.py
+//    ::_down_kernel);
+//  * CONVT: ConvTranspose2d(3, stride 2, padding 1, output_padding 1), the
+//    up stages (convtranspose3_s2_stats.cu; replaces
+//    deepliif_tpu/labs/fused_stages.py::_up_kernel), in its phase form: with
+//    w in the forward-conv HWIO layout (the torch kernel spatially flipped),
+//    per axis out[2m] = w[1] x[m] and out[2m + 1] = w[0] x[m] + w[2] x[m + 1]
+//    (x past the edge is zero), so each of the four output phases (a, b) is
+//    a stride-1 conv of 1, 2, 2 or 4 taps over the input, with a halo of one
+//    row and one column at the bottom and right.
 //
 // Contract (the kernels' headers): u = relu(x * scale[s] + bias[s]) in bf16
 // (scale and bias rounded to bf16, the product and the sum each rounded);
-// zero pad 1 (zeros written after the affine); y = conv(u, w, stride 2)
-// with bf16 x bf16 products summed in f32; y rounded to bf16; stats (sum,
-// sum^2) per (sample, channel) from the f32 sums. x NHWC (S, H, W, Cin), H
-// and W even, w HWIO (3, 3, Cin, Cout), y NHWC, Cin and Cout % 8 == 0, x
-// and w 16-byte aligned.
+// the pad (zeros written after the affine; reflect: the reflected pixel's
+// transformed value); y = the conv of u with bf16 x bf16 products summed in
+// f32; y rounded to bf16; stats (sum, sum^2) per (sample, channel) from the
+// f32 sums. x NHWC (S, H, W, Cin), w HWIO (3, 3, Cin, Cout), y NHWC, Cin and
+// Cout % 8 == 0, x, w, scale and bias 16-byte aligned.
 //
-// The GEMM: M = a tile of 16 x 16 output pixels, N = 128 output channels,
-// K = 9 taps x Cin. What bounds it on the H100: the operations or the
-// bytes of x and y (the flagship down0 call (16, 512, 512, 64) -> 128:
-// 154.6 GFLOP, 0.156 ms at 989 TFLOP/s, against 0.240 ms for its bytes;
-// down1 (16, 256, 256, 128) -> 256: 0.156 ms against 0.120) and, per SM,
-// the bytes each tile streams from L2: the weights (9 x KC x 128 x 2 B per
-// stage, whatever the tile's M) dominate, so the tile is as large as the
-// accumulator registers allow, and the weights arrive by bulk copy (TMA
-// engine) from an image packed once per call.
+// The GEMM: M = a tile of 16 x 16 output pixels (CONVT: of one phase, 16 x
+// 16 input pixels), N = BN output channels (128; 64 for CONVT), K = taps x
+// Cin. What bounds it on the H100: the operations (the trunk (16, 128, 128,
+// 256): 154.6 GFLOP, 0.156 ms at 989 TFLOP/s, against 0.068 ms for its
+// bytes) or the bytes of x and y (down0, up1) and, per SM, what each stage
+// moves into shared memory and how many requests that takes: the weights
+// (taps x KC x BN x 2 B per stage, whatever the tile's M) and the input
+// slab. So the tile is as large as the accumulator registers allow, the
+// weights are packed once per call so that a stage's taps are one bulk
+// copy, and the slab arrives as TMA boxes of a tensor map of x: 16-byte
+// cp.async copies, one request per 16 bytes of a pixel, held the producer
+// back (measured on the H100).
 //
 // Warp specialization, 384 threads:
-//  * warpgroup 0, the producer (setmaxnreg 40), fills a 2-slot ring in
-//    shared memory, one stage of KC input channels at a time: thread 0
-//    bulk-copies the stage's weights for all 9 taps (per tap two 64-column
-//    blocks of KC rows x 128 B, 128-byte swizzled: chunk q of row k at
-//    q ^ (k % 8), the MN-major SWIZZLE_128B layout that the wgmma B
-//    descriptor names; pack_weights_kernel lays them out so once per call),
-//    counted as transactions on the slot's "full" mbarrier, and all 128
-//    threads cp.async the input slab of KC channels the tile needs, each
-//    from a table of its copies' destinations and slab positions filled
-//    once per CTA ((2*16+1)^2 pixels split into 4 phase planes by row and
-//    column parity, so that a tap reads adjacent pixels of a plane). Within
-//    a pixel the 16-byte chunks are XOR-swizzled so that any 8 adjacent
-//    pixels of a plane row fall in 8 distinct bank groups. Halo sources are
-//    resolved when a copy is issued (src_index); pixels past the image
-//    (zero pad, ragged tiles) and channels past Cin are zero-filled. Once a
-//    stage landed, the producer applies the affine and ReLU in place with
-//    packed bf16x2 arithmetic to the chunks that had a source (a zero pad
-//    stays zero), fences them for the async proxy and arrives on the slot's
-//    "full" mbarrier;
+//  * warpgroup 0, the producer (setmaxnreg 40), fills an NST-slot ring in
+//    shared memory, one stage of KC = 16 input channels at a time, AHEAD
+//    stages ahead of the consumers. Thread 0 starts the stage's copies on
+//    the slot's "landed" mbarrier: the weights of its taps (per tap BN / 64
+//    blocks of KC rows x 128 B, 128-byte swizzled: chunk q of row k at q ^
+//    (k % 8), the MN-major SWIZZLE_128B layout that the wgmma B descriptor
+//    names; CONVT's image holds the taps phase by phase) and the input slab
+//    of KC channels, one TMA box per plane (CONV_S2: (2*16+1)^2 pixels in 4
+//    phase planes by row and column parity, loaded with a traversal stride
+//    of 2, so that a tap reads adjacent pixels of a plane; CONV_S1 18^2 and
+//    CONVT 17^2 pixels in one plane), 32-byte swizzled so that any 8
+//    adjacent pixels of a plane row fall in 8 distinct bank groups. The TMA
+//    engine reads zeros outside x: the zero pad, past the edge, channels
+//    past Cin. Threads 0-7 copy the stage's norm scale and bias ahead into
+//    shared memory. Where the stage needs it (affine, ReLU or reflect
+//    padding; not CONVT, see below), all 128 threads then pass over their
+//    chunks of the slab (a table of their offsets and positions filled
+//    once per CTA): they copy the reflected halo pixels from their sources
+//    in the slab, and apply the affine and ReLU in place with packed
+//    bf16x2 arithmetic to the chunks that have a source (a reflected pixel
+//    is transformed like any other; a zero stays zero). Then they arrive on
+//    the slot's "full" mbarrier;
 //  * warpgroups 1 and 2, the consumers (setmaxnreg 232), own output rows
 //    0-7 and 8-15 of the tile as two m64 tiles each (warp w: rows 4j + w,
 //    all 16 columns). A comes from registers (wgmma ... RS): ldmatrix.x4,
 //    each lane giving the address of one pixel's 8 channels, so the tap
-//    shift and the stride-2 gather are address arithmetic. A stage's k16
-//    steps run in units of UK = 9 steps per m64 tile, each into a fresh
-//    f32 temporary (n = 128) that is added to the f32 accumulator (round to
-//    nearest) once the unit completed. Summing all of K = 9 Cin in the
-//    tensor cores' own accumulation drifts from an f32 sum by several bf16
-//    ulps of small outputs (measured on the H100); a unit sums 144
-//    products there. The consumers arrive on the slot's "empty" mbarrier
-//    when its wgmmas are done;
+//    shift, the stride-2 gather and the phase offsets are address
+//    arithmetic. CONVT's consumers apply the affine and ReLU to their A
+//    fragments themselves (zero where the pixel has no source): each of a
+//    tile's 4 phase items would otherwise have the producer transform the
+//    same slab again. The k16 steps (one per tap of a stage: 9, or the
+//    phase's 1-4) run in units into a fresh f32 temporary that is added to
+//    the f32 accumulator (round to nearest) once the unit completed: a unit
+//    is a stage per m64 tile (9 steps), or for CONVT up to 8 steps over several
+//    stages, each m64 tile with a temporary of its own so that the tensor
+//    cores are not drained per stage. Summing all of K in the tensor cores'
+//    own accumulation drifts from an f32 sum by several bf16 ulps of small
+//    outputs (measured on the H100); a unit sums at most 144 products
+//    there. The consumers arrive on the slot's "empty" mbarrier when its
+//    wgmmas are done;
 //  * the CTAs are persistent: CTA b walks the items b, b + gridDim.x, ...
-//    (item = tile x 128 channels of one sample, channel block fastest) and
-//    their stages as one sequence of steps through the ring, so copies run
-//    ahead across items.
+//    (item = tile x phase x BN channels of one sample, channel block
+//    fastest; the phase order rotates with the tile so that a CTA's items
+//    cycle through the phases' uneven tap counts) and their stages as one
+//    sequence of steps through the ring, so copies run ahead across items.
 //
-// Epilogue (consumers): y rounded to bf16 and stored NHWC; each thread
-// sums its own pixels per channel in a fixed order, an xor butterfly over
-// the 8 lanes that share channels, then the 8 consumer warps' sums in warp
-// order, written as per-tile partials partial[s, tile, {sum, sumsq}, c]
-// that stats_reduce_kernel sums in tile order. No float atomics, no split
-// K, and the tiling does not depend on S: y and the stats are byte-equal
-// run to run and alone vs in a batch.
+// Epilogue (consumers): y rounded to bf16 and stored NHWC (CONVT: phase (a,
+// b) of input pixel (m, n) at output (2m + a, 2n + b)); each thread sums
+// its own pixels per channel in a fixed order, an xor butterfly over the 8
+// lanes that share channels, then the 8 consumer warps' sums in warp order,
+// written as per-item partials partial[s, tile * phases + phase, {sum,
+// sumsq}, c] that stats_reduce_kernel sums in that order. No float atomics,
+// no split K, and the tiling does not depend on S: y and the stats are
+// byte-equal run to run and alone vs in a batch.
 
 #pragma once
+
+// CUtensorMap (types only: the encoder is fetched at run time)
+#include <cuda.h>
 
 #include <cstdint>
 
@@ -80,51 +110,67 @@ using bf16 = __nv_bfloat16;
 constexpr int NT = 384;      // producer warpgroup + two consumer warpgroups
 constexpr int PT = 128;      // producer threads
 constexpr int CT = 256;      // consumer threads
-constexpr int TM = 16;       // output rows per tile
-constexpr int TN = 16;       // output columns per tile
-constexpr int BN = 128;      // output channels per tile
+constexpr int TM = 16;       // tile rows (output; CONVT: input)
+constexpr int TN = 16;       // tile columns
 constexpr int M_SUB = 2;     // m64 tiles per consumer warpgroup
-constexpr int NST = 2;       // ring slots
-constexpr int RED_BYTES = (CT / 32) * BN * 2 * 4;   // epilogue stats scratch
-constexpr int BAR_BYTES = 2 * NST * 8;              // full, empty mbarriers
+constexpr int KC = 16;       // input channels per stage: one k16 step a tap
+constexpr int CPP = KC / 8;  // 16-byte chunks per staged pixel
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
-constexpr int STRIDE = 2;
 
+enum Kind { CONV_S1, CONV_S2, CONVT };
+
+template <int KIND, int BN_, int NST_>
 struct Geom {
-  // input channels per stage; k16 steps per tap; k16 steps per unit (the
-  // 9 taps)
-  static constexpr int KC = 16;
-  static constexpr int KS = KC / 16;
-  static constexpr int UK = 9;
-  static constexpr int UNITS = 9 * KS / UK;          // units per stage
-  static constexpr int CPP = KC / 8;                 // 16-byte chunks per pixel
-  static constexpr int SH = (TM - 1) * STRIDE + 3;   // staged input rows
-  static constexpr int SW = (TN - 1) * STRIDE + 3;   // staged input columns
-  static constexpr int PH = (SH + 1) / 2;           // plane rows
-  static constexpr int PW = (SW + 1) / 2;           // plane columns
-  static constexpr int NPL = STRIDE * STRIDE;        // phase planes
-  static constexpr int SLAB_ELEMS = SH * SW * CPP;   // 16-byte copies per stage
-  static constexpr int SLAB_BYTES = NPL * PH * PW * CPP * 16;
+  static constexpr bool TRANSPOSED = KIND == CONVT;
+  static constexpr int BN = BN_;             // output channels per item
+  static constexpr int NB64 = BN / 64;       // 64-column weight blocks
+  static constexpr int NST = NST_;           // ring slots
+  static constexpr int AHEAD = NST - 1;      // stages loading ahead
+  static constexpr int STRIDE = KIND == CONV_S2 ? 2 : 1;   // of the slab
+  static constexpr int PAD = TRANSPOSED ? 0 : 1;  // slab origin r0*STRIDE-PAD
+  static constexpr int NPH = TRANSPOSED ? 4 : 1;  // output phases per tile
+  static constexpr int NTAP = TRANSPOSED ? 4 : 9;  // most taps of a stage
+  static constexpr int SH = TRANSPOSED ? TM + 1 : (TM - 1) * STRIDE + 3;
+  static constexpr int SW = TRANSPOSED ? TN + 1 : (TN - 1) * STRIDE + 3;
+  static constexpr int PH = (SH + STRIDE - 1) / STRIDE;   // plane rows
+  static constexpr int PW = (SW + STRIDE - 1) / STRIDE;   // plane columns
+  static constexpr int NPL = STRIDE * STRIDE;             // planes
+  static constexpr int SLAB_ELEMS = SH * SW * CPP;   // 16-byte chunks a stage
+  // staged pixels per plane: a plane starts 256-byte aligned (the TMA
+  // engine's destination, and the period of its 32-byte swizzle)
+  static constexpr int PLANE_PIX = (PH * PW + 7) / 8 * 8;
+  static constexpr int SLAB_BYTES = NPL * PLANE_PIX * CPP * 16;
+  static constexpr int SLAB_TX = NPL * PH * PW * CPP * 16;   // bytes loaded
   static constexpr int WBLK_BYTES = KC * 128;        // one 64-column block
-  static constexpr int WTAP_BYTES = 2 * WBLK_BYTES;  // one tap
-  static constexpr int W_BYTES = 9 * WTAP_BYTES;
+  static constexpr int WTAP_BYTES = NB64 * WBLK_BYTES;
+  static constexpr int W_BYTES = NTAP * WTAP_BYTES;  // a slot's weights
+  static constexpr int WIMG_BYTES = 9 * WTAP_BYTES;  // packed, per stage
   static constexpr int STAGE_BYTES =
       (W_BYTES + SLAB_BYTES + 1023) / 1024 * 1024;
-  // slab copies per producer thread (its table of destinations and slab
+  // slab chunks per producer thread (its table of their slab offsets and
   // positions)
   static constexpr int NE = (SLAB_ELEMS + PT - 1) / PT;
   static constexpr int TABLE_BYTES = NE * PT * 4;
-  // the ring, the stats scratch, the slab table, the barriers, and slack to
-  // align the ring to 1024 bytes
-  static constexpr int SMEM =
-      NST * STAGE_BYTES + RED_BYTES + TABLE_BYTES + BAR_BYTES + 1024;
-  static_assert(9 * KS % UK == 0, "units tile the stage");
-  static_assert(PT % CPP == 0, "a producer thread copies one chunk of a pixel");
+  // each thread's masks of every slot: chunks with a source, reflected ones
+  static constexpr int MASK_BYTES = 2 * NST * PT * 4;
+  // each slot's norm scale and bias of its KC channels
+  static constexpr int AFF_BYTES = NST * 2 * KC * 4;
+  static constexpr int RED_BYTES = (CT / 32) * BN * 2 * 4;   // stats scratch
+  static constexpr int BAR_BYTES = 3 * NST * 8;   // full, empty, landed
+  // the ring, the stats scratch, the slab table, the masks, the affine, the
+  // barriers, and slack to align the ring to 1024 bytes
+  static constexpr int SMEM = NST * STAGE_BYTES + RED_BYTES + TABLE_BYTES +
+                              MASK_BYTES + AFF_BYTES + BAR_BYTES + 1024;
+  static_assert(BN == 64 || BN == 128, "an n64 or n128 wgmma");
+  // CONVT: each m64 tile keeps a temporary of its own (stage_deferred)
+  static_assert(!TRANSPOSED || BN == 64, "two temporaries per tile at n64");
+  static_assert(PT % CPP == 0, "a producer thread owns one chunk of a pixel");
+  static_assert(W_BYTES % 1024 == 0, "the slab starts 1024-byte aligned");
   static_assert(NE <= 32, "slab mask fits 32 bits");
   static_assert(SLAB_BYTES <= 65536 && SH < 256 && SW < 256,
                 "a table entry packs 16 + 8 + 8 bits");
-  static_assert(SMEM <= 232448, "the shared memory of one block");
+  static_assert(NST >= 2 && SMEM <= 232448, "the shared memory of one block");
 };
 
 // ---- PTX wrappers
@@ -141,8 +187,8 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
                : "memory");
 }
 
-// generic-proxy writes to shared memory (cp.async, st.shared) made visible
-// to the async proxy that wgmma reads its descriptors' operands through
+// orders this thread's generic-proxy accesses to shared memory before later
+// async-proxy ones (the TMA engine's writes into the same ring slot)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -178,14 +224,13 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
          (1ull << 62);
 }
 
-// d[64] = A (m64 x k16, bf16 fragments in registers) * B (k16 x n128,
-// bf16, MN-major in shared memory: two 64-column blocks LBO apart) +
-// (accumulate ? d : 0), f32. Thread (warp w, lane l) holds d[i] of row
-// 16w + l/4 + 8((i/2)%2), column 8(i/4) + 2(l%4) + i%2.
-__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
-                                                    const uint32_t (&a)[4],
-                                                    uint64_t desc_b,
-                                                    int accumulate) {
+// d[N/2] = A (m64 x k16, bf16 fragments in registers) * B (k16 x nN, bf16,
+// MN-major in shared memory: 64-column blocks LBO apart) + (accumulate ? d :
+// 0), f32. Thread (warp w, lane l) holds d[i] of row 16w + l/4 +
+// 8((i/2)%2), column 8(i/4) + 2(l%4) + i%2.
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b, int accumulate) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -223,6 +268,34 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "r"(accumulate));
 }
 
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate));
+}
+
 // ---- mbarriers and register reallocation
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -238,13 +311,6 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
                : "memory");
 }
 
-// adds `bytes` to the transactions the current phase waits for
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
 // bulk copy (TMA engine) of `bytes` from global to shared memory, counted
 // on mbarrier `bar` as transactions
 __device__ __forceinline__ void bulk_copy_g2s(uint32_t dst, const void* src,
@@ -253,6 +319,30 @@ __device__ __forceinline__ void bulk_copy_g2s(uint32_t dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// arrives (count 1) and adds `bytes` to the transactions the phase waits for
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// TMA copy of the 4-D box at coordinates (c0, c1, c2, c3) of tensor map
+// `map` (a kernel parameter) to shared memory, counted on mbarrier `bar`;
+// coordinates out of the tensor (negative ones included) read zeros
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
       : "memory");
 }
 
@@ -276,6 +366,17 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(CT) : "memory");
 }
 
+// the producer threads only (named barrier 2)
+__device__ __forceinline__ void producer_sync() {
+  asm volatile("bar.sync 2, %0;\n" ::"n"(PT) : "memory");
+}
+
+// until at most N of this thread's newest cp.async groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 template <int R>
 __device__ __forceinline__ void reg_dealloc() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
@@ -286,229 +387,417 @@ __device__ __forceinline__ void reg_alloc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
+// ---- taps
+
+// Step r of a stage of output phase ph (CONVT: 0..3 = (a, b) = (ph / 2, ph
+// % 2)): the tap (ky * 3 + kx) of the HWIO weight and its input offset (dy,
+// dx) from the output's own input pixel. Along an axis, phase 0 takes tap
+// 1 at offset 0, phase 1 taps 0 and 2 at offsets 0 and 1.
+__device__ __forceinline__ int convt_ntaps(int ph) {
+  return (1 + (ph >> 1)) * (1 + (ph & 1));
+}
+
+__device__ __forceinline__ void convt_tap(int ph, int r, int& tap, int& dy,
+                                          int& dx) {
+  const int a = ph >> 1, b = ph & 1;
+  const int iy = r / (1 + b), ix = r % (1 + b);
+  dy = a ? iy : 0;
+  dx = b ? ix : 0;
+  tap = (a ? 2 * iy : 1) * 3 + (b ? 2 * ix : 1);
+}
+
+// CONVT's packed weights hold the taps phase by phase (positions 0 | 1-2 |
+// 3-4 | 5-8: taps 4 | 3 5 | 1 7 | 0 2 6 8), so that a stage's taps are one
+// bulk copy: phase ph starts at position convt_first(ph).
+__device__ __forceinline__ int convt_first(int ph) {
+  return ph == 0 ? 0 : 2 * ph - 1;
+}
+
+// The tap at position pos of a stage's packed weights.
+template <class G>
+__device__ __forceinline__ int image_tap(int pos) {
+  if constexpr (G::TRANSPOSED) {
+    const int ph = pos == 0 ? 0 : (pos <= 2 ? 1 : (pos <= 4 ? 2 : 3));
+    int tap, dy, dx;
+    convt_tap(ph, pos - convt_first(ph), tap, dy, dx);
+    return tap;
+  } else {
+    return pos;
+  }
+}
+
+// Staged-pixel offset of step r from the step's base pixel (output row
+// orow, column oc of the tile: slab pixel orow * PW + oc of plane 0).
+template <class G>
+__device__ __forceinline__ int step_delta(int ph, int r) {
+  if constexpr (G::TRANSPOSED) {
+    int tap, dy, dx;
+    convt_tap(ph, r, tap, dy, dx);
+    return dy * G::PW + dx;
+  } else {
+    const int ky = r / 3, kx = r % 3;
+    return ((ky % G::STRIDE) * G::STRIDE + kx % G::STRIDE) * G::PLANE_PIX +
+           (ky / G::STRIDE) * G::PW + kx / G::STRIDE;
+  }
+}
+
 // ---- staging (producer)
 
 // Byte offset of 16-byte chunk c of staged pixel P (plane-major index):
 // 8 adjacent pixels of a plane row land in 8 distinct 16-byte bank groups.
-template <int CPP>
 __device__ __forceinline__ int slab_off(int P, int c) {
   return (P * CPP + (c ^ ((P / (8 / CPP)) % CPP))) * 16;
 }
 
-// Staged pixel index of slab position (sr, sc) (input row ir0 + sr, column
-// ic0 + sc) in its phase plane (by row and column parity).
+// Staged pixel index of slab position (sr, sc) in its phase plane (by row
+// and column parity at stride 2).
+template <class G>
 __device__ __forceinline__ int slab_pixel(int sr, int sc) {
-  using G = Geom;
-  return ((sr & 1) * 2 + (sc & 1)) * (G::PH * G::PW) + (sr >> 1) * G::PW +
-         (sc >> 1);
+  return ((sr % G::STRIDE) * G::STRIDE + sc % G::STRIDE) * G::PLANE_PIX +
+         (sr / G::STRIDE) * G::PW + sc / G::STRIDE;
 }
 
-// destination of slab copy e (chunk e % CPP of slab pixel e / CPP)
-__device__ __forceinline__ int slab_dst(int e) {
-  using G = Geom;
-  const int pix = e / G::CPP;
-  return slab_off<G::CPP>(slab_pixel(pix / G::SW, pix % G::SW),
-                          e % G::CPP);
-}
-
-// One work item: a tile of TM x TN output pixels and BN output channels of
-// one sample. Items run channel block fastest, then tile, then sample, so
-// that the CTAs in flight share their input slabs and weights in L2.
+// One work item: a tile of TM x TN pixels, one output phase and BN output
+// channels of one sample. Items run channel block fastest, then phase, then
+// tile, then sample, so that the CTAs in flight share their input slabs
+// and weights in L2; the phase order rotates with the tile.
 struct Item {
-  int s, tile, n0, r0, c0;
+  int s, tile, ph, n0, r0, c0;
 };
 
+template <class G>
 __device__ __forceinline__ Item item_of(int it, int n_nb, int n_tiles,
                                         int tiles_w) {
   Item q;
-  q.n0 = (it % n_nb) * BN;
-  q.tile = (it / n_nb) % n_tiles;
-  q.s = it / (n_nb * n_tiles);
+  q.n0 = (it % n_nb) * G::BN;
+  const int p = (it / n_nb) % G::NPH;
+  const int rest = it / (n_nb * G::NPH);
+  q.tile = rest % n_tiles;
+  q.s = rest / n_tiles;
+  q.ph = (p + q.tile) % G::NPH;
   q.r0 = (q.tile / tiles_w) * TM;
   q.c0 = (q.tile % tiles_w) * TN;
   return q;
 }
 
+// A CTA's steps in order: items blockIdx.x, + gridDim.x, ..., n_k stages
+// each. Advancing is a compare; item_of's divisions run once per item.
+struct Cursor {
+  int it, kk;
+  Item q;
+};
+
+template <class G>
+__device__ __forceinline__ Cursor cursor_start(int n_nb, int n_tiles,
+                                               int tiles_w) {
+  return Cursor{(int)blockIdx.x, 0,
+                item_of<G>(blockIdx.x, n_nb, n_tiles, tiles_w)};
+}
+
+template <class G>
+__device__ __forceinline__ void cursor_next(Cursor& c, int n_k, int n_nb,
+                                            int n_tiles, int tiles_w) {
+  if (++c.kk == n_k) {
+    c.kk = 0;
+    c.it += gridDim.x;
+    c.q = item_of<G>(c.it, n_nb, n_tiles, tiles_w);
+  }
+}
+
 // The producer threads' slab tables: entry i of thread p describes slab
-// copy e = p + i * PT (chunk e % CPP of slab pixel e / CPP): its
-// destination offset (16 bits), slab row and column (8 bits each); all
-// ones past the slab. The same for every stage and item.
+// chunk e = p + i * PT (chunk e % CPP of slab pixel e / CPP): its byte
+// offset (16 bits), slab row and column (8 bits each); all ones past the
+// slab. The same for every stage and item.
+template <class G>
 __device__ __forceinline__ void fill_table(uint32_t* table, int p) {
-  using G = Geom;
   for (int i = 0; i < G::NE; ++i) {
     const int e = p + i * PT;
     uint32_t ent = 0xffffffffu;
     if (e < G::SLAB_ELEMS) {
-      const int pix = e / G::CPP;
-      ent = static_cast<uint32_t>(slab_dst(e)) |
-            (static_cast<uint32_t>(pix / G::SW) << 16) |
-            (static_cast<uint32_t>(pix % G::SW) << 24);
+      const int pix = e / CPP;
+      const int sr = pix / G::SW, sc = pix % G::SW;
+      ent = static_cast<uint32_t>(slab_off(slab_pixel<G>(sr, sc), e % CPP)) |
+            (static_cast<uint32_t>(sr) << 16) |
+            (static_cast<uint32_t>(sc) << 24);
     }
     table[i * PT + p] = ent;
   }
 }
 
-// Issues producer thread p's cp.async copies of the input slab of item q,
-// channels [k0, k0 + KC), into a ring slot. Returns the mask of its copies
-// that have a source (bit i: table entry i; false: zero pad, past the halo
-// of a ragged tile, or a channel >= Cin).
-__device__ __forceinline__ uint32_t load_slab(
-    char* stage, const uint32_t* table, const bf16* __restrict__ x,
-    const Item& q, int k0, int H, int W, int Cin, int p) {
-  using G = Geom;
-  char* slab = stage + G::W_BYTES;
-  const int c = p % G::CPP;   // the chunk of every copy of this thread
-  const bf16* xs = x + (size_t)q.s * H * W * Cin + k0 + 8 * c;
-  const bool ch_ok = k0 + 8 * c < Cin;
-  const int ir0 = q.r0 * STRIDE - 1;
-  const int ic0 = q.c0 * STRIDE - 1;
-  uint32_t mask = 0;
+// Which of producer thread p's slab chunks (table entries) of item q have
+// a source pixel (src, bit i: entry i; false: zero pad, past the edge or
+// the halo of a ragged tile: the TMA engine loaded zeros there) and which
+// of those are reflected halo pixels (refl), whose source the TMA engine did
+// not load there. The same for every stage of the item.
+template <class G>
+__device__ __forceinline__ void slab_masks(uint32_t& src, uint32_t& refl,
+                                           const uint32_t* table,
+                                           const Item& q, int H, int W,
+                                           bool reflect, int p) {
+  const int ir0 = q.r0 * G::STRIDE - G::PAD;
+  const int ic0 = q.c0 * G::STRIDE - G::PAD;
+  src = 0;
+  refl = 0;
 #pragma unroll
   for (int i = 0; i < G::NE; ++i) {
     const uint32_t ent = table[i * PT + p];
-    if (ent == 0xffffffffu) break;
-    const int gr = conv3x3::src_index(ir0 + ((ent >> 16) & 0xff), H, false);
-    const int gc = conv3x3::src_index(ic0 + (ent >> 24), W, false);
-    const bool ok = ch_ok && gr >= 0 && gc >= 0;
-    conv3x3::cp_async16(slab + (ent & 0xffff),
-                        ok ? xs + ((size_t)gr * W + gc) * Cin : xs, ok);
-    mask |= static_cast<uint32_t>(ok) << i;
+    const int ir = ir0 + ((ent >> 16) & 0xff), ic = ic0 + (ent >> 24);
+    const int gr = conv3x3::src_index(ir, H, reflect);
+    const int gc = conv3x3::src_index(ic, W, reflect);
+    const bool ok = ent != 0xffffffffu && gr >= 0 && gc >= 0;
+    src |= static_cast<uint32_t>(ok) << i;
+    refl |= static_cast<uint32_t>(ok && (gr != ir || gc != ic)) << i;
   }
-  return mask;
 }
 
-// After producer thread p's copies of a stage landed: the affine (bf16:
-// scale and bias rounded to bf16, the product and the sum each rounded to
-// nearest, no fused multiply-add) and ReLU in place on its slab chunks that
-// had a source; the zero-filled ones stay zero.
-__device__ __forceinline__ void transform_stage(
-    char* stage, const uint32_t* table, uint32_t mask,
-    const float* __restrict__ sc,
-    const float* __restrict__ bi, int k0, bool has_affine, bool in_relu,
-    int p) {
-  using G = Geom;
+// Reflect padding, once a stage landed: producer thread p copies its
+// reflected halo chunks (refl) from their source pixels, which lie in the
+// same slab, before any chunk is transformed.
+template <class G>
+__device__ __forceinline__ void fix_halo(char* stage, const uint32_t* table,
+                                         uint32_t refl, const Item& q, int H,
+                                         int W, int p) {
+  char* slab = stage + G::W_BYTES;
+  const int ir0 = q.r0 * G::STRIDE - G::PAD;
+  const int ic0 = q.c0 * G::STRIDE - G::PAD;
+#pragma unroll
+  for (int i = 0; i < G::NE; ++i) {
+    if (!((refl >> i) & 1u)) continue;
+    const uint32_t ent = table[i * PT + p];
+    const int gr = conv3x3::src_index(ir0 + ((ent >> 16) & 0xff), H, true);
+    const int gc = conv3x3::src_index(ic0 + (ent >> 24), W, true);
+    *reinterpret_cast<uint4*>(slab + (ent & 0xffff)) =
+        *reinterpret_cast<const uint4*>(
+            slab + slab_off(slab_pixel<G>(gr - ir0, gc - ic0), p % CPP));
+  }
+}
+
+// Producer thread p < 8 copies 4 channels of the stage's norm scale (p <
+// 4) or bias into the slot's aff[32] (scale at 0, bias at KC), zero past
+// Cin, in its cp.async group of the stage; they are read by every producer
+// thread after a producer_sync.
+__device__ __forceinline__ void load_affine(float* aff, const float* in_scale,
+                                            const float* in_bias, int s, int k0,
+                                            int Cin, int p) {
+  const int k = k0 + 4 * (p % 4);
+  const float* src = (p < 4 ? in_scale : in_bias) + (size_t)s * Cin + k;
+  conv3x3::cp_async16(aff + 4 * p, k < Cin ? src : in_scale, k < Cin);
+}
+
+// After a stage landed: the affine (bf16: scale and bias rounded to bf16,
+// the product and the sum each rounded to nearest, no fused multiply-add)
+// and ReLU in place on producer thread p's slab chunks that had a source
+// (mask); the zero-filled ones stay zero. aff: the slot's scale and bias.
+template <class G>
+__device__ __forceinline__ void transform_stage(char* stage,
+                                                const uint32_t* table,
+                                                uint32_t mask,
+                                                const float* aff,
+                                                bool has_affine, bool in_relu,
+                                                int p) {
   if ((!has_affine && !in_relu) || mask == 0) return;
-  const int c0 = k0 + 8 * (p % G::CPP);
+  const int c0 = 8 * (p % CPP);
   __nv_bfloat162 s2[4], b2[4];
   const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    s2[j] = has_affine
-                ? __floats2bfloat162_rn(sc[c0 + 2 * j], sc[c0 + 2 * j + 1])
-                : zero;
-    b2[j] = has_affine
-                ? __floats2bfloat162_rn(bi[c0 + 2 * j], bi[c0 + 2 * j + 1])
-                : zero;
+    s2[j] = has_affine ? __floats2bfloat162_rn(aff[c0 + 2 * j],
+                                               aff[c0 + 2 * j + 1])
+                       : zero;
+    b2[j] = has_affine ? __floats2bfloat162_rn(aff[KC + c0 + 2 * j],
+                                               aff[KC + c0 + 2 * j + 1])
+                       : zero;
   }
   char* slab = stage + G::W_BYTES;
+  constexpr int TB = 2;   // chunks whose loads are in flight together
 #pragma unroll
-  for (int i = 0; i < G::NE; ++i) {
-    if (!((mask >> i) & 1u)) continue;
-    uint4* ptr = reinterpret_cast<uint4*>(slab + (table[i * PT + p] & 0xffff));
-    uint4 v = *ptr;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+  for (int i0 = 0; i0 < G::NE; i0 += TB) {
+    uint32_t off[TB];
+    uint4 v[TB];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (has_affine) h[j] = __hadd2_rn(__hmul2_rn(h[j], s2[j]), b2[j]);
-      if (in_relu) h[j] = __hmax2(h[j], zero);
+    for (int b = 0; b < TB; ++b) {
+      off[b] = i0 + b < G::NE ? table[(i0 + b) * PT + p] & 0xffff : 0;
+      if (i0 + b < G::NE && ((mask >> (i0 + b)) & 1u))
+        v[b] = *reinterpret_cast<const uint4*>(slab + off[b]);
     }
-    *ptr = v;
+#pragma unroll
+    for (int b = 0; b < TB; ++b) {
+      if (i0 + b >= G::NE || !((mask >> (i0 + b)) & 1u)) continue;
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v[b]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (has_affine) h[j] = __hadd2_rn(__hmul2_rn(h[j], s2[j]), b2[j]);
+        if (in_relu) h[j] = __hmax2(h[j], zero);
+      }
+      *reinterpret_cast<uint4*>(slab + off[b]) = v[b];
+    }
   }
 }
 
 // ---- the tensor-core work of one stage, per consumer warpgroup: its two
-// m64 tiles, the stage's 9 KS k16 steps in units of UK steps. Unit (u, j)
-// of tile j runs its UK steps (n = 128) into a fresh f32 temporary, which
-// is added to acc[j] (round to nearest) once the unit completed, just
-// before the next unit reuses it and its A fragments (a drain per unit).
+// m64 tiles, the A fragments of a k16 step per tap (load_a; weights of step
+// r at slot position r). CONV_S1 / CONV_S2 (compute_stage): each tile runs
+// one unit of the stage's 9 steps into a fresh f32 temporary, which is
+// added to acc[j] (round to nearest) once the unit completed, just before
+// the next unit reuses it and its A fragments (a drain per unit).
 
-__device__ __forceinline__ void load_a(uint32_t (&a)[Geom::UK][4],
-                                       uint32_t slab_s, int u, int orow,
-                                       int lane) {
-  using G = Geom;
+template <class G, int T, int N>
+__device__ __forceinline__ void load_a(uint32_t (&a)[N][4], uint32_t slab_s,
+                                       int ph, int orow, int lane) {
+  static_assert(T <= N, "A registers for every step");
   // ldmatrix.x4: lane l gives the address of row l % 8 of matrix l / 8;
   // matrices 0-3 = (pixels 0-7 | 8-15) x (channels 0-7 | 8-15) of the k16
   // step, which is the RS A fragment order a0..a3
   const int oc = (lane & 7) + 8 * ((lane >> 3) & 1);   // output column
-  const int kc = lane >> 4;                            // chunk of the k16 step
+  const int kc = lane >> 4;                            // chunk of the step
+  const int base = orow * G::PW + oc;
 #pragma unroll
-  for (int r = 0; r < G::UK; ++r) {
-    const int q = u * G::UK + r;
-    const int tap = q / G::KS;
-    const int ky = tap / 3;
-    const int kx = tap % 3;
-    const int P = ((ky & 1) * 2 + (kx & 1)) * (G::PH * G::PW) +
-                  (orow + (ky >> 1)) * G::PW + oc + (kx >> 1);
-    ldmatrix_x4(a[r], slab_s + slab_off<G::CPP>(P, 2 * (q % G::KS) + kc));
-  }
+  for (int r = 0; r < T; ++r)
+    ldmatrix_x4(a[r], slab_s + slab_off(base + step_delta<G>(ph, r), kc));
 }
 
+template <class G>
 __device__ __forceinline__ void compute_stage(const char* stage,
-                                              float (&acc)[M_SUB][64],
+                                              float (&acc)[M_SUB][G::BN / 2],
                                               int row0, int lane) {
-  using G = Geom;
+  constexpr int T = 9;     // the taps
   const uint32_t w_s = smem_u32(stage);
   const uint32_t slab_s = smem_u32(stage + G::W_BYTES);
-  uint32_t a[G::UK][4];   // A of a (unit, tile)
-  float t128[64];         // the unit's temporary
+  uint32_t a[T][4];        // A of a unit
+  float tmp[G::BN / 2];    // the unit's temporary
 #pragma unroll
-  for (int u = 0; u < G::UNITS; ++u) {
+  for (int j = 0; j < M_SUB; ++j) {
+    if (j > 0) {   // fold the previous unit
+      wgmma_wait<0>();
+      fence_regs(tmp);
 #pragma unroll
-    for (int j = 0; j < M_SUB; ++j) {
-      if (u > 0 || j > 0) {   // fold the previous unit
-        wgmma_wait<0>();
-        fence_regs(t128);
-        const int jp = (M_SUB * u + j - 1) % M_SUB;
-#pragma unroll
-        for (int i = 0; i < 64; ++i) acc[jp][i] += t128[i];
-      }
-      load_a(a, slab_s, u, row0 + 4 * j, lane);
-      wgmma_fence();
-#pragma unroll
-      for (int r = 0; r < G::UK; ++r) {
-        const int q = u * G::UK + r;
-        wgmma_m64n128k16_rs(
-            t128, a[r],
-            desc_sw128(w_s + (q / G::KS) * G::WTAP_BYTES +
-                           (q % G::KS) * 16 * 128,
-                       G::WBLK_BYTES, 8 * 128),
-            r > 0);
-      }
-      wgmma_commit();
+      for (int i = 0; i < G::BN / 2; ++i) acc[j - 1][i] += tmp[i];
     }
+    load_a<G, T>(a, slab_s, 0, row0 + 4 * j, lane);
+    wgmma_fence();
+#pragma unroll
+    for (int r = 0; r < T; ++r)
+      wgmma_rs(tmp, a[r],
+               desc_sw128(w_s + r * G::WTAP_BYTES, G::WBLK_BYTES, 8 * 128),
+               r > 0);
+    wgmma_commit();
   }
   wgmma_wait<0>();
-  fence_regs(t128);
+  fence_regs(tmp);
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[M_SUB - 1][i] += t128[i];
+  for (int i = 0; i < G::BN / 2; ++i) acc[M_SUB - 1][i] += tmp[i];
 }
 
-// y in bf16 and the tile's per-channel partial statistics (see the header);
-// cw: consumer warp 0..7, ct: consumer thread 0..255
-__device__ __forceinline__ void epilogue(float (&acc)[M_SUB][64],
+// CONVT's work of a stage, with the folds deferred (n64): each m64 tile j has
+// a temporary of its own, tmp[j], that runs a unit of up to UK_DEFER k16
+// steps over several stages of an item (fresh: the unit starts here,
+// scale-d 0) and is folded into acc[j] (round to nearest) when the unit
+// ends; both tiles' wgmmas of a stage run back to back and are waited for
+// once, so the tensor cores are drained once per stage, not per unit.
+// The input's affine and ReLU run here, on the A fragments (xf): a phase
+// item would otherwise have the producer transform its tile's slab a
+// fourth time.
+constexpr int UK_DEFER = 8;
+
+// The affine (bf16, as transform_stage) and ReLU on a consumer's A
+// fragments of a stage, zero where the pixel has no source. Thread l holds,
+// in fragment m of a step, pixel l / 4 + 8 (m % 2) of its tile row and
+// channels 8 (m / 2) + 2 (l % 4) + {0, 1} of the stage.
+struct FragAffine {
+  __nv_bfloat162 s2[2], b2[2];   // per channel pair (m / 2)
+  bool affine, relu;
+  int ir0, ic0, H, W;            // the tile's input origin, the input's size
+};
+
+template <int T>
+__device__ __forceinline__ void transform_a(uint32_t (&a)[4][4],
+                                            const FragAffine& xf, int ph,
+                                            int orow, int lane) {
+  const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
+#pragma unroll
+  for (int r = 0; r < T; ++r) {
+    int tap, dy, dx;
+    convt_tap(ph, r, tap, dy, dx);
+    const bool row_ok = xf.ir0 + orow + dy < xf.H;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const bool ok =
+          row_ok && xf.ic0 + (lane >> 2) + 8 * (m & 1) + dx < xf.W;
+      __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&a[r][m]);
+      if (xf.affine)
+        h = __hadd2_rn(__hmul2_rn(h, xf.s2[m >> 1]), xf.b2[m >> 1]);
+      if (xf.relu) h = __hmax2(h, zero);
+      if (!ok) h = zero;
+      a[r][m] = *reinterpret_cast<uint32_t*>(&h);
+    }
+  }
+}
+
+template <class G, int T>
+__device__ __forceinline__ void stage_deferred(
+    const char* stage, float (&acc)[M_SUB][G::BN / 2],
+    float (&tmp)[M_SUB][G::BN / 2], uint32_t (&a)[M_SUB][4][4], int ph,
+    int row0, int lane, bool fresh, bool unit_end, const FragAffine& xf) {
+  const uint32_t w_s = smem_u32(stage);
+  const uint32_t slab_s = smem_u32(stage + G::W_BYTES);
+#pragma unroll
+  for (int j = 0; j < M_SUB; ++j) {
+    load_a<G, T>(a[j], slab_s, ph, row0 + 4 * j, lane);
+    if (xf.affine || xf.relu) transform_a<T>(a[j], xf, ph, row0 + 4 * j, lane);
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < M_SUB; ++j)
+#pragma unroll
+    for (int r = 0; r < T; ++r)
+      wgmma_rs(tmp[j], a[j][r],
+               desc_sw128(w_s + r * G::WTAP_BYTES, G::WBLK_BYTES, 8 * 128),
+               r > 0 || !fresh);
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < M_SUB; ++j) {
+    fence_regs(tmp[j]);
+    if (unit_end) {
+#pragma unroll
+      for (int i = 0; i < G::BN / 2; ++i) acc[j][i] += tmp[j][i];
+    }
+  }
+}
+
+// y in bf16 and the item's per-channel partial statistics (see the
+// header); cw: consumer warp 0..7, ct: consumer thread 0..255. Ho x Wo is
+// the tile grid's extent (CONVT: the input's; y is 2Ho x 2Wo).
+template <class G>
+__device__ __forceinline__ void epilogue(float (&acc)[M_SUB][G::BN / 2],
                                          const Item& q, int row0, int cw,
                                          int lane, int ct, float* red,
                                          bf16* __restrict__ y,
                                          float* __restrict__ partial, int Ho,
                                          int Wo, int Cout, int n_tiles) {
-  // this thread's pixels (four) summed per channel (its 32 channels
-  // 8 v + 2 (lane % 4) + {0, 1}, v = 0..15) in a fixed order
-  float psum[32], psq[32];
+  constexpr int NV = G::BN / 8;   // 8-channel groups of a row of acc
+  constexpr int OS = G::TRANSPOSED ? 2 : 1;
+  // this thread's pixels (four) summed per channel (its BN / 4 channels
+  // 8 v + 2 (lane % 4) + {0, 1}, v < NV) in a fixed order
+  float psum[2 * NV], psq[2 * NV];
 #pragma unroll
-  for (int n = 0; n < 32; ++n) {
+  for (int n = 0; n < 2 * NV; ++n) {
     psum[n] = 0.f;
     psq[n] = 0.f;
   }
 #pragma unroll
   for (int j = 0; j < M_SUB; ++j) {
-    const int gr = q.r0 + row0 + 4 * j;
+    const int tr = q.r0 + row0 + 4 * j;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int gc = q.c0 + (lane >> 2) + 8 * h;
-      if (gr < Ho && gc < Wo) {
-        bf16* yp = y + (((size_t)q.s * Ho + gr) * Wo + gc) * Cout + q.n0;
+      const int tc = q.c0 + (lane >> 2) + 8 * h;
+      if (tr < Ho && tc < Wo) {
+        const int gr = OS * tr + (G::TRANSPOSED ? q.ph >> 1 : 0);
+        const int gc = OS * tc + (G::TRANSPOSED ? q.ph & 1 : 0);
+        bf16* yp = y + (((size_t)q.s * OS * Ho + gr) * OS * Wo + gc) * Cout +
+                   q.n0;
 #pragma unroll
-        for (int v = 0; v < 16; ++v) {
+        for (int v = 0; v < NV; ++v) {
           const float a0 = acc[j][4 * v + 2 * h];
           const float a1 = acc[j][4 * v + 2 * h + 1];
           const int co = 8 * v + 2 * (lane & 3);
@@ -528,7 +817,7 @@ __device__ __forceinline__ void epilogue(float (&acc)[M_SUB][64],
 #pragma unroll
   for (int off = 4; off < 32; off <<= 1) {
 #pragma unroll
-    for (int n = 0; n < 32; ++n) {
+    for (int n = 0; n < 2 * NV; ++n) {
       psum[n] += __shfl_xor_sync(0xffffffffu, psum[n], off);
       psq[n] += __shfl_xor_sync(0xffffffffu, psq[n], off);
     }
@@ -536,46 +825,48 @@ __device__ __forceinline__ void epilogue(float (&acc)[M_SUB][64],
   // then the 8 consumer warps in warp order
   if (lane < 4) {
 #pragma unroll
-    for (int n = 0; n < 32; ++n) {
+    for (int n = 0; n < 2 * NV; ++n) {
       const int ch = 8 * (n / 2) + 2 * lane + n % 2;
-      red[(cw * BN + ch) * 2] = psum[n];
-      red[(cw * BN + ch) * 2 + 1] = psq[n];
+      red[(cw * G::BN + ch) * 2] = psum[n];
+      red[(cw * G::BN + ch) * 2 + 1] = psq[n];
     }
   }
   consumer_sync();
-  const int ch = ct % BN;
-  const int qq = ct / BN;   // 0: sum, 1: sum of squares
-  float v = 0.f;
+  const int ch = ct % G::BN;
+  const int qq = ct / G::BN;   // 0: sum, 1: sum of squares (BN 64: 2, 3 idle)
+  if (qq < 2 && q.n0 + ch < Cout) {
+    float v = 0.f;
 #pragma unroll
-  for (int wp = 0; wp < CT / 32; ++wp) v += red[(wp * BN + ch) * 2 + qq];
-  if (q.n0 + ch < Cout)
-    partial[((size_t)q.s * n_tiles + q.tile) * 2 * Cout + qq * Cout + q.n0 +
-            ch] = v;
+    for (int wp = 0; wp < CT / 32; ++wp) v += red[(wp * G::BN + ch) * 2 + qq];
+    partial[((size_t)q.s * n_tiles * G::NPH + q.tile * G::NPH + q.ph) * 2 *
+                Cout +
+            qq * Cout + q.n0 + ch] = v;
+  }
   consumer_sync();   // red is read before the next item writes it
 }
 
 // Lays the weights out once per call as the ring's weight image of every
-// (channel block, stage): wp[nb][kb] = W_BYTES in the shared-memory order
-// of a stage (tap, 64-column block, input channel row, swizzled 16-byte
-// chunk), zero past Cin and Cout, so that a stage's weights are one bulk
-// copy.
+// (channel block, stage): wp[nb][kb] = WIMG_BYTES in the shared-memory
+// order of a stage of all 9 taps (tap position (image_tap), 64-column
+// block, input channel row, swizzled 16-byte chunk), zero past Cin and
+// Cout, so that a stage's weights are one bulk copy.
+template <class G>
 __global__ void pack_weights_kernel(const bf16* __restrict__ w,
                                     uint4* __restrict__ wp, int Cin, int Cout,
                                     int n_k, int n_nb) {
-  using G = Geom;
-  constexpr int CH = G::W_BYTES / 16;   // chunks per stage image
+  constexpr int CH = G::WIMG_BYTES / 16;   // chunks per stage image
   const long total = (long)n_nb * n_k * CH;
   for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < total;
        i += (long)gridDim.x * blockDim.x) {
     const int chunk = static_cast<int>(i % CH);
     const int kb = static_cast<int>((i / CH) % n_k);
     const int nb = static_cast<int>(i / ((long)CH * n_k));
-    const int tap = chunk / (G::WTAP_BYTES / 16);
-    const int half = (chunk / (G::WBLK_BYTES / 16)) % 2;
-    const int k = (chunk / 8) % G::KC;
+    const int tap = image_tap<G>(chunk / (G::WTAP_BYTES / 16));
+    const int blk = (chunk / (G::WBLK_BYTES / 16)) % G::NB64;
+    const int k = (chunk / 8) % KC;
     const int jj = (chunk % 8) ^ (k % 8);   // the swizzle, undone
-    const int co = nb * BN + half * 64 + jj * 8;
-    const int ci = kb * G::KC + k;
+    const int co = nb * G::BN + blk * 64 + jj * 8;
+    const int ci = kb * KC + k;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (ci < Cin && co < Cout)
       v = *reinterpret_cast<const uint4*>(w + ((size_t)tap * Cin + ci) * Cout +
@@ -584,73 +875,120 @@ __global__ void pack_weights_kernel(const bf16* __restrict__ w,
   }
 }
 
+template <class G>
 __global__ void __launch_bounds__(NT, 1)
-conv3x3_wgmma_kernel(const bf16* __restrict__ x, const char* __restrict__ wp,
-                     const float* __restrict__ in_scale,
-                     const float* __restrict__ in_bias, bf16* __restrict__ y,
-                     float* __restrict__ partial, int H, int W, int Ho,
-                     int Wo, int Cin, int Cout, int tiles_w, int n_tiles,
-                     int n_nb, int n_items, bool has_affine, bool in_relu) {
-  using G = Geom;
+conv_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                  const char* __restrict__ wp,
+                  const float* __restrict__ in_scale,
+                  const float* __restrict__ in_bias, bf16* __restrict__ y,
+                  float* __restrict__ partial, int H, int W, int Ho, int Wo,
+                  int Cin, int Cout, int tiles_w, int n_tiles, int n_nb,
+                  int n_items, bool reflect, bool has_affine, bool in_relu) {
   extern __shared__ __align__(16) char smem_raw[];
   // the 128B-swizzled weight blocks need 1024-byte aligned addresses
   char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  float* red = reinterpret_cast<float*>(smem + NST * G::STAGE_BYTES);
-  uint32_t* table =
-      reinterpret_cast<uint32_t*>(smem + NST * G::STAGE_BYTES + RED_BYTES);
-  const uint32_t bars = smem_u32(smem + NST * G::STAGE_BYTES + RED_BYTES +
-                                 G::TABLE_BYTES);
-  // full[i] at bars + 8 i, empty[i] at bars + 8 (NST + i)
+  char* tail = smem + G::NST * G::STAGE_BYTES;
+  float* red = reinterpret_cast<float*>(tail);
+  uint32_t* table = reinterpret_cast<uint32_t*>(tail + G::RED_BYTES);
+  // src_mask[slot][PT], then refl_mask[slot][PT]
+  uint32_t* masks =
+      reinterpret_cast<uint32_t*>(tail + G::RED_BYTES + G::TABLE_BYTES);
+  float* aff = reinterpret_cast<float*>(tail + G::RED_BYTES + G::TABLE_BYTES +
+                                        G::MASK_BYTES);
+  const uint32_t bars = smem_u32(tail + G::RED_BYTES + G::TABLE_BYTES +
+                                 G::MASK_BYTES + G::AFF_BYTES);
+  // full[i] at bars + 8 i, empty[i] at bars + 8 (NST + i), landed[i] at
+  // bars + 8 (2 NST + i)
   const int t = threadIdx.x;
   if (t == 0) {
-    for (int i = 0; i < NST; ++i) {
+    for (int i = 0; i < G::NST; ++i) {
       mbar_init(bars + 8 * i, PT);
-      mbar_init(bars + 8 * (NST + i), CT);
+      mbar_init(bars + 8 * (G::NST + i), CT);
+      mbar_init(bars + 8 * (2 * G::NST + i), 1);
     }
+    // the barriers' initialization visible to the TMA engine
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if (t < PT) fill_table(table, t);
+  if (t < PT) fill_table<G>(table, t);
   __syncthreads();
-  const int n_k = (Cin + G::KC - 1) / G::KC;
+  const int n_k = (Cin + KC - 1) / KC;
   const int my_items =
       (n_items - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
   const int n_steps = my_items * n_k;
 
   if (t < PT) {
-    // ---- producer: step g + 1 is copied while the consumers run step g -
-    // 1 and g lands; once g landed it is transformed and handed over
+    // ---- producer: steps g + 1 .. g + AHEAD are loading while the
+    // consumers run step g - 1 and g lands; once g landed it is transformed
+    // and handed over
     reg_dealloc<PRODUCER_REGS>();
-    auto issue = [&](int g, uint32_t& mask, Item& q) {
-      const int slot = g % NST;
-      if (g >= NST)   // the consumers are done with step g - NST
-        mbar_wait(bars + 8 * (NST + slot), (g / NST - 1) & 1);
-      q = item_of(blockIdx.x + (g / n_k) * gridDim.x, n_nb, n_tiles,
-                  tiles_w);
+    // whether a stage needs the producer's pass over its slab (CONVT's
+    // consumers apply the affine and ReLU to their A fragments)
+    const bool touch = !G::TRANSPOSED && (has_affine || in_relu || reflect);
+    Cursor ic = cursor_start<G>(n_nb, n_tiles, tiles_w);   // next to issue
+    Cursor tc = ic;                                         // next to hand over
+    uint32_t item_src = 0, item_refl = 0;   // slab_masks of ic's item
+    auto issue = [&](int g) {   // step g, at ic
+      const int slot = g % G::NST;
+      if (g >= G::NST)   // the consumers are done with step g - NST
+        mbar_wait(bars + 8 * (G::NST + slot), (g / G::NST - 1) & 1);
+      const Item& q = ic.q;
       char* stage = smem + slot * G::STAGE_BYTES;
-      if (t == 0) {   // the weights: one bulk copy per tap
-        const uint32_t full = bars + 8 * slot;
-        mbar_expect_tx(full, G::W_BYTES);
-        const char* src =
-            wp + ((size_t)(q.n0 / BN) * n_k + g % n_k) * G::W_BYTES;
-        for (int tap = 0; tap < 9; ++tap)
-          bulk_copy_g2s(smem_u32(stage + tap * G::WTAP_BYTES),
-                        src + tap * G::WTAP_BYTES, G::WTAP_BYTES, full);
+      if (t == 0) {   // the stage's weights (one bulk copy) and input slab
+        const uint32_t landed = bars + 8 * (2 * G::NST + slot);
+        const int n_tap = G::TRANSPOSED ? convt_ntaps(q.ph) : 9;
+        const int first = G::TRANSPOSED ? convt_first(q.ph) : 0;
+        mbar_arrive_expect_tx(landed, n_tap * G::WTAP_BYTES + G::SLAB_TX);
+        bulk_copy_g2s(smem_u32(stage),
+                      wp + ((size_t)(q.n0 / G::BN) * n_k + ic.kk) *
+                               G::WIMG_BYTES + first * G::WTAP_BYTES,
+                      n_tap * G::WTAP_BYTES, landed);
+        // one box per plane: rows and columns of its parity
+        for (int pl = 0; pl < G::NPL; ++pl)
+          tma_load_4d(smem_u32(stage + G::W_BYTES + pl * G::PLANE_PIX * 32),
+                      &x_map, ic.kk * KC,
+                      q.c0 * G::STRIDE - G::PAD + pl % G::STRIDE,
+                      q.r0 * G::STRIDE - G::PAD + pl / G::STRIDE, q.s,
+                      landed);
       }
-      mask = load_slab(stage, table, x, q, (g % n_k) * G::KC, H, W, Cin, t);
-      conv3x3::cp_async_commit();
+      if (touch) {
+        if (ic.kk == 0)
+          slab_masks<G>(item_src, item_refl, table, q, H, W, reflect, t);
+        // a channel past Cin has no source either (the thread's chunk is the
+        // same 8 channels of every pixel)
+        const bool ch_ok = ic.kk * KC + 8 * (t % CPP) < Cin;
+        masks[slot * PT + t] = ch_ok ? item_src : 0u;
+        masks[(G::NST + slot) * PT + t] = ch_ok ? item_refl : 0u;
+      }
+      if (has_affine && t < 8)
+        load_affine(aff + slot * 2 * KC, in_scale, in_bias, q.s, ic.kk * KC,
+                    Cin, t);
+      cursor_next<G>(ic, n_k, n_nb, n_tiles, tiles_w);
     };
-    uint32_t mask = 0;
-    Item q{};
-    issue(0, mask, q);
+    for (int g = 0; g < G::AHEAD; ++g) {
+      if (g < n_steps) issue(g);
+      conv3x3::cp_async_commit();
+    }
     for (int g = 0; g < n_steps; ++g) {
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-      transform_stage(
-          smem + (g % NST) * G::STAGE_BYTES, table, mask,
-          has_affine ? in_scale + (size_t)q.s * Cin : nullptr,
-          has_affine ? in_bias + (size_t)q.s * Cin : nullptr,
-          (g % n_k) * G::KC, has_affine, in_relu, t);
-      fence_proxy_async();
-      mbar_arrive(bars + 8 * (g % NST));
-      if (g + 1 < n_steps) issue(g + 1, mask, q);
+      const int slot = g % G::NST;
+      char* stage = smem + slot * G::STAGE_BYTES;
+      mbar_wait(bars + 8 * (2 * G::NST + slot), (g / G::NST) & 1);
+      if (has_affine) cp_async_wait<G::AHEAD - 1>();   // its affine copies
+      if (touch) {
+        if (reflect) {
+          fix_halo<G>(stage, table, masks[(G::NST + slot) * PT + t], tc.q, H,
+                      W, t);
+        }
+        // every thread's affine copies and halo chunks
+        if (has_affine || reflect) producer_sync();
+        transform_stage<G>(stage, table, masks[slot * PT + t],
+                           aff + slot * 2 * KC, has_affine, in_relu, t);
+        // these generic-proxy writes before the TMA engine's next ones
+        fence_proxy_async();
+      }
+      mbar_arrive(bars + 8 * slot);
+      if (g + G::AHEAD < n_steps) issue(g + G::AHEAD);
+      conv3x3::cp_async_commit();
+      cursor_next<G>(tc, n_k, n_nb, n_tiles, tiles_w);
     }
   } else {
     // ---- consumers
@@ -660,25 +998,72 @@ conv3x3_wgmma_kernel(const bf16* __restrict__ x, const char* __restrict__ wp,
     const int lane = t & 31;
     // warpgroup g (0, 1), warp w of it: rows 8 g + w and 8 g + 4 + w
     const int row0 = 8 * (cw >> 2) + (cw & 3);
-    float acc[M_SUB][64];
+    float acc[M_SUB][G::BN / 2];
 #pragma unroll
     for (int j = 0; j < M_SUB; ++j)
 #pragma unroll
-      for (int i = 0; i < 64; ++i) acc[j][i] = 0.f;
-    for (int g = 0; g < n_steps; ++g) {
-      const int slot = g % NST;
-      mbar_wait(bars + 8 * slot, (g / NST) & 1);
-      compute_stage(smem + slot * G::STAGE_BYTES, acc, row0, lane);
-      mbar_arrive(bars + 8 * (NST + slot));
-      if (g % n_k == n_k - 1) {
-        const Item q = item_of(blockIdx.x + (g / n_k) * gridDim.x, n_nb,
-                               n_tiles, tiles_w);
-        epilogue(acc, q, row0, cw, lane, ct, red, y, partial, Ho, Wo, Cout,
-                 n_tiles);
+      for (int i = 0; i < G::BN / 2; ++i) acc[j][i] = 0.f;
+    Cursor cc = cursor_start<G>(n_nb, n_tiles, tiles_w);
+    if constexpr (G::TRANSPOSED) {
+      float tmp[M_SUB][G::BN / 2];
+      uint32_t a[M_SUB][4][4];
+      for (int g = 0; g < n_steps; ++g) {
+        const int slot = g % G::NST;
+        const Item& q = cc.q;
+        const char* stage = smem + slot * G::STAGE_BYTES;
+        const int kk = cc.kk;
+        // units of UK_DEFER steps: UK_DEFER / n_tap stages (n_tap 1, 2, 4)
+        const int unit = UK_DEFER >> ((q.ph >> 1) + (q.ph & 1));
+        const bool fresh = (kk & (unit - 1)) == 0;
+        const bool unit_end = ((kk + 1) & (unit - 1)) == 0 || kk == n_k - 1;
+        mbar_wait(bars + 8 * slot, (g / G::NST) & 1);
+        FragAffine xf{{}, {}, has_affine, in_relu, q.r0, q.c0, H, W};
+        if (has_affine) {   // the slot's scale and bias of this thread's
+                            // channel pairs
+          const float* af = aff + slot * 2 * KC;
 #pragma unroll
-        for (int j = 0; j < M_SUB; ++j)
+          for (int c = 0; c < 2; ++c) {
+            const int ch = 8 * c + 2 * (lane & 3);
+            xf.s2[c] = __floats2bfloat162_rn(af[ch], af[ch + 1]);
+            xf.b2[c] = __floats2bfloat162_rn(af[KC + ch], af[KC + ch + 1]);
+          }
+        }
+        if (q.ph == 0)
+          stage_deferred<G, 1>(stage, acc, tmp, a, q.ph, row0, lane, fresh,
+                               unit_end, xf);
+        else if (q.ph == 3)
+          stage_deferred<G, 4>(stage, acc, tmp, a, q.ph, row0, lane, fresh,
+                               unit_end, xf);
+        else
+          stage_deferred<G, 2>(stage, acc, tmp, a, q.ph, row0, lane, fresh,
+                               unit_end, xf);
+        mbar_arrive(bars + 8 * (G::NST + slot));
+        if (kk == n_k - 1) {
+          epilogue<G>(acc, q, row0, cw, lane, ct, red, y, partial, Ho, Wo,
+                      Cout, n_tiles);
 #pragma unroll
-          for (int i = 0; i < 64; ++i) acc[j][i] = 0.f;
+          for (int j = 0; j < M_SUB; ++j)
+#pragma unroll
+            for (int i = 0; i < G::BN / 2; ++i) acc[j][i] = 0.f;
+        }
+        cursor_next<G>(cc, n_k, n_nb, n_tiles, tiles_w);
+      }
+    } else {
+      for (int g = 0; g < n_steps; ++g) {
+        const int slot = g % G::NST;
+        const Item& q = cc.q;
+        mbar_wait(bars + 8 * slot, (g / G::NST) & 1);
+        compute_stage<G>(smem + slot * G::STAGE_BYTES, acc, row0, lane);
+        mbar_arrive(bars + 8 * (G::NST + slot));
+        if (cc.kk == n_k - 1) {
+          epilogue<G>(acc, q, row0, cw, lane, ct, red, y, partial, Ho, Wo,
+                      Cout, n_tiles);
+#pragma unroll
+          for (int j = 0; j < M_SUB; ++j)
+#pragma unroll
+            for (int i = 0; i < G::BN / 2; ++i) acc[j][i] = 0.f;
+        }
+        cursor_next<G>(cc, n_k, n_nb, n_tiles, tiles_w);
       }
     }
   }
@@ -688,55 +1073,111 @@ inline int num_tiles(int Ho, int Wo) {
   return ((Ho + TM - 1) / TM) * ((Wo + TN - 1) / TN);
 }
 
-// Bytes of the packed-weight workspace that launch() takes.
+// Bytes of the packed-weight workspace that launch<G>() takes.
+template <class G>
 inline long wpack_bytes(int Cin, int Cout) {
-  using G = Geom;
-  return (long)((Cout + BN - 1) / BN) * ((Cin + G::KC - 1) / G::KC) *
-         G::W_BYTES;
+  return (long)((Cout + G::BN - 1) / G::BN) * ((Cin + KC - 1) / KC) *
+         G::WIMG_BYTES;
+}
+
+// cuTensorMapEncodeTiled of the driver API, fetched through the runtime
+// (no link against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &q);
+#endif
+    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                            : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of x (S, H, W, Cin) bf16 that the producer loads its slab
+// planes with: boxes of KC channels x PW x PH pixels (every STRIDE-th),
+// 32-byte swizzled (16-byte chunk c of pixel P at c ^ ((P / 4) % 2), the
+// slab's own layout), zeros outside x.
+template <class G>
+inline CUresult x_tensor_map(CUtensorMap* map, const bf16* x, int S, int H,
+                             int W, int Cin) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {(cuuint64_t)Cin, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)S};
+  const cuuint64_t strides[3] = {(cuuint64_t)Cin * 2,
+                                 (cuuint64_t)W * Cin * 2,
+                                 (cuuint64_t)H * W * Cin * 2};
+  const cuuint32_t box[4] = {KC, G::PW * G::STRIDE, G::PH * G::STRIDE, 1};
+  const cuuint32_t elem[4] = {1, G::STRIDE, G::STRIDE, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<bf16*>(x), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 // Packs the weights into `wpack`, launches the conv kernel (one persistent
-// CTA per SM, at most one per item) and the tile-order stats reduction on
-// `st`; returns the first cudaError_t (0 on success).
+// CTA per SM, at most one per item) and the stats reduction over the
+// partials in (tile, phase) order on `st`; returns the first cudaError_t (0
+// on success; 1000 + the CUresult if x's tensor map was refused).
+// `partial` holds S x num_tiles x NPH x 2 x Cout floats.
+template <class G>
 inline int launch(const bf16* x, const bf16* w, void* wpack,
                   const float* in_scale, const float* in_bias, bf16* y,
                   float* partial, float* stats, int S, int H, int W, int Cin,
-                  int Cout, bool has_affine, bool in_relu, cudaStream_t st) {
-  using G = Geom;
-  if (Cin % 8 || Cout % 8 || H % 2 || W % 2)
+                  int Cout, bool reflect, bool has_affine, bool in_relu,
+                  cudaStream_t st) {
+  if (Cin % 8 || Cout % 8 || H % G::STRIDE || W % G::STRIDE)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int Ho = H / STRIDE;
-  const int Wo = W / STRIDE;
+  CUtensorMap x_map;
+  const CUresult map_err = x_tensor_map<G>(&x_map, x, S, H, W, Cin);
+  if (map_err != CUDA_SUCCESS) return 1000 + static_cast<int>(map_err);
+  // the tile grid's extent: the output's (CONVT: the input's)
+  const int Ho = H / G::STRIDE;
+  const int Wo = W / G::STRIDE;
   const int tiles_w = (Wo + TN - 1) / TN;
   const int n_tiles = num_tiles(Ho, Wo);
-  const int n_nb = (Cout + BN - 1) / BN;
-  const int n_items = S * n_tiles * n_nb;
+  const int n_nb = (Cout + G::BN - 1) / G::BN;
+  const int n_items = S * n_tiles * G::NPH * n_nb;
   int dev = 0, n_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(conv3x3_wgmma_kernel,
+    err = cudaFuncSetAttribute(conv_wgmma_kernel<G>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                G::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_k = (Cin + G::KC - 1) / G::KC;
-  const long chunks = wpack_bytes(Cin, Cout) / 16;
+  const int n_k = (Cin + KC - 1) / KC;
+  const long chunks = wpack_bytes<G>(Cin, Cout) / 16;
   const int pack_blocks =
       (int)((chunks + 255) / 256 < 4096 ? (chunks + 255) / 256 : 4096);
-  pack_weights_kernel<<<pack_blocks, 256, 0, st>>>(
+  pack_weights_kernel<G><<<pack_blocks, 256, 0, st>>>(
       w, static_cast<uint4*>(wpack), Cin, Cout, n_k, n_nb);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = n_items < n_sm ? n_items : n_sm;
-  conv3x3_wgmma_kernel<<<grid, NT, G::SMEM, st>>>(
-      x, static_cast<const char*>(wpack), in_scale, in_bias, y, partial, H, W,
-      Ho, Wo, Cin, Cout, tiles_w, n_tiles, n_nb, n_items, has_affine,
-      in_relu);
+  conv_wgmma_kernel<G><<<grid, NT, G::SMEM, st>>>(
+      x_map, static_cast<const char*>(wpack), in_scale, in_bias, y, partial,
+      H, W, Ho, Wo, Cin, Cout, tiles_w, n_tiles, n_nb, n_items, reflect,
+      has_affine, in_relu);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(
-      conv3x3::launch_stats_reduce(partial, stats, S, n_tiles, Cout, st));
+  return static_cast<int>(conv3x3::launch_stats_reduce(
+      partial, stats, S, n_tiles * G::NPH, Cout, st));
 }
 
 }  // namespace conv3x3_wgmma

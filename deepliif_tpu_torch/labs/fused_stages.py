@@ -12,14 +12,14 @@ nets/resnet.py). The JAX fused path ends in XLA's tail conv; the port ends
 it with ``tail_s2d_fused``, the same function with the same bf16 rounding
 points.
 
-``conv3x3_s2_stats`` launches ``csrc/conv3x3_s2_stats.cu`` (the
+``conv3x3_s2_stats`` launches ``csrc/conv3x3_s2_stats.cu`` and
+``convtranspose3_s2_stats`` ``csrc/convtranspose3_s2_stats.cu`` (both the
 implicit-GEMM ``wgmma`` kernel of ``csrc/conv3x3_wgmma.cuh``, with its
-weights packed per call into a workspace),
-``convtranspose3_s2_stats`` ``csrc/convtranspose3_s2_stats.cu`` and
-``tail_s2d_fused`` / ``tail_s2d_block`` ``csrc/tail_s2d.cu`` for a CUDA
-tensor (bfloat16 only, as the JAX path); a CPU tensor runs the plain
-version (``*_reference``, float32 or bfloat16); on any other device, dtype
-or layout they raise. There is no fallback from a kernel to its plain
+weights packed per call into a workspace; the conv-transpose in its phase
+form) and ``tail_s2d_fused`` / ``tail_s2d_block`` ``csrc/tail_s2d.cu``
+for a CUDA tensor (bfloat16 only, as the JAX path); a CPU tensor runs the
+plain version (``*_reference``, float32 or bfloat16); on any other device,
+dtype or layout they raise. There is no fallback from a kernel to its plain
 version.
 
 Tensors keep the JAX package's layout: activations NHWC (S, H, W, C),
@@ -43,8 +43,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import cuda_build
-from ..ops.fused_resblock import (_check_affine, _check_padding, _stats,
-                                  _transform)
+from ..ops.fused_resblock import (_check_affine, _check_padding, _misaligned,
+                                  _stats, _transform)
 from ..utils.checkpoints import weight_from_hwio
 
 _LIBS = {'conv3x3_s2_stats': ['conv3x3_s2_stats.cu'],
@@ -119,10 +119,11 @@ def _launch(name, x, w, in_scale, in_bias, in_relu, out_hw):
     if w.device != x.device:
         raise ValueError(f'x on {x.device}, w on {w.device}')
     w = w.to(torch.bfloat16).contiguous()
-    if cin % 8 or cout % 8 or x.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError(f'the {name} kernel needs Cin, Cout % 8 == 0 and '
-                         f'16-byte aligned x and w (Cin={cin}, Cout={cout})')
     _check_affine(in_scale, in_bias, s_n, cin, x.device)
+    if cin % 8 or cout % 8 or _misaligned(x, w, in_scale, in_bias):
+        raise ValueError(f'the {name} kernel needs Cin, Cout % 8 == 0 and '
+                         f'16-byte aligned x, w, in_scale and in_bias '
+                         f'(Cin={cin}, Cout={cout})')
     lib = _lib(name)
     ho, wo = out_hw
     y = torch.empty((s_n, ho, wo, cout), dtype=x.dtype, device=x.device)
@@ -144,7 +145,9 @@ def _launch(name, x, w, in_scale, in_bias, in_relu, out_hw):
             s_n, h, w_n, cin, cout, int(has_affine), int(bool(in_relu)),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f'{name} kernel launch failed: cudaError {err}')
+        raise RuntimeError(f'{name} kernel launch failed: cudaError {err} '
+                           '(1000 + a CUresult if x\'s TMA tensor map was '
+                           'refused)')
     return y, stats
 
 

@@ -11,7 +11,10 @@ Port of deepliif_tpu/ops/fused_resblock.py (``conv3x3_stats``,
 
 so each intermediate activation is written once and read once; the norm
 finalize is a tiny (S, C) op between calls. ``conv3x3_stats`` launches the
-hand-written kernel in ``csrc/conv3x3_stats.cu`` (float32 or bfloat16) and
+hand-written kernel in ``csrc/conv3x3_stats.cu`` (float32 on CUDA cores;
+bfloat16 on the tensor cores, the implicit-GEMM ``wgmma`` kernel of
+``csrc/conv3x3_wgmma.cuh``, with its weights packed per call into a
+workspace) and
 ``conv3x3_stats_int8`` the one in ``csrc/conv3x3_stats_int8.cu`` for a CUDA
 tensor; a CPU tensor runs the plain version (``*_reference``); on any other
 device, dtype or layout they raise. There is no fallback from a kernel to
@@ -47,10 +50,15 @@ CHUNK_ROWS = 16
 def _lib():
     lib = cuda_build.load('conv3x3_stats', _LIBS['conv3x3_stats'])
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.conv3x3_stats_num_tiles.argtypes = [i, i]
-    lib.conv3x3_stats_num_tiles.restype = i
+    for fn in (lib.conv3x3_stats_num_tiles, lib.conv3x3_stats_bf16_num_tiles):
+        fn.argtypes = [i, i]
+        fn.restype = i
+    lib.conv3x3_stats_bf16_wpack_bytes.argtypes = [i]
+    lib.conv3x3_stats_bf16_wpack_bytes.restype = ctypes.c_long
+    lib.conv3x3_stats_f32.argtypes = [p] * 7 + [i] * 7 + [p]
+    # bf16: a packed-weight workspace after w
+    lib.conv3x3_stats_bf16.argtypes = [p] * 8 + [i] * 7 + [p]
     for fn in (lib.conv3x3_stats_f32, lib.conv3x3_stats_bf16):
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
         fn.restype = i
     return lib
 
@@ -128,6 +136,12 @@ def _check_affine(in_scale, in_bias, s_n, c, device):
                                  f'({s_n}, {c}) on {device}')
 
 
+def _misaligned(*tensors):
+    """Whether any of ``tensors`` (None skipped) does not start 16-byte
+    aligned (the kernels' 16-byte copies and TMA loads)."""
+    return any(t is not None and t.data_ptr() % 16 for t in tensors)
+
+
 def _check(x, w, padding, in_scale, in_bias):
     _check_padding(padding)
     if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype:
@@ -147,11 +161,11 @@ def _check(x, w, padding, in_scale, in_bias):
                          'HWIO w')
     if w.device != x.device:
         raise ValueError(f'x on {x.device}, w on {w.device}')
-    if x.dtype == torch.bfloat16 and (c % 8 or x.data_ptr() % 16
-                                      or w.data_ptr() % 16):
-        raise ValueError('the bfloat16 kernel needs C % 8 == 0 and 16-byte '
-                         f'aligned x and w (C={c})')
     _check_affine(in_scale, in_bias, s_n, c, x.device)
+    if x.dtype == torch.bfloat16 and (c % 8 or _misaligned(x, w, in_scale,
+                                                           in_bias)):
+        raise ValueError('the bfloat16 kernel needs C % 8 == 0 and 16-byte '
+                         f'aligned x, w, in_scale and in_bias (C={c})')
 
 
 def conv3x3_stats(x, w, *, padding='reflect', in_scale=None, in_bias=None,
@@ -177,21 +191,31 @@ def conv3x3_stats(x, w, *, padding='reflect', in_scale=None, in_bias=None,
     lib = _lib()
     bf16 = x.dtype == torch.bfloat16
     y = torch.empty_like(x)
-    n_tiles = lib.conv3x3_stats_num_tiles(h, w_n)
+    if bf16:   # the tensor-core kernel: its own tiling, packed weights
+        n_tiles = lib.conv3x3_stats_bf16_num_tiles(h, w_n)
+        fn = lib.conv3x3_stats_bf16
+        workspace = [torch.empty(lib.conv3x3_stats_bf16_wpack_bytes(c),
+                                 dtype=torch.uint8, device=x.device)]
+    else:
+        n_tiles = lib.conv3x3_stats_num_tiles(h, w_n)
+        fn = lib.conv3x3_stats_f32
+        workspace = []
     partial = torch.empty((s_n, n_tiles, 2, c), dtype=torch.float32,
                           device=x.device)
     stats = torch.empty((s_n, 2, c), dtype=torch.float32, device=x.device)
     has_affine = in_scale is not None
-    fn = lib.conv3x3_stats_bf16 if bf16 else lib.conv3x3_stats_f32
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), w.data_ptr(),
+                 *(t.data_ptr() for t in workspace),
                  in_scale.data_ptr() if has_affine else None,
                  in_bias.data_ptr() if has_affine else None,
                  y.data_ptr(), partial.data_ptr(), stats.data_ptr(),
                  s_n, h, w_n, c, int(padding == 'reflect'), int(has_affine),
                  int(bool(in_relu)), torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f'conv3x3_stats kernel launch failed: cudaError {err}')
+        raise RuntimeError(f'conv3x3_stats kernel launch failed: cudaError '
+                           f'{err} (bf16: 1000 + a CUresult if x\'s TMA '
+                           'tensor map was refused)')
     if bf16:
         conv3x3_stats.launches_bf16 += 1
     else:

@@ -1,15 +1,16 @@
-"""What chip_smoke.py's 9-block resblock chain bound (CHAIN_TOL, bf16)
-admits: the port's bf16 trunk kernel (``conv3x3_stats_bf16``) against an
-exactly rounded conv, each beside the plain version, on one CUDA card:
+"""What chip_smoke.py's bf16 9-block chain bound (``within_chain_bound``:
+accuracy against the float32 chain) admits: the port's bf16 trunk kernel
+against its controls, each beside the plain version, on one CUDA card:
 
 * per conv, on chip_smoke.py's own bf16 check inputs (the same seed and
   draws): max error in bf16 ulps, the share of outputs whose bf16 value
-  differs from the plain version's, stats error;
-* the 9-block resblock chain (chip_smoke.py's ``resblock_chain_vs_plain``
-  inputs) through each conv against the chain through the plain version,
-  beside chip_smoke.py's bound. The "exact" conv sums in float64 and rounds
-  once, so it shows what a summation order other than that of the plain
-  version's cuDNN float32 conv gives, as a tensor-core kernel's would.
+  differs from the plain version's, stats error, for the kernel and the
+  exact control (``exact_conv``: summed in float64, rounded once);
+* the 9-block resblock chain (chip_smoke.py's chain inputs) through the
+  kernel, the exact control and the round-toward-zero control
+  (``biased_conv``): mean |delta| from the float32 chain over its mean |y|,
+  beside the plain chain's and chip_smoke.py's margin, and max |delta| from
+  the plain chain.
 
     python3 experiments/torch_trunk_chain_bound.py
 
@@ -24,23 +25,9 @@ import os
 import sys
 
 import torch
-import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as smoke  # noqa: E402
-
-
-def exact(FR):
-    """The plain version with the conv summed in float64 and rounded once."""
-    def conv(x, w, padding='reflect', in_scale=None, in_bias=None,
-             in_relu=False):
-        u = FR._transform(x, in_scale, in_bias, in_relu).permute(0, 3, 1, 2)
-        u = F.pad(u, (1, 1, 1, 1), mode='reflect' if padding == 'reflect'
-                  else 'constant')
-        y64 = F.conv2d(u.double(), w.double().permute(3, 2, 0, 1))
-        return (y64.to(x.dtype).permute(0, 2, 3, 1).contiguous(),
-                FR._stats(y64.float()))
-    return conv
 
 
 def main():
@@ -49,7 +36,7 @@ def main():
     from deepliif_tpu_torch import models as M
     from deepliif_tpu_torch.ops import fused_resblock as FR
     M.configure_device(torch.device('cuda'))   # TF32 off for the plain conv
-    convs = {'kernel': FR.conv3x3_stats, 'exact': exact(FR)}
+    convs = {'kernel': FR.conv3x3_stats, 'exact': smoke.exact_conv(FR)}
     plain = FR.conv3x3_stats_reference
 
     # chip_smoke.py's draws: its float32 checks first, then the bf16 ones
@@ -81,20 +68,16 @@ def main():
             print(json.dumps(row), flush=True)
 
     for padding in ('zero', 'reflect'):
-        def chain(conv):
-            return FR._chain(lambda hh, b, j, **k: conv(
-                hh, b[f'w{j}'], padding=padding, **k), x, blocks,
-                1e-5).float()
-        want = chain(plain)
-        row = {'phase': 'resblock_chain_vs_plain', 'blocks': 9,
-               'padding': padding,
-               'bound': {'max_rel': smoke.CHAIN_TOL['bfloat16'][0],
-                         'mean_rel': smoke.CHAIN_TOL['bfloat16'][1]}}
-        for name, conv in convs.items():
-            d = (chain(conv) - want).abs()
-            row[name] = {'max_rel': (d.max() / want.abs().max()).item(),
-                         'mean_rel': (d.mean() / want.abs().mean()).item()}
-        print(json.dumps(row), flush=True)
+        dist, vs_plain = smoke.bf16_chain_accuracy(
+            FR, x, blocks, padding, dict(convs, biased=smoke.biased_conv(FR)))
+        print(json.dumps({
+            'phase': 'resblock_chain_vs_float32', 'blocks': 9,
+            'padding': padding, 'mean_rel_vs_float32': dist,
+            'ratio_to_plain': {k: v / dist['plain'] for k, v in dist.items()},
+            'within_bound': {k: smoke.within_chain_bound(dist, k)
+                             for k in vs_plain},
+            'margin': smoke.CHAIN_F32_MARGIN, 'max_rel_vs_plain': vs_plain,
+            'max_bound': smoke.BF16_CHAIN_MAX}), flush=True)
     print(smoke.nvidia_smi())
 
 

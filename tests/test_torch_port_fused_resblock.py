@@ -125,13 +125,15 @@ def test_cuda_kernel_matches_plain_version(padding):
     assert _stats_rel(st.cpu().numpy(), st_ref.cpu().numpy()) < STATS_REL
 
 
-# ---- the bfloat16 kernel against its plain version at ragged shapes: H, W
-# not multiples of its 8 x 16 tile, C a multiple of 8 but not of the
-# 128-channel block. y within one bf16 ulp (both round float32 sums of the
-# same exact products, in the same or in another order; 1e-6 absolute for
-# outputs near zero), stats within
-# 1e-4 of the largest stat of their kind (chip_smoke.py STATS_TOL), and a
-# sample byte-equal alone and in the batch, run to run.
+# ---- the bfloat16 kernel (the tensor-core mainloop of
+# csrc/conv3x3_wgmma.cuh at stride 1) against its plain version at ragged
+# shapes: H, W not multiples of its 16 x 16 tile, C a multiple of 8 but not
+# of its 16-channel stage or its 128-channel block, and one full block of
+# 128 channels over 8 stages. y within one bf16 ulp (both round float32
+# sums of the same exact products, in another order; 1e-6 absolute for
+# outputs near zero), stats within 1e-4 of the largest stat of their kind
+# (chip_smoke.py STATS_TOL), and a sample byte-equal alone and in the
+# batch, run to run.
 
 BF16_ULP = 2.0 ** -7
 BF16_STATS_REL = 1e-4
@@ -146,7 +148,8 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('shape', [(2, 37, 45, 40), (1, 18, 130, 72)])
+@pytest.mark.parametrize('shape', [(2, 37, 45, 40), (1, 18, 130, 72),
+                                   (2, 24, 40, 128)])
 @pytest.mark.parametrize('affine', [False, True], ids=['plain', 'affine_relu'])
 @pytest.mark.parametrize('padding', ['reflect', 'zero'])
 def test_cuda_bf16_kernel_matches_plain_version(cuda, shape, affine,

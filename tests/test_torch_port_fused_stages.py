@@ -336,3 +336,108 @@ def test_cuda_conv3x3_s2_kernel_matches_plain_version(cuda, shape, cout,
              for k, v in kw.items()}
     y1, st1 = FS.conv3x3_s2_stats(x[1:2].contiguous(), w, **alone)
     assert torch.equal(y1[0], y[1]) and torch.equal(st1[0], st[1])
+
+
+# ---- the conv-transpose tensor-core kernel (csrc/conv3x3_wgmma.cuh, CONVT)
+# against its plain version at ragged shapes: input H, W not multiples of
+# its 16 x 16 tile, Cin and Cout multiples of 8 but not of its 16-channel
+# stage or 64-channel block (136: three blocks, the last one masked). y
+# within one bf16 ulp, stats within STATS_REL (chip_smoke.py
+# STAGE_STATS_TOL), and a sample byte-equal alone and in the batch, run to
+# run.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('affine', [False, True], ids=['plain', 'affine_relu'])
+@pytest.mark.parametrize('shape,cout', [((2, 37, 45, 40), 56),
+                                        ((2, 19, 66, 72), 24),
+                                        ((2, 21, 34, 32), 136)])
+def test_cuda_convtranspose3_s2_kernel_matches_plain_version(cuda, shape,
+                                                             cout, affine):
+    rng = np.random.default_rng(5)
+    s, cin = shape[0], shape[3]
+    x = torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32))
+    w = torch.from_numpy(rng.normal(0, 0.05, (3, 3, cin, cout))
+                         .astype(np.float32))
+    x, w = x.cuda().to(torch.bfloat16), w.cuda().to(torch.bfloat16)
+    kw = {}
+    if affine:
+        kw = dict(in_scale=torch.from_numpy(
+                      (1 + 0.1 * rng.normal(0, 1, (s, cin))).astype(np.float32)
+                  ).cuda(),
+                  in_bias=torch.from_numpy(
+                      (0.1 * rng.normal(0, 1, (s, cin))).astype(np.float32)
+                  ).cuda(), in_relu=True)
+    n0 = FS.convtranspose3_s2_stats.launches
+    y, st = FS.convtranspose3_s2_stats(x, w, **kw)
+    assert FS.convtranspose3_s2_stats.launches == n0 + 1
+    assert y.shape == (s, 2 * shape[1], 2 * shape[2], cout)
+    y_ref, st_ref = FS.convtranspose3_s2_stats_reference(x, w, **kw)
+    d = (y.float() - y_ref.float()).abs()
+    assert bool((d <= BF16_ULP * y_ref.float().abs() + 1e-6).all())
+    assert _stats_rel(st.cpu().numpy(), st_ref.cpu().numpy()) < STATS_REL
+    y2, st2 = FS.convtranspose3_s2_stats(x, w, **kw)
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    alone = {k: (v[1:2].contiguous() if isinstance(v, torch.Tensor) else v)
+             for k, v in kw.items()}
+    y1, st1 = FS.convtranspose3_s2_stats(x[1:2].contiguous(), w, **alone)
+    assert torch.equal(y1[0], y[1]) and torch.equal(st1[0], st[1])
+
+
+# ---- the phase split of that kernel, on the CPU: its packed weight image
+# holds the HWIO taps phase by phase (csrc/conv3x3_wgmma.cuh convt_first /
+# image_tap: positions 0 | 1-2 | 3-4 | 5-8 hold taps 4 | 3 5 | 1 7 | 0 2 6 8)
+# and output phase (a, b) = (ph // 2, ph % 2) sums its taps (ky, kx) over
+# the input shifted by (ky == 2, kx == 2), zero past the bottom and right
+# edge. Assembled in torch, the four phase convs must be
+# ConvTranspose2d(3, 2, 1, output_padding=1): equal to F.conv_transpose2d
+# in float64 (within 1e-12) and to JAX's convtranspose3_s2_stats in Pallas
+# interpret mode at float32 (within 1e-4, its own tolerance).
+
+CONVT_IMAGE_TAPS = (4, 3, 5, 1, 7, 0, 2, 6, 8)
+CONVT_PHASE_FIRST = (0, 1, 3, 5, 9)
+
+
+def convtranspose_from_phases(x, w):
+    """NHWC x, HWIO forward-conv w -> the conv-transpose from the kernel's
+    four phase convs."""
+    s, h, wd, _ = x.shape
+    xp = torch.nn.functional.pad(x, (0, 0, 0, 1, 0, 1))
+    y = x.new_zeros((s, 2 * h, 2 * wd, w.shape[3]))
+    for ph in range(4):
+        taps = CONVT_IMAGE_TAPS[CONVT_PHASE_FIRST[ph]:CONVT_PHASE_FIRST[ph + 1]]
+        acc = 0
+        for tap in taps:
+            ky, kx = divmod(tap, 3)
+            dy, dx = int(ky == 2), int(kx == 2)
+            acc = acc + xp[:, dy:dy + h, dx:dx + wd] @ w[ky, kx]
+        y[:, ph // 2::2, ph % 2::2] = acc
+    return y
+
+
+@pytest.mark.parametrize('shape,cout', [((2, 8, 11, 16), 24),
+                                        ((1, 16, 10, 8), 8)])
+def test_convtranspose_phase_split_matches_torch_and_jax(shape, cout):
+    rng = np.random.default_rng(6)
+    x = rng.normal(0, 1, shape)
+    w = rng.normal(0, 0.1, (3, 3, shape[3], cout))
+    got = convtranspose_from_phases(torch.from_numpy(x), torch.from_numpy(w))
+    want = torch.nn.functional.conv_transpose2d(
+        torch.from_numpy(x).permute(0, 3, 1, 2),
+        ck.weight_from_hwio(torch.from_numpy(w), 'convT'), stride=2,
+        padding=1, output_padding=1).permute(0, 2, 3, 1)
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() < 1e-12
+    # every position of the image is a tap, once, and each phase takes the
+    # taps of its parity
+    assert sorted(CONVT_IMAGE_TAPS) == list(range(9))
+    for ph in range(4):
+        for tap in CONVT_IMAGE_TAPS[CONVT_PHASE_FIRST[ph]:
+                                    CONVT_PHASE_FIRST[ph + 1]]:
+            ky, kx = divmod(tap, 3)
+            assert (ky == 1) == (ph // 2 == 0) and (kx == 1) == (ph % 2 == 0)
+    y_jax, _ = FS_jax.convtranspose3_s2_stats(
+        jnp.asarray(x, jnp.float32), jnp.asarray(w, jnp.float32),
+        chunk_rows=8, interpret=True)
+    got32 = convtranspose_from_phases(torch.from_numpy(x).float(),
+                                      torch.from_numpy(w).float())
+    assert np.abs(got32.numpy() - np.asarray(y_jax)).max() <= F32_TOL
