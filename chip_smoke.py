@@ -5,7 +5,10 @@ at the shapes of the main path, then drives flagship DeepLIIF inference
 a seed) end to end through the port's user entry points, at float32,
 bfloat16, int8 (ResNet-trunk scope, per-chunk dynamic scales) and bfloat16
 with the fused translator stages (``fuse_stages``, which end in the tail
-kernel ``tail_s2d_fused``). Every path must give a
+kernel ``tail_s2d_fused``). The float32 trunk kernel (split TF32 on the
+tensor cores) is held to the float32 tolerance beside two controls on the
+same inputs: cuDNN's 1x TF32 conv must fail it, the plain 3x TF32 emulation
+must pass it. Every path must give a
 tile the same outputs alone as inside a batch of 16 (``batch_invariance``;
 the engine runs every forward at its one batch shape of 16 tiles). The
 bf16 trunk is held to accuracy against float32, beside two controls that
@@ -131,11 +134,15 @@ SESSION_MARGIN, SESSION_SHARE_SLACK = 1.05, 0.002
 # ragged shapes for the tensor-core kernels of conv3x3_wgmma.cuh: H, W not
 # multiples of their 16 x 16 tile (of output pixels; of input pixels for
 # convtranspose3_s2_stats), channels multiples of 8 but not of their
-# 16-channel stage or their 128-channel (64 for the conv-transpose) block:
-# conv3x3_stats bf16 (C in, C out), conv3x3_s2_stats and
-# convtranspose3_s2_stats ((x shape, Cout)); the same bounds as at the
-# flagship shapes
+# stage (16 bf16, 8 f32 channels) or their 128-channel block (64 for the
+# conv-transpose and the f32 trunk): conv3x3_stats bf16 and f32 (C in, C
+# out), conv3x3_s2_stats and convtranspose3_s2_stats ((x shape, Cout)); the
+# same bounds as at the flagship shapes
 RAGGED_TRUNK = ((2, 37, 45, 40), (1, 18, 130, 72))
+# ragged shapes for the int8 trunk kernel: its contract admits H % 16 == 0
+# or H < 16 (the dynamic scale's chunk) and C % 8 == 0; W and C not
+# multiples of its 16-column tile, 32-channel stage or 64-channel block
+RAGGED_INT8 = ((2, 32, 45, 40), (1, 16, 130, 72), (1, 12, 30, 24))
 RAGGED_STAGES = {
     'conv3x3_s2_stats': (((2, 38, 46, 40), 56), ((2, 18, 130, 72), 24)),
     'convtranspose3_s2_stats': (((2, 37, 45, 40), 56), ((2, 19, 66, 72), 24))}
@@ -173,10 +180,16 @@ TAIL_LAUNCHES_PER_FORWARD = 4
 PLANE_PER_FORWARD = {False: 4 * 5 * 2 + 5 * 15 * 2, True: 4 + 5 * 15 * 2}
 # plane_sums vs plain: sums of 512^2 float32 terms in different orders
 PLANE_TOL = 1e-5
-# published H100 SXM peaks at 700 W (dense): FP32 outside the tensor cores,
-# bf16 and int8 tensor cores; HBM3 bandwidth
-PEAK_OPS = {'float32': 67e12, 'bfloat16': 989e12, 'int8': 1979e12}
+# published H100 SXM peaks at 700 W (dense): FP32 outside the tensor cores
+# (FFMA), TF32, bf16 and int8 tensor cores; HBM3 bandwidth
+PEAK_OPS = {'float32': 67e12, 'tf32': 495e12, 'bfloat16': 989e12,
+            'int8': 1979e12}
 PEAK_BYTES = 3.35e12
+# the float32 trunk kernel runs on the TF32 tensor cores by split TF32: 3
+# TF32 products per multiply-add, so its own bound is 3x the TF32 time
+SPLIT_TF32_PRODUCTS = 3
+ROUTE_PEAK = {'float32': PEAK_OPS['tf32'] / SPLIT_TF32_PRODUCTS,
+              'bfloat16': PEAK_OPS['bfloat16'], 'int8': PEAK_OPS['int8']}
 OUTPUTS = {'mod1-Hema', 'mod2-DAPI', 'mod3-Lap2', 'mod4-Marker', 'Seg',
            'SegOverlaid', 'SegRefined'}
 # the device quantifier's synthetic seg canvases: the JAX ROI canvas and the
@@ -242,14 +255,19 @@ def stats_rel(got, ref):
                 / ref[:, q].abs().max()).item() for q in range(2))
 
 
+def trunk_ops(shape):
+    s, h, w, c = shape
+    return 2.0 * s * h * w * c * c * 9
+
+
 def bound(kind, shape, elem_bytes, w_bytes):
     """Least time (ms) for one trunk conv at ``shape``: ops over the peak
-    of the type, or bytes (x read once, w read once, y written once, the
-    stats written once) over HBM bandwidth, whichever is larger."""
+    of its route (float32: split TF32, ROUTE_PEAK), or bytes (x read once, w
+    read once, y written once, the stats written once) over HBM bandwidth,
+    whichever is larger."""
     s, h, w, c = shape
-    ops = 2.0 * s * h * w * c * c * 9
     nbytes = 2 * s * h * w * c * elem_bytes + 9 * c * c * w_bytes + s * 2 * c * 4
-    t_ops, t_bytes = ops / PEAK_OPS[kind], nbytes / PEAK_BYTES
+    t_ops, t_bytes = trunk_ops(shape) / ROUTE_PEAK[kind], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ('operations' if t_ops >= t_bytes
                                        else 'bytes')
 
@@ -413,6 +431,75 @@ def determinism(conv, x, kw, per_sample, what):
           f'{what}: sample alone differs from the sample in the batch')
 
 
+def float64_conv(FR, x, w, padding='reflect', in_scale=None, in_bias=None,
+                 in_relu=False):
+    """The float32 trunk conv's y from a float64 conv: the affine and ReLU
+    in float32 as the kernel and the plain version run them, then the conv
+    of those values in float64 (the exact sum, up to float64's rounding)."""
+    u = FR._transform(x, in_scale, in_bias, in_relu).permute(0, 3, 1, 2)
+    u = torch.nn.functional.pad(u, (1, 1, 1, 1), mode='reflect'
+                                if padding == 'reflect' else 'constant')
+    y = torch.nn.functional.conv2d(u.double(),
+                                   w.double().permute(3, 2, 0, 1))
+    return y.permute(0, 2, 3, 1)
+
+
+def tf32_control(FR, x, **kw):
+    """The plain version with cuDNN's TF32 on (1x TF32: what a TF32 conv
+    computes), TF32 restored afterwards."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        return FR.conv3x3_stats_reference(x, **kw)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def trunk_f32_case(FR, x, wt, sc, bi, padding, affine, controls=False):
+    """One conv3x3_stats float32 case: within Y_TOL and STATS_TOL of the
+    plain version, byte-equal run to run and per sample; the kernel's and
+    the plain version's max |dy| from a float64 conv beside each other.
+    ``controls``: the 1x TF32 control must fail Y_TOL (else the check could
+    not see TF32's error) and the 3x TF32 emulation must pass it. Returns
+    max |dy|."""
+    s = x.shape[0]
+    kw = dict(w=wt, padding=padding, in_relu=affine,
+              in_scale=sc[:s] if affine else None,
+              in_bias=bi[:s] if affine else None)
+    y, st = FR.conv3x3_stats(x, **kw)
+    y_ref, st_ref = FR.conv3x3_stats_reference(x, **kw)
+    y64 = float64_conv(FR, x, **kw)
+    torch.cuda.synchronize()
+    err = (y - y_ref).abs().max().item()
+    rel = stats_rel(st, st_ref)
+    info = dict(max_abs_err_y=err, stats_rel_err=rel,
+                kernel_vs_float64=(y.double() - y64).abs().max().item(),
+                plain_vs_float64=(y_ref.double() - y64).abs().max().item())
+    if controls:
+        y1 = tf32_control(FR, x, **kw)[0]
+        y3 = FR.conv3x3_stats_split_tf32_reference(x, **kw)[0]
+        torch.cuda.synchronize()
+        info['tf32x1_control_err'] = (y1 - y_ref).abs().max().item()
+        info['tf32x3_emulation_err'] = (y3 - y_ref).abs().max().item()
+        info['tf32x3_emulation_vs_float64'] = (
+            y3.double() - y64).abs().max().item()
+    phase('kernel_vs_plain', kernel='conv3x3_stats f32', shape=list(x.shape),
+          padding=padding, affine_relu=affine, **info)
+    check(err < Y_TOL, f'f32 y error {err} >= {Y_TOL} at {tuple(x.shape)}')
+    check(rel < STATS_TOL, f'f32 stats error {rel} >= {STATS_TOL}')
+    if controls:
+        check(info['tf32x1_control_err'] >= Y_TOL,
+              f'the 1x TF32 control passes Y_TOL ({info}): the check cannot '
+              'see TF32\'s error')
+        check(info['tf32x3_emulation_err'] < Y_TOL,
+              f'the 3x TF32 emulation fails Y_TOL ({info})')
+    if s > 1:
+        determinism(FR.conv3x3_stats, x, kw,
+                    {'in_scale': kw['in_scale'], 'in_bias': kw['in_bias']},
+                    'conv3x3_stats f32')
+    return err
+
+
 def kernel_checks_f32(FR, rnd):
     s, h, w, c = KERNEL_SHAPE
     x = rnd(*KERNEL_SHAPE)
@@ -421,23 +508,8 @@ def kernel_checks_f32(FR, rnd):
     worst = 0.0
     for padding in ('zero', 'reflect'):
         for affine in (False, True):
-            kw = dict(w=wt, padding=padding, in_relu=affine,
-                      in_scale=sc if affine else None,
-                      in_bias=bi if affine else None)
-            y, st = FR.conv3x3_stats(x, **kw)
-            y_ref, st_ref = FR.conv3x3_stats_reference(x, **kw)
-            torch.cuda.synchronize()
-            err = (y - y_ref).abs().max().item()
-            rel = stats_rel(st, st_ref)
-            worst = max(worst, err)
-            phase('kernel_vs_plain', kernel='conv3x3_stats f32',
-                  shape=list(KERNEL_SHAPE), padding=padding,
-                  affine_relu=affine, max_abs_err_y=err, stats_rel_err=rel)
-            check(err < Y_TOL, f'y error {err} >= {Y_TOL}')
-            check(rel < STATS_TOL, f'stats error {rel} >= {STATS_TOL}')
-            determinism(FR.conv3x3_stats, x, kw,
-                        {'in_scale': kw['in_scale'], 'in_bias': kw['in_bias']},
-                        'conv3x3_stats f32')
+            worst = max(worst, trunk_f32_case(FR, x, wt, sc, bi, padding,
+                                              affine, controls=True))
     phase('kernel_deterministic', kernel='conv3x3_stats f32',
           two_launches_byte_equal=True, batch_invariant=True)
 
@@ -449,6 +521,19 @@ def kernel_checks_f32(FR, rnd):
         phase('resblock_chain_vs_plain', kernel='conv3x3_stats f32', blocks=9,
               padding=padding, max_abs_err=err)
         check(err < Y_TOL, f'9-block chain error {err} >= {Y_TOL}')
+
+    # ragged shapes, from a generator of their own (the draws of the other
+    # phases stay those of earlier runs)
+    rr = Rand(SEED + 3)
+    for shape in RAGGED_TRUNK:
+        n, _, _, cr = shape
+        xr = rr(*shape)
+        wr = rr(3, 3, cr, cr, std=0.05)
+        scr, bir = rr(n, cr, std=0.1, mean=1.0), rr(n, cr, std=0.1)
+        for padding in ('zero', 'reflect'):
+            for affine in (False, True):
+                worst = max(worst, trunk_f32_case(FR, xr, wr, scr, bir,
+                                                  padding, affine))
     return worst
 
 
@@ -517,6 +602,36 @@ def kernel_checks_bf16(FR, rnd):
     return worst
 
 
+def trunk_int8_case(FR, x, wq, ws, inv_a, sc, bi, padding, affine,
+                    dynamic):
+    """One conv3x3_stats_int8 case: y bit-equal to the plain version, stats
+    within INT8_STATS_TOL, byte-equal run to run and per sample; returns
+    max |dy|."""
+    s = x.shape[0]
+    kw = dict(w_q=wq, deq=ws, inv_a=None if dynamic else inv_a,
+              padding=padding, in_relu=affine, dynamic=dynamic,
+              in_scale=sc[:s] if affine else None,
+              in_bias=bi[:s] if affine else None)
+    y, st = FR.conv3x3_stats_int8(x, **kw)
+    y_ref, st_ref = FR.conv3x3_stats_int8_reference(x, **kw)
+    torch.cuda.synchronize()
+    rel = stats_rel(st, st_ref)
+    err = (y.float() - y_ref.float()).abs().max().item()
+    phase('kernel_vs_plain', kernel='conv3x3_stats_int8',
+          mode='dynamic' if dynamic else 'static', shape=list(x.shape),
+          padding=padding, affine_relu=affine,
+          y_bit_equal=bool(torch.equal(y, y_ref)), max_abs_err_y=err,
+          stats_rel_err=rel)
+    check(torch.equal(y, y_ref),
+          f'int8 y differs from the plain y at {tuple(x.shape)}')
+    check(rel < INT8_STATS_TOL, f'int8 stats error {rel} >= {INT8_STATS_TOL}')
+    if s > 1:
+        determinism(FR.conv3x3_stats_int8, x, kw,
+                    {'in_scale': kw['in_scale'], 'in_bias': kw['in_bias']},
+                    'conv3x3_stats_int8')
+    return err
+
+
 def kernel_checks_int8(FR, rnd):
     s, h, w, c = KERNEL_SHAPE
     x = rnd(*KERNEL_SHAPE).to(torch.bfloat16)
@@ -528,29 +643,26 @@ def kernel_checks_int8(FR, rnd):
     for dynamic in (False, True):
         for padding in ('zero', 'reflect'):
             for affine in (False, True):
-                kw = dict(w_q=wq, deq=ws, inv_a=None if dynamic else inv_a,
-                          padding=padding, in_relu=affine, dynamic=dynamic,
-                          in_scale=sc if affine else None,
-                          in_bias=bi if affine else None)
-                y, st = FR.conv3x3_stats_int8(x, **kw)
-                y_ref, st_ref = FR.conv3x3_stats_int8_reference(x, **kw)
-                torch.cuda.synchronize()
-                rel = stats_rel(st, st_ref)
-                err = (y.float() - y_ref.float()).abs().max().item()
-                worst = max(worst, err)
-                phase('kernel_vs_plain', kernel='conv3x3_stats_int8',
-                      mode='dynamic' if dynamic else 'static',
-                      shape=list(KERNEL_SHAPE), padding=padding,
-                      affine_relu=affine, y_bit_equal=bool(torch.equal(y, y_ref)),
-                      max_abs_err_y=err, stats_rel_err=rel)
-                check(torch.equal(y, y_ref), 'int8 y differs from the plain y')
-                check(rel < INT8_STATS_TOL,
-                      f'int8 stats error {rel} >= {INT8_STATS_TOL}')
-                determinism(FR.conv3x3_stats_int8, x, kw,
-                            {'in_scale': kw['in_scale'],
-                             'in_bias': kw['in_bias']}, 'conv3x3_stats_int8')
+                worst = max(worst, trunk_int8_case(FR, x, wq, ws, inv_a, sc,
+                                                   bi, padding, affine,
+                                                   dynamic))
     phase('kernel_deterministic', kernel='conv3x3_stats_int8',
           two_launches_byte_equal=True, batch_invariant=True)
+
+    # ragged shapes, from a generator of their own
+    rr = Rand(SEED + 4)
+    for shape in RAGGED_INT8:
+        n, _, _, cr = shape
+        xr = rr(*shape).to(torch.bfloat16)
+        wqr, wsr = rr.int8_weights(cr)
+        invr = 127.0 / (2.0 + 2.0 * torch.rand(cr, generator=rr.gen)).cuda()
+        scr, bir = rr(n, cr, std=0.1, mean=1.0), rr(n, cr, std=0.1)
+        for dynamic in (False, True):
+            for padding in ('zero', 'reflect'):
+                for affine in (False, True):
+                    worst = max(worst, trunk_int8_case(
+                        FR, xr, wqr, wsr, invr, scr, bir, padding, affine,
+                        dynamic))
 
     # the dynamic scale per (sample, 16-row chunk) is exactly the chunk's
     # max |u|: an identity kernel (center tap = I, deq = 1) returns
@@ -615,14 +727,17 @@ def kernel_timing(FR, rnd):
             'plain': lambda: FR.conv3x3_stats_reference(x, wt, **aff),
             'kernel': lambda: FR.conv3x3_stats(x, wt, **aff),
             'library': lambda: F.conv2d(xp, wo)}, 5)
-        out[name] = ms
         b_ms, _ = bound(name, TIMING_SHAPE, x.element_size(),
                         wt.element_size())
+        # float32: the FP32 FFMA floor of a kernel on the CUDA cores
+        floor = ({'ffma_floor_ms': trunk_ops(TIMING_SHAPE)
+                  / PEAK_OPS['float32'] * 1e3} if name == 'float32' else {})
+        out[name] = ms
         phase('kernel_timing', kernel=f'conv3x3_stats {name}',
               shape=list(TIMING_SHAPE), runs_ms=runs,
               **{f'{k}_ms': v for k, v in ms.items()},
-              tflops=2.0 * s * h * w * c * c * 9 / ms['kernel'] / 1e9,
-              bound_ms=b_ms, bound_share=b_ms / ms['kernel'],
+              tflops=trunk_ops(TIMING_SHAPE) / ms['kernel'] / 1e9,
+              bound_ms=b_ms, bound_share=b_ms / ms['kernel'], **floor,
               library_call='F.conv2d on the padded input (cuDNN, TF32 off)')
     xb = x32.to(torch.bfloat16)
     wq, ws = rnd.int8_weights(c)
@@ -634,11 +749,15 @@ def kernel_timing(FR, rnd):
         {'plain': 2, 'kernel': 5})
     ms_static = cuda_ms(lambda: FR.conv3x3_stats_int8(
         xb, wq, ws, torch.ones(c, device=xb.device), **aff), 5)
-    out['int8'] = dict(ms, library=None)
+    out['int8'] = dict(ms, library=None, static=ms_static)
+    b_ms, _ = bound('int8', TIMING_SHAPE, 2, 1)
     phase('kernel_timing', kernel='conv3x3_stats_int8', mode='dynamic',
           shape=list(TIMING_SHAPE), runs_ms=runs,
           **{f'{k}_ms': v for k, v in ms.items()},
-          kernel_static_ms=ms_static,
+          kernel_static_ms=ms_static, bound_ms=b_ms,
+          bound_share=b_ms / ms['kernel'],
+          what='the whole call: max pass (dynamic), quantize pass, weight '
+               'pack, conv, stats reduction',
           library_call='none: no single PyTorch call computes an int8 conv')
     return out
 
@@ -757,8 +876,7 @@ def kernel_checks_stages(FS, FR, rnd):
         tot['per_call'].append({
             'call': call, 'ms': ms['kernel'], 'library_ms': ms['library'],
             'bound_ms': max(t_ops, t_bytes),
-            'bound_by': 'operations' if t_ops >= t_bytes else 'bytes',
-            'bound_share': max(t_ops, t_bytes) / ms['kernel']})
+            'bound_by': 'operations' if t_ops >= t_bytes else 'bytes'})
         tot['err'] = max(tot['err'], err, ragged_err[name])
         tot['ms'] += ms['kernel']
         tot['plain_ms'] += ms['plain']
@@ -867,7 +985,7 @@ def kernel_checks_tail(FS, FR, rnd):
                             library_ms=ms['library'],
                             bound_ms=max(t_ops, t_bytes),
                             bound_by='operations' if t_ops >= t_bytes
-                            else 'bytes', ffma_floor_ms=t_ffma)
+                            else 'bytes')
         phase('kernel_timing', kernel='tail_s2d', shape=list(TAIL_SHAPE),
               cout=TAIL_COUT, padding=padding, runs_ms=runs,
               **{f'{k}_ms': v for k, v in ms.items()},
@@ -1615,22 +1733,23 @@ def main():
     check(not loaded, f'jax or deepliif_tpu was imported: {loaded}')
 
     report = []
-    for name, kind, src, replaces, elem, wb in (
-            ('conv3x3_stats', 'float32', 'conv3x3_stats.cu', ':158', 4, 4),
-            ('conv3x3_stats', 'bfloat16', 'conv3x3_wgmma.cuh', ':158', 2, 2),
-            ('conv3x3_stats_int8', 'int8', 'conv3x3_stats_int8.cu', ':348',
-             2, 1)):
+    for name, kind, replaces, elem, wb, extra in (
+            ('conv3x3_stats', 'float32', ':158', 4, 4,
+             {'design': 'split TF32 (3 TF32 products per multiply-add)'}),
+            ('conv3x3_stats', 'bfloat16', ':158', 2, 2, {}),
+            ('conv3x3_stats_int8', 'int8', ':348', 2, 1,
+             {'mode': 'dynamic', 'static_ms': ms['int8']['static']})):
         bound_ms, bound_by = bound(kind, TIMING_SHAPE, elem, wb)
         report.append({
             'name': f'{name} ({kind})' if name == 'conv3x3_stats' else name,
-            'route': 'cuda', 'source': f'deepliif_tpu_torch/csrc/{src}',
+            'route': 'cuda',
+            'source': 'deepliif_tpu_torch/csrc/conv3x3_wgmma.cuh',
             'entry': f'deepliif_tpu_torch/csrc/{name}.cu',
             'replaces': f'deepliif_tpu/ops/fused_resblock.py{replaces}',
             'launches': launches[kind][kind], 'max_abs_err': err[kind],
             'ms': ms[kind]['kernel'], 'plain_ms': ms[kind]['plain'],
             'bound_ms': bound_ms, 'bound_by': bound_by,
-            'library_ms': ms[kind]['library'],
-            'bound_share': bound_ms / ms[kind]['kernel']})
+            'library_ms': ms[kind]['library'], **extra})
     for name, replaces in (('conv3x3_s2_stats', ':141'),
                            ('convtranspose3_s2_stats', ':292')):
         st = stages[name]
@@ -1642,9 +1761,7 @@ def main():
             'launches': launches['fused'][name], 'max_abs_err': st['err'],
             'ms': st['ms'], 'plain_ms': st['plain_ms'],
             'bound_ms': st['bound_ms'], 'bound_by': st['bound_by'],
-            'library_ms': st['library_ms'],
-            'bound_share': st['bound_ms'] / st['ms'],
-            'per_call': st['per_call'],
+            'library_ms': st['library_ms'], 'per_call': st['per_call'],
             'per': f'its two calls per translator ({", ".join(st["calls"])})'
                    f', summed, at batch {BATCH}'})
     tl = tail['zero']           # the flagship's padding (its config.json)
@@ -1656,8 +1773,7 @@ def main():
         'max_abs_err': max(v['err'] for v in tail.values()),
         'ms': tl['ms'], 'plain_ms': tl['plain_ms'],
         'bound_ms': tl['bound_ms'], 'bound_by': tl['bound_by'],
-        'library_ms': tl['library_ms'], 'ffma_floor_ms': tl['ffma_floor_ms'],
-        'reflect_ms': tail['reflect']['ms'],
+        'library_ms': tl['library_ms'], 'reflect_ms': tail['reflect']['ms'],
         'per': f'one translator tail, ({BATCH}, {TILE}, {TILE}, 64) -> 3, '
                'zero padding, at batch 16'})
     report.append({

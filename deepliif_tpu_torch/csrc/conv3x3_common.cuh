@@ -1,20 +1,10 @@
-// Pieces shared by the fused conv kernels of this directory
-// (conv3x3_stats.cu: float32 on CUDA cores, bfloat16 on the tensor-core
-// mainloop conv3x3_wgmma.cuh, which also runs the stride-2 translator
-// stages conv3x3_s2_stats.cu and convtranspose3_s2_stats.cu;
-// conv3x3_stats_int8.cu; tail_s2d.cu) and by plane_stats.cu: the output
-// tiling of the CUDA-core trunk kernels, the halo source rule, cp.async
-// wrappers, bfloat16 rounding helpers and the fixed-order per-(sample,
-// channel) statistics.
-//
-// The CUDA-core trunk kernels (conv3x3_stats float32, conv3x3_stats_int8)
-// tile the output the same way (conv3x3_wgmma.cuh tiles its own): one
-// block per (spatial tile
-// of TH x TW pixels, BN output channels, sample), 256 threads, each owning
-// 2 x 4 pixels x 8 output channels. A warp holds 8 pixel groups x 4 channel
-// groups. Pixel group pg owns tile rows 2*(pg/4) + {0,1} and columns
-// 4*(pg%4) + {0..3}; channel group cg owns channels n0 + cg*4 + {0..3} and
-// n0 + 64 + cg*4 + {0..3}.
+// Pieces shared by the fused conv kernels of this directory (the
+// tensor-core mainloop conv3x3_wgmma.cuh, which runs conv3x3_stats.cu
+// (float32, bfloat16), conv3x3_stats_int8.cu and the stride-2 translator
+// stages conv3x3_s2_stats.cu and convtranspose3_s2_stats.cu; tail_s2d.cu)
+// and by plane_stats.cu: the halo source rule, a cp.async wrapper,
+// bfloat16 rounding helpers and the fixed-order reduction of the per-tile
+// statistics.
 
 #pragma once
 
@@ -22,44 +12,6 @@
 #include <cuda_runtime.h>
 
 namespace conv3x3 {
-
-constexpr int TH = 8;                // output rows per block
-constexpr int TW = 16;               // output columns per block
-constexpr int BN = 128;              // output channels per block
-constexpr int NT = 256;              // threads: 16 pixel groups x 16 channel groups
-constexpr int IH = TH + 2;           // staged input rows (1-px halo)
-constexpr int IW = TW + 2;           // staged input columns
-// Row stride of a staged input plane (in 4-byte words): 16-byte aligned
-// rows, and two row pairs 16 banks apart, so the 8 pixel groups of a warp
-// read without conflicts.
-constexpr int IWP = 24;
-constexpr int IN_STRIDE = IH * IWP;  // words per staged input plane
-
-struct Tile {
-  int tile, n0, s, r0, c0, t, pg, cg, pr, pc;
-};
-
-__device__ __forceinline__ Tile tile_of_block(int tiles_w) {
-  Tile q;
-  q.tile = blockIdx.x;
-  q.n0 = blockIdx.y * BN;
-  q.s = blockIdx.z;
-  q.r0 = (q.tile / tiles_w) * TH;
-  q.c0 = (q.tile % tiles_w) * TW;
-  q.t = threadIdx.x;
-  const int lane = q.t % 32;
-  const int warp = q.t / 32;
-  q.pg = (warp % 2) * 8 + lane % 8;
-  q.cg = (warp / 2) * 4 + lane / 8;
-  q.pr = 2 * (q.pg / 4);
-  q.pc = 4 * (q.pg % 4);
-  return q;
-}
-
-// Output channel of a thread's accumulator column n (0..7).
-__device__ __forceinline__ int out_channel(const Tile& q, int n) {
-  return q.n0 + (n < 4 ? q.cg * 4 + n : 64 + q.cg * 4 + n - 4);
-}
 
 // Source index of padded position i along an axis of length n, or -1 where
 // the value is zero: the zero-padding halo, and positions past the halo
@@ -71,15 +23,8 @@ __device__ __forceinline__ int src_index(int i, int n, bool reflect) {
   return -1;
 }
 
-// cp.async copies of 4 or 16 bytes; valid == false zero-fills the
-// destination without reading the source.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
+// cp.async copy of 16 bytes; valid == false zero-fills the destination
+// without reading the source.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -89,11 +34,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// waits until this thread's copies of all but the newest group have landed
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 // ---- bfloat16: values are carried in float registers and rounded to
@@ -144,46 +84,10 @@ __device__ __forceinline__ void unpack8_affine_relu(
   }
 }
 
-// ---- statistics: per-channel partial sums over this block's pixels, in a
-// fixed order (each thread sums its own pixels in order, then an xor
-// butterfly over the 8 lanes of a warp sharing a channel
-// group, then the warp holding pixel groups 8-15 hands its sums to the one
-// holding 0-7), written to partial[s, tile, {sum, sumsq}, c]. No float
-// atomics: results are bitwise reproducible run to run and do not depend
-// on the batch a sample rides in. `red` is 512 floats of shared memory
-// that no thread reads any more; psum/psq are a thread's sums over its
-// in-range pixels.
-__device__ __forceinline__ void block_partial_stats(
-    const Tile& q, float (&psum)[8], float (&psq)[8], float* red,
-    float* partial, int C, int n_tiles) {
-#pragma unroll
-  for (int off = 4; off > 0; off >>= 1) {
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      psum[n] += __shfl_xor_sync(0xffffffffu, psum[n], off);
-      psq[n] += __shfl_xor_sync(0xffffffffu, psq[n], off);
-    }
-  }
-  if (q.pg == 8) {
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      red[(q.cg * 8 + n) * 2] = psum[n];
-      red[(q.cg * 8 + n) * 2 + 1] = psq[n];
-    }
-  }
-  __syncthreads();
-  if (q.pg == 0) {
-    float* ps = partial + ((size_t)q.s * n_tiles + q.tile) * 2 * C;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int co = out_channel(q, n);
-      if (co < C) {
-        ps[co] = psum[n] + red[(q.cg * 8 + n) * 2];
-        ps[C + co] = psq[n] + red[(q.cg * 8 + n) * 2 + 1];
-      }
-    }
-  }
-}
+// ---- statistics: the kernels write per-(sample, tile, channel) partial
+// sums in a fixed order; this pass sums them in tile order. No float
+// atomics: results are bitwise reproducible run to run and do not depend on
+// the batch a sample rides in.
 
 // stats[s, q, c] = sum over tiles, in tile order, of partial[s, tile, q, c]
 __global__ void stats_reduce_kernel(const float* __restrict__ partial,
@@ -198,10 +102,6 @@ __global__ void stats_reduce_kernel(const float* __restrict__ partial,
   float acc = 0.f;
   for (int tile = 0; tile < n_tiles; ++tile) acc += p[(size_t)tile * 2 * C];
   stats[idx] = acc;
-}
-
-inline int num_tiles(int H, int W) {
-  return ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
 }
 
 inline cudaError_t launch_stats_reduce(const float* partial, float* stats,

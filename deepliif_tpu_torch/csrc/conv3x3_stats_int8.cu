@@ -25,45 +25,64 @@
 //
 // The dynamic scale's granularity is semantics: a halo row is quantized
 // with the scale of the chunk that consumes it, so the same input row has
-// different q for the outputs of chunk r and chunk r - 1. Here a first
-// kernel writes m for each (sample, chunk) (a max, so order-free and
-// deterministic), and the conv's output tiles (TH = 8 rows) never straddle
-// a chunk boundary (the chunk is 16 rows, or all of H when H < 16), so a
-// tile quantizes its whole input window with its own chunk's m.
+// different q for the outputs of chunk r and chunk r - 1.
 //
-// Layout: x, y NHWC bf16 (S, H, W, C) with C % 8 == 0; w_q packed by the
-// wrapper as (3, 3, C/4, C) int32 words, each holding 4 consecutive input
-// channels of one output channel (the __dp4a operand); deq, inv_a (C,) f32;
-// in_scale/in_bias (S, C) f32.
+// Layout: x, y NHWC bf16 (S, H, W, C) with C % 8 == 0; w_q HWIO (3, 3, C,
+// C) int8; deq, inv_a (C,) f32; in_scale/in_bias (S, C) f32.
 //
 // What bounds it: 19.3 G int8 MACs x 2 per tile at the flagship shape
-// against 16.8 MB of bf16 activation traffic: compute-bound. This kernel
-// runs on __dp4a (4 MACs per instruction on the integer pipe); s8 tensor
-// cores (mma.sync / wgmma, 1,979 TOPS dense) are later work.
+// against 16.8 MB of bf16 activation traffic: compute-bound, on the s8
+// tensor cores (1,979 TOP/s dense): 0.156 ms at (16, 128, 128, 256).
 //
-// Design: the tiling, the two-stage cp.async pipeline and the fixed-order
-// statistics of conv3x3_stats.cu. A stage holds BK = 16 input channels: the
-// input lands as raw bf16 (two 16-byte copies per pixel), and the thread
-// that copied 8 channels applies the affine, ReLU and quantization to them
-// and stores them as two packed int32 words into the int8 planes; weights
-// land packed. A thread's 4 x 6 window of packed words serves all 9 taps.
+// Design, three passes:
+//  1. (dynamic) row_absmax_kernel writes max |u| of each (sample, row), one
+//     block per row (one block per chunk left most SMs idle: 0.17 ms against
+//     0.08 at (16, 128, 128, 256)), and chunk_max_kernel a chunk's m as the
+//     max of its window's rows (a max, so order-free and deterministic): m
+//     must be known before the quantize pass and the conv's dequant;
+//  2. quantize_blocks_kernel writes q once per conv as per-chunk blocks
+//     (S * n_chunks, ch + 2, W + 2, Cp) int8 (ch = 16, or H when H < 16; Cp
+//     = C rounded up to 16, so that a block row is a multiple of the 16
+//     bytes a tensor map's strides must be): each chunk's rows with its two
+//     halo rows quantized at the chunk's own scale, reflect or zero rows and
+//     columns included, zero past C. 77 MB at (16, 128, 128, 256). A
+//     thread quantizes 8 channels of a block pixel, with 32-bit indexing
+//     (64-bit divisions cost more than the bytes) and the per-channel
+//     scales loaded as vectors;
+//  3. the s8 variant of the wgmma mainloop of conv3x3_wgmma.cuh (CONV_S1,
+//     OP_S8): 16 x 16 output pixels x 64 output channels per item, whose
+//     tile is one chunk (tiles never straddle chunks, so a tile's slab is
+//     its chunk's block: 18 x 18 pixels x 32 channels per stage, one TMA
+//     box, no transform: the producer only issues copies, which in the bf16
+//     kernel bounded every kind); wgmma m64n64k32 s32.s8.s8 with A from
+//     registers (ldmatrix.x4 on the slab, whose 32-byte pixels are the bf16
+//     path's layout) and B K-major (s8 takes only K-major operands: the
+//     weights are packed once per call as core matrices, column = output
+//     channel, its 32 input channels contiguous); int32 sums are exact (|acc|
+//     <= 127^2 x 2304 < 2^31), so they run straight in the accumulators
+//     across all of K, and y is bit-equal to the plain version whatever the
+//     order. At 128 output channels the accumulators (128 registers) and
+//     both m64 tiles' A fragments (72) spilled, and the whole dynamic call
+//     took 0.718 ms against 0.625 at 64 (experiments/torch_kernel_ab.py,
+//     H100 SXM at 700 W). The epilogue dequantizes
+//     with the expression of the contract and sums the stats in a fixed
+//     order, summed in tile order.
+//  The producer-side alternative (quantizing the bf16 slab in shared memory
+//  per stage) would put back on the producer the pass that bounded the bf16
+//  kernel, once per 64 output channels.
 
 #include "conv3x3_common.cuh"
+#include "conv3x3_wgmma.cuh"
 
 namespace {
 
 using namespace conv3x3;
 using bf16 = __nv_bfloat16;
+using G8 = conv3x3_wgmma::Geom<conv3x3_wgmma::CONV_S1, 64, 4,
+                               conv3x3_wgmma::OP_S8>;
 
-constexpr int BK = 16;                              // input channels per stage
-constexpr int BK4 = BK / 4;                         // packed words per pixel
-constexpr int W_WORDS = 9 * BK4 * BN;               // 4,608 int32
-constexpr int IN_WORDS = BK4 * IN_STRIDE;           // 960 int32
-constexpr int RAW_BYTES = IH * IW * BK * 2;         // 5,760
-constexpr int STAGE_BYTES = (W_WORDS + IN_WORDS) * 4 + RAW_BYTES;  // 28,032
-constexpr int SMEM_BYTES = 2 * STAGE_BYTES;         // 56,064
-constexpr int CHUNK = 16;                           // rows per dynamic scale
-constexpr int MAX_NT = 512;                         // threads of the max pass
+constexpr int CHUNK = 16;        // rows per dynamic scale
+static_assert(conv3x3_wgmma::TM == CHUNK, "a tile is one chunk");
 
 struct Quant {
   const float* in_scale;   // (S, C) or null
@@ -72,15 +91,30 @@ struct Quant {
   bool has_affine, in_relu, dynamic;
 };
 
-// u of channel c (a bf16 value held in a float) after the affine and ReLU
-__device__ __forceinline__ float transform(float u, const Quant& qt, int s,
-                                           int c, int C) {
+__device__ __forceinline__ void load8(const float* p, float (&o)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+}
+
+// u of channels c0 .. c0 + 7 of one pixel of sample s (one 16-byte load of
+// bf16 x) after the affine (in bf16) and ReLU
+__device__ __forceinline__ void transform8(uint4 v, const Quant& qt, int s,
+                                           int c0, int C, float (&u)[8]) {
+  const unsigned words[4] = {v.x, v.y, v.z, v.w};
+  float sc[8], bi[8];
   if (qt.has_affine) {
-    const size_t i = (size_t)s * C + c;
-    u = affine_bf16(u, bf16_round(qt.in_scale[i]), bf16_round(qt.in_bias[i]));
+    load8(qt.in_scale + (size_t)s * C + c0, sc);
+    load8(qt.in_bias + (size_t)s * C + c0, bi);
   }
-  if (qt.in_relu) u = fmaxf(u, 0.f);
-  return u;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    u[k] = (k % 2 == 0) ? bf16_lo(words[k / 2]) : bf16_hi(words[k / 2]);
+    if (qt.has_affine)
+      u[k] = affine_bf16(u[k], bf16_round(sc[k]), bf16_round(bi[k]));
+    if (qt.in_relu) u[k] = fmaxf(u[k], 0.f);
+  }
 }
 
 __device__ __forceinline__ int quantize(float v) {
@@ -94,35 +128,23 @@ __device__ __forceinline__ unsigned pack_s8x4(int a, int b, int c, int d) {
          ((static_cast<unsigned>(d) & 0xffu) << 24);
 }
 
-// m_raw[s, r] = max |u| over padded rows r*ch - 1 .. r*ch + ch (the chunk
-// and its halo rows: reflected rows for reflect padding, zeros at the image
-// border for zero padding), all columns and channels. One block per
-// (chunk, sample). The conv kernel clamps it at 1e-12.
-__global__ void __launch_bounds__(MAX_NT)
-chunk_absmax_kernel(const bf16* __restrict__ x, Quant qt,
-                    float* __restrict__ m_raw, int H, int W, int C, int ch,
-                    int n_chunks, bool reflect) {
-  __shared__ float red[MAX_NT / 32];
+// rowmax[s, r] = max |u| over row r of sample s, all columns and channels.
+// One block per (row, sample): a chunk's max is the max of its rows'.
+__global__ void __launch_bounds__(256)
+row_absmax_kernel(const bf16* __restrict__ x, Quant qt,
+                  float* __restrict__ rowmax, int H, int W, int C) {
+  __shared__ float red[8];
   const int r = blockIdx.x;
   const int s = blockIdx.y;
-  const bf16* xs = x + (size_t)s * H * W * C;
-  const int per_row = W * C / 8;          // 16-byte pieces per row
+  const bf16* xr = x + ((size_t)s * H + r) * W * C;
+  const int groups = C / 8;
   float m = 0.f;
-  for (int e = threadIdx.x; e < (ch + 2) * per_row; e += MAX_NT) {
-    const int row = e / per_row;
-    const int src = src_index(r * ch - 1 + row, H, reflect);
-    if (src < 0) continue;                // zero row: |0| adds nothing
-    const int piece = e % per_row;
-    const uint4 v = *reinterpret_cast<const uint4*>(
-        xs + (size_t)src * W * C + (size_t)piece * 8);
-    const unsigned words[4] = {v.x, v.y, v.z, v.w};
-    const int c0 = (piece * 8) % C;
+  for (int e = threadIdx.x; e < W * groups; e += 256) {
+    float u[8];
+    transform8(*reinterpret_cast<const uint4*>(xr + (size_t)e * 8), qt, s,
+               (e % groups) * 8, C, u);
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const float u = (k % 2 == 0) ? bf16_lo(words[k / 2])
-                                   : bf16_hi(words[k / 2]);
-      m = fmaxf(m, fabsf(transform(u, qt, s, c0 + k, C)));
-    }
+    for (int k = 0; k < 8; ++k) m = fmaxf(m, fabsf(u[k]));
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -130,242 +152,140 @@ chunk_absmax_kernel(const bf16* __restrict__ x, Quant qt,
   if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = m;
   __syncthreads();
   if (threadIdx.x == 0) {
-    for (int i = 1; i < MAX_NT / 32; ++i) m = fmaxf(m, red[i]);
-    m_raw[(size_t)s * n_chunks + r] = m;
+    for (int i = 1; i < 8; ++i) m = fmaxf(m, red[i]);
+    rowmax[(size_t)s * H + r] = m;
   }
 }
 
-// Issues the copies of input channels [k0, k0 + BK) into one stage.
-__device__ __forceinline__ void load_stage(
-    char* stage, const bf16* xs, const int* __restrict__ wp, int k0, int r0,
-    int c0, int n0, int H, int W, int C, bool reflect, int t) {
-  int* w_s = reinterpret_cast<int*>(stage);
-  bf16* raw = reinterpret_cast<bf16*>(stage + (W_WORDS + IN_WORDS) * 4);
-  for (int e = t; e < IH * IW * (BK / 8); e += NT) {
-    const int half = e % (BK / 8);
-    const int pix = e / (BK / 8);
-    const int gr = src_index(r0 - 1 + pix / IW, H, reflect);
-    const int gc = src_index(c0 - 1 + pix % IW, W, reflect);
-    const bool ok = gr >= 0 && gc >= 0 && k0 + half * 8 < C;
-    cp_async16(&raw[pix * BK + half * 8],
-               ok ? xs + ((size_t)gr * W + gc) * C + k0 + half * 8 : xs, ok);
+// m_raw[s, r] = the max of rowmax over chunk r's padded rows r * ch - 1 ..
+// r * ch + ch (the reflected halo rows are image rows, the zero ones add
+// nothing). One thread per (sample, chunk).
+__global__ void chunk_max_kernel(const float* __restrict__ rowmax,
+                                 float* __restrict__ m_raw, int S, int H,
+                                 int ch, int n_chunks, bool reflect) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= S * n_chunks) return;
+  const int s = b / n_chunks, r = b % n_chunks;
+  float m = 0.f;
+  for (int k = 0; k < ch + 2; ++k) {
+    const int src = src_index(r * ch - 1 + k, H, reflect);
+    if (src >= 0) m = fmaxf(m, rowmax[(size_t)s * H + src]);
   }
-  const int c4 = C / 4;
-  for (int e = t; e < 9 * BK4 * (BN / 4); e += NT) {   // 4 output channels
-    const int n = (e % (BN / 4)) * 4;
-    const int k4 = (e / (BN / 4)) % BK4;
-    const int tap = e / ((BN / 4) * BK4);
-    const int ci4 = k0 / 4 + k4;
-    const int co = n0 + n;
-    const bool ok = ci4 < c4 && co < C;
-    cp_async16(&w_s[(tap * BK4 + k4) * BN + n],
-               ok ? wp + ((size_t)tap * c4 + ci4) * C + co : wp, ok);
-  }
+  m_raw[b] = m;
 }
 
-// After this thread's copies of a stage landed: affine, ReLU and
-// quantization of the 8 channels it copied, into the packed int8 planes.
-__device__ __forceinline__ void transform_stage(
-    char* stage, const Quant& qt, float inva_dyn, int s, int k0, int r0,
-    int c0, int H, int W, int C, bool reflect, int t) {
-  int* in_q = reinterpret_cast<int*>(stage + W_WORDS * 4);
-  const bf16* raw =
-      reinterpret_cast<const bf16*>(stage + (W_WORDS + IN_WORDS) * 4);
-  for (int e = t; e < IH * IW * (BK / 8); e += NT) {
-    const int half = e % (BK / 8);
-    const int pix = e / (BK / 8);
-    const int row = pix / IW;
-    const int col = pix % IW;
-    const int gr = src_index(r0 - 1 + row, H, reflect);
-    const int gc = src_index(c0 - 1 + col, W, reflect);
-    const bool ok = gr >= 0 && gc >= 0 && k0 + half * 8 < C;
-    int* dst = in_q + (half * 2) * IN_STRIDE + row * IWP + col;
-    if (!ok) {
-      dst[0] = 0;
-      dst[IN_STRIDE] = 0;
-      continue;
-    }
-    const uint4 v = *reinterpret_cast<const uint4*>(&raw[pix * BK + half * 8]);
-    const unsigned words[4] = {v.x, v.y, v.z, v.w};
-    int qv[8];
+// qb[(s * n_chunks + r), i, j, c] = q of padded position (row r * ch - 1 +
+// i, column j - 1, channel c) at chunk r's scale; zero where the padding is
+// zero and past C. Block row y = (s * n_chunks + r) * (ch + 2) + i, a few
+// per CTA; one thread per 8 channels of a block pixel.
+__global__ void __launch_bounds__(256)
+quantize_blocks_kernel(const bf16* __restrict__ x, Quant qt,
+                       const float* __restrict__ m_raw,
+                       int8_t* __restrict__ qb, int S, int H, int W, int C,
+                       int Cp, int ch, int n_chunks, bool reflect) {
+  const int groups = Cp / 8;
+  const int n_rows = S * n_chunks * (ch + 2);
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (W + 2) * groups) return;
+  const int j = t / groups, g = t % groups;
+  const int c0 = 8 * g;
+  const int gc = src_index(j - 1, W, reflect);
+  float inv[8];
+  if (!qt.dynamic && c0 < C) load8(qt.inv_a + c0, inv);
+  for (int y = blockIdx.y; y < n_rows; y += gridDim.y) {
+    const int b = y / (ch + 2), i = y % (ch + 2);
+    const int s = b / n_chunks, r = b % n_chunks;
+    const int gr = src_index(r * ch - 1 + i, H, reflect);
+    uint2 out = make_uint2(0u, 0u);
+    if (gr >= 0 && gc >= 0 && c0 < C) {
+      float u[8];
+      transform8(*reinterpret_cast<const uint4*>(
+                     x + (((size_t)s * H + gr) * W + gc) * C + c0),
+                 qt, s, c0, C, u);
+      const float inva_dyn =
+          qt.dynamic ? bf16_round(127.f / fmaxf(m_raw[b], 1e-12f)) : 0.f;
+      int qv[8];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int c = k0 + half * 8 + k;
-      float u = (k % 2 == 0) ? bf16_lo(words[k / 2]) : bf16_hi(words[k / 2]);
-      u = transform(u, qt, s, c, C);
-      const float inva = qt.dynamic ? inva_dyn : bf16_round(qt.inv_a[c]);
-      qv[k] = quantize(u * inva);   // exact product of two bf16 values
-    }
-    dst[0] = static_cast<int>(pack_s8x4(qv[0], qv[1], qv[2], qv[3]));
-    dst[IN_STRIDE] = static_cast<int>(pack_s8x4(qv[4], qv[5], qv[6], qv[7]));
-  }
-}
-
-__global__ void __launch_bounds__(NT, 2)
-conv3x3_stats_int8_kernel(const bf16* __restrict__ x,
-                          const int* __restrict__ wp,
-                          const float* __restrict__ deq, Quant qt,
-                          const float* __restrict__ m_raw,
-                          bf16* __restrict__ y, float* __restrict__ partial,
-                          int H, int W, int C, int tiles_w, int n_tiles,
-                          int ch, int n_chunks, bool reflect) {
-  extern __shared__ __align__(16) char smem[];  // 2 x [w_s | in_q | raw]
-  const Tile q = tile_of_block(tiles_w);
-  const int t = q.t;
-  const bf16* xs = x + (size_t)q.s * H * W * C;
-
-  // this tile's chunk: TH divides the chunk, so no tile straddles two
-  float m = 0.f, inva_dyn = 0.f;
-  if (qt.dynamic) {
-    m = fmaxf(m_raw[(size_t)q.s * n_chunks + q.r0 / ch], 1e-12f);
-    inva_dyn = bf16_round(127.f / m);
-  }
-
-  int acc[8][8];   // [pixel (2 rows x 4 columns)][channel]
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0;
-
-  const int n_k = (C + BK - 1) / BK;
-  load_stage(smem, xs, wp, 0, q.r0, q.c0, q.n0, H, W, C, reflect, t);
-  cp_async_commit();
-  for (int kc = 0; kc < n_k; ++kc) {
-    char* stage = smem + (kc & 1) * STAGE_BYTES;
-    if (kc + 1 < n_k)
-      load_stage(smem + ((kc + 1) & 1) * STAGE_BYTES, xs, wp, (kc + 1) * BK,
-                 q.r0, q.c0, q.n0, H, W, C, reflect, t);
-    cp_async_commit();
-    cp_async_wait_prev();
-    transform_stage(stage, qt, inva_dyn, q.s, kc * BK, q.r0, q.c0, H, W, C,
-                    reflect, t);
-    __syncthreads();
-
-    const int* w_s = reinterpret_cast<const int*>(stage);
-    const int* in_q = reinterpret_cast<const int*>(stage + W_WORDS * 4);
-#pragma unroll 1
-    for (int k4 = 0; k4 < BK4; ++k4) {
-      const int* ik = in_q + k4 * IN_STRIDE + q.pr * IWP + q.pc;
-      int win[4][6];   // packed input rows pr..pr+3, columns pc..pc+5
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int4 v = *reinterpret_cast<const int4*>(ik + r * IWP);
-        const int2 u = *reinterpret_cast<const int2*>(ik + r * IWP + 4);
-        win[r][0] = v.x; win[r][1] = v.y; win[r][2] = v.z; win[r][3] = v.w;
-        win[r][4] = u.x; win[r][5] = u.y;
+      for (int k = 0; k < 8; ++k) {
+        const float inva = qt.dynamic ? inva_dyn : bf16_round(inv[k]);
+        qv[k] = quantize(u[k] * inva);   // exact product of two bf16 values
       }
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const int ky = tap / 3;
-        const int kx = tap % 3;
-        const int* wrow = &w_s[(tap * BK4 + k4) * BN];
-        const int4 b0 = *reinterpret_cast<const int4*>(wrow + q.cg * 4);
-        const int4 b1 = *reinterpret_cast<const int4*>(wrow + 64 + q.cg * 4);
-        const int b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int n = 0; n < 8; ++n)
-              acc[i * 4 + j][n] = __dp4a(win[i + ky][j + kx], b[n],
-                                         acc[i * 4 + j][n]);
-      }
+      out.x = pack_s8x4(qv[0], qv[1], qv[2], qv[3]);
+      out.y = pack_s8x4(qv[4], qv[5], qv[6], qv[7]);
     }
-    __syncthreads();  // the next iteration refills this stage
+    *reinterpret_cast<uint2*>(qb + ((size_t)y * (W + 2) + j) * Cp + c0) = out;
   }
-
-  // epilogue: dequant, store y in bf16, partial sums of the f32 values
-  float dq[8];
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int co = out_channel(q, n);
-    dq[n] = co < C ? deq[co] : 0.f;
-    if (qt.dynamic) dq[n] = __fmul_rn(dq[n], m / 127.f);
-  }
-  float yf[8][8];
-#pragma unroll
-  for (int p = 0; p < 8; ++p) {
-    const int gr = q.r0 + q.pr + p / 4;
-    const int gc = q.c0 + q.pc + p % 4;
-    const bool in = gr < H && gc < W;
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-      yf[p][n] = in ? __fmul_rn(static_cast<float>(acc[p][n]), dq[n]) : 0.f;
-    if (in) {
-      bf16* yp = y + (((size_t)q.s * H + gr) * W + gc) * C;
-#pragma unroll
-      for (int g = 0; g < 2; ++g) {
-        const int co = out_channel(q, 4 * g);
-        if (co < C) {   // C % 8 == 0: 4 channels all in range or all out
-          uint2 pk;
-          pk.x = pack_bf16x2(yf[p][4 * g], yf[p][4 * g + 1]);
-          pk.y = pack_bf16x2(yf[p][4 * g + 2], yf[p][4 * g + 3]);
-          *reinterpret_cast<uint2*>(yp + co) = pk;
-        }
-      }
-    }
-  }
-  float psum[8], psq[8];
-#pragma unroll
-  for (int n = 0; n < 8; ++n) { psum[n] = 0.f; psq[n] = 0.f; }
-#pragma unroll
-  for (int p = 0; p < 8; ++p)
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      psum[n] += yf[p][n];
-      psq[n] += yf[p][n] * yf[p][n];
-    }
-  block_partial_stats(q, psum, psq, reinterpret_cast<float*>(smem), partial,
-                      C, n_tiles);
 }
 
 }  // namespace
 
 extern "C" {
 
-int conv3x3_stats_int8_num_tiles(int H, int W) { return num_tiles(H, W); }
+int conv3x3_stats_int8_num_tiles(int H, int W) {
+  return conv3x3_wgmma::num_tiles(H, W);
+}
 
-// Launches the max pass (dynamic mode), the conv and the stats reduction on
-// `stream`; returns the cudaError_t of the launches (0 on success).
-// m_raw is (S, n_chunks) f32 scratch, used only in dynamic mode; inv_a may
+// Bytes of the packed-weight workspace and of the quantized blocks that
+// conv3x3_stats_int8 takes (ch: the chunk height, as below).
+long conv3x3_stats_int8_wpack_bytes(int C) {
+  return conv3x3_wgmma::wpack_bytes<G8>(C, C);
+}
+
+long conv3x3_stats_int8_qblock_bytes(int S, int H, int W, int C, int ch) {
+  return (long)S * (H / ch) * (ch + 2) * (W + 2) *
+         conv3x3_wgmma::s8_block_channels(C);
+}
+
+// Launches the row max pass (dynamic mode), the quantize pass, the weight
+// pack, the conv and the stats reduction on `stream`; returns the
+// cudaError_t of the launches (0 on success; 1000 + a CUresult if the
+// blocks' TMA tensor map was refused). w_q is int8 HWIO; wpack and qblocks
+// are 16-byte aligned workspaces of the *_bytes above; m_raw (S, n_chunks)
+// and rowmax (S, H) are f32 scratch, used only in dynamic mode; inv_a may
 // be null in dynamic mode; in_scale/in_bias may be null when has_affine is
-// 0. ch is the dynamic chunk height: 16, or H when H < 16; H % ch == 0.
-int conv3x3_stats_int8(const void* x, const int* w_packed, const float* deq,
-                       const float* inv_a, const float* in_scale,
-                       const float* in_bias, void* y, float* m_raw,
-                       float* partial, float* stats, int S, int H, int W,
-                       int C, int ch, int reflect, int has_affine,
-                       int in_relu, int dynamic, void* stream) {
-  if (C % 8 != 0 || ch <= 0 || H % ch != 0 || (ch != CHUNK && ch != H) ||
-      (ch % TH != 0 && ch != H))
+// 0; in_scale, in_bias and inv_a 16-byte aligned. ch is the dynamic chunk
+// height: 16, or H when H < 16; H % ch == 0.
+int conv3x3_stats_int8(const void* x, const void* w_q, void* wpack,
+                       void* qblocks, const float* deq, const float* inv_a,
+                       const float* in_scale, const float* in_bias, void* y,
+                       float* m_raw, float* rowmax, float* partial,
+                       float* stats, int S, int H, int W, int C, int ch,
+                       int reflect, int has_affine, int in_relu, int dynamic,
+                       void* stream) {
+  if (C % 8 != 0 || ch <= 0 || H % ch != 0 ||
+      !(ch == CHUNK || (ch == H && H < CHUNK)))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* xb = static_cast<const bf16*>(x);
   const Quant qt{in_scale, in_bias, inv_a, has_affine != 0, in_relu != 0,
                  dynamic != 0};
   const int n_chunks = H / ch;
+  const int Cp = conv3x3_wgmma::s8_block_channels(C);
   cudaError_t err;
   if (dynamic) {
-    chunk_absmax_kernel<<<dim3(n_chunks, S), MAX_NT, 0, st>>>(
-        xb, qt, m_raw, H, W, C, ch, n_chunks, reflect != 0);
+    row_absmax_kernel<<<dim3(H, S), 256, 0, st>>>(xb, qt, rowmax, H, W, C);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    chunk_max_kernel<<<(S * n_chunks + 127) / 128, 128, 0, st>>>(
+        rowmax, m_raw, S, H, ch, n_chunks, reflect != 0);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int tiles_w = (W + TW - 1) / TW;
-  const int n_tiles = num_tiles(H, W);
-  const dim3 grid(n_tiles, (C + BN - 1) / BN, S);
-  err = cudaFuncSetAttribute(conv3x3_stats_int8_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  conv3x3_stats_int8_kernel<<<grid, NT, SMEM_BYTES, st>>>(
-      xb, w_packed, deq, qt, m_raw, static_cast<bf16*>(y), partial, H, W, C,
-      tiles_w, n_tiles, ch, n_chunks, reflect != 0);
+  // a CTA quantizes 4 block rows of 256 8-channel groups
+  const int n_rows = S * n_chunks * (ch + 2);
+  const int rows_y = (n_rows + 3) / 4;
+  const dim3 grid(((W + 2) * (Cp / 8) + 255) / 256,
+                  rows_y < 65535 ? rows_y : 65535);
+  quantize_blocks_kernel<<<grid, 256, 0, st>>>(
+      xb, qt, m_raw, static_cast<int8_t*>(qblocks), S, H, W, C, Cp, ch,
+      n_chunks, reflect != 0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_stats_reduce(partial, stats, S, n_tiles, C,
-                                              st));
+  // the blocks hold the affine, the ReLU and the padding
+  return conv3x3_wgmma::launch<G8>(
+      qblocks, static_cast<const int8_t*>(w_q), wpack, nullptr, nullptr,
+      static_cast<bf16*>(y), partial, stats, S, H, W, C, C, false, false,
+      false, st, conv3x3_wgmma::Dequant{deq, m_raw, n_chunks, dynamic != 0});
 }
 
 }  // extern "C"

@@ -1,10 +1,9 @@
 // Implicit-GEMM 3x3 convolution on Hopper's tensor cores (wgmma, sm_90a),
-// bfloat16 in, float32 accumulation, fused with the input's norm affine and
-// ReLU and with per-(sample, channel) output statistics. Three kinds
-// (Geom<KIND, BN, NST>):
+// fused with the input's norm affine and ReLU and with per-(sample,
+// channel) output statistics. Three kinds (Geom<KIND, BN, NST, OP>):
 //  * CONV_S1: stride 1, reflect or zero pad 1, the ResNet trunk
-//    (conv3x3_stats.cu bf16; replaces deepliif_tpu/ops/fused_resblock.py
-//    ::_kernel);
+//    (conv3x3_stats.cu; replaces deepliif_tpu/ops/fused_resblock.py
+//    ::_kernel, and with OP_S8 conv3x3_stats_int8.cu, ::_kernel_int8);
 //  * CONV_S2: stride 2, zero pad 1, the translator's down stages
 //    (conv3x3_s2_stats.cu; replaces deepliif_tpu/labs/fused_stages.py
 //    ::_down_kernel);
@@ -16,6 +15,15 @@
 //    (x past the edge is zero), so each of the four output phases (a, b) is
 //    a stride-1 conv of 1, 2, 2 or 4 taps over the input, with a halo of one
 //    row and one column at the bottom and right.
+//
+// Three operand types (OP): bf16 (all kinds), split TF32 (CONV_S1 float32:
+// x, w, y f32, three TF32 products per multiply-add, conv3x3_stats.cu) and
+// s8 (CONV_S1 int8: the input pre-quantized into int8 blocks that hold the
+// halo, int32 sums dequantized to bf16, conv3x3_stats_int8.cu). A staged
+// pixel is 32 bytes of channels in each (KC = 16 bf16, 8 f32 or 32 int8
+// channels a stage), so the slab layout and the A loads are shared; tf32
+// and s8 take only K-major B, packed as core matrices without swizzle
+// (desc_kmajor). The rest of this note describes the bf16 form.
 //
 // Contract (the kernels' headers): u = relu(x * scale[s] + bias[s]) in bf16
 // (scale and bias rounded to bf16, the product and the sum each rounded);
@@ -100,6 +108,7 @@
 #include <cuda.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "conv3x3_common.cuh"
 
@@ -113,15 +122,35 @@ constexpr int CT = 256;      // consumer threads
 constexpr int TM = 16;       // tile rows (output; CONVT: input)
 constexpr int TN = 16;       // tile columns
 constexpr int M_SUB = 2;     // m64 tiles per consumer warpgroup
-constexpr int KC = 16;       // input channels per stage: one k16 step a tap
-constexpr int CPP = KC / 8;  // 16-byte chunks per staged pixel
+// a staged pixel is 32 bytes of channels, one wgmma step deep: 16 bf16, 8
+// f32 (tf32) or 32 int8 channels; two 16-byte chunks
+constexpr int CPP = 2;       // 16-byte chunks per staged pixel
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
 
 enum Kind { CONV_S1, CONV_S2, CONVT };
 
-template <int KIND, int BN_, int NST_>
+// The tensor cores' operands: bf16 (x, w, y bf16); split TF32 (x, w, y f32:
+// each operand v = hi + lo with hi = tf32(v), lo = tf32(v - hi), and
+// hi*hi + hi*lo + lo*hi summed in f32); s8 (x pre-quantized into int8
+// blocks that hold their halo, w int8, int32 sums dequantized to bf16 y).
+enum Op { OP_BF16, OP_TF32, OP_S8 };
+
+template <int KIND, int BN_, int NST_, int OP_ = OP_BF16>
 struct Geom {
+  static constexpr int OP = OP_;
+  // the slab's source holds the halo, already transformed (s8 blocks)
+  static constexpr bool PREQ = OP == OP_S8;
+  static constexpr int ESIZE = OP == OP_TF32 ? 4 : (OP == OP_S8 ? 1 : 2);
+  static constexpr int KC = 32 / ESIZE;      // input channels per stage
+  static constexpr int EPC = 16 / ESIZE;     // channels per 16-byte chunk
+  static constexpr int NPLANE = OP == OP_TF32 ? 2 : 1;   // weights hi, lo
+  // the element types of the weights (HWIO) and of y
+  using WT = std::conditional_t<OP == OP_TF32, float,
+                                std::conditional_t<OP == OP_S8, int8_t,
+                                                   __nv_bfloat16>>;
+  using YT = std::conditional_t<OP == OP_TF32, float, __nv_bfloat16>;
+  using AT = std::conditional_t<OP == OP_S8, int, float>;   // the sums
   static constexpr bool TRANSPOSED = KIND == CONVT;
   static constexpr int BN = BN_;             // output channels per item
   static constexpr int NB64 = BN / 64;       // 64-column weight blocks
@@ -142,8 +171,11 @@ struct Geom {
   static constexpr int PLANE_PIX = (PH * PW + 7) / 8 * 8;
   static constexpr int SLAB_BYTES = NPL * PLANE_PIX * CPP * 16;
   static constexpr int SLAB_TX = NPL * PH * PW * CPP * 16;   // bytes loaded
-  static constexpr int WBLK_BYTES = KC * 128;        // one 64-column block
-  static constexpr int WTAP_BYTES = NB64 * WBLK_BYTES;
+  // bf16: one 64-column block of the MN-major weights
+  static constexpr int WBLK_BYTES = KC * 128;
+  // a tap's weights: BN columns x 32 bytes per plane (bf16: NB64 blocks)
+  static constexpr int WTAP_BYTES = NPLANE * BN * 32;
+  static constexpr int WPLANE_BYTES = BN * 32;
   static constexpr int W_BYTES = NTAP * WTAP_BYTES;  // a slot's weights
   static constexpr int WIMG_BYTES = 9 * WTAP_BYTES;  // packed, per stage
   static constexpr int STAGE_BYTES =
@@ -165,6 +197,8 @@ struct Geom {
   static_assert(BN == 64 || BN == 128, "an n64 or n128 wgmma");
   // CONVT: each m64 tile keeps a temporary of its own (stage_deferred)
   static_assert(!TRANSPOSED || BN == 64, "two temporaries per tile at n64");
+  static_assert(OP == OP_BF16 || KIND == CONV_S1, "tf32 and s8: the trunk");
+  static_assert(OP == OP_BF16 || BN == 64, "tf32 and s8: n64");
   static_assert(PT % CPP == 0, "a producer thread owns one chunk of a pixel");
   static_assert(W_BYTES % 1024 == 0, "the slab starts 1024-byte aligned");
   static_assert(NE <= 32, "slab mask fits 32 bits");
@@ -292,6 +326,96 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate));
+}
+
+// tf32 and s8 take only K-major operands. Shared-memory descriptor of a
+// K-major operand without swizzle (layout type 0): 8 x 16-byte core
+// matrices, each 128 contiguous bytes; the leading byte offset steps along
+// K (between the two 16-byte halves of a 32-byte step), the stride byte
+// offset along N (between groups of 8 columns): the 16-byte chunk kc (0,
+// 1) of column n sits at byte (n / 8) * 256 + kc * 128 + (n % 8) * 16.
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
+  constexpr uint32_t LBO = 128, SBO = 256;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(LBO >> 4) << 16) |
+         (static_cast<uint64_t>(SBO >> 4) << 32);
+}
+
+// f32 -> tf32 (an f32 bit pattern with the low 13 mantissa bits zero),
+// rounded to nearest, ties away from zero. Rounded explicitly: the tensor
+// cores would truncate raw f32 bits, and lo = v - hi is the remainder only
+// of the hi they are given.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d[32] = A (m64 x k8, tf32 fragments in registers: thread (warp w, lane l)
+// holds rows 16w + l/4 (+8 in a1, a3), columns l%4 (+4 in a2, a3)) * B (k8
+// x n64, tf32, K-major in shared memory) + (accumulate ? d : 0), f32.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate));
+}
+
+// d[32] = A (m64 x k32, s8 fragments in registers: rows as wgmma_tf32,
+// bytes 4 (l%4) .. +3 (+16 in a2, a3)) * B (k32 x n64, s8, K-major in
+// shared memory) + (accumulate ? d : 0), s32 (exact).
+__device__ __forceinline__ void wgmma_s8(int (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n"
+      "}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(accumulate));
 }
@@ -572,22 +696,25 @@ __device__ __forceinline__ void fix_halo(char* stage, const uint32_t* table,
   }
 }
 
-// Producer thread p < 8 copies 4 channels of the stage's norm scale (p <
-// 4) or bias into the slot's aff[32] (scale at 0, bias at KC), zero past
-// Cin, in its cp.async group of the stage; they are read by every producer
-// thread after a producer_sync.
+// Producer thread p < 2 KC / 4 copies 4 channels of the stage's norm scale
+// (p < KC / 4) or bias into the slot's aff[2 KC] (scale at 0, bias at KC),
+// zero past Cin, in its cp.async group of the stage; they are read by every
+// producer thread after a producer_sync.
+template <class G>
 __device__ __forceinline__ void load_affine(float* aff, const float* in_scale,
                                             const float* in_bias, int s, int k0,
                                             int Cin, int p) {
-  const int k = k0 + 4 * (p % 4);
-  const float* src = (p < 4 ? in_scale : in_bias) + (size_t)s * Cin + k;
+  constexpr int N4 = G::KC / 4;
+  const int k = k0 + 4 * (p % N4);
+  const float* src = (p < N4 ? in_scale : in_bias) + (size_t)s * Cin + k;
   conv3x3::cp_async16(aff + 4 * p, k < Cin ? src : in_scale, k < Cin);
 }
 
-// After a stage landed: the affine (bf16: scale and bias rounded to bf16,
-// the product and the sum each rounded to nearest, no fused multiply-add)
-// and ReLU in place on producer thread p's slab chunks that had a source
-// (mask); the zero-filled ones stay zero. aff: the slot's scale and bias.
+// After a stage landed: the affine and ReLU in place on producer thread
+// p's slab chunks that had a source (mask); the zero-filled ones stay zero.
+// aff: the slot's scale and bias. bf16: scale and bias rounded to bf16, the
+// product and the sum each rounded to nearest, no fused multiply-add; f32:
+// the product and the sum each rounded to nearest.
 template <class G>
 __device__ __forceinline__ void transform_stage(char* stage,
                                                 const uint32_t* table,
@@ -596,19 +723,27 @@ __device__ __forceinline__ void transform_stage(char* stage,
                                                 bool has_affine, bool in_relu,
                                                 int p) {
   if ((!has_affine && !in_relu) || mask == 0) return;
-  const int c0 = 8 * (p % CPP);
-  __nv_bfloat162 s2[4], b2[4];
+  constexpr bool F32 = G::OP == OP_TF32;
+  const int c0 = G::EPC * (p % CPP);
+  char* slab = stage + G::W_BYTES;
+  // the scale and bias of the thread's 16-byte chunk: 4 f32 or 4 bf16 pairs
+  using SB = std::conditional_t<F32, float, __nv_bfloat162>;
   const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
+  SB sc[4], bi[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    s2[j] = has_affine ? __floats2bfloat162_rn(aff[c0 + 2 * j],
-                                               aff[c0 + 2 * j + 1])
-                       : zero;
-    b2[j] = has_affine ? __floats2bfloat162_rn(aff[KC + c0 + 2 * j],
-                                               aff[KC + c0 + 2 * j + 1])
-                       : zero;
+    if constexpr (F32) {
+      sc[j] = has_affine ? aff[c0 + j] : 0.f;
+      bi[j] = has_affine ? aff[G::KC + c0 + j] : 0.f;
+    } else {
+      sc[j] = has_affine ? __floats2bfloat162_rn(aff[c0 + 2 * j],
+                                                 aff[c0 + 2 * j + 1])
+                         : zero;
+      bi[j] = has_affine ? __floats2bfloat162_rn(aff[G::KC + c0 + 2 * j],
+                                                 aff[G::KC + c0 + 2 * j + 1])
+                         : zero;
+    }
   }
-  char* slab = stage + G::W_BYTES;
   constexpr int TB = 2;   // chunks whose loads are in flight together
 #pragma unroll
   for (int i0 = 0; i0 < G::NE; i0 += TB) {
@@ -623,11 +758,17 @@ __device__ __forceinline__ void transform_stage(char* stage,
 #pragma unroll
     for (int b = 0; b < TB; ++b) {
       if (i0 + b >= G::NE || !((mask >> (i0 + b)) & 1u)) continue;
-      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v[b]);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        if (has_affine) h[j] = __hadd2_rn(__hmul2_rn(h[j], s2[j]), b2[j]);
-        if (in_relu) h[j] = __hmax2(h[j], zero);
+        if constexpr (F32) {
+          float* f = reinterpret_cast<float*>(&v[b]);
+          if (has_affine) f[j] = __fadd_rn(__fmul_rn(f[j], sc[j]), bi[j]);
+          if (in_relu) f[j] = fmaxf(f[j], 0.f);
+        } else {
+          __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v[b]);
+          if (has_affine) h[j] = __hadd2_rn(__hmul2_rn(h[j], sc[j]), bi[j]);
+          if (in_relu) h[j] = __hmax2(h[j], zero);
+        }
       }
       *reinterpret_cast<uint4*>(slab + off[b]) = v[b];
     }
@@ -639,7 +780,10 @@ __device__ __forceinline__ void transform_stage(char* stage,
 // r at slot position r). CONV_S1 / CONV_S2 (compute_stage): each tile runs
 // one unit of the stage's 9 steps into a fresh f32 temporary, which is
 // added to acc[j] (round to nearest) once the unit completed, just before
-// the next unit reuses it and its A fragments (a drain per unit).
+// the next unit reuses it and its A fragments (a drain per unit). s8: both
+// m64 tiles' 9 steps straight into the int32 sums (exact, so no unit
+// temporaries), waited for once per stage; first: the item's first stage,
+// which starts the sums.
 
 template <class G, int T, int N>
 __device__ __forceinline__ void load_a(uint32_t (&a)[N][4], uint32_t slab_s,
@@ -657,35 +801,74 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[N][4], uint32_t slab_s,
 }
 
 template <class G>
-__device__ __forceinline__ void compute_stage(const char* stage,
-                                              float (&acc)[M_SUB][G::BN / 2],
-                                              int row0, int lane) {
+__device__ __forceinline__ void compute_stage(
+    const char* stage, typename G::AT (&acc)[M_SUB][G::BN / 2], int row0,
+    int lane, bool first) {
   constexpr int T = 9;     // the taps
   const uint32_t w_s = smem_u32(stage);
   const uint32_t slab_s = smem_u32(stage + G::W_BYTES);
-  uint32_t a[T][4];        // A of a unit
-  float tmp[G::BN / 2];    // the unit's temporary
+  if constexpr (G::OP == OP_S8) {
+    uint32_t a[M_SUB][T][4];
 #pragma unroll
-  for (int j = 0; j < M_SUB; ++j) {
-    if (j > 0) {   // fold the previous unit
-      wgmma_wait<0>();
-      fence_regs(tmp);
-#pragma unroll
-      for (int i = 0; i < G::BN / 2; ++i) acc[j - 1][i] += tmp[i];
-    }
-    load_a<G, T>(a, slab_s, 0, row0 + 4 * j, lane);
+    for (int j = 0; j < M_SUB; ++j)
+      load_a<G, T>(a[j], slab_s, 0, row0 + 4 * j, lane);
     wgmma_fence();
 #pragma unroll
-    for (int r = 0; r < T; ++r)
-      wgmma_rs(tmp, a[r],
-               desc_sw128(w_s + r * G::WTAP_BYTES, G::WBLK_BYTES, 8 * 128),
-               r > 0);
-    wgmma_commit();
-  }
-  wgmma_wait<0>();
-  fence_regs(tmp);
+    for (int j = 0; j < M_SUB; ++j)
 #pragma unroll
-  for (int i = 0; i < G::BN / 2; ++i) acc[M_SUB - 1][i] += tmp[i];
+      for (int r = 0; r < T; ++r)
+        wgmma_s8(acc[j], a[j][r], desc_kmajor(w_s + r * G::WTAP_BYTES),
+                 r > 0 || !first);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < M_SUB; ++j) fence_regs(acc[j]);
+  } else {
+    uint32_t a[T][4];        // A of a unit
+    float tmp[G::BN / 2];    // the unit's temporary
+#pragma unroll
+    for (int j = 0; j < M_SUB; ++j) {
+      if (j > 0) {   // fold the previous unit
+        wgmma_wait<0>();
+        fence_regs(tmp);
+#pragma unroll
+        for (int i = 0; i < G::BN / 2; ++i) acc[j - 1][i] += tmp[i];
+      }
+      load_a<G, T>(a, slab_s, 0, row0 + 4 * j, lane);
+      if constexpr (G::OP == OP_TF32) {
+        // the split of u (f32 bits in a): hi in a, lo = tf32(u - hi), exact
+        uint32_t lo[T][4];
+#pragma unroll
+        for (int r = 0; r < T; ++r)
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            const float u = __uint_as_float(a[r][m]);
+            a[r][m] = tf32_rna(u);
+            lo[r][m] = tf32_rna(u - __uint_as_float(a[r][m]));
+          }
+        wgmma_fence();
+#pragma unroll
+        for (int r = 0; r < T; ++r) {
+          const uint32_t wt = w_s + r * G::WTAP_BYTES;   // hi plane, lo after
+          wgmma_tf32(tmp, a[r], desc_kmajor(wt), r > 0);
+          wgmma_tf32(tmp, a[r], desc_kmajor(wt + G::WPLANE_BYTES), 1);
+          wgmma_tf32(tmp, lo[r], desc_kmajor(wt), 1);
+        }
+      } else {
+        wgmma_fence();
+#pragma unroll
+        for (int r = 0; r < T; ++r)
+          wgmma_rs(tmp, a[r],
+                   desc_sw128(w_s + r * G::WTAP_BYTES, G::WBLK_BYTES, 8 * 128),
+                   r > 0);
+      }
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs(tmp);
+#pragma unroll
+    for (int i = 0; i < G::BN / 2; ++i) acc[M_SUB - 1][i] += tmp[i];
+  }
 }
 
 // CONVT's work of a stage, with the folds deferred (n64): each m64 tile j has
@@ -765,14 +948,14 @@ __device__ __forceinline__ void stage_deferred(
   }
 }
 
-// y in bf16 and the item's per-channel partial statistics (see the
-// header); cw: consumer warp 0..7, ct: consumer thread 0..255. Ho x Wo is
-// the tile grid's extent (CONVT: the input's; y is 2Ho x 2Wo).
+// y (bf16; tf32: f32) and the item's per-channel partial statistics (see
+// the header); cw: consumer warp 0..7, ct: consumer thread 0..255. Ho x Wo
+// is the tile grid's extent (CONVT: the input's; y is 2Ho x 2Wo).
 template <class G>
 __device__ __forceinline__ void epilogue(float (&acc)[M_SUB][G::BN / 2],
                                          const Item& q, int row0, int cw,
                                          int lane, int ct, float* red,
-                                         bf16* __restrict__ y,
+                                         typename G::YT* __restrict__ y,
                                          float* __restrict__ partial, int Ho,
                                          int Wo, int Cout, int n_tiles) {
   constexpr int NV = G::BN / 8;   // 8-channel groups of a row of acc
@@ -794,17 +977,21 @@ __device__ __forceinline__ void epilogue(float (&acc)[M_SUB][G::BN / 2],
       if (tr < Ho && tc < Wo) {
         const int gr = OS * tr + (G::TRANSPOSED ? q.ph >> 1 : 0);
         const int gc = OS * tc + (G::TRANSPOSED ? q.ph & 1 : 0);
-        bf16* yp = y + (((size_t)q.s * OS * Ho + gr) * OS * Wo + gc) * Cout +
-                   q.n0;
+        typename G::YT* yp =
+            y + (((size_t)q.s * OS * Ho + gr) * OS * Wo + gc) * Cout + q.n0;
 #pragma unroll
         for (int v = 0; v < NV; ++v) {
           const float a0 = acc[j][4 * v + 2 * h];
           const float a1 = acc[j][4 * v + 2 * h + 1];
           const int co = 8 * v + 2 * (lane & 3);
           // Cout % 8 == 0: a channel pair is in range or out of it together
-          if (q.n0 + co < Cout)
-            *reinterpret_cast<unsigned*>(yp + co) =
-                conv3x3::pack_bf16x2(a0, a1);
+          if (q.n0 + co < Cout) {
+            if constexpr (G::OP == OP_TF32)
+              *reinterpret_cast<float2*>(yp + co) = make_float2(a0, a1);
+            else
+              *reinterpret_cast<unsigned*>(yp + co) =
+                  conv3x3::pack_bf16x2(a0, a1);
+          }
           psum[2 * v] += a0;
           psum[2 * v + 1] += a1;
           psq[2 * v] += a0 * a0;
@@ -847,11 +1034,14 @@ __device__ __forceinline__ void epilogue(float (&acc)[M_SUB][G::BN / 2],
 
 // Lays the weights out once per call as the ring's weight image of every
 // (channel block, stage): wp[nb][kb] = WIMG_BYTES in the shared-memory
-// order of a stage of all 9 taps (tap position (image_tap), 64-column
-// block, input channel row, swizzled 16-byte chunk), zero past Cin and
-// Cout, so that a stage's weights are one bulk copy.
+// order of a stage of all 9 taps (tap position (image_tap)), zero past Cin
+// and Cout, so that a stage's weights are one bulk copy. bf16: per tap the
+// MN-major 64-column blocks of KC input channel rows, swizzled 16-byte
+// chunks (SWIZZLE_128B). tf32 and s8: per tap (and plane: tf32 hi = tf32(w),
+// then lo = tf32(w - hi)) the K-major core matrices of desc_kmajor, chunk
+// kc of column n holding input channels kc * EPC .. + EPC - 1 of the stage.
 template <class G>
-__global__ void pack_weights_kernel(const bf16* __restrict__ w,
+__global__ void pack_weights_kernel(const typename G::WT* __restrict__ w,
                                     uint4* __restrict__ wp, int Cin, int Cout,
                                     int n_k, int n_nb) {
   constexpr int CH = G::WIMG_BYTES / 16;   // chunks per stage image
@@ -862,16 +1052,71 @@ __global__ void pack_weights_kernel(const bf16* __restrict__ w,
     const int kb = static_cast<int>((i / CH) % n_k);
     const int nb = static_cast<int>(i / ((long)CH * n_k));
     const int tap = image_tap<G>(chunk / (G::WTAP_BYTES / 16));
-    const int blk = (chunk / (G::WBLK_BYTES / 16)) % G::NB64;
-    const int k = (chunk / 8) % KC;
-    const int jj = (chunk % 8) ^ (k % 8);   // the swizzle, undone
-    const int co = nb * G::BN + blk * 64 + jj * 8;
-    const int ci = kb * KC + k;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (ci < Cin && co < Cout)
-      v = *reinterpret_cast<const uint4*>(w + ((size_t)tap * Cin + ci) * Cout +
-                                          co);
+    if constexpr (G::OP == OP_BF16) {
+      const int blk = (chunk / (G::WBLK_BYTES / 16)) % G::NB64;
+      const int k = (chunk / 8) % G::KC;
+      const int jj = (chunk % 8) ^ (k % 8);   // the swizzle, undone
+      const int co = nb * G::BN + blk * 64 + jj * 8;
+      const int ci = kb * G::KC + k;
+      if (ci < Cin && co < Cout)
+        v = *reinterpret_cast<const uint4*>(w + ((size_t)tap * Cin + ci) *
+                                                    Cout + co);
+    } else {
+      const int pc = chunk % (G::WPLANE_BYTES / 16);   // chunk in its plane
+      const int plane = (chunk / (G::WPLANE_BYTES / 16)) % G::NPLANE;
+      const int n = (pc / 16) * 8 + pc % 8;   // desc_kmajor's layout, undone
+      const int co = nb * G::BN + n;
+      const int ci0 = kb * G::KC + ((pc / 8) % 2) * G::EPC;
+      uint32_t word[4] = {0u, 0u, 0u, 0u};
+      if (co < Cout) {
+#pragma unroll
+        for (int e = 0; e < G::EPC; ++e) {
+          const int ci = ci0 + e;
+          if (ci >= Cin) break;
+          const typename G::WT wv = w[((size_t)tap * Cin + ci) * Cout + co];
+          if constexpr (G::OP == OP_TF32) {
+            const uint32_t hi = tf32_rna(wv);
+            word[e] = plane == 0 ? hi : tf32_rna(wv - __uint_as_float(hi));
+          } else {
+            word[e / 4] |= (static_cast<uint32_t>(wv) & 0xffu) << (8 * (e % 4));
+          }
+        }
+      }
+      v = make_uint4(word[0], word[1], word[2], word[3]);
+    }
     wp[i] = v;
+  }
+}
+
+// s8: the dequant of the int32 sums, yf = f32(acc) * deq[co] (dynamic:
+// deq[co] * (m / 127), m = max(m_raw[s, chunk], 1e-12) of the item's
+// 16-row chunk), and the layout of the quantized blocks the slab is loaded
+// from: (S * n_chunks, chunk + 2 halo rows, W + 2, Cin rounded up to 16).
+struct Dequant {
+  const float* deq;
+  const float* m_raw;
+  int n_chunks;
+  bool dynamic;
+};
+
+template <class G>
+__device__ __forceinline__ void dequant(const int (&acc)[M_SUB][G::BN / 2],
+                                        float (&yf)[M_SUB][G::BN / 2],
+                                        const Item& q, int lane,
+                                        const Dequant& dq, int Cout) {
+  const float m =
+      dq.dynamic ? fmaxf(dq.m_raw[(size_t)q.s * dq.n_chunks + q.r0 / TM],
+                         1e-12f)
+                 : 0.f;
+#pragma unroll
+  for (int i = 0; i < G::BN / 2; ++i) {
+    const int co = q.n0 + 8 * (i / 4) + 2 * (lane & 3) + (i & 1);
+    float d = co < Cout ? dq.deq[co] : 0.f;
+    if (dq.dynamic) d = __fmul_rn(d, m / 127.f);
+#pragma unroll
+    for (int j = 0; j < M_SUB; ++j)
+      yf[j][i] = __fmul_rn(static_cast<float>(acc[j][i]), d);
   }
 }
 
@@ -880,10 +1125,12 @@ __global__ void __launch_bounds__(NT, 1)
 conv_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
                   const char* __restrict__ wp,
                   const float* __restrict__ in_scale,
-                  const float* __restrict__ in_bias, bf16* __restrict__ y,
+                  const float* __restrict__ in_bias,
+                  typename G::YT* __restrict__ y,
                   float* __restrict__ partial, int H, int W, int Ho, int Wo,
                   int Cin, int Cout, int tiles_w, int n_tiles, int n_nb,
-                  int n_items, bool reflect, bool has_affine, bool in_relu) {
+                  int n_items, bool reflect, bool has_affine, bool in_relu,
+                  Dequant dq) {
   extern __shared__ __align__(16) char smem_raw[];
   // the 128B-swizzled weight blocks need 1024-byte aligned addresses
   char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -911,7 +1158,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   }
   if (t < PT) fill_table<G>(table, t);
   __syncthreads();
-  const int n_k = (Cin + KC - 1) / KC;
+  const int n_k = (Cin + G::KC - 1) / G::KC;
   const int my_items =
       (n_items - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
   const int n_steps = my_items * n_k;
@@ -942,26 +1189,30 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
                       wp + ((size_t)(q.n0 / G::BN) * n_k + ic.kk) *
                                G::WIMG_BYTES + first * G::WTAP_BYTES,
                       n_tap * G::WTAP_BYTES, landed);
-        // one box per plane: rows and columns of its parity
-        for (int pl = 0; pl < G::NPL; ++pl)
-          tma_load_4d(smem_u32(stage + G::W_BYTES + pl * G::PLANE_PIX * 32),
-                      &x_map, ic.kk * KC,
-                      q.c0 * G::STRIDE - G::PAD + pl % G::STRIDE,
-                      q.r0 * G::STRIDE - G::PAD + pl / G::STRIDE, q.s,
-                      landed);
+        if constexpr (G::PREQ) {   // the item's chunk block, halo included
+          tma_load_4d(smem_u32(stage + G::W_BYTES), &x_map, ic.kk * G::KC,
+                      q.c0, 0, q.s * dq.n_chunks + q.r0 / TM, landed);
+        } else {   // one box per plane: rows and columns of its parity
+          for (int pl = 0; pl < G::NPL; ++pl)
+            tma_load_4d(
+                smem_u32(stage + G::W_BYTES + pl * G::PLANE_PIX * 32),
+                &x_map, ic.kk * G::KC,
+                q.c0 * G::STRIDE - G::PAD + pl % G::STRIDE,
+                q.r0 * G::STRIDE - G::PAD + pl / G::STRIDE, q.s, landed);
+        }
       }
       if (touch) {
         if (ic.kk == 0)
           slab_masks<G>(item_src, item_refl, table, q, H, W, reflect, t);
         // a channel past Cin has no source either (the thread's chunk is the
-        // same 8 channels of every pixel)
-        const bool ch_ok = ic.kk * KC + 8 * (t % CPP) < Cin;
+        // same EPC channels of every pixel)
+        const bool ch_ok = ic.kk * G::KC + G::EPC * (t % CPP) < Cin;
         masks[slot * PT + t] = ch_ok ? item_src : 0u;
         masks[(G::NST + slot) * PT + t] = ch_ok ? item_refl : 0u;
       }
-      if (has_affine && t < 8)
-        load_affine(aff + slot * 2 * KC, in_scale, in_bias, q.s, ic.kk * KC,
-                    Cin, t);
+      if (has_affine && t < 2 * G::KC / 4)
+        load_affine<G>(aff + slot * 2 * G::KC, in_scale, in_bias, q.s,
+                       ic.kk * G::KC, Cin, t);
       cursor_next<G>(ic, n_k, n_nb, n_tiles, tiles_w);
     };
     for (int g = 0; g < G::AHEAD; ++g) {
@@ -981,7 +1232,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
         // every thread's affine copies and halo chunks
         if (has_affine || reflect) producer_sync();
         transform_stage<G>(stage, table, masks[slot * PT + t],
-                           aff + slot * 2 * KC, has_affine, in_relu, t);
+                           aff + slot * 2 * G::KC, has_affine, in_relu, t);
         // these generic-proxy writes before the TMA engine's next ones
         fence_proxy_async();
       }
@@ -998,34 +1249,36 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
     const int lane = t & 31;
     // warpgroup g (0, 1), warp w of it: rows 8 g + w and 8 g + 4 + w
     const int row0 = 8 * (cw >> 2) + (cw & 3);
-    float acc[M_SUB][G::BN / 2];
+    Cursor cc = cursor_start<G>(n_nb, n_tiles, tiles_w);
+    typename G::AT acc[M_SUB][G::BN / 2];
 #pragma unroll
     for (int j = 0; j < M_SUB; ++j)
 #pragma unroll
-      for (int i = 0; i < G::BN / 2; ++i) acc[j][i] = 0.f;
-    Cursor cc = cursor_start<G>(n_nb, n_tiles, tiles_w);
-    if constexpr (G::TRANSPOSED) {
-      float tmp[M_SUB][G::BN / 2];
-      uint32_t a[M_SUB][4][4];
-      for (int g = 0; g < n_steps; ++g) {
-        const int slot = g % G::NST;
-        const Item& q = cc.q;
-        const char* stage = smem + slot * G::STAGE_BYTES;
-        const int kk = cc.kk;
+      for (int i = 0; i < G::BN / 2; ++i) acc[j][i] = 0;
+    // CONVT: the temporaries of the deferred units, and the A fragments
+    float tmp[M_SUB][G::BN / 2];
+    uint32_t a[M_SUB][4][4];
+    for (int g = 0; g < n_steps; ++g) {
+      const int slot = g % G::NST;
+      const Item& q = cc.q;
+      const char* stage = smem + slot * G::STAGE_BYTES;
+      const int kk = cc.kk;
+      mbar_wait(bars + 8 * slot, (g / G::NST) & 1);
+      if constexpr (G::TRANSPOSED) {
         // units of UK_DEFER steps: UK_DEFER / n_tap stages (n_tap 1, 2, 4)
         const int unit = UK_DEFER >> ((q.ph >> 1) + (q.ph & 1));
         const bool fresh = (kk & (unit - 1)) == 0;
         const bool unit_end = ((kk + 1) & (unit - 1)) == 0 || kk == n_k - 1;
-        mbar_wait(bars + 8 * slot, (g / G::NST) & 1);
         FragAffine xf{{}, {}, has_affine, in_relu, q.r0, q.c0, H, W};
         if (has_affine) {   // the slot's scale and bias of this thread's
                             // channel pairs
-          const float* af = aff + slot * 2 * KC;
+          const float* af = aff + slot * 2 * G::KC;
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
             const int ch = 8 * c + 2 * (lane & 3);
             xf.s2[c] = __floats2bfloat162_rn(af[ch], af[ch + 1]);
-            xf.b2[c] = __floats2bfloat162_rn(af[KC + ch], af[KC + ch + 1]);
+            xf.b2[c] = __floats2bfloat162_rn(af[G::KC + ch],
+                                             af[G::KC + ch + 1]);
           }
         }
         if (q.ph == 0)
@@ -1037,8 +1290,18 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
         else
           stage_deferred<G, 2>(stage, acc, tmp, a, q.ph, row0, lane, fresh,
                                unit_end, xf);
-        mbar_arrive(bars + 8 * (G::NST + slot));
-        if (kk == n_k - 1) {
+      } else {
+        compute_stage<G>(stage, acc, row0, lane, kk == 0);
+      }
+      mbar_arrive(bars + 8 * (G::NST + slot));
+      if (kk == n_k - 1) {
+        if constexpr (G::OP == OP_S8) {   // the next item's first stage
+                                          // starts its sums
+          float yf[M_SUB][G::BN / 2];
+          dequant<G>(acc, yf, q, lane, dq, Cout);
+          epilogue<G>(yf, q, row0, cw, lane, ct, red, y, partial, Ho, Wo,
+                      Cout, n_tiles);
+        } else {
           epilogue<G>(acc, q, row0, cw, lane, ct, red, y, partial, Ho, Wo,
                       Cout, n_tiles);
 #pragma unroll
@@ -1046,25 +1309,8 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
 #pragma unroll
             for (int i = 0; i < G::BN / 2; ++i) acc[j][i] = 0.f;
         }
-        cursor_next<G>(cc, n_k, n_nb, n_tiles, tiles_w);
       }
-    } else {
-      for (int g = 0; g < n_steps; ++g) {
-        const int slot = g % G::NST;
-        const Item& q = cc.q;
-        mbar_wait(bars + 8 * slot, (g / G::NST) & 1);
-        compute_stage<G>(smem + slot * G::STAGE_BYTES, acc, row0, lane);
-        mbar_arrive(bars + 8 * (G::NST + slot));
-        if (cc.kk == n_k - 1) {
-          epilogue<G>(acc, q, row0, cw, lane, ct, red, y, partial, Ho, Wo,
-                      Cout, n_tiles);
-#pragma unroll
-          for (int j = 0; j < M_SUB; ++j)
-#pragma unroll
-            for (int i = 0; i < G::BN / 2; ++i) acc[j][i] = 0.f;
-        }
-        cursor_next<G>(cc, n_k, n_nb, n_tiles, tiles_w);
-      }
+      cursor_next<G>(cc, n_k, n_nb, n_tiles, tiles_w);
     }
   }
 }
@@ -1076,7 +1322,7 @@ inline int num_tiles(int Ho, int Wo) {
 // Bytes of the packed-weight workspace that launch<G>() takes.
 template <class G>
 inline long wpack_bytes(int Cin, int Cout) {
-  return (long)((Cout + G::BN - 1) / G::BN) * ((Cin + KC - 1) / KC) *
+  return (long)((Cout + G::BN - 1) / G::BN) * ((Cin + G::KC - 1) / G::KC) *
          G::WIMG_BYTES;
 }
 
@@ -1106,24 +1352,40 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The tensor map of x (S, H, W, Cin) bf16 that the producer loads its slab
-// planes with: boxes of KC channels x PW x PH pixels (every STRIDE-th),
-// 32-byte swizzled (16-byte chunk c of pixel P at c ^ ((P / 4) % 2), the
-// slab's own layout), zeros outside x.
+// Channels per pixel of the s8 blocks: Cin rounded up to 16, so that a row
+// of the blocks is a multiple of the 16 bytes that a tensor map's strides
+// must be.
+inline int s8_block_channels(int Cin) { return (Cin + 15) / 16 * 16; }
+
+// The tensor map that the producer loads its slab planes with: boxes of KC
+// channels (32 bytes) x PW x PH pixels (every STRIDE-th), 32-byte swizzled
+// (16-byte chunk c of pixel P at c ^ ((P / 4) % 2), the slab's own layout),
+// zeros outside the tensor. bf16 and tf32: x (S, H, W, Cin). s8: the
+// quantized blocks (S * n_chunks, H / n_chunks + 2, W + 2,
+// s8_block_channels(Cin)) int8, whose rows and columns hold the halo.
 template <class G>
-inline CUresult x_tensor_map(CUtensorMap* map, const bf16* x, int S, int H,
-                             int W, int Cin) {
+inline CUresult x_tensor_map(CUtensorMap* map, const void* x, int S, int H,
+                             int W, int Cin, int n_chunks) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[4] = {(cuuint64_t)Cin, (cuuint64_t)W, (cuuint64_t)H,
-                              (cuuint64_t)S};
-  const cuuint64_t strides[3] = {(cuuint64_t)Cin * 2,
-                                 (cuuint64_t)W * Cin * 2,
-                                 (cuuint64_t)H * W * Cin * 2};
-  const cuuint32_t box[4] = {KC, G::PW * G::STRIDE, G::PH * G::STRIDE, 1};
+  cuuint64_t dims[4] = {(cuuint64_t)Cin, (cuuint64_t)W, (cuuint64_t)H,
+                        (cuuint64_t)S};
+  if constexpr (G::PREQ) {
+    dims[0] = (cuuint64_t)s8_block_channels(Cin);
+    dims[1] = (cuuint64_t)W + 2;
+    dims[2] = (cuuint64_t)(H / n_chunks) + 2;
+    dims[3] = (cuuint64_t)S * n_chunks;
+  }
+  const cuuint64_t strides[3] = {dims[0] * G::ESIZE,
+                                 dims[1] * dims[0] * G::ESIZE,
+                                 dims[2] * dims[1] * dims[0] * G::ESIZE};
+  const cuuint32_t box[4] = {G::KC, G::PW * G::STRIDE, G::PH * G::STRIDE, 1};
   const cuuint32_t elem[4] = {1, G::STRIDE, G::STRIDE, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<bf16*>(x), dims, strides, box, elem,
+  const CUtensorMapDataType type =
+      G::OP == OP_TF32  ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+      : G::OP == OP_S8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return encode(map, type, 4, const_cast<void*>(x), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -1133,17 +1395,21 @@ inline CUresult x_tensor_map(CUtensorMap* map, const bf16* x, int S, int H,
 // CTA per SM, at most one per item) and the stats reduction over the
 // partials in (tile, phase) order on `st`; returns the first cudaError_t (0
 // on success; 1000 + the CUresult if x's tensor map was refused).
-// `partial` holds S x num_tiles x NPH x 2 x Cout floats.
+// `partial` holds S x num_tiles x NPH x 2 x Cout floats. s8: x is the
+// quantized blocks (x_tensor_map), which hold the input's affine, ReLU and
+// padding, and dq its dequant.
 template <class G>
-inline int launch(const bf16* x, const bf16* w, void* wpack,
-                  const float* in_scale, const float* in_bias, bf16* y,
-                  float* partial, float* stats, int S, int H, int W, int Cin,
-                  int Cout, bool reflect, bool has_affine, bool in_relu,
-                  cudaStream_t st) {
+inline int launch(const void* x, const typename G::WT* w, void* wpack,
+                  const float* in_scale, const float* in_bias,
+                  typename G::YT* y, float* partial, float* stats, int S,
+                  int H, int W, int Cin, int Cout, bool reflect,
+                  bool has_affine, bool in_relu, cudaStream_t st,
+                  Dequant dq = Dequant{nullptr, nullptr, 1, false}) {
   if (Cin % 8 || Cout % 8 || H % G::STRIDE || W % G::STRIDE)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap x_map;
-  const CUresult map_err = x_tensor_map<G>(&x_map, x, S, H, W, Cin);
+  const CUresult map_err =
+      x_tensor_map<G>(&x_map, x, S, H, W, Cin, dq.n_chunks);
   if (map_err != CUDA_SUCCESS) return 1000 + static_cast<int>(map_err);
   // the tile grid's extent: the output's (CONVT: the input's)
   const int Ho = H / G::STRIDE;
@@ -1161,7 +1427,7 @@ inline int launch(const bf16* x, const bf16* w, void* wpack,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                G::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_k = (Cin + KC - 1) / KC;
+  const int n_k = (Cin + G::KC - 1) / G::KC;
   const long chunks = wpack_bytes<G>(Cin, Cout) / 16;
   const int pack_blocks =
       (int)((chunks + 255) / 256 < 4096 ? (chunks + 255) / 256 : 4096);
@@ -1173,7 +1439,7 @@ inline int launch(const bf16* x, const bf16* w, void* wpack,
   conv_wgmma_kernel<G><<<grid, NT, G::SMEM, st>>>(
       x_map, static_cast<const char*>(wpack), in_scale, in_bias, y, partial,
       H, W, Ho, Wo, Cin, Cout, tiles_w, n_tiles, n_nb, n_items, reflect,
-      has_affine, in_relu);
+      has_affine, in_relu, dq);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(conv3x3::launch_stats_reduce(

@@ -10,15 +10,17 @@ Port of deepliif_tpu/ops/fused_resblock.py (``conv3x3_stats``,
     x       = x + norm2(st2) applied to h2
 
 so each intermediate activation is written once and read once; the norm
-finalize is a tiny (S, C) op between calls. ``conv3x3_stats`` launches the
-hand-written kernel in ``csrc/conv3x3_stats.cu`` (float32 on CUDA cores;
-bfloat16 on the tensor cores, the implicit-GEMM ``wgmma`` kernel of
-``csrc/conv3x3_wgmma.cuh``, with its weights packed per call into a
-workspace) and
-``conv3x3_stats_int8`` the one in ``csrc/conv3x3_stats_int8.cu`` for a CUDA
-tensor; a CPU tensor runs the plain version (``*_reference``); on any other
-device, dtype or layout they raise. There is no fallback from a kernel to
-its plain version.
+finalize is a tiny (S, C) op between calls. For a CUDA tensor
+``conv3x3_stats`` launches the hand-written kernel in
+``csrc/conv3x3_stats.cu`` and ``conv3x3_stats_int8`` the one in
+``csrc/conv3x3_stats_int8.cu``: all three run the implicit-GEMM ``wgmma``
+mainloop of ``csrc/conv3x3_wgmma.cuh`` on the tensor cores (bfloat16;
+float32 by split TF32, three TF32 products per multiply-add, as accurate as
+a float32 conv; int8 on s8 operands, after a pass that quantizes the input
+into per-chunk blocks), with their weights packed per call into a
+workspace. A CPU tensor runs the plain version (``*_reference``); on any
+other device, dtype, layout or channel count (C % 8) they raise. There is
+no fallback from a kernel to its plain version.
 
 Tensors keep the JAX package's layout: activations NHWC (S, H, W, C),
 weights HWIO (3, 3, C, C), norm affine (S, C), stats (S, 2, C) as
@@ -50,15 +52,16 @@ CHUNK_ROWS = 16
 def _lib():
     lib = cuda_build.load('conv3x3_stats', _LIBS['conv3x3_stats'])
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.conv3x3_stats_num_tiles, lib.conv3x3_stats_bf16_num_tiles):
-        fn.argtypes = [i, i]
-        fn.restype = i
-    lib.conv3x3_stats_bf16_wpack_bytes.argtypes = [i]
-    lib.conv3x3_stats_bf16_wpack_bytes.restype = ctypes.c_long
-    lib.conv3x3_stats_f32.argtypes = [p] * 7 + [i] * 7 + [p]
-    # bf16: a packed-weight workspace after w
-    lib.conv3x3_stats_bf16.argtypes = [p] * 8 + [i] * 7 + [p]
+    lib.conv3x3_stats_num_tiles.argtypes = [i, i]
+    lib.conv3x3_stats_num_tiles.restype = i
+    for fn in (lib.conv3x3_stats_f32_wpack_bytes,
+               lib.conv3x3_stats_bf16_wpack_bytes):
+        fn.argtypes = [i]
+        fn.restype = ctypes.c_long
+    # x, w, the packed-weight workspace, in_scale, in_bias, y, partial,
+    # stats; S, H, W, C, reflect, has_affine, in_relu; the stream
     for fn in (lib.conv3x3_stats_f32, lib.conv3x3_stats_bf16):
+        fn.argtypes = [p] * 8 + [i] * 7 + [p]
         fn.restype = i
     return lib
 
@@ -66,10 +69,17 @@ def _lib():
 @functools.cache
 def _lib_int8():
     lib = cuda_build.load('conv3x3_stats_int8', _LIBS['conv3x3_stats_int8'])
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, l_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
     lib.conv3x3_stats_int8_num_tiles.argtypes = [i, i]
     lib.conv3x3_stats_int8_num_tiles.restype = i
-    lib.conv3x3_stats_int8.argtypes = [p] * 10 + [i] * 9 + [p]
+    lib.conv3x3_stats_int8_wpack_bytes.argtypes = [i]
+    lib.conv3x3_stats_int8_wpack_bytes.restype = l_
+    lib.conv3x3_stats_int8_qblock_bytes.argtypes = [i] * 5
+    lib.conv3x3_stats_int8_qblock_bytes.restype = l_
+    # x, w_q, wpack, qblocks, deq, inv_a, in_scale, in_bias, y, m_raw,
+    # rowmax, partial, stats; S, H, W, C, ch, reflect, has_affine, in_relu,
+    # dynamic; the stream
+    lib.conv3x3_stats_int8.argtypes = [p] * 13 + [i] * 9 + [p]
     lib.conv3x3_stats_int8.restype = i
     return lib
 
@@ -125,6 +135,42 @@ def conv3x3_stats_reference(x, w, *, padding='reflect', in_scale=None,
     return y32.to(x.dtype).permute(0, 2, 3, 1).contiguous(), _stats(y32)
 
 
+def tf32_round(x):
+    """float32 -> the nearest TF32 value (10 explicit mantissa bits, the 13
+    low bits of the float32 pattern dropped), ties away from zero, as
+    ``cvt.rna.tf32.f32`` rounds; returned as float32. Past the largest TF32
+    value it rounds to infinity; NaN stays NaN."""
+    bits = x.float().contiguous().view(torch.int32)
+    # adding half of the dropped unit to the magnitude bits carries into the
+    # kept ones exactly when the dropped part is >= half of it (the sign bit
+    # stays: a float32 magnitude below NaN's never carries into it)
+    out = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isnan(x), x.float(), out)
+
+
+def conv3x3_stats_split_tf32_reference(x, w, *, padding='reflect',
+                                       in_scale=None, in_bias=None,
+                                       in_relu=False, products=3):
+    """Plain version of the float32 kernel's split-TF32 arithmetic (same
+    signature and result as ``conv3x3_stats_reference``, float32 only): u
+    (after the affine and ReLU) and w are split as v = hi + lo, hi =
+    tf32(v), lo = tf32(v - hi), and y is the float32 sum of the convs of hi
+    and hi, hi and lo, lo and hi (each product of two TF32 values is exact
+    in float32). ``products=1`` keeps hi and hi alone: what a TF32 conv
+    computes."""
+    _check_padding(padding)
+    u = _transform(x.float(), in_scale, in_bias, in_relu).permute(0, 3, 1, 2)
+    u = F.pad(u, (1, 1, 1, 1), mode='reflect' if padding == 'reflect'
+              else 'constant')
+    wt = w.float().permute(3, 2, 0, 1)
+    u_hi, w_hi = tf32_round(u), tf32_round(wt)
+    y32 = F.conv2d(u_hi, w_hi)
+    if products == 3:
+        y32 = (y32 + F.conv2d(u_hi, tf32_round(wt - w_hi))
+               + F.conv2d(tf32_round(u - u_hi), w_hi))
+    return y32.permute(0, 2, 3, 1).contiguous(), _stats(y32)
+
+
 def _check_affine(in_scale, in_bias, s_n, c, device):
     if (in_scale is None) != (in_bias is None):
         raise ValueError('in_scale and in_bias go together')
@@ -162,9 +208,9 @@ def _check(x, w, padding, in_scale, in_bias):
     if w.device != x.device:
         raise ValueError(f'x on {x.device}, w on {w.device}')
     _check_affine(in_scale, in_bias, s_n, c, x.device)
-    if x.dtype == torch.bfloat16 and (c % 8 or _misaligned(x, w, in_scale,
-                                                           in_bias)):
-        raise ValueError('the bfloat16 kernel needs C % 8 == 0 and 16-byte '
+    if c % 8 or _misaligned(x, w, in_scale, in_bias):
+        kind = 'bfloat16' if x.dtype == torch.bfloat16 else 'float32'
+        raise ValueError(f'the {kind} kernel needs C % 8 == 0 and 16-byte '
                          f'aligned x, w, in_scale and in_bias (C={c})')
 
 
@@ -173,9 +219,10 @@ def conv3x3_stats(x, w, *, padding='reflect', in_scale=None, in_bias=None,
     """Fused (affine -> relu ->) conv3x3 (stride 1, 'same' via reflect/zero
     pad) + per-(sample, channel) output statistics.
 
-    x: (S, H, W, C) float32 or bfloat16; w: (3, 3, C, C) HWIO of the same
-    dtype; in_scale/in_bias: (S, C) float32 or None. Returns (y (S, H, W, C)
-    in x.dtype, stats (S, 2, C) float32 [sum, sum of squares]). A CPU
+    x: (S, H, W, C) float32 or bfloat16 (C % 8 == 0 on CUDA); w: (3, 3, C,
+    C) HWIO of the same dtype; in_scale/in_bias: (S, C) float32 or None.
+    Returns (y (S, H, W, C) in x.dtype, stats (S, 2, C) float32 [sum, sum
+    of squares]). A CPU
     tensor runs the plain version; a CUDA tensor launches the kernel on the
     current stream (and counts it in ``conv3x3_stats.launches`` for float32,
     ``conv3x3_stats.launches_bf16`` for bfloat16) or raises.
@@ -191,22 +238,17 @@ def conv3x3_stats(x, w, *, padding='reflect', in_scale=None, in_bias=None,
     lib = _lib()
     bf16 = x.dtype == torch.bfloat16
     y = torch.empty_like(x)
-    if bf16:   # the tensor-core kernel: its own tiling, packed weights
-        n_tiles = lib.conv3x3_stats_bf16_num_tiles(h, w_n)
-        fn = lib.conv3x3_stats_bf16
-        workspace = [torch.empty(lib.conv3x3_stats_bf16_wpack_bytes(c),
-                                 dtype=torch.uint8, device=x.device)]
-    else:
-        n_tiles = lib.conv3x3_stats_num_tiles(h, w_n)
-        fn = lib.conv3x3_stats_f32
-        workspace = []
+    fn = lib.conv3x3_stats_bf16 if bf16 else lib.conv3x3_stats_f32
+    wpack = torch.empty((lib.conv3x3_stats_bf16_wpack_bytes if bf16 else
+                         lib.conv3x3_stats_f32_wpack_bytes)(c),
+                        dtype=torch.uint8, device=x.device)
+    n_tiles = lib.conv3x3_stats_num_tiles(h, w_n)
     partial = torch.empty((s_n, n_tiles, 2, c), dtype=torch.float32,
                           device=x.device)
     stats = torch.empty((s_n, 2, c), dtype=torch.float32, device=x.device)
     has_affine = in_scale is not None
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w.data_ptr(),
-                 *(t.data_ptr() for t in workspace),
+        err = fn(x.data_ptr(), w.data_ptr(), wpack.data_ptr(),
                  in_scale.data_ptr() if has_affine else None,
                  in_bias.data_ptr() if has_affine else None,
                  y.data_ptr(), partial.data_ptr(), stats.data_ptr(),
@@ -214,8 +256,8 @@ def conv3x3_stats(x, w, *, padding='reflect', in_scale=None, in_bias=None,
                  int(bool(in_relu)), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f'conv3x3_stats kernel launch failed: cudaError '
-                           f'{err} (bf16: 1000 + a CUresult if x\'s TMA '
-                           'tensor map was refused)')
+                           f'{err} (1000 + a CUresult if x\'s TMA tensor map '
+                           'was refused)')
     if bf16:
         conv3x3_stats.launches_bf16 += 1
     else:
@@ -272,13 +314,33 @@ def conv3x3_stats_int8_reference(x, w_q, deq, inv_a=None, *,
     return yf.to(x.dtype).permute(0, 2, 3, 1).contiguous(), _stats(yf)
 
 
-def pack_w_int8(w_q):
-    """HWIO int8 (3, 3, C, C) -> (3, 3, C/4, C) int32 words, each holding
-    4 consecutive input channels of one output channel (the int8 kernel's
-    ``__dp4a`` operand layout)."""
-    kh, kw, ci, co = w_q.shape
-    return (w_q.reshape(kh, kw, ci // 4, 4, co).permute(0, 1, 2, 4, 3)
-            .contiguous().view(torch.int32).reshape(kh, kw, ci // 4, co))
+def quantize_blocks_int8_reference(x, inv_a=None, *, padding='reflect',
+                                   in_scale=None, in_bias=None,
+                                   in_relu=False, dynamic=False):
+    """Plain version of the int8 kernel's quantize pass: the conv's input
+    as per-chunk blocks (S, n_chunks, ch + 2, W + 2, C) int8, each chunk's
+    rows with its two halo rows and the halo columns (reflected, or zero),
+    quantized at the chunk's scale; and the chunks' scales m (S, n_chunks)
+    float32 (max |u| of the window, at least 1e-12; None when static). A
+    valid 3x3 integer conv of a block gives the chunk's int32 sums."""
+    _check_padding(padding)
+    s_n, h, w_n, c = x.shape
+    ch = _chunk_rows(h)
+    n_ch = h // ch
+    u = _transform(x, in_scale, in_bias, in_relu).permute(0, 3, 1, 2)
+    u = F.pad(u.float(), (1, 1, 1, 1), mode='reflect' if padding == 'reflect'
+              else 'constant').permute(0, 2, 3, 1)   # (S, H + 2, W + 2, C)
+    blocks = torch.stack([u[:, r * ch:r * ch + ch + 2]
+                          for r in range(n_ch)], dim=1)
+    m = None
+    if dynamic:
+        m = blocks.abs().amax(dim=(2, 3, 4)).clamp_min(1e-12)
+        inv = (torch.full_like(m, 127.0) / m).to(x.dtype).float()
+        v = blocks * inv[:, :, None, None, None]
+    else:
+        inv = torch.as_tensor(inv_a, dtype=torch.float32, device=x.device)
+        v = blocks * inv.reshape(-1).to(x.dtype).float()
+    return torch.clamp(torch.round(v), -127, 127).to(torch.int8), m
 
 
 def conv3x3_stats_int8(x, w_q, deq, inv_a=None, *, padding='reflect',
@@ -325,26 +387,38 @@ def conv3x3_stats_int8(x, w_q, deq, inv_a=None, *, padding='reflect',
     if not dynamic:
         inv_a = torch.as_tensor(inv_a, **on_x).reshape(-1).expand(c).contiguous()
     lib = _lib_int8()
-    w_packed = pack_w_int8(w_q.to(x.device))
     y = torch.empty_like(x)
     n_tiles = lib.conv3x3_stats_int8_num_tiles(h, w_n)
+    wpack = torch.empty(lib.conv3x3_stats_int8_wpack_bytes(c),
+                        dtype=torch.uint8, device=x.device)
+    qblocks = torch.empty(lib.conv3x3_stats_int8_qblock_bytes(s_n, h, w_n, c,
+                                                              ch),
+                          dtype=torch.uint8, device=x.device)
     partial = torch.empty((s_n, n_tiles, 2, c), **on_x)
     stats = torch.empty((s_n, 2, c), **on_x)
     m_raw = torch.empty((s_n, h // ch), **on_x)
+    rowmax = torch.empty((s_n, h), **on_x)
+    w_q = w_q.to(x.device).contiguous()
+    # the quantize passes load the per-channel scales as 16-byte vectors
+    in_scale, in_bias, inv_a = (t.clone() if _misaligned(t) else t
+                                for t in (in_scale, in_bias, inv_a))
     has_affine = in_scale is not None
     with torch.cuda.device(x.device):
         err = lib.conv3x3_stats_int8(
-            x.data_ptr(), w_packed.data_ptr(), deq.data_ptr(),
+            x.data_ptr(), w_q.data_ptr(), wpack.data_ptr(),
+            qblocks.data_ptr(), deq.data_ptr(),
             None if dynamic else inv_a.data_ptr(),
             in_scale.data_ptr() if has_affine else None,
             in_bias.data_ptr() if has_affine else None,
-            y.data_ptr(), m_raw.data_ptr(), partial.data_ptr(),
-            stats.data_ptr(), s_n, h, w_n, c, ch, int(padding == 'reflect'),
+            y.data_ptr(), m_raw.data_ptr(), rowmax.data_ptr(),
+            partial.data_ptr(), stats.data_ptr(), s_n, h, w_n, c, ch,
+            int(padding == 'reflect'),
             int(has_affine), int(bool(in_relu)), int(bool(dynamic)),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f'conv3x3_stats_int8 kernel launch failed: '
-                           f'cudaError {err}')
+                           f'cudaError {err} (1000 + a CUresult if the '
+                           'quantized blocks\' TMA tensor map was refused)')
     conv3x3_stats_int8.launches += 1
     return y, stats
 

@@ -1,27 +1,26 @@
-"""A/B of the port's trunk kernels against the same kernels built from another
+"""A/B of the port's trunk kernels against the same kernels of another
 checkout (for example the parent commit, unpacked with ``git archive``), on
-one CUDA card: each pair timed in turns (this, other, other, this, at
+one CUDA card: each pair timed in turns (this, other, other, this) at
 (16, 128, 128, 256), zero padding, with the norm affine and ReLU of a
-block's second conv), and their outputs compared bit for bit.
+block's second conv, and their outputs compared bit for bit.
 
     git archive <commit> | tar -x -C build/other
     python3 experiments/torch_kernel_ab.py --other build/other
 
-The other checkout's libraries are built from its ``deepliif_tpu_torch/csrc``
-with this tree's nvcc flags; a kernel whose entry point the other build
-lacks is skipped. Prints one JSON line per kernel, then the card's name and
-power limit. Imports nothing of jax or deepliif_tpu.
+The other checkout's ``deepliif_tpu_torch`` is imported under another name
+through its own wrappers, so its kernels are built from its own sources
+(into its own ``_build``) and called with its own signatures. Prints one
+JSON line per kernel (float32, bfloat16, int8 dynamic and static), then the
+card's name and power limit. Imports nothing of jax or deepliif_tpu.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
+import importlib.util
 import json
 import os
-import subprocess
 import sys
-import tempfile
 
 import torch
 
@@ -29,22 +28,17 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as smoke  # noqa: E402
 
 
-def build_other(root, out_dir):
-    """{library name: ctypes handle} built from ``root``'s csrc sources."""
-    from deepliif_tpu_torch.ops import cuda_build
-    csrc = os.path.join(root, 'deepliif_tpu_torch', 'csrc')
-    procs = {}
-    for name in ('conv3x3_stats', 'conv3x3_stats_int8'):
-        src = os.path.join(csrc, f'{name}.cu')
-        if os.path.exists(src):
-            procs[name] = subprocess.Popen(
-                [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, '-o',
-                 os.path.join(out_dir, f'{name}.so'), src])
-    for name, proc in procs.items():
-        if proc.wait() != 0:
-            sys.exit(f'nvcc failed on the other checkout\'s {name}.cu')
-    return {name: ctypes.CDLL(os.path.join(out_dir, f'{name}.so'))
-            for name in procs}
+def import_other(root):
+    """The other checkout's ``deepliif_tpu_torch.ops.fused_resblock``,
+    imported as the package ``other_port``."""
+    pkg = os.path.join(os.path.abspath(root), 'deepliif_tpu_torch')
+    spec = importlib.util.spec_from_file_location(
+        'other_port', os.path.join(pkg, '__init__.py'),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules['other_port'] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module('other_port.ops.fused_resblock')
 
 
 def main():
@@ -59,72 +53,29 @@ def main():
     from deepliif_tpu_torch.ops import fused_resblock as FR
 
     M.configure_device(torch.device('cuda'))
+    other = import_other(args.other)
     FR.build()
-    other = build_other(args.other, tempfile.mkdtemp())
-    p, i = ctypes.c_void_p, ctypes.c_int
+    other.build()
     rnd = smoke.Rand(smoke.SEED)
     s, h, w, c = smoke.TIMING_SHAPE
     x32 = rnd(s, h, w, c)
     w32 = rnd(3, 3, c, c, std=0.02)
     sc, bi = rnd(s, c, std=0.1, mean=1.0), rnd(s, c, std=0.1)
-    n_tiles = FR._lib().conv3x3_stats_num_tiles(h, w)
-
-    def scratch(x):
-        return (torch.empty_like(x),
-                torch.empty((s, n_tiles, 2, c), device='cuda'),
-                torch.empty((s, 2, c), device='cuda'))
-
-    def stream():
-        return torch.cuda.current_stream().cuda_stream
-
+    aff = dict(padding='zero', in_scale=sc, in_bias=bi, in_relu=True)
     cases = {}
-    lib = other.get('conv3x3_stats')
-    for dt, sym in ((torch.float32, 'conv3x3_stats_f32'),
-                    (torch.bfloat16, 'conv3x3_stats_bf16')):
-        if lib is None or not hasattr(lib, sym):
-            continue
-        fn = getattr(lib, sym)
-        fn.argtypes = [p] * 7 + [i] * 7 + [p]
+    for dt in (torch.float32, torch.bfloat16):
         x, wt = x32.to(dt), w32.to(dt)
-        y, part, st = scratch(x)
-
-        def run_other(fn=fn, x=x, wt=wt, y=y, part=part, st=st):
-            err = fn(x.data_ptr(), wt.data_ptr(), sc.data_ptr(),
-                     bi.data_ptr(), y.data_ptr(), part.data_ptr(),
-                     st.data_ptr(), s, h, w, c, 0, 1, 1, stream())
-            if err:
-                sys.exit(f'{sym} of the other checkout failed: {err}')
-            return y, st
-
-        cases[f'conv3x3_stats {dt}'] = (
-            lambda x=x, wt=wt: FR.conv3x3_stats(
-                x, wt, padding='zero', in_scale=sc, in_bias=bi, in_relu=True),
-            run_other)
-    lib8 = other.get('conv3x3_stats_int8')
-    if lib8 is not None:
-        lib8.conv3x3_stats_int8.argtypes = [p] * 10 + [i] * 9 + [p]
-        xb = x32.to(torch.bfloat16)
-        wq, ws = rnd.int8_weights(c)
-        wp = FR.pack_w_int8(wq)
-        y, part, st = scratch(xb)
-        m_raw = torch.empty((s, h // FR.CHUNK_ROWS), device='cuda')
-
-        def run_other8():
-            err = lib8.conv3x3_stats_int8(
-                xb.data_ptr(), wp.data_ptr(), ws.data_ptr(), None,
-                sc.data_ptr(), bi.data_ptr(), y.data_ptr(), m_raw.data_ptr(),
-                part.data_ptr(), st.data_ptr(), s, h, w, c, FR.CHUNK_ROWS, 0,
-                1, 1, 1, stream())
-            if err:
-                sys.exit(f'conv3x3_stats_int8 of the other checkout failed: '
-                         f'{err}')
-            return y, st
-
-        cases['conv3x3_stats_int8 dynamic'] = (
-            lambda: FR.conv3x3_stats_int8(xb, wq, ws, dynamic=True,
-                                          padding='zero', in_scale=sc,
-                                          in_bias=bi, in_relu=True),
-            run_other8)
+        cases[f'conv3x3_stats {dt}'] = tuple(
+            (lambda m=m, x=x, wt=wt: m.conv3x3_stats(x, wt, **aff))
+            for m in (FR, other))
+    xb = x32.to(torch.bfloat16)
+    wq, ws = rnd.int8_weights(c)
+    ones = torch.ones(c, device='cuda')
+    for mode, kw in (('dynamic', dict(dynamic=True)),
+                     ('static', dict(inv_a=ones))):
+        cases[f'conv3x3_stats_int8 {mode}'] = tuple(
+            (lambda m=m, kw=kw: m.conv3x3_stats_int8(xb, wq, ws, **kw, **aff))
+            for m in (FR, other))
 
     for name, (this, that) in cases.items():
         runs, ms = smoke.in_turns({'this': this, 'other': that}, args.iters)
@@ -135,6 +86,8 @@ def main():
                           'runs_ms': runs, 'this_ms': ms['this'],
                           'other_ms': ms['other'],
                           'y_equal': bool(torch.equal(y1, y2)),
+                          'max_abs_dy': (y1.float() - y2.float()).abs().max()
+                          .item(),
                           'stats_equal': bool(torch.equal(st1, st2))}),
               flush=True)
     print(smoke.nvidia_smi())

@@ -441,19 +441,6 @@ def test_cpu_wrappers_take_plain_versions_and_count_no_launch():
             FR.conv3x3_stats_int8.launches) == before
 
 
-def test_pack_w_int8_layout():
-    """Word (tap, ci/4, co) holds input channels 4*(ci/4) + 0..3 of output
-    channel co in bytes 0..3 (the kernel's __dp4a operand)."""
-    wq = torch.arange(3 * 3 * 8 * 4, dtype=torch.int64).remainder(251).sub(125)
-    wq = wq.to(torch.int8).reshape(3, 3, 8, 4)
-    packed = FR.pack_w_int8(wq)
-    assert packed.shape == (3, 3, 2, 4) and packed.dtype == torch.int32
-    b = packed.contiguous().view(torch.int8).reshape(3, 3, 2, 4, 4)
-    for ci in range(8):
-        for co in range(4):
-            assert b[1, 2, ci // 4, co, ci % 4] == wq[1, 2, ci, co]
-
-
 @pytest.mark.parametrize('padding', ['reflect', 'zero'])
 def test_cuda_kernels_match_plain_versions(padding):
     """bf16 and int8 kernels vs their plain twins on the card (ragged W and
