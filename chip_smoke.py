@@ -174,12 +174,21 @@ TAIL_LAUNCHES_PER_FORWARD = 4
 # values it rounds, |c| + |c + b| + |y| (c the rounded conv, y the output):
 # a conv one ulp apart moves the bf16 sum with the bias by up to that ulp,
 # and tanh passes it on scaled by at most 1
-# plane_sums launches per batch forward (two per norm): a translator has 5
-# norms, a unet_512 15 (innermost up, 4 x (down, up), 3 x (down, up)); the
-# fused stages take only the head's statistics through plane_sums (one)
-PLANE_PER_FORWARD = {False: 4 * 5 * 2 + 5 * 15 * 2, True: 4 + 5 * 15 * 2}
-# plane_sums vs plain: sums of 512^2 float32 terms in different orders
+# norm-statistics calls per batch forward (plane_mean_var, one per norm): a
+# translator has 5 norms, a unet_512 15 (innermost up, 4 x (down, up), 3 x
+# (down, up)); the fused stages take only the head's statistics, through
+# plane_sums (one)
+PLANE_PER_FORWARD = {False: 4 * 5 + 5 * 15, True: 4 + 5 * 15}
+# plane_stats vs plain: sums of 512^2 float32 terms in different orders
 PLANE_TOL = 1e-5
+# the unet_512's up-norm planes (C, H, W), the outputs of its
+# conv-transposes: 2^2 to 32^2 at 512 channels, then 64^2 x 256, 128^2 x
+# 128, 256^2 x 64. The float32 path's reach the kernel in NCHW memory
+# (cuDNN's float32 conv-transposes run NCHW), the other paths' in
+# channels_last, where the small planes at 512 channels take the narrow
+# geometry (fewer channel units a block)
+UP_NORM_PLANES = tuple((512, 2 ** k, 2 ** k) for k in range(1, 6)) + (
+    (256, 64, 64), (128, 128, 128), (64, 256, 256))
 # published H100 SXM peaks at 700 W (dense): FP32 outside the tensor cores
 # (FFMA), TF32, bf16 and int8 tensor cores; HBM3 bandwidth
 PEAK_OPS = {'float32': 67e12, 'tf32': 495e12, 'bfloat16': 989e12,
@@ -979,7 +988,8 @@ def kernel_checks_tail(FS, FR, rnd):
         runs, ms = in_turns({
             'plain': lambda: FS.tail_s2d_fused_reference(x, wt, b, **kw),
             'kernel': lambda: FS.tail_s2d_fused(x, wt, b, **kw),
-            'library': lambda: torch.tanh(F.conv2d(up, wo, b))}, 3)
+            'library': lambda: torch.tanh(F.conv2d(up, wo, b))},
+            {'plain': 3, 'kernel': 20, 'library': 5})
         t_ops, t_bytes, t_ffma = tail_bound(TAIL_SHAPE, TAIL_COUT)
         out[padding] = dict(err=err, ms=ms['kernel'], plain_ms=ms['plain'],
                             library_ms=ms['library'],
@@ -990,7 +1000,9 @@ def kernel_checks_tail(FS, FR, rnd):
               cout=TAIL_COUT, padding=padding, runs_ms=runs,
               **{f'{k}_ms': v for k, v in ms.items()},
               bound_ms=out[padding]['bound_ms'],
-              bound_by=out[padding]['bound_by'], ffma_floor_ms=t_ffma,
+              bound_by=out[padding]['bound_by'],
+              bound_share=out[padding]['bound_ms'] / ms['kernel'],
+              ffma_floor_ms=t_ffma,
               library_call='torch.tanh(F.conv2d(..., bias)) (cuDNN bf16) on '
                            'the affined and padded input')
         del x, up
@@ -999,54 +1011,148 @@ def kernel_checks_tail(FS, FR, rnd):
 
 
 def kernel_checks_plane(L, rnd):
-    """plane_sums (the norm statistics, two passes) at the head conv output
-    of a batch-16 forward, float32 and bfloat16: against the plain version,
-    run to run and per sample, timed against the plain version and
-    torch.var_mean. Returns the bfloat16 numbers."""
+    """The norm statistics (``plane_mean_var``: one call per norm, x read
+    once) at the head conv output of a batch-16 forward, float32 and
+    bfloat16, channels_last: against the plain two-pass version, also on an
+    input with a large offset (mean 100, std 1, where sum x^2 - n mean^2
+    would lose digits), run to run and per sample; ``plane_sums`` (the
+    fused head's sums, derived from one ``plane_mean_var`` call) against
+    plain sums; one call timed in turns against the plain version and
+    torch.var_mean. Then every up-norm plane of a unet_512
+    (``plane_checks_up_norms``). Returns {dtype name: numbers, 'up_norms':
+    numbers}."""
     shape = (BATCH, 64, TILE, TILE)
     out = {}
     for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).replace('torch.', '')
         x = rnd.big(BATCH, TILE, TILE, 64, dtype=dt).permute(0, 3, 1, 2)
         x = x + 0.5                         # a mean that is not zero
         x = x.contiguous(memory_format=torch.channels_last)
-        n = TILE * TILE
-
-        def two_pass(sums):
-            mean = sums(x)[:, 0] / n
-            return mean, sums(x, mean)[:, 1] / n
-        got = two_pass(L.plane_sums)
-        ref = two_pass(L.plane_sums_reference)
-        torch.cuda.synchronize()
-        err = max((g - r).abs().max().item() for g, r in zip(got, ref))
-        rel = max(((g - r).abs().max() / r.abs().max()).item()
-                  for g, r in zip(got, ref))
-        phase('kernel_vs_plain', kernel='plane_stats', dtype=str(dt),
-              shape=list(shape), mean_var_max_abs_err=err,
-              mean_var_rel_err=rel)
-        check(rel < PLANE_TOL, f'plane_stats error {rel} >= {PLANE_TOL}')
-        again = two_pass(L.plane_sums)
-        alone = L.plane_sums(x[1:2])
-        check(all(torch.equal(a, b) for a, b in zip(got, again))
-              and torch.equal(alone[0], L.plane_sums(x)[1]),
+        far = (rnd.big(BATCH, TILE, TILE, 64, dtype=torch.float32) + 100.0
+               ).to(dt).permute(0, 3, 1, 2)
+        errs = {}
+        for what, xx, fn, ref_fn in (
+                ('mean_var', x, L.plane_mean_var, L.plane_mean_var_reference),
+                ('mean_var_offset_100', far, L.plane_mean_var,
+                 L.plane_mean_var_reference),
+                ('sums', x, L.plane_sums, plain_sums)):
+            got, ref = fn(xx), ref_fn(xx)
+            torch.cuda.synchronize()
+            errs[what] = dict(
+                max_abs_err=[(got[:, q] - ref[:, q]).abs().max().item()
+                             for q in range(2)],
+                rel_err=stats_rel(got, ref))
+            del got, ref
+        del far
+        phase('kernel_vs_plain', kernel='plane_stats', dtype=name,
+              shape=list(shape), **errs)
+        rel = max(e['rel_err'] for e in errs.values())
+        check(rel < PLANE_TOL, f'plane_stats {name}: error {rel} >= '
+                               f'{PLANE_TOL}')
+        got = L.plane_mean_var(x)
+        again = L.plane_mean_var(x)
+        alone = L.plane_mean_var(x[1:2])
+        check(torch.equal(got, again) and torch.equal(alone[0], got[1]),
               'plane_stats: not byte-equal run to run or alone vs in batch')
-        phase('kernel_deterministic', kernel='plane_stats', dtype=str(dt),
+        phase('kernel_deterministic', kernel='plane_stats', dtype=name,
               two_launches_byte_equal=True, batch_invariant=True)
         runs, ms = in_turns({
-            'plain': lambda: two_pass(L.plane_sums_reference),
-            'kernel': lambda: two_pass(L.plane_sums),
+            'plain': lambda: L.plane_mean_var_reference(x),
+            'kernel': lambda: L.plane_mean_var(x),
             'library': lambda: torch.var_mean(x, dim=(2, 3), correction=0)},
-            3)
-        elem = 4 if dt == torch.float32 else 2
-        bound_ms = x.numel() * elem / PEAK_BYTES * 1e3   # x read once
-        phase('kernel_timing', kernel='plane_stats', dtype=str(dt),
+            {'plain': 3, 'kernel': 20, 'library': 20})
+        bound_ms = x.numel() * x.element_size() / PEAK_BYTES * 1e3
+        phase('kernel_timing', kernel='plane_stats', dtype=name,
               shape=list(shape), runs_ms=runs,
               **{f'{k}_ms': v for k, v in ms.items()}, bound_ms=bound_ms,
-              bound_by='bytes', what='the two passes of one norm',
+              bound_by='bytes', bound_share=bound_ms / ms['kernel'],
+              kernel_over_library=ms['kernel'] / ms['library'],
+              what='one norm: one plane_mean_var call (x read once)',
               library_call='torch.var_mean over (H, W), correction=0')
-        out = dict(err=err, ms=ms['kernel'], plain_ms=ms['plain'],
-                   library_ms=ms['library'], bound_ms=bound_ms)
+        # the error of [mean, var], the function a norm calls
+        err = max(max(errs[k]['max_abs_err'])
+                  for k in ('mean_var', 'mean_var_offset_100'))
+        out[name] = dict(err=err, ms=ms['kernel'], plain_ms=ms['plain'],
+                         library_ms=ms['library'], bound_ms=bound_ms)
         del x
+        torch.cuda.empty_cache()
+    out['up_norms'] = plane_checks_up_norms(L, rnd)
     return out
+
+
+def plain_sums(x):
+    """[sum of x, sum of x^2] over (H, W) in float32, the fused head's
+    statistics computed plainly."""
+    d = x.float()
+    return torch.stack([d.sum(dim=(2, 3)), (d * d).sum(dim=(2, 3))], dim=1)
+
+
+def plane_checks_up_norms(L, rnd):
+    """The statistics kernel at every up-norm plane of a unet_512 at batch
+    16 (``UP_NORM_PLANES``), as the main path feeds it: float32 in NCHW
+    memory (its chunk kernel for planes), bfloat16 in channels_last (down to
+    one channel unit a block at 2^2 x 512). Each against the plain version,
+    also at a mean of 100, read in place (no copy counted), run to run and
+    alone vs in the batch; the largest NCHW plane timed in turns against
+    the plain version and torch.var_mean. Returns the numbers."""
+    worst, cases = 0.0, []
+    for dt, nchw in ((torch.float32, True), (torch.bfloat16, False)):
+        for c, h, w in UP_NORM_PLANES:
+            for offset in (0.5, 100.0):
+                if nchw:
+                    x = (rnd.big(BATCH, c, h, w, dtype=torch.float32)
+                         + offset).to(dt)
+                else:
+                    x = (rnd.big(BATCH, h, w, c, dtype=torch.float32)
+                         + offset).to(dt).permute(0, 3, 1, 2)
+                copies = L.plane_mean_var.relayouts
+                got = L.plane_mean_var(x)
+                ref = L.plane_mean_var_reference(x)
+                again = L.plane_mean_var(x)
+                alone = L.plane_mean_var(x[1:2])
+                torch.cuda.synchronize()
+                rel = stats_rel(got, ref)
+                err = max((got[:, q] - ref[:, q]).abs().max().item()
+                          for q in range(2))
+                tag = (f'{str(dt).replace("torch.", "")} '
+                       f'{"nchw" if nchw else "channels_last"} '
+                       f'({BATCH}, {c}, {h}, {w}) + {offset}')
+                check(L.plane_mean_var.relayouts == copies,
+                      f'plane_stats {tag}: input copied, not read in place')
+                check(rel < PLANE_TOL,
+                      f'plane_stats {tag}: error {rel} >= {PLANE_TOL}')
+                check(torch.equal(got, again) and torch.equal(alone[0],
+                                                              got[1]),
+                      f'plane_stats {tag}: not byte-equal run to run or '
+                      'alone vs in batch')
+                cases.append({'case': tag, 'rel_err': rel,
+                              'max_abs_err': err})
+                worst = max(worst, err)
+                del x, got, ref, again, alone
+    phase('kernel_vs_plain', kernel='plane_stats', what='up-norm planes',
+          cases=cases, two_launches_byte_equal=True, batch_invariant=True,
+          copies=0)
+    c, h, w = max(UP_NORM_PLANES, key=lambda t: t[0] * t[1] * t[2])
+    x = rnd.big(BATCH, c, h, w, dtype=torch.float32) + 0.5
+    runs, ms = in_turns({
+        'plain': lambda: L.plane_mean_var_reference(x),
+        'kernel': lambda: L.plane_mean_var(x),
+        'library': lambda: torch.var_mean(x, dim=(2, 3), correction=0)},
+        {'plain': 3, 'kernel': 20, 'library': 20})
+    bound_ms = x.numel() * x.element_size() / PEAK_BYTES * 1e3
+    shape = [BATCH, c, h, w]
+    phase('kernel_timing', kernel='plane_stats', dtype='float32',
+          layout='nchw', shape=shape, runs_ms=runs,
+          **{f'{k}_ms': v for k, v in ms.items()}, bound_ms=bound_ms,
+          bound_by='bytes', bound_share=bound_ms / ms['kernel'],
+          kernel_over_library=ms['kernel'] / ms['library'],
+          what='the largest float32 up-norm, NCHW memory read in place',
+          library_call='torch.var_mean over (H, W), correction=0')
+    del x
+    torch.cuda.empty_cache()
+    return dict(err=worst, cases=len(cases), nchw_float32=dict(
+        shape=shape, ms=ms['kernel'], plain_ms=ms['plain'],
+        library_ms=ms['library'], bound_ms=bound_ms))
 
 
 def write_flagship_model_dir(md, dl, ck):
@@ -1103,7 +1209,10 @@ def launch_counts(K):
             'convtranspose3_s2_stats': FS.convtranspose3_s2_stats.launches,
             'tail_s2d': (FS.tail_s2d_fused.launches
                          + FS.tail_s2d_block.launches),
-            'plane_stats': L.plane_sums.launches,
+            'plane_stats': L.plane_mean_var.launches,
+            # norm inputs in neither channels_last nor NCHW memory, which
+            # the wrapper copies before the kernel reads them
+            'plane_relayouts': L.plane_mean_var.relayouts,
             'label_components': LB.label_components.launches}
 
 
@@ -1116,21 +1225,22 @@ def reset_counts(K):
     FS.convtranspose3_s2_stats.launches = 0
     FS.tail_s2d_fused.launches = 0
     FS.tail_s2d_block.launches = 0
-    L.plane_sums.launches = 0
+    L.plane_mean_var.launches = L.plane_mean_var.relayouts = 0
     LB.label_components.launches = 0
 
 
 def expected_counts(precision, fused, n_forwards, quant_calls=0):
     """Launches of each kernel per main-path run: the trunk kernel of the
-    precision, the stage and tail kernels on the fused path only,
-    plane_sums for every norm statistic, the labeling kernel twice per
-    device-quantifier call."""
+    precision, the stage and tail kernels on the fused path only, the
+    statistics kernel once per norm (no norm input copied first), the
+    labeling kernel twice per device-quantifier call."""
     want = {kind: 0 for kind in ('float32', 'bfloat16', 'int8')}
     want[precision] = LAUNCHES_PER_FORWARD
     for name in ('conv3x3_s2_stats', 'convtranspose3_s2_stats'):
         want[name] = STAGE_LAUNCHES_PER_FORWARD if fused else 0
     want['tail_s2d'] = TAIL_LAUNCHES_PER_FORWARD if fused else 0
     want['plane_stats'] = PLANE_PER_FORWARD[fused]
+    want['plane_relayouts'] = 0
     want = {k: v * n_forwards for k, v in want.items()}
     want['label_components'] = LABEL_PER_QUANT * quant_calls
     return want
@@ -1776,16 +1886,22 @@ def main():
         'library_ms': tl['library_ms'], 'reflect_ms': tail['reflect']['ms'],
         'per': f'one translator tail, ({BATCH}, {TILE}, {TILE}, 64) -> 3, '
                'zero padding, at batch 16'})
+    pl = plane['bfloat16']
     report.append({
         'name': 'plane_stats', 'route': 'cuda',
         'source': 'deepliif_tpu_torch/csrc/plane_stats.cu',
         'replaces': 'deepliif_tpu/nets/layers.py:541 (XLA reductions of '
                     'batch_stat_norm; no TPU kernel)',
         'launches': launches['float32']['plane_stats'],
-        'max_abs_err': plane['err'], 'ms': plane['ms'],
-        'plain_ms': plane['plain_ms'], 'bound_ms': plane['bound_ms'],
-        'bound_by': 'bytes', 'library_ms': plane['library_ms'],
-        'per': f'one norm (two passes) of ({BATCH}, 64, {TILE}, {TILE}) bf16'})
+        'max_abs_err': max(v['err'] for v in plane.values()),
+        'ms': pl['ms'], 'plain_ms': pl['plain_ms'], 'bound_ms': pl['bound_ms'],
+        'bound_by': 'bytes', 'library_ms': pl['library_ms'],
+        'float32': plane['float32'],
+        'nchw_float32': plane['up_norms']['nchw_float32'],
+        'up_norm_cases': plane['up_norms']['cases'],
+        'per': f'one norm (one call, x read once) of ({BATCH}, 64, {TILE}, '
+               f'{TILE}) bf16; float32 beside it, and the largest float32 '
+               'up-norm in NCHW memory'})
     big = QUANT_CANVASES[-1]
     lab = [label[(*big, conn)] for conn in (4, 8)]
     report.append({

@@ -1,10 +1,9 @@
 // Pieces shared by the fused conv kernels of this directory (the
 // tensor-core mainloop conv3x3_wgmma.cuh, which runs conv3x3_stats.cu
 // (float32, bfloat16), conv3x3_stats_int8.cu and the stride-2 translator
-// stages conv3x3_s2_stats.cu and convtranspose3_s2_stats.cu; tail_s2d.cu)
-// and by plane_stats.cu: the halo source rule, a cp.async wrapper,
-// bfloat16 rounding helpers and the fixed-order reduction of the per-tile
-// statistics.
+// stages conv3x3_s2_stats.cu and convtranspose3_s2_stats.cu; tail_s2d.cu):
+// the halo source rule, a cp.async wrapper, bfloat16 rounding helpers and
+// the fixed-order reduction of the per-tile statistics.
 
 #pragma once
 
@@ -64,24 +63,6 @@ __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
 // once gives the bf16 product.
 __device__ __forceinline__ float affine_bf16(float u, float sc, float bi) {
   return bf16_round(bf16_round(u * sc) + bi);
-}
-
-// 8 bf16 input channels k0..k0+7 of one pixel (one 16-byte load) -> floats
-// after the optional norm affine (in bf16, as affine_bf16) and ReLU, for the
-// sample whose (S, C) affine rows start at scale/bias. Used by the tail
-// kernel, which stages its input without cp.async.
-__device__ __forceinline__ void unpack8_affine_relu(
-    uint4 v, const float* __restrict__ scale, const float* __restrict__ bias,
-    int k0, bool has_affine, bool in_relu, float (&u)[8]) {
-  const unsigned words[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    u[k] = (k % 2 == 0) ? bf16_lo(words[k / 2]) : bf16_hi(words[k / 2]);
-    if (has_affine)
-      u[k] = affine_bf16(u[k], bf16_round(scale[k0 + k]),
-                         bf16_round(bias[k0 + k]));
-    if (in_relu) u[k] = fmaxf(u[k], 0.f);
-  }
 }
 
 // ---- statistics: the kernels write per-(sample, tile, channel) partial

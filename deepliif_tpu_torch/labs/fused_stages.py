@@ -75,7 +75,9 @@ def _lib(name):
 def _tail_lib():
     lib = cuda_build.load('tail_s2d', _LIBS['tail_s2d'])
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tail_s2d_bf16.argtypes = [p] * 6 + [i] * 9 + [p]
+    lib.tail_s2d_wpack_bytes.argtypes = [i]
+    lib.tail_s2d_wpack_bytes.restype = ctypes.c_long
+    lib.tail_s2d_bf16.argtypes = [p] * 7 + [i] * 9 + [p]
     lib.tail_s2d_bf16.restype = i
     return lib
 
@@ -273,14 +275,17 @@ def _tail_launch(x, w, b, in_scale, in_bias, in_relu, padding, fused):
     _check_affine(in_scale, in_bias, s_n, cin, x.device)
     lib = _tail_lib()
     y = torch.empty((s_n, TAIL_COUT, h, w_n), dtype=x.dtype, device=x.device)
+    # the weights packed per call into the kernel's K-major image
+    wpk = torch.empty(lib.tail_s2d_wpack_bytes(cin), dtype=torch.uint8,
+                      device=x.device)
     has_affine = in_scale is not None
     with torch.cuda.device(x.device):
         err = lib.tail_s2d_bf16(
             x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
             in_scale.data_ptr() if has_affine else None,
             in_bias.data_ptr() if has_affine else None, y.data_ptr(),
-            s_n, h, w_n, cin, TAIL_COUT, int(has_affine), int(bool(in_relu)),
-            int(padding == 'reflect'), int(fused),
+            wpk.data_ptr(), s_n, h, w_n, cin, TAIL_COUT, int(has_affine),
+            int(bool(in_relu)), int(padding == 'reflect'), int(fused),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f'tail_s2d kernel launch failed: cudaError {err}')

@@ -153,8 +153,13 @@ def generator_forward(nets_, x, d: DeepLIIFDef, *, seg_weights=None,
         return mods_nhwc, None
     w = torch.as_tensor(d.seg_weights if seg_weights is None else seg_weights,
                         dtype=torch.float32, device=x.device)
+    # the seg nets take channels_last input, as GS[0] does: the fused
+    # translator tail returns NCHW, and a bf16 seg net fed NCHW runs every
+    # conv through cuDNN's NCHW <-> NHWC conversions (one small copy here
+    # instead)
+    mods_cl = [y.contiguous(memory_format=torch.channels_last) for y in mods]
     segs = torch.stack([gs(xi).permute(0, 2, 3, 1)
-                        for gs, xi in zip(nets_.GS, [xc] + mods)])
+                        for gs, xi in zip(nets_.GS, [xc] + mods_cl)])
     seg = torch.tensordot(w.to(segs.dtype), segs, dims=1)
     return mods_nhwc, seg
 

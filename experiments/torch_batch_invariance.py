@@ -3,7 +3,7 @@
 1. Per op: the flagship nets (a resnet_9blocks translator and two unet_512
    seg nets, ngf 64, random weights from a seed, as chip_smoke.py writes
    them) run batches of 2, 4, 8 and 16 512^2 crops of a synthetic IHC
-   image; every conv, conv-transpose, norm, plane_sums, stage kernel and
+   image; every conv, conv-transpose, norm, plane_mean_var, stage kernel and
    trunk chain is called a second time on one tile's slice of the same
    inputs, and each op whose output for the tile differs alone vs in the
    batch is reported, for the port before the repair and as it is. The
@@ -16,9 +16,9 @@
    - ``before``: power-of-two buckets, cuDNN on the whole bucket, torch's
      CUDA mean and variance for the norm statistics (the port before the
      repair);
-   - ``per_sample``: power-of-two buckets, ``plane_sums``, every cuDNN
+   - ``per_sample``: power-of-two buckets, ``plane_mean_var``, every cuDNN
      call on one sample (16-byte aligned: cuDNN also picks by alignment);
-   - ``one_batch_shape``: the port as it is (``plane_sums``, every bucket
+   - ``one_batch_shape``: the port as it is (``plane_mean_var``, every bucket
      padded to ``max_batch`` tiles, so cuDNN sees one shape). Its per-op
      check runs the tile alone as the engine does: first in a batch of 16
      otherwise zero.
@@ -164,18 +164,18 @@ def conv_costs(L):
 def candidate(name, M, L):
     """The port as it is (``one_batch_shape``), or patched into one of the
     other candidates."""
-    saved = L._per_sample, L.plane_sums, M.InferenceSession.batch_size
+    saved = L._per_sample, L.plane_mean_var, M.InferenceSession.batch_size
     if name != 'one_batch_shape':
         M.InferenceSession.batch_size = \
             lambda self, n: M._bucket(n, self.max_batch)
     if name == 'before':
-        L.plane_sums = L.plane_sums_reference
+        L.plane_mean_var = L.plane_mean_var_reference
     if name == 'per_sample':
         L._per_sample = per_sample
     try:
         yield
     finally:
-        L._per_sample, L.plane_sums, M.InferenceSession.batch_size = saved
+        L._per_sample, L.plane_mean_var, M.InferenceSession.batch_size = saved
 
 
 def _aligned(x):
@@ -218,7 +218,7 @@ def main():
     from deepliif_tpu_torch.utils import checkpoints as ck
 
     targets = [(L, ('conv2d', 'conv_transpose2d', 'batch_stat_norm',
-                    'plane_sums')),
+                    'plane_mean_var')),
                (FR, ('resblock_chain', 'resblock_chain_int8')),
                (FS, ('conv3x3_s2_stats', 'convtranspose3_s2_stats'))]
     img = smoke.ihc_like_image(2 * smoke.TILE, smoke.SEED)

@@ -18,6 +18,17 @@ torch.profiler (CUDA activity): device time by kernel name (the top 12 and
 the sum) and the caching allocator's device allocations during the batch.
 Last, the card's name and power limit. Imports nothing of jax or
 deepliif_tpu.
+
+    python3 experiments/torch_segnet_spread.py --layout [--rounds 2]
+
+Instead: whether the unet_512's innermost (S, 512, 1, 1) tensor should be
+re-viewed as channels_last before its conv-transpose
+(``layers.conv_transpose2d``; both layouts hold the same bytes, but the
+strides decide whether cuDNN runs the whole up path in NHWC or NCHW). For
+the float32 and the bfloat16 session in turn, ``GS[0]`` is timed by CUDA
+events (5 forwards after a warm-up) as the port runs it and flipped
+(float32 re-viewed, bfloat16 not), in turns port, flipped, flipped, port,
+and one forward of each is traced by kernel.
 """
 
 from __future__ import annotations
@@ -90,9 +101,62 @@ def alloc_stats():
                                    'num_alloc_retries')}
 
 
+def flipped_conv_transpose2d(L, dtype):
+    """``layers.conv_transpose2d`` with its 1x1 re-view flipped for
+    ``dtype``: float32 re-viewed, bfloat16 not."""
+    port = L.conv_transpose2d
+
+    def conv_transpose2d(x, *args, **kwargs):
+        if dtype == torch.float32:
+            return port(L._channels_last_1x1(x), *args, **kwargs)
+        keep, L._channels_last_1x1 = L._channels_last_1x1, lambda t: t
+        try:
+            return port(x, *args, **kwargs)
+        finally:
+            L._channels_last_1x1 = keep
+    return conv_transpose2d
+
+
+def layout_probe(M, L, md, batch, rounds):
+    port = L.conv_transpose2d
+    for p in ('float32', 'bfloat16'):
+        s = M.init_nets(md, device='cuda', max_batch=smoke.BATCH,
+                        precision=p, fuse_stages=False)
+        x = (torch.from_numpy(batch).cuda().float() / 127.5
+             - 1.0).permute(0, 3, 1, 2).to(s.d.dtype)
+        x = x.contiguous(memory_format=torch.channels_last)
+        seg = lambda: s.nets.GS[0](x)        # noqa: E731
+        variants = {'port': port,
+                    'flipped': flipped_conv_transpose2d(L, s.d.dtype)}
+        with torch.no_grad():
+            for turn in range(rounds):
+                for v in ('port', 'flipped', 'flipped', 'port'):
+                    L.conv_transpose2d = variants[v]
+                    try:
+                        ms = smoke.cuda_ms(seg, 5)
+                    finally:
+                        L.conv_transpose2d = port
+                    print(json.dumps({'layout': p, 'variant': v,
+                                      'round': turn,
+                                      'seg_unet_512_ms_5': ms}), flush=True)
+            for v in ('port', 'flipped'):
+                L.conv_transpose2d = variants[v]
+                try:
+                    seg()
+                    trace = device_ms_by_kernel(seg)
+                finally:
+                    L.conv_transpose2d = port
+                print(json.dumps({'layout_trace': p, 'variant': v,
+                                  'seg_unet_512': trace}), flush=True)
+        del s, x
+        M._init_nets_cached.cache_clear()
+        torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument('--rounds', type=int, default=4)
+    ap.add_argument('--layout', action='store_true')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit('the seg-net spread needs a CUDA card')
@@ -111,6 +175,10 @@ def main():
                       for y, x in origins])
     with tempfile.TemporaryDirectory() as md:
         smoke.write_flagship_model_dir(md, dl, ck)
+        if args.layout:
+            layout_probe(M, L, md, batch, args.rounds)
+            print(smoke.nvidia_smi())
+            return
         sessions, xs = {}, {}
         for p in PATHS:
             s = M.init_nets(md, device='cuda', max_batch=smoke.BATCH,

@@ -29,11 +29,11 @@ handed to both; the JAX stage kernels run in Pallas interpret mode.
   fuse_stages=True)`` against the JAX session with the same environment:
   the same bounds.
 - (d) The gate raises: float32, int8, a refused shape, a U-Net translator.
-- (e) ``plane_sums_reference`` and ``batch_stat_norm`` against the JAX
-  package's two-pass per-sample norm (deepliif_tpu/nets/layers.py
+- (e) ``plane_sums``, ``plane_mean_var_reference`` and
+  ``batch_stat_norm`` against the JAX package's two-pass per-sample norm (deepliif_tpu/nets/layers.py
   batch_stat_norm): statistics within 1e-6 relative, outputs within 1e-5
-  at float32 and one bf16 ulp at bfloat16; per-sample sums independent of
-  the batch.
+  at float32 and one bf16 ulp at bfloat16; per-sample statistics
+  independent of the batch.
 """
 
 import numpy as np
@@ -258,16 +258,16 @@ def test_norm_statistics_match_two_pass_formula(dtype):
     # the statistics against the two-pass formula in float64
     x64 = _np(xj).astype(np.float64)
     mean64 = x64.mean(axis=(1, 2))
-    st = L.plane_sums_reference(xt).numpy()
+    st = L.plane_sums(xt).numpy()
     np.testing.assert_allclose(st[:, 0] / (40 * 48), mean64, rtol=1e-6,
                                atol=1e-6)
     np.testing.assert_allclose(st[:, 1], (x64 ** 2).sum(axis=(1, 2)),
                                rtol=1e-6)
-    centered = L.plane_sums_reference(
-        xt, torch.from_numpy(mean64.astype(np.float32))).numpy()
+    mv = L.plane_mean_var_reference(xt).numpy()
+    np.testing.assert_allclose(mv[:, 0], mean64, rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(
-        centered[:, 1] / (40 * 48),
-        ((x64 - mean64[:, None, None]) ** 2).mean(axis=(1, 2)), rtol=1e-6)
+        mv[:, 1], ((x64 - mean64[:, None, None]) ** 2).mean(axis=(1, 2)),
+        rtol=1e-6)
 
     # the whole norm against the JAX package's per-sample norm
     got = _np(L.batch_stat_norm(xt, torch.from_numpy(scale),
@@ -282,10 +282,12 @@ def test_norm_statistics_match_two_pass_formula(dtype):
         # a float32 statistic one ulp apart can move a value by one ulp
         assert (np.abs(got - ref) <= BF16_ULP * np.abs(ref) + 1e-6).all()
 
-    # per-sample sums do not depend on the batch
+    # per-sample statistics do not depend on the batch
     for i in range(3):
-        one = L.plane_sums_reference(xt[i:i + 1])
-        assert torch.equal(one[0], L.plane_sums_reference(xt)[i])
+        one = L.plane_sums(xt[i:i + 1])
+        assert torch.equal(one[0], L.plane_sums(xt)[i])
+        one = L.plane_mean_var_reference(xt[i:i + 1])
+        assert torch.equal(one[0], L.plane_mean_var_reference(xt)[i])
 
 
 # ---- the stride-2 tensor-core kernel (csrc/conv3x3_wgmma.cuh) against its

@@ -149,3 +149,80 @@ def test_tail_wrappers_raise():
     # the fused form takes any H, W (the kernel masks a ragged edge)
     y = FS.tail_s2d_fused(xt[:, :60, :52].contiguous(), wt, bt)
     assert tuple(y.shape) == (SHAPE[0], COUT, 60, 52)
+
+
+# ---- the tensor-core kernel (csrc/tail_s2d.cu) on the card against its
+# plain version: H and W not multiples of its 8 x 58 output tile (the block
+# form needs H, W % 8, so its rows are whole tiles), Cin 8 (half of a
+# 16-channel stage), 16 and 64, both paddings, with and without the
+# affine + ReLU. The same bounds as above (block: one bf16 ulp; fused: one
+# ulp of each value it rounds), byte-equal run to run and a sample alone
+# vs in the batch.
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _card_inputs(shape, affine, seed):
+    rng = np.random.default_rng(seed)
+    s, _, _, cin = shape
+    def card(a):
+        return torch.from_numpy(a.astype(np.float32)).cuda()
+    x = card(rng.normal(0, 1, shape)).to(torch.bfloat16)
+    w = card(rng.normal(0, 0.05, (7, 7, cin, COUT))).to(torch.bfloat16)
+    b = card(rng.normal(0, 0.1, (COUT,))).to(torch.bfloat16)
+    kw = dict(in_scale=card(1 + 0.1 * rng.normal(0, 1, (s, cin))),
+              in_bias=card(0.1 * rng.normal(0, 1, (s, cin))),
+              in_relu=True) if affine else {}
+    return x, w, b, kw
+
+
+CUDA_CASES = [pytest.param(form, shape, padding, affine,
+                           id=f'{form}-{"x".join(map(str, shape))}-{padding}'
+                              f'-{AFFINE_ID[affine]}')
+              for form, shape, affine in (
+                  ('fused', (2, 37, 70, 8), True),
+                  ('fused', (2, 19, 131, 16), True),
+                  ('fused', (2, 64, 64, 64), True),
+                  ('fused', (2, 21, 59, 16), False),
+                  ('block', (2, 40, 120, 64), True),
+                  ('block', (2, 16, 72, 16), True),
+                  ('block', (2, 24, 64, 8), False))
+              for padding in ('zero', 'reflect')]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('form, shape, padding, affine', CUDA_CASES)
+def test_cuda_tail_kernel_matches_plain_version(cuda, form, shape, padding,
+                                                affine):
+    x, w, b, kw = _card_inputs(shape, affine, seed=7)
+    kw['padding'] = padding
+    if form == 'fused':
+        def run(xx, **k):
+            return FS.tail_s2d_fused(xx, w, b, **k)
+        counter = FS.tail_s2d_fused
+        ref = FS.tail_s2d_fused_reference(x, w, b, **kw).float()
+        c = FS._tail_conv(x, w, kw.get('in_scale'), kw.get('in_bias'),
+                          bool(kw.get('in_relu')), padding).to(
+                              torch.bfloat16).float()
+        s = (c + b.float()[None, :, None, None]).to(torch.bfloat16).float()
+        tol = BF16_ULP * (c.abs() + s.abs() + ref.abs())
+    else:
+        def run(xx, **k):
+            return FS.tail_s2d_block(xx, w, **k)
+        counter = FS.tail_s2d_block
+        ref = FS.tail_s2d_block_reference(x, w, **kw).float()
+        tol = BF16_ULP * ref.abs()
+    n0 = counter.launches
+    y = run(x, **kw)
+    assert counter.launches == n0 + 1
+    assert y.dtype == torch.bfloat16 and y.shape == ref.shape
+    assert bool(((y.float() - ref).abs() <= tol + 1e-6).all())
+    assert torch.equal(y, run(x, **kw))
+    alone = {k: (v[1:2].contiguous() if isinstance(v, torch.Tensor) else v)
+             for k, v in kw.items()}
+    assert torch.equal(run(x[1:2].contiguous(), **alone)[0], y[1])
