@@ -18,7 +18,10 @@ translator and on the bf16 sessions' outputs (``session_vs_plain_trunk``).
 The device quantifier (``device_quant``) is checked on synthetic seg canvases
 of 1536x1280 (an ROI) and 8192x8192 (67.1 MPx) with its labeling kernel
 against the plain labeling and against the host quantifier, and drives the
-float32 main path once more with ``device_quant=True``.
+float32 main path once more with ``device_quant=True``. The labeling kernel
+is also held to the plain labeling on masks made to stress its tile borders
+(``adversarial_masks``), to scipy's labels on its worst case at 67.1 MPx,
+and one 67.1 MPx quantifier call is traced by op (``devquant_breakdown``).
 
     python3 chip_smoke.py            # needs one CUDA card; exits 0 on success
 
@@ -210,6 +213,12 @@ CELL_GRID = 40
 # labels launched per device-quantifier call: conn 4 on the unknown mask
 # (background flood), conn 8 on the cell mask
 LABEL_PER_QUANT = 2
+# the adversarial masks (adversarial_masks) against the plain labeling at a
+# square and a ragged size it labels in seconds; the worst case of the
+# kernel's own timing (the comb: its teeth cross every horizontal tile
+# border, and all pieces join one root) at the largest canvas, held to scipy
+LABEL_ADVERSARIAL_SHAPES = ((2048, 2048), (2047, 3001))
+LABEL_WORST_CASE = 'comb'
 
 
 def phase(name, **info):
@@ -1566,17 +1575,49 @@ def synthetic_seg_canvas(h, w, seed, device='cuda'):
 
 def label_masks(LB, seg):
     """The two masks the quantifier labels: the unknown pixels (conn 4, the
-    background flood) and, after the flood, the cell mask (conn 8)."""
+    background flood; on a seg canvas most pixels are unknown and nearly all
+    of them are one background component that spans the canvas) and, after
+    the flood, the cell mask (conn 8; small components, the cells)."""
     mask = LB.posneg_mask(seg, 120)
     return {4: mask == LB.LABEL_UNKNOWN,
             8: LB.flood_background(mask) != LB.LABEL_BACKGROUND}
+
+
+def adversarial_masks(h, w, seed):
+    """Masks (h, w) bool (numpy) that stress a tiled labeling at its tile
+    borders:
+    - serpentine: every other row foreground, joined at alternate ends: one
+      path that crosses every vertical tile border on each of its rows;
+    - comb: a spine on the top row, a tooth of random length down every
+      other column, crossing horizontal tile borders at any offset;
+    - checkerboard: all singletons at conn 4, one component at conn 8;
+    - diagonals: lines that pass from tile to tile only through corners
+      (joined at conn 8 only) and anti-diagonals crossing them;
+    - percolation: random fill at 0.6, near conn 4's percolation threshold,
+      so its components are large and tortuous."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w]
+    serp = yy % 2 == 0
+    serp[1::4, -1] = True
+    serp[3::4, 0] = True
+    comb = np.zeros((h, w), bool)
+    comb[0] = True
+    teeth = rng.integers(1, h + 1, w)
+    comb |= (xx % 2 == 0) & (yy < teeth[None, :])
+    return {'serpentine': serp, 'comb': comb,
+            'checkerboard': (yy + xx) % 2 == 0,
+            'diagonals': ((xx - yy) % 9 == 0) | ((xx + yy) % 13 == 0),
+            'percolation': rng.random((h, w)) < 0.6}
 
 
 def kernel_checks_label(LB, canvases):
     """label_components at conn 4 and 8 on the masks of each canvas:
     bit-equal to the plain labeling, byte-equal run to run, timed in turns
     against it. The bound: the mask read once (1 B/px) and the labels
-    written once (4 B/px) over HBM. Returns {(h, w, conn): numbers}."""
+    written once (4 B/px) over HBM. Then the adversarial masks at
+    LABEL_ADVERSARIAL_SHAPES (bit-equal to the plain labeling, byte-equal
+    run to run) and the worst case at the largest canvas (label_worst_case).
+    Returns {(h, w, conn): numbers, 'worst': {conn: numbers}}."""
     out = {}
     for (h, w), (_, seg, _) in canvases.items():
         for conn, fg in label_masks(LB, seg).items():
@@ -1607,12 +1648,78 @@ def kernel_checks_label(LB, canvases):
             phase('kernel_timing', kernel='label_components', canvas=[h, w],
                   conn=conn, runs_ms=runs,
                   **{f'{k}_ms': v for k, v in ms.items()}, bound_ms=bound_ms,
-                  bound_by='bytes',
+                  bound_by='bytes', bound_share=bound_ms / ms['kernel'],
                   library_call='none: PyTorch has no connected-components '
                                'call')
             out[(h, w, conn)] = dict(err=err, ms=ms['kernel'],
                                      plain_ms=ms['plain'], bound_ms=bound_ms)
             torch.cuda.empty_cache()
+    for h, w in LABEL_ADVERSARIAL_SHAPES:
+        for name, m in adversarial_masks(h, w, SEED).items():
+            fg = torch.from_numpy(m).cuda()
+            for conn in (4, 8):
+                got = LB.label_components(fg, conn8=conn == 8)
+                want = LB.label_components_reference(fg, conn8=conn == 8)
+                again = LB.label_components(fg, conn8=conn == 8)
+                err = (got.long() - want.long()).abs().max().item()
+                same = bool(torch.equal(got, again))
+                phase('kernel_vs_plain', kernel='label_components', mask=name,
+                      canvas=[h, w], conn=conn, bit_equal=err == 0,
+                      max_abs_err=err, two_launches_byte_equal=same)
+                check(err == 0, f'label_components {name} {h}x{w} conn '
+                                f'{conn}: labels differ from the plain '
+                                f'labeling by {err}')
+                check(same, f'label_components {name} {h}x{w} conn {conn}: '
+                            'two launches differ')
+                out[(name, h, w, conn)] = dict(err=err)
+            del fg, got, want, again
+    out['worst'] = label_worst_case(LB, *QUANT_CANVASES[-1])
+    torch.cuda.empty_cache()
+    return out
+
+
+def scipy_canonical_labels(mask, conn8, device):
+    """scipy.ndimage.label of the (h, w) numpy mask on the host, renumbered
+    to the canonical labels (the minimum flat index of each component + 1,
+    taken on ``device``): an independent labeling to hold the kernel to."""
+    from scipy import ndimage
+    lab, n = ndimage.label(mask, structure=np.ones((3, 3), int) if conn8
+                           else None)
+    flat = torch.from_numpy(lab.astype(np.int64).reshape(-1)).to(device)
+    first = torch.full((n + 1,), mask.size, dtype=torch.int64, device=device
+                       ).scatter_reduce_(0, flat, torch.arange(
+                           flat.numel(), device=device), 'amin')
+    return torch.where(flat > 0, first[flat] + 1, 0).to(
+        torch.int32).reshape(mask.shape)
+
+
+def label_worst_case(LB, h, w):
+    """The kernel's worst case (LABEL_WORST_CASE) at (h, w), conn 4 and 8:
+    byte-equal run to run, equal to scipy's labels renumbered canonically,
+    timed (5 launches) beside its byte bound."""
+    m = adversarial_masks(h, w, SEED)[LABEL_WORST_CASE]
+    fg = torch.from_numpy(m).cuda()
+    out = {}
+    for conn in (4, 8):
+        got = LB.label_components(fg, conn8=conn == 8)
+        again = LB.label_components(fg, conn8=conn == 8)
+        same = bool(torch.equal(got, again))
+        want = scipy_canonical_labels(m, conn == 8, fg.device)
+        equal = bool(torch.equal(got, want))
+        del got, again, want
+        ms = cuda_ms(lambda: LB.label_components(fg, conn8=conn == 8), 5)
+        bound_ms = h * w * (1 + 4) / PEAK_BYTES * 1e3
+        phase('kernel_worst_case', kernel='label_components',
+              mask=LABEL_WORST_CASE, canvas=[h, w], conn=conn,
+              fg_share=float(m.mean()), equal_to_scipy=equal,
+              two_launches_byte_equal=same, ms=ms, bound_ms=bound_ms,
+              bound_share=bound_ms / ms)
+        check(equal, f'label_components {LABEL_WORST_CASE} {h}x{w} conn '
+                     f'{conn}: labels differ from scipy\'s')
+        check(same, f'label_components {LABEL_WORST_CASE} {h}x{w} conn '
+                    f'{conn}: two launches differ')
+        out[conn] = dict(ms=ms, bound_ms=bound_ms)
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1682,6 +1789,79 @@ def device_quant_checks(LB, pp, canvases):
         del got, plain
         torch.cuda.empty_cache()
     return out
+
+
+LABEL_KERNELS = ('local_kernel', 'border_kernel', 'resolve_kernel')
+
+
+def devquant_breakdown(LB, canvas):
+    """One device-quantifier call (thresholds 'default') on the largest
+    canvas traced with torch.profiler, after a warm-up call: device time by
+    op (top 10, self time of each torch op, the labeling kernels as one op
+    'label_components') and by kernel (top 10), the labeling kernels' share,
+    the device's busy time (the union of its kernels, copies and fills)
+    against the host's wall time, and the device-to-host copies."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def labeler(fg, conn8=True):
+        with record_function('label_components'):
+            return LB.label_components(fg, conn8=conn8)
+
+    (h, w), (orig, seg, marker) = canvas
+    orig_np, marker_np = orig.cpu().numpy(), marker.cpu().numpy()
+
+    def call():
+        return LB.compute_final_results_device(
+            orig_np, seg, marker_np, '40x', size_thresh='default',
+            marker_thresh='default', labeler=labeler)
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(dev, 'devquant_breakdown: the profiler saw no device activity')
+
+    def ms(e):
+        return (e.time_range.end - e.time_range.start) / 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy_us, end = 0.0, -1.0
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    device_ms = sum(ms(e) for e in dev)
+    by_kernel = {}
+    for e in dev:
+        name = e.name[:90]
+        by_kernel[name] = by_kernel.get(name, 0.0) + ms(e)
+    label_ms = sum(ms(e) for e in dev
+                   if any(k in e.name for k in LABEL_KERNELS))
+    by_op = {'label_components': label_ms}
+    for ev in prof.key_averages():
+        self_us = getattr(ev, 'self_device_time_total', 0)
+        if ev.key != 'label_components' and self_us > 0 and \
+                ev.device_type == torch.autograd.DeviceType.CPU:
+            by_op[ev.key] = by_op.get(ev.key, 0.0) + self_us / 1e3
+    d2h = [e for e in dev if 'DtoH' in e.name or 'Device -> Pageable' in
+           e.name or 'Device -> Pinned' in e.name]
+
+    def top(d):
+        return dict(sorted(d.items(), key=lambda kv: -kv[1])[:10])
+    res = dict(canvas=[h, w], host_wall_ms=wall_ms,
+               device_busy_ms=busy_us / 1e3,
+               device_busy_share=busy_us / 1e3 / wall_ms,
+               device_ms_summed=device_ms, device_events=len(dev),
+               labeling_ms=label_ms,
+               labeling_share_of_device=label_ms / device_ms,
+               labeling_share_of_wall=label_ms / wall_ms,
+               d2h_copies=len(d2h), d2h_ms=sum(ms(e) for e in d2h),
+               top_ops_ms=top(by_op), top_kernels_ms=top(by_kernel))
+    phase('devquant_breakdown', **res)
+    return res
 
 
 def devquant_main_path(M, K, md, img, pp):
@@ -1814,6 +1994,8 @@ def main():
                 for i, hw in enumerate(QUANT_CANVASES)}
     label = kernel_checks_label(LB, canvases)
     quant = device_quant_checks(LB, pp, canvases)
+    breakdown = devquant_breakdown(
+        LB, (QUANT_CANVASES[-1], canvases[QUANT_CANVASES[-1]]))
     del canvases
     torch.cuda.empty_cache()
     phase('kernel_checks', seconds=time.perf_counter() - t0)
@@ -1909,16 +2091,23 @@ def main():
         'source': 'deepliif_tpu_torch/csrc/label_cc.cu',
         'replaces': 'deepliif_tpu/ops/labeling.py:410',
         'launches': launches['devquant']['label_components'],
-        'max_abs_err': max(v['err'] for v in label.values()),
+        'max_abs_err': max(v['err'] for k, v in label.items()
+                           if k != 'worst'),
         'ms': sum(v['ms'] for v in lab),
         'plain_ms': sum(v['plain_ms'] for v in lab),
         'bound_ms': sum(v['bound_ms'] for v in lab), 'bound_by': 'bytes',
         'library_ms': None, 'canvas': list(big),
         'per': 'the two launches of one quantifier call (conn 4 on the '
                'unknown mask, conn 8 on the cell mask), summed',
+        'ms_by_conn': {c: v['ms'] for c, v in zip((4, 8), lab)},
         'roi_ms': sum(label[(*QUANT_CANVASES[0], c)]['ms'] for c in (4, 8)),
+        'worst_case_ms': {c: v['ms'] for c, v in label['worst'].items()},
         'quantifier_seconds': {f'{h}x{w}': q['seconds']
-                               for (h, w), q in quant.items()}})
+                               for (h, w), q in quant.items()},
+        'quantifier_peak_bytes_per_px': {
+            f'{h}x{w}': q['peak_bytes_per_px'] for (h, w), q in quant.items()},
+        'quantifier_labeling_share_of_device':
+            breakdown['labeling_share_of_device']})
     print(json.dumps({'kernels': report}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -10,12 +10,15 @@ canvas goes from the nets to cell counts and overlays on the tensor's device:
   auto_marker_threshold -> keep / positive rules -> overlay_images
 
 ``label_components`` is the one kernel: on a CUDA tensor it launches
-``csrc/label_cc.cu`` (union-find, the counterpart of the TPU kernel
-``label_prop_pallas`` and the loop around it), on a CPU tensor it runs
-``label_components_reference``, the plain version (min-propagation sweeps
-with pointer jumping, the JAX package's XLA ``label_components``). Both give
-the canonical labels: 0 for background, the minimum flat index of the
-component + 1 elsewhere.
+``csrc/label_cc.cu``, the counterpart of the TPU kernel ``label_prop_pallas``
+and the loop around it: a union-find per 16 x 256 tile in shared memory (runs
+of a row from the mask's bits, rows united where runs first touch), unions in
+global memory only across tile borders, then one pass that resolves every
+label to its root, with the labels as the only global array. On a CPU tensor
+it runs ``label_components_reference``, the plain version (min-propagation
+sweeps with pointer jumping, the JAX package's XLA ``label_components``).
+Both give the canonical labels: 0 for background, the minimum flat index of
+the component + 1 elsewhere.
 
 The JAX module sorts and scans for the per-component marker max because
 scatter-max is slow on the TPU; here it is an int32 ``scatter_reduce``
@@ -97,7 +100,7 @@ def label_components_reference(fg, conn8=True, sweeps_per_jump=32):
 def _lib():
     lib = cuda_build.load('label_cc', _LIBS['label_cc'])
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.label_cc.argtypes = [p, p, p, i, i, i, p]
+    lib.label_cc.argtypes = [p, p, i, i, i, p]
     lib.label_cc.restype = i
     return lib
 
@@ -109,7 +112,10 @@ def label_components(fg, conn8=True):
 
     A CPU tensor runs ``label_components_reference``; a CUDA tensor launches
     ``csrc/label_cc.cu`` on the current stream and counts it in
-    ``label_components.launches``, or raises."""
+    ``label_components.launches``, or raises. The kernel labels each 16 x 256
+    tile in shared memory, unites pieces across tile borders in ``labels``
+    itself (parent + 1) and resolves every label to its root: no scratch
+    array besides the output."""
     if fg.device.type == 'cpu':
         return label_components_reference(fg, conn8)
     if fg.device.type != 'cuda':
@@ -123,11 +129,10 @@ def label_components(fg, conn8=True):
         raise ValueError(f'canvas {h}x{w} has 2^31 pixels or more: the '
                          'labels are int32 flat indices')
     fg = fg.contiguous()
-    parent = torch.empty((h, w), dtype=torch.int32, device=fg.device)
     labels = torch.empty((h, w), dtype=torch.int32, device=fg.device)
     with torch.cuda.device(fg.device):
-        err = _lib().label_cc(fg.data_ptr(), parent.data_ptr(),
-                              labels.data_ptr(), h, w, int(conn8),
+        err = _lib().label_cc(fg.data_ptr(), labels.data_ptr(), h, w,
+                              int(conn8),
                               torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f'label_cc kernel launch failed: cudaError {err}')

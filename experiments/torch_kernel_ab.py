@@ -15,10 +15,16 @@ outputs compared.
 - ``tail_s2d``: the fused translator tail at (16, 512, 512, 64) -> 3 with
   the norm affine and ReLU, zero and reflect padding; compared bit for bit
   and by the largest difference.
+- ``label_components``: the two masks the device quantifier labels on the
+  8192 x 8192 synthetic seg canvas (``chip_smoke.synthetic_seg_canvas``):
+  conn 4 on the unknown mask, conn 8 on the cell mask; and the worst case,
+  the comb of ``chip_smoke.adversarial_masks`` at 8192 x 8192, conn 4 and
+  8; compared bit for bit, with the device ms of one call of each side by
+  CUDA kernel (``torch.profiler``; the labeling's passes).
 
     git archive <commit> | tar -x -C build/other
     python3 experiments/torch_kernel_ab.py --other build/other \
-        [--kernels trunk,plane_stats,tail_s2d]
+        [--kernels trunk,plane_stats,tail_s2d,label_components]
 
 The other checkout's ``deepliif_tpu_torch`` is imported under another name
 through its own wrappers, so its kernels are built from its own sources
@@ -33,6 +39,7 @@ import argparse
 import importlib.util
 import json
 import os
+import re
 import sys
 
 import torch
@@ -43,8 +50,8 @@ import chip_smoke as smoke  # noqa: E402
 
 def import_other(root):
     """The other checkout's ``deepliif_tpu_torch`` modules that hold
-    kernels (fused_resblock, layers, fused_stages), imported from the
-    package ``other_port``."""
+    kernels (fused_resblock, layers, fused_stages, labeling), imported from
+    the package ``other_port``."""
     pkg = os.path.join(os.path.abspath(root), 'deepliif_tpu_torch')
     spec = importlib.util.spec_from_file_location(
         'other_port', os.path.join(pkg, '__init__.py'),
@@ -53,7 +60,8 @@ def import_other(root):
     sys.modules['other_port'] = mod
     spec.loader.exec_module(mod)
     return tuple(importlib.import_module(f'other_port.{m}') for m in (
-        'ops.fused_resblock', 'nets.layers', 'labs.fused_stages'))
+        'ops.fused_resblock', 'nets.layers', 'labs.fused_stages',
+        'ops.labeling'))
 
 
 def trunk_cases(FR, other, rnd):
@@ -121,13 +129,49 @@ def tail_cases(FS, other, rnd):
     return cases, list(smoke.TAIL_SHAPE)
 
 
+def label_cases(LB, other):
+    h, w = smoke.QUANT_CANVASES[-1]
+    _, seg, _ = smoke.synthetic_seg_canvas(h, w, smoke.SEED + 1)
+    masks = {f'conn {c}': (fg, c)
+             for c, fg in smoke.label_masks(LB, seg).items()}
+    comb = torch.from_numpy(
+        smoke.adversarial_masks(h, w, smoke.SEED)['comb']).cuda()
+    masks.update({f'comb conn {c}': (comb, c) for c in (4, 8)})
+    cases = {}
+    for name, (fg, conn) in masks.items():
+        cases[f'label_components {name}'] = tuple(
+            (lambda m=m, fg=fg, c8=conn == 8: m.label_components(fg, conn8=c8))
+            for m in (LB, other))
+    return cases, [h, w]
+
+
+def by_kernel(fn):
+    """Device ms of one call of ``fn`` by CUDA kernel name
+    (``torch.profiler``), after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, 'device_time_total', None)
+        if us is None:
+            us = getattr(ev, 'cuda_time_total', 0)
+        found = re.search(r'(\w+_kernel)', ev.key)
+        if us and found:
+            out[found.group(1)] = out.get(found.group(1), 0) + us / 1e3
+    return out
+
+
 def compare(a, b):
     """Equality and the largest difference (absolute, and over the largest
     |value| of each statistic) of two outputs or output tuples."""
     a = a if isinstance(a, tuple) else (a,)
     b = b if isinstance(b, tuple) else (b,)
     out = {'equal': all(bool(torch.equal(u, v)) for u, v in zip(a, b))}
-    out['max_abs_diff'] = [(u.float() - v.float()).abs().max().item()
+    out['max_abs_diff'] = [(u.double() - v.double()).abs().max().item()
                            for u, v in zip(a, b)]
     if a[0].dim() == 3:                          # (S, 2, C) statistics
         out['max_rel_diff'] = smoke.stats_rel(a[0], b[0])
@@ -139,8 +183,10 @@ def main():
     ap.add_argument('--other', required=True,
                     help='root of the other checkout')
     ap.add_argument('--iters', type=int, default=5)
-    ap.add_argument('--kernels', default='trunk,plane_stats,tail_s2d',
-                    help='comma list of trunk, plane_stats, tail_s2d')
+    ap.add_argument('--kernels',
+                    default='trunk,plane_stats,tail_s2d,label_components',
+                    help='comma list of trunk, plane_stats, tail_s2d, '
+                         'label_components')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit('the kernel A/B needs a CUDA card')
@@ -148,13 +194,15 @@ def main():
     from deepliif_tpu_torch.labs import fused_stages as FS
     from deepliif_tpu_torch.nets import layers as L
     from deepliif_tpu_torch.ops import fused_resblock as FR
+    from deepliif_tpu_torch.ops import labeling as LB
 
     M.configure_device(torch.device('cuda'))
-    other_fr, other_l, other_fs = import_other(args.other)
+    other_fr, other_l, other_fs, other_lb = import_other(args.other)
     rnd = smoke.Rand(smoke.SEED)
     makers = {'trunk': lambda: trunk_cases(FR, other_fr, rnd),
               'plane_stats': lambda: plane_cases(L, other_l, rnd),
-              'tail_s2d': lambda: tail_cases(FS, other_fs, rnd)}
+              'tail_s2d': lambda: tail_cases(FS, other_fs, rnd),
+              'label_components': lambda: label_cases(LB, other_lb)}
     for group in args.kernels.split(','):
         cases, shape = makers[group]()
         for name, (this, that) in cases.items():
@@ -162,6 +210,9 @@ def main():
                                       args.iters)
             got = compare(this(), that())
             torch.cuda.synchronize()
+            if group == 'label_components':
+                got['pass_ms'] = {'this': by_kernel(this),
+                                  'other': by_kernel(that)}
             print(json.dumps({'kernel': name, 'shape': shape,
                               'runs_ms': runs, 'this_ms': ms['this'],
                               'other_ms': ms['other'], **got}), flush=True)
