@@ -3,9 +3,17 @@ kernels from this checkout, checks each against its plain PyTorch version
 at the shapes of the main path, then drives flagship DeepLIIF inference
 (4 x resnet_9blocks + 5 x unet_512, ngf 64, 512^2 tiles, random weights from
 a seed) end to end through the port's user entry points, at float32,
-bfloat16, int8 (ResNet-trunk scope, per-chunk dynamic scales) and bfloat16
+bfloat16, int8 (ResNet-trunk scope, per-chunk dynamic scales), bfloat16
 with the fused translator stages (``fuse_stages``, which end in the tail
-kernel ``tail_s2d_fused``). The float32 trunk kernel (split TF32 on the
+kernel ``tail_s2d_fused``) and int8 scope 'all' (the JAX package's default
+``--precision int8``: every conv with 16 channels or more in and out
+quantized; the trunk on the int8 trunk kernel, the 96 others on
+``conv_s8``), calibrated on the first tiles (static) and with calibration
+off (dynamic, 92 ``conv_s8`` calls: the 512^2 down convs run float). The
+``conv_s8`` kernel is held bit-equal to its plain version at every call
+of that forward, static and dynamic, run to run and per sample, and a
+translator of the int8 'all' session byte-equal with the kernel swapped
+for its plain version. The float32 trunk kernel (split TF32 on the
 tensor cores) is held to the float32 tolerance beside two controls on the
 same inputs: cuDNN's 1x TF32 conv must fail it, the plain 3x TF32 emulation
 must pass it. Every path must give a
@@ -219,6 +227,41 @@ LABEL_PER_QUANT = 2
 # border, and all pieces join one root) at the largest canvas, held to scipy
 LABEL_ADVERSARIAL_SHAPES = ((2048, 2048), (2047, 3001))
 LABEL_WORST_CASE = 'comb'
+# int8 scope 'all' (the JAX package's default --precision int8): every conv
+# with C_in and C_out >= 16 quantizes. The trunk's 72 run kernel #2; the
+# others run conv_s8 (csrc/conv_s8.cu), one call each per batch forward:
+# (call, kind, x shape, C_out, k, output_padding), all stride 2 padding 1;
+# per translator down0, down1 (3x3) and up0, up1 (conv-transpose 3x3,
+# output_padding 1); per unet_512 the 8 inner blocks' downconv (4x4) and
+# upconv (conv-transpose 4x4), the outermost block's (3 channels) float
+S8_CALLS = (
+    ('translator down0', 'conv', (BATCH, 512, 512, 64), 128, 3, 0),
+    ('translator down1', 'conv', (BATCH, 256, 256, 128), 256, 3, 0),
+    ('translator up0', 'convT', (BATCH, 128, 128, 256), 128, 3, 1),
+    ('translator up1', 'convT', (BATCH, 256, 256, 128), 64, 3, 1)) + tuple(
+    (f'unet down {h}', 'conv', (BATCH, h, h, cin), cout, 4, 0)
+    for h, cin, cout in ((256, 64, 128), (128, 128, 256), (64, 256, 512),
+                         (32, 512, 512), (16, 512, 512), (8, 512, 512),
+                         (4, 512, 512), (2, 512, 512))) + tuple(
+    (f'unet up {h}', 'convT', (BATCH, h, h, cin), cout, 4, 0)
+    for h, cin, cout in ((1, 512, 512), (2, 1024, 512), (4, 1024, 512),
+                         (8, 1024, 512), (16, 1024, 512), (32, 1024, 256),
+                         (64, 512, 128), (128, 256, 64)))
+S8_NETS = {'translator': 4, 'unet': 5}
+# conv_s8 launches per batch forward: static scales every call above;
+# dynamic scales send translator down0 (a 512^2 input, past the 256^2
+# gate of the JAX package's _int8_ok) to the float path
+S8_PER_FORWARD = {'static': 4 * 4 + 5 * 16, 'dynamic': 4 * 3 + 5 * 16}
+# the timed conv_s8 call: the largest input of the forward
+S8_TIMED = 'translator down0'
+# calibration (static): the keys the flagship records (per translator 2
+# down, 18 trunk and 2 up convs; per unet_512 16), and the statistics
+# calls of one calibration batch: every norm of the float replay, whose
+# trunk runs unfused on cuDNN (per translator 5 + 18 trunk norms, per
+# unet_512 15)
+CALIB_KEYS = 22 + 16
+CALIB_BATCH = 4
+CALIB_PLANE_PER_BATCH = 4 * (5 + 18) + 5 * 15
 
 
 def phase(name, **info):
@@ -1210,7 +1253,7 @@ def ihc_like_image(size, seed):
 
 
 def launch_counts(K):
-    FR, FS, L, LB = K
+    FR, FS, L, LB, C = K
     return {'float32': FR.conv3x3_stats.launches,
             'bfloat16': FR.conv3x3_stats.launches_bf16,
             'int8': FR.conv3x3_stats_int8.launches,
@@ -1222,11 +1265,14 @@ def launch_counts(K):
             # norm inputs in neither channels_last nor NCHW memory, which
             # the wrapper copies before the kernel reads them
             'plane_relayouts': L.plane_mean_var.relayouts,
-            'label_components': LB.label_components.launches}
+            'label_components': LB.label_components.launches,
+            'conv_s8': C.conv_s8.launches,
+            # int8 conv inputs not channels_last, copied to NHWC first
+            'int8_relayouts': L.int8_input.relayouts}
 
 
 def reset_counts(K):
-    FR, FS, L, LB = K
+    FR, FS, L, LB, C = K
     FR.conv3x3_stats.launches = 0
     FR.conv3x3_stats.launches_bf16 = 0
     FR.conv3x3_stats_int8.launches = 0
@@ -1236,13 +1282,15 @@ def reset_counts(K):
     FS.tail_s2d_block.launches = 0
     L.plane_mean_var.launches = L.plane_mean_var.relayouts = 0
     LB.label_components.launches = 0
+    C.conv_s8.launches = L.int8_input.relayouts = 0
 
 
-def expected_counts(precision, fused, n_forwards, quant_calls=0):
+def expected_counts(precision, fused, n_forwards, quant_calls=0, s8=0):
     """Launches of each kernel per main-path run: the trunk kernel of the
     precision, the stage and tail kernels on the fused path only, the
     statistics kernel once per norm (no norm input copied first), the
-    labeling kernel twice per device-quantifier call."""
+    labeling kernel twice per device-quantifier call, ``s8`` conv_s8
+    launches per forward (int8 scope 'all' only; no int8 input copied)."""
     want = {kind: 0 for kind in ('float32', 'bfloat16', 'int8')}
     want[precision] = LAUNCHES_PER_FORWARD
     for name in ('conv3x3_s2_stats', 'convtranspose3_s2_stats'):
@@ -1250,6 +1298,8 @@ def expected_counts(precision, fused, n_forwards, quant_calls=0):
     want['tail_s2d'] = TAIL_LAUNCHES_PER_FORWARD if fused else 0
     want['plane_stats'] = PLANE_PER_FORWARD[fused]
     want['plane_relayouts'] = 0
+    want['conv_s8'] = s8
+    want['int8_relayouts'] = 0
     want = {k: v * n_forwards for k, v in want.items()}
     want['label_components'] = LABEL_PER_QUANT * quant_calls
     return want
@@ -1361,7 +1411,7 @@ def float32_twin(net, x):
     """The same translator at float32 with its float32 kernel trunk: the
     reference that a lower precision's own rounding noise is read from."""
     with net_attrs(net, compute_dtype=torch.float32, int8_mode=None,
-                   fuse_stages=False):
+                   int8={}, fuse_stages=False):
         return net(x.float()).float()
 
 
@@ -1957,6 +2007,400 @@ def devquant_main_path(M, K, md, img, pp):
     return counts
 
 
+def s8_macs(kind, shape, cout, k, op):
+    """(output shape, multiply-adds that this call needs): the taps that
+    land inside the input only (conv padding and the conv-transpose's
+    dilation zeros need none), counted per axis."""
+    n, h, w, cin = shape
+    lo = k - 1 - 1 if kind == 'convT' else 1   # padding 1 throughout
+
+    def axis(size):
+        if kind == 'conv':
+            out = (size + 2 - k) // 2 + 1
+            taps = sum(0 <= o * 2 - lo + t < size
+                       for o in range(out) for t in range(k))
+        else:
+            out = (size - 1) * 2 - 2 + k + op
+            taps = sum((o + t - lo) % 2 == 0 and 0 <= (o + t - lo) // 2 < size
+                       for o in range(out) for t in range(k))
+        return out, taps
+    (ho, ty), (wo, tx) = axis(h), axis(w)
+    return (n, ho, wo, cout), n * ty * tx * cin * cout
+
+
+def s8_bound(kind, shape, cout, k, op):
+    """Least time (ms) of one conv_s8 call and what bounds it: 2 ops per
+    needed multiply-add at the int8 tensor-core peak, or x, w and the bf16
+    y moved once over HBM."""
+    out, macs = s8_macs(kind, shape, cout, k, op)
+    nbytes = int(np.prod(shape)) + k * k * shape[3] * cout \
+        + 2 * int(np.prod(out)) + 4 * shape[0] * cout
+    t_ops, t_bytes = 2.0 * macs / PEAK_OPS['int8'], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ('operations' if t_ops >= t_bytes
+                                       else 'bytes'), macs
+
+
+def s8_call(C, kind, op, reference=False):
+    """(x_q, w_q, deq) -> the call's output through the wrapper (the kernel
+    on the card) or its plain version."""
+    if kind == 'conv':
+        fn = C.conv2d_int8_reference if reference else C.conv2d_int8
+        return lambda x, w, d: fn(x, w, d, None, 2, 1)
+    fn = (C.conv_transpose2d_int8_reference if reference
+          else C.conv_transpose2d_int8)
+    return lambda x, w, d: fn(x, w, d, None, 2, 1, op)
+
+
+def kernel_checks_conv_s8(C, rnd):
+    """conv_s8 at every call of the int8 'all' flagship forward (S8_CALLS),
+    with static (deq per output channel) and dynamic (per sample and
+    channel) scales: bit-equal to its plain version, byte-equal run to run
+    and for a sample alone against the same sample in the batch; each
+    call's kernel time and bound; the largest call (S8_TIMED) timed in
+    turns against its plain version, against torch._int_mm on the
+    im2col'd operands (the same int32 sums; F.unfold not counted) and
+    against cuDNN's bf16 conv of the same shape (another function: a bf16
+    conv, no quantization)."""
+    import torch.nn.functional as F
+
+    out, per_call, worst = {}, {}, 0.0
+    for name, kind, shape, cout, k, op in S8_CALLS:
+        n, cin = shape[0], shape[3]
+        x = torch.randint(-127, 128, shape, dtype=torch.int8, device='cuda',
+                          generator=rnd.gen_cuda)
+        w = torch.randint(-127, 128, (k, k, cin, cout), dtype=torch.int8,
+                          device='cuda', generator=rnd.gen_cuda)
+        run, plain = s8_call(C, kind, op), s8_call(C, kind, op, True)
+        res = {}
+        for mode in ('static', 'dynamic'):
+            deq = (torch.rand((cout,) if mode == 'static' else (n, cout),
+                              device='cuda', generator=rnd.gen_cuda) * 1e-3)
+            y = run(x, w, deq)
+            want = plain(x, w, deq)
+            alone = run(x[3:4].contiguous(), w,
+                        deq if mode == 'static' else deq[3:4].contiguous())
+            res[mode] = dict(bit_equal=torch.equal(y, want),
+                             run_to_run=torch.equal(y, run(x, w, deq)),
+                             alone_vs_batch=torch.equal(alone[0], y[3]))
+            worst = max(worst, (y.float() - want.float()).abs().max().item())
+            del y, want, alone
+        deq = torch.rand(cout, device='cuda', generator=rnd.gen_cuda) * 1e-3
+        ms = cuda_ms(lambda: run(x, w, deq), 3)
+        b_ms, b_by, macs = s8_bound(kind, shape, cout, k, op)
+        per_call[name] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by,
+                              tops=2.0 * macs / ms / 1e9)
+        phase('kernel_vs_plain', kernel='conv_s8', call=name, kind=kind,
+              x=list(shape), cout=cout, k=k, output_padding=op, **res,
+              ms=ms, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms)
+        check(all(all(v.values()) for v in res.values()),
+              f'conv_s8 {name}: kernel vs plain / run to run / alone vs '
+              f'batch: {res}')
+        if name == S8_TIMED:
+            out['timed'] = timed_conv_s8(C, F, x, w, deq, kind, shape, cout,
+                                         k, op)
+        del x, w
+        torch.cuda.empty_cache()
+    n_calls = {name: S8_NETS[name.split()[0]] for name, *_ in S8_CALLS}
+    out.update(
+        per_call=per_call, err=worst,
+        forward_ms={mode: sum(per_call[nm]['ms'] * n_calls[nm]
+                              for nm in per_call
+                              if mode == 'static' or nm != 'translator down0')
+                    for mode in ('static', 'dynamic')},
+        forward_bound_ms=sum(per_call[nm]['bound_ms'] * n_calls[nm]
+                             for nm in per_call))
+    phase('kernel_timing', kernel='conv_s8', what='the calls of one batch-16 '
+          'forward, summed (kernel time only)', **{
+              f'forward_{k}': v for k, v in out['forward_ms'].items()},
+          forward_bound_ms=out['forward_bound_ms'])
+    return out
+
+
+def timed_conv_s8(C, F, x, w, deq, kind, shape, cout, k, op):
+    n, h, wd, cin = shape
+    run, plain = s8_call(C, kind, op), s8_call(C, kind, op, True)
+    xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)   # channels_last memory
+    wb = w.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous()
+    cols = F.unfold(x.permute(0, 3, 1, 2).to(torch.float16), k, padding=1,
+                    stride=2)                        # (N, Cin k k, L)
+    a = cols.transpose(1, 2).reshape(-1, cols.shape[1]).to(
+        torch.int8).contiguous()
+    b = w.permute(2, 0, 1, 3).reshape(-1, cout).contiguous()   # (Cin k k, C)
+    fns = {'plain': lambda: plain(x, w, deq), 'kernel': lambda: run(x, w, deq),
+           'cudnn_bf16': lambda: F.conv2d(xb, wb, None, 2, 1)}
+    library_error = None
+    for bb in (b, b.t().contiguous().t()):      # row-, then column-major B
+        try:
+            torch._int_mm(a, bb)
+        except RuntimeError as e:
+            library_error = str(e)[:200]
+            continue
+        fns['library'] = lambda bb=bb: torch._int_mm(a, bb)
+        library_error = None
+        break
+    runs, ms = in_turns(fns, {'plain': 1, 'kernel': 5, 'library': 5,
+                              'cudnn_bf16': 5})
+    ms.setdefault('library', None)
+    unfold_ms = cuda_ms(lambda: F.unfold(x.permute(0, 3, 1, 2).to(
+        torch.float16), k, padding=1, stride=2), 2)
+    b_ms, b_by, macs = s8_bound(kind, shape, cout, k, op)
+    phase('kernel_timing', kernel='conv_s8', call=S8_TIMED, x=list(shape),
+          cout=cout, runs_ms=runs, **{f'{k_}_ms': v for k_, v in ms.items()},
+          unfold_ms=unfold_ms, library_error=library_error,
+          tops=2.0 * macs / ms['kernel'] / 1e9,
+          bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms['kernel'],
+          library_call='torch._int_mm on the im2col\'d int8 operands (the '
+                       'int32 sums alone: no epilogue; F.unfold not counted)',
+          cudnn_bf16_call='F.conv2d of the same shape in bf16, channels_last '
+                          '(a different function: no quantization)')
+    del cols, a, b, xb
+    return dict(ms, unfold_ms=unfold_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def int8_all_breakdown(session, batch):
+    """One batch-16 forward of the int8 'all' session traced with
+    torch.profiler after a warm-up: device time by kernel (top 12), the
+    conv_s8 and trunk-kernel totals, and the device's busy time against
+    the host's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tiles = torch.from_numpy(batch)
+    session.forward(tiles)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        session.forward(tiles)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(dev, 'int8_all_breakdown: the profiler saw no device activity')
+
+    def ms(e):
+        return (e.time_range.end - e.time_range.start) / 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy_us, end = 0.0, -1.0
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    by_kernel = {}
+    for e in dev:
+        by_kernel[e.name[:90]] = by_kernel.get(e.name[:90], 0.0) + ms(e)
+    total = sum(by_kernel.values())
+
+    def share(pred):
+        return sum(v for k, v in by_kernel.items() if pred(k))
+    trunk = ('conv_wgmma_kernel', 'quantize_blocks', 'chunk_max',
+             'row_absmax', 'pack_weights', 'stats_reduce')
+    groups = {
+        'conv_s8': share(lambda k: 'conv_s8' in k),
+        'trunk kernel #2 (all its passes)': share(
+            lambda k: any(t in k for t in trunk)),
+        'plane_stats': share(lambda k: 'plane_' in k),
+        'cuDNN convs': share(lambda k: any(
+            t in k for t in ('xmma', 'cudnn', 'cutlass', 'implicit_gemm'))),
+        'torch elementwise and copies (quantize, norm affine, ReLU, '
+        'residual adds, casts)': share(lambda k: 'at::native' in k)}
+    groups['other'] = total - sum(groups.values())
+    res = dict(batch=len(batch), host_wall_ms=wall_ms,
+               device_busy_ms=busy_us / 1e3,
+               device_idle_share=1.0 - busy_us / 1e3 / wall_ms,
+               device_ms_summed=total, groups_ms=groups,
+               top_kernels_ms=dict(sorted(by_kernel.items(),
+                                          key=lambda kv: -kv[1])[:12]))
+    phase('int8_all_breakdown', **res)
+    return res
+
+
+def int8_all_checks(M, K, md, img, f32_images, mode):
+    """int8 scope 'all' (no --int8-scope: the JAX package's default) through
+    the user entry point at full width: ``mode`` 'static' calibrates on the
+    first tiles (its seconds and keys, act_scales.json in the model dir),
+    'dynamic' runs with calibration off. The launch counts (conv_s8 per
+    S8_PER_FORWARD, the trunk's #2, no float trunk kernel, no input or norm
+    input copied; calibration: only the statistics of its float replay),
+    the conv_s8 calls against S8_CALLS, run to run, one translator with
+    conv_s8 swapped for its plain version (byte-equal), device_quant on,
+    batch invariance, tiles/s and the uint8 distance to the float32
+    path."""
+    FR, FS, L, LB, C = K
+    static = mode == 'static'
+    path = f'int8_all {mode}'
+    kw = dict(device='cuda', max_batch=BATCH, precision='int8',
+              int8_calibrate=static)
+    t0 = time.perf_counter()
+    session = M.init_nets(md, **kw)
+    phase('session', path=path, seconds=time.perf_counter() - t0,
+          int8_scope=session.int8_scope,
+          act_scales_file=session.act_scales is not None,
+          quantized_convs={'translator': len(session.nets.G[0].int8),
+                           'unet_512': len(session.nets.GS[0].int8)})
+    check(session.int8_scope == 'all' and session.act_scales is None,
+          f'{path}: scope {session.int8_scope}, act_scales before the run')
+    forwards, calib = [], {}
+    run_batch, run_calib = session.forward, session.calibrate_int8
+    session.forward = lambda *a, **k: forwards.append(1) or run_batch(*a, **k)
+
+    def calibrate(tiles, **k):
+        torch.cuda.synchronize()
+        before, t = launch_counts(K), time.perf_counter()
+        scales = run_calib(tiles, **k)
+        torch.cuda.synchronize()
+        after = launch_counts(K)
+        calib.update(seconds=time.perf_counter() - t, tiles=len(tiles),
+                     keys=len(scales), launches={
+                         k_: after[k_] - before[k_] for k_ in after})
+        return scales
+    session.calibrate_int8 = calibrate
+
+    torch.cuda.synchronize()
+    reset_counts(K)
+    t0 = time.perf_counter()
+    images, scoring = M.infer_modalities(img, TILE, md, device_quant=False,
+                                         **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts(K)
+    n_forwards = len(forwards)
+    phase('main_path', path=path, seconds=seconds, batch_forwards=n_forwards,
+          kernel_launches=counts, outputs=sorted(images), scoring=scoring,
+          trunk_modes=[g.int8_mode for g in session.nets.G])
+    check(n_forwards >= 1, 'no batch forward ran')
+    check(all(g.int8_mode == mode for g in session.nets.G),
+          f'{path}: trunk modes {[g.int8_mode for g in session.nets.G]}')
+    want = expected_counts('int8', False, n_forwards,
+                           s8=S8_PER_FORWARD[mode])
+    if static:
+        batches = -(-calib.get('tiles', 0) // CALIB_BATCH)
+        phase('calibration', path=path, seconds=calib.get('seconds'),
+              tiles=calib.get('tiles'), batches=batches,
+              keys=calib.get('keys'), launches=calib.get('launches'),
+              act_scales_json=os.path.exists(os.path.join(md,
+                                                          'act_scales.json')))
+        cl = calib.get('launches', {})
+        check(calib and calib['keys'] == CALIB_KEYS
+              and cl['plane_stats'] == batches * CALIB_PLANE_PER_BATCH
+              and all(v == 0 for k, v in cl.items() if k != 'plane_stats')
+              and os.path.exists(os.path.join(md, 'act_scales.json')),
+              f'{path}: calibration {calib}')
+        want['plane_stats'] += cl['plane_stats']
+    else:
+        check(not calib, f'{path}: calibrated with calibration off')
+    check(counts == want, f'{path}: kernel launches {counts} for '
+                          f'{n_forwards} forwards, want {want}')
+    check(set(images) == OUTPUTS, f'outputs {sorted(images)}')
+    for k, im in images.items():
+        a = np.asarray(im)
+        check(a.shape == (2 * TILE, 2 * TILE, 3) and a.dtype == np.uint8,
+              f'{k}: {a.shape} {a.dtype}')
+
+    images2, scoring2 = M.infer_modalities(img, TILE, md, device_quant=False,
+                                           **kw)
+    same = all(np.array_equal(np.asarray(images[k]), np.asarray(images2[k]))
+               for k in images) and scoring == scoring2
+    phase('run_to_run', path=path, byte_equal=same)
+    check(same, f'{path}: two runs differ')
+
+    rng = np.random.default_rng(SEED + 1)
+    big = np.asarray(img)
+    origins = rng.integers(0, 2 * TILE - TILE + 1, (BATCH, 2))
+    batch = np.stack([big[y:y + TILE, x:x + TILE] for y, x in origins])
+
+    # the conv_s8 calls of one forward against S8_CALLS
+    calls, kernel = [], C.conv_s8
+
+    def spy(x_q, w_q, deq, bias, **k):
+        calls.append((tuple(x_q.shape), tuple(w_q.shape), k['stride'],
+                      k['dil']))
+        return kernel(x_q, w_q, deq, bias, **k)
+    spy.launches = 0
+    C.conv_s8 = spy
+    try:
+        with torch.no_grad():
+            run_batch(torch.from_numpy(batch))
+    finally:
+        C.conv_s8 = kernel
+    want_calls = sorted(
+        (shape, (k, k, shape[3], cout), 2 if kind == 'conv' else 1,
+         1 if kind == 'conv' else 2)
+        for name, kind, shape, cout, k, _ in S8_CALLS
+        for _ in range(S8_NETS[name.split()[0]])
+        if static or name != 'translator down0')
+    phase('conv_s8_calls', path=path, calls=len(calls),
+          distinct=len(set(calls)), match=sorted(calls) == want_calls)
+    check(sorted(calls) == want_calls,
+          f'{path}: conv_s8 calls {sorted(set(calls))} differ from '
+          f'S8_CALLS')
+
+    # one translator with conv_s8 swapped for its plain version: the int8
+    # convs are bit-equal, so the translator is byte-equal
+    net = session.nets.G[0]
+    xin = (torch.from_numpy(batch[:2]).cuda().float() / 127.5 - 1.0).permute(
+        0, 3, 1, 2).to(session.d.dtype)
+    conv, convt = C.conv2d_int8, C.conv_transpose2d_int8
+    with torch.no_grad():
+        got = net(xin)
+        C.conv2d_int8 = C.conv2d_int8_reference
+        C.conv_transpose2d_int8 = C.conv_transpose2d_int8_reference
+        try:
+            want_t = net(xin)
+        finally:
+            C.conv2d_int8, C.conv_transpose2d_int8 = conv, convt
+    same = torch.equal(got, want_t)
+    phase('translator_vs_plain_conv_s8', path=path, shape=list(got.shape),
+          finite=bool(torch.isfinite(got).all()), byte_equal=same)
+    check(same and bool(torch.isfinite(got).all()),
+          f'{path}: the translator with conv_s8 differs from the same with '
+          'its plain version')
+
+    # device_quant on: the same Seg and modalities, the labeling kernel
+    reset_counts(K)
+    dq_images, dq_scoring = M.infer_modalities(img, TILE, md,
+                                               device_quant=True, **kw)
+    dq_counts = launch_counts(K)
+    equal = all(np.array_equal(np.asarray(images[k]),
+                               np.asarray(dq_images[k]))
+                for k in images if k not in ('SegOverlaid', 'SegRefined'))
+    phase('device_quant', path=path, label_launches=dq_counts[
+        'label_components'], seg_and_modalities_byte_equal=equal,
+        scoring=dq_scoring, host_scoring=scoring)
+    check(equal and dq_counts['label_components'] == LABEL_PER_QUANT
+          and dq_scoring == scoring,
+          f'{path}: device_quant run: {dq_counts}, {dq_scoring} vs '
+          f'{scoring}')
+
+    full = session.run_tiles(batch)
+    alone = session.run_tiles(batch[3:4])
+    inv = {k: bool(np.array_equal(full[k][3], alone[k][0])) for k in full}
+    phase('batch_invariance', path=path, tile_alone_vs_in_batch=inv,
+          byte_equal=all(inv.values()))
+    check(all(inv.values()), f'{path}: a tile alone differs from the same '
+                             f'tile in a batch of {BATCH}: {inv}')
+
+    tput = throughput(session, batch)
+    t0 = time.perf_counter()
+    session.run_tiles(batch[3:4])
+    tput['one_tile_ms'] = (time.perf_counter() - t0) * 1e3
+    dist = u8_distance(images, f32_images)
+    phase('throughput', path=path, **tput)
+    phase('vs_float32', path=path, mean_lsb_and_share_within_2=dist)
+    xb = (torch.from_numpy(batch).cuda().float() / 127.5 - 1.0).permute(
+        0, 3, 1, 2).to(session.d.dtype)
+    with torch.no_grad():
+        ms = {'translator': cuda_ms(lambda: net(xb), 2),
+              'translator_trunk': cuda_ms(lambda: net.trunk(net.head(xb)), 2),
+              'seg_unet_512': cuda_ms(lambda: session.nets.GS[0](xb), 2)}
+    phase('per_net_ms', path=path, batch=BATCH, **ms,
+          ensemble_estimate_ms=4 * ms['translator'] + 5 * ms['seg_unet_512'])
+    breakdown = int8_all_breakdown(session, batch) if static else None
+    del session.forward, session.calibrate_int8   # the class's methods again
+    if static:
+        os.remove(os.path.join(md, 'act_scales.json'))
+    return dict(counts=counts, tput=tput, calib=calib, vs_float32=dist,
+                breakdown=breakdown, per_net_ms=ms)
+
+
 def main():
     check(torch.cuda.is_available(), 'torch.cuda.is_available() is false: '
           'chip_smoke.py needs a CUDA card')
@@ -1972,13 +2416,14 @@ def main():
     from deepliif_tpu_torch.models import deepliif as dl
     from deepliif_tpu_torch.nets import layers as L
     from deepliif_tpu_torch.ops import cuda_build, fused_resblock as FR
-    from deepliif_tpu_torch.ops import labeling as LB
+    from deepliif_tpu_torch.ops import conv_int8 as C, labeling as LB
     from deepliif_tpu_torch.utils import checkpoints as ck
 
     M.configure_device(torch.device('cuda'))   # TF32 off for the plain paths
     t0 = time.perf_counter()
     # every kernel library of the path, one nvcc each, all started together
-    cuda_build.build({**FR._LIBS, **FS._LIBS, **L._LIBS, **LB._LIBS})
+    cuda_build.build({**FR._LIBS, **FS._LIBS, **L._LIBS, **LB._LIBS,
+                      **C._LIBS})
     phase('build', seconds=time.perf_counter() - t0, parallel=True,
           nvcc_seconds=cuda_build.build_seconds)
 
@@ -1990,6 +2435,7 @@ def main():
     stages = kernel_checks_stages(FS, FR, rnd)
     tail = kernel_checks_tail(FS, FR, rnd)
     plane = kernel_checks_plane(L, rnd)
+    s8 = kernel_checks_conv_s8(C, rnd)
     canvases = {hw: synthetic_seg_canvas(*hw, SEED + i)
                 for i, hw in enumerate(QUANT_CANVASES)}
     label = kernel_checks_label(LB, canvases)
@@ -2002,7 +2448,7 @@ def main():
 
     launches, tput, images = {}, {}, {}
     img = Image.fromarray(ihc_like_image(2 * TILE, SEED))
-    K = (FR, FS, L, LB)
+    K = (FR, FS, L, LB, C)
     with tempfile.TemporaryDirectory() as md:
         write_flagship_model_dir(md, dl, ck)
         for precision, fused in (('float32', False), ('bfloat16', False),
@@ -2014,6 +2460,13 @@ def main():
                 launches['devquant'] = devquant_main_path(M, K, md, img, pp)
             # one session on the card at a time, so that peak memory is
             # the next path's own
+            M._init_nets_cached.cache_clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+        int8_all = {}
+        for mode in ('dynamic', 'static'):      # static writes act_scales.json
+            int8_all[mode] = int8_all_checks(M, K, md, img,
+                                             images['float32'], mode)
             M._init_nets_cached.cache_clear()
             gc.collect()
             torch.cuda.empty_cache()
@@ -2108,6 +2561,25 @@ def main():
             f'{h}x{w}': q['peak_bytes_per_px'] for (h, w), q in quant.items()},
         'quantifier_labeling_share_of_device':
             breakdown['labeling_share_of_device']})
+    tm = s8['timed']
+    report.append({
+        'name': 'conv_s8', 'route': 'cuda',
+        'source': 'deepliif_tpu_torch/csrc/conv_s8.cu',
+        'replaces': 'deepliif_tpu/nets/layers.py:114 (XLA int8 '
+                    'conv_general_dilated of conv2d, and :500 of '
+                    'conv_transpose2d; no TPU kernel)',
+        'launches': int8_all['static']['counts']['conv_s8'],
+        'launches_dynamic': int8_all['dynamic']['counts']['conv_s8'],
+        'max_abs_err': s8['err'], 'ms': tm['kernel'],
+        'plain_ms': tm['plain'], 'bound_ms': tm['bound_ms'],
+        'bound_by': tm['bound_by'], 'library_ms': tm['library'],
+        'library_call': 'torch._int_mm on the im2col\'d operands (int32 '
+                        'sums only; F.unfold not counted)',
+        'unfold_ms': tm['unfold_ms'], 'cudnn_bf16_ms': tm['cudnn_bf16'],
+        'per': f'{S8_TIMED} {S8_CALLS[0][2]} -> {S8_CALLS[0][3]}, static '
+               'scales, at batch 16',
+        'forward_ms': s8['forward_ms'],
+        'forward_bound_ms': s8['forward_bound_ms']})
     print(json.dumps({'kernels': report}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -2,9 +2,14 @@
 
 Same options, output file names and scoring JSON as ``deepliif-tpu test``
 (deepliif_tpu/cli.py), plus ``--device`` (default cuda).
-``--precision {float32,bfloat16,int8}`` picks the compute precision; int8
-needs ``--int8-scope resblocks`` (scope 'all', the JAX package's default,
-raises). ``--fuse-stages`` (bfloat16 only) runs the translators' fused
+``--precision {float32,bfloat16,int8}`` picks the compute precision;
+``--int8-scope`` (default all, as in the JAX package) which convs int8
+quantizes. An int8 session calibrates static activation scales on its
+first tiles and writes act_scales.json into the model dir, as the JAX
+session does; the JAX package's environment settings of that step are read
+here, and only here (``int8_options``): ``DEEPLIIF_INT8_CALIBRATE=0``
+keeps per-sample dynamic scales, ``DEEPLIIF_INT8_CALIB_PCT`` the
+percentile. ``--fuse-stages`` (bfloat16 only) runs the translators' fused
 stages, the counterpart of the JAX package's ``DEEPLIIF_FUSE_STAGES=1``.
 ``--device-quant {auto,on,off}`` picks the quantifier: on runs it on the
 session's device (``ops.labeling``), off on the host, auto stitches the seg
@@ -16,8 +21,7 @@ The other commands are not ported yet (ROADMAP.md: "Serving", "WSI",
 not when this module is imported.
 
     python -m deepliif_tpu_torch.cli test --input-dir imgs --tile-size 512 \\
-        --model-dir model --output-dir out --device cuda \\
-        --precision int8 --int8-scope resblocks
+        --model-dir model --output-dir out --device cuda --precision int8
 """
 
 from __future__ import annotations
@@ -25,6 +29,33 @@ from __future__ import annotations
 import glob
 import json
 import os
+
+
+# the JAX package's switches of its fused int8 trunk kernel and their
+# defaults (deepliif_tpu/nets/resnet.py :91-96, :110; ops/fused_resblock.py
+# :150, the bf16 chunk of 16 rows that the dynamic scales run on): the port
+# runs the defaults and refuses another setting rather than ignore it
+_INT8_KERNEL_SWITCHES = {'DEEPLIIF_INT8_DYN': '1', 'DEEPLIIF_FUSED_INT8': '1',
+                         'DEEPLIIF_FUSED_CHUNK': '16'}
+
+
+def int8_options(environ, precision):
+    """The int8 session arguments from the JAX package's environment
+    settings (deepliif_tpu/models/__init__.py :170, :414):
+    ``DEEPLIIF_INT8_CALIBRATE`` (default '1'; '0' skips calibration) and
+    ``DEEPLIIF_INT8_CALIB_PCT`` (default 100). At ``precision`` int8 a
+    kernel switch set to anything but its default raises
+    NotImplementedError."""
+    from . import roadmap
+
+    for name, default in _INT8_KERNEL_SWITCHES.items():
+        value = environ.get(name)
+        if precision == 'int8' and value not in (None, default):
+            raise roadmap.not_ported(f'{name}={value}', roadmap.INT8_ALL)
+    return {'int8_calibrate': environ.get('DEEPLIIF_INT8_CALIBRATE', '1')
+            != '0',
+            'int8_calib_pct': float(environ.get('DEEPLIIF_INT8_CALIB_PCT',
+                                                '100'))}
 
 
 def allowed_file(filename):
@@ -65,6 +96,8 @@ def run_test(input_dir, output_dir, tile_size, model_dir, filename_pattern='*',
     echo(f'{len(image_files)} image files')
 
     opt = get_opt(model_dir, mode='test')
+    int8 = int8_options(os.environ, precision or getattr(opt, 'precision',
+                                                         None))
     opt.BtoA = btoa
     opt.epoch = epoch
     seg_weights = getattr(opt, 'seg_weights', None)
@@ -77,7 +110,7 @@ def run_test(input_dir, output_dir, tile_size, model_dir, filename_pattern='*',
             seg_weights=seg_weights, max_batch=max_batch,
             device_quant={'on': True, 'off': False}.get(device_quant, 'auto'),
             precision=precision, device=device, int8_scope=int8_scope,
-            fuse_stages=fuse_stages)
+            fuse_stages=fuse_stages, **int8)
         stem = filename.rsplit('.', 1)[0]
         for name, im in images.items():
             im.save(os.path.join(output_dir, f'{stem}_{name}.png'))
@@ -116,13 +149,14 @@ def make_cli():
     @click.option('--precision', default=None,
                   type=click.Choice(['float32', 'bfloat16', 'int8']),
                   help='override the model dir compute precision; int8 '
-                       'needs --int8-scope resblocks')
+                       'runs the convs with >= 16 channels in and out on '
+                       'the int8 kernels, calibrating static scales on the '
+                       'first tiles into act_scales.json')
     @click.option('--int8-scope', default=None,
                   type=click.Choice(['all', 'resblocks']),
-                  help='which convs --precision int8 quantizes: resblocks '
-                       '(the ResNet-trunk convs, on the int8 kernel; every '
-                       'other conv runs bf16); all (the default, as in the '
-                       'JAX package) is not ported yet and raises')
+                  help='which convs --precision int8 quantizes: all '
+                       '(default) or resblocks only, the fused-kernel '
+                       'trunk path that keeps every other conv in bf16')
     @click.option('--device-quant', type=click.Choice(['auto', 'on', 'off']),
                   default='auto', is_flag=False, flag_value='on',
                   help='quantification engine: on = labeling, thresholds '

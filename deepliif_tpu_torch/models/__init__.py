@@ -1,5 +1,5 @@
 """The batched tile-inference engine, DeepLIIF family, at float32,
-bfloat16 and int8 (ResNet-trunk scope).
+bfloat16 and int8.
 
 Port of deepliif_tpu/models/__init__.py for the flagship path:
 
@@ -17,19 +17,25 @@ Port of deepliif_tpu/models/__init__.py for the flagship path:
                 canvas that ``inference`` stitched on the session's device
 
 Precision: ``precision=`` (or the model dir's ``precision`` option) is
-float32, bfloat16 or int8. int8 takes an explicit ``int8_scope``; only
-'resblocks' is ported (the 72 ResNet-trunk convs of the flagship run the
-int8 kernel, every other conv runs bf16), with static scales from the model
-dir's act_scales.json or per-chunk dynamic scales without it.
+float32, bfloat16 or int8. int8 quantizes within ``int8_scope``: 'all'
+(the default, as in the JAX package: every conv with C_in and C_out >= 16;
+at the flagship the 72 ResNet-trunk convs run the fused int8 kernel and 96
+others the ``conv_s8`` kernel) or 'resblocks' (the trunk only; every other
+conv runs bf16). Activation scales are static when the model dir holds
+act_scales.json; else the session calibrates them on the first non-empty
+tiles it sees (up to 32, in batches of 4) and writes act_scales.json there
+(kept for the session alone when the dir cannot be written), unless
+``int8_calibrate`` is False or the fused trunk's per-chunk dynamic scales
+serve every quantized conv (scope 'resblocks'); then the scales are
+dynamic.
 ``fuse_stages=True`` (or the model dir's ``fuse_stages`` option; bfloat16
 only) runs the translators through their fused stages, the counterpart of
 the JAX package's ``DEEPLIIF_FUSE_STAGES=1``.
 
 The device is always explicit (``device='cuda'`` by default, never chosen
 by what is available). Not ported yet (ROADMAP.md): the other model
-families, int8 scope 'all' and calibration, seg-only and seg-intermediate
-outputs, and the TPU engine's mesh (mesh-sharded labeling included) and
-async copy pipeline.
+families, seg-only and seg-intermediate outputs, and the TPU engine's mesh
+(mesh-sharded labeling included) and async copy pipeline.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ import torch
 
 from .. import roadmap
 from ..config import get_opt
+from ..nets import ResnetGenerator
 from ..ops import quant
 from ..utils import checkpoints, luma_u8
 from ..utils.tiler import InferenceTiler
@@ -87,15 +94,17 @@ class InferenceSession:
     inference. Output keys: G1..Gm (modalities) and GS (seg).
 
     ``precision`` (default: the model dir's ``precision`` option, else
-    float32) is float32, bfloat16 or int8; int8 needs ``int8_scope``
-    'resblocks' (scope 'all', the JAX package's default, raises).
-    ``fuse_stages`` (default: the model dir's option, else False) runs the
-    translators' fused stages; it needs bfloat16 and raises ValueError
-    otherwise."""
+    float32) is float32, bfloat16 or int8; ``int8_scope`` 'all' (default)
+    or 'resblocks'; ``int8_calibrate`` (default True) calibrates static
+    scales on the first tiles where the model dir has none, at the
+    ``int8_calib_pct`` percentile (100: the max). ``fuse_stages`` (default:
+    the model dir's option, else False) runs the translators' fused stages;
+    it needs bfloat16 and raises ValueError otherwise."""
 
     def __init__(self, model_dir, opt=None, phase='test', max_batch=None,
                  epoch='latest', precision=None, device='cuda',
-                 int8_scope=None, fuse_stages=None):
+                 int8_scope=None, fuse_stages=None, int8_calibrate=True,
+                 int8_calib_pct=100.0):
         self.model_dir = model_dir
         self.opt = opt if opt is not None else get_opt(model_dir, mode=phase)
         for name, value in (('precision', precision),
@@ -108,22 +117,64 @@ class InferenceSession:
         if self.model not in _FAMILIES:
             raise roadmap.not_ported(f'model family {self.model}',
                                      roadmap.FAMILIES)
-        if self.precision == 'int8':
-            scope = int8_scope or 'all'
-            quant.int8_scope_predicate(scope)      # validates the name
-            if scope != 'resblocks':
-                raise roadmap.not_ported(
-                    f'--int8-scope {scope} (use --int8-scope resblocks)',
-                    roadmap.INT8_ALL)
+        self.int8_scope = int8_scope or 'all'
+        quant.int8_scope_predicate(self.int8_scope)   # validates the name
+        self.int8_calibrate = bool(int8_calibrate)
+        self.int8_calib_pct = float(int8_calib_pct)
         self.epoch = str(epoch)
         self.device = torch.device(device)
         configure_device(self.device)
         self.d = dl.def_from_opt(self.opt)
         self.max_batch = DEFAULT_MAX_BATCH if max_batch is None else max_batch
         nets_ = self._load_nets(model_dir)
+        self.act_scales = None
         if self.d.quant_int8:
-            dl.quantize_translators(nets_, quant.load_act_scales(model_dir))
+            self.act_scales = quant.load_act_scales(model_dir)
+            dl.quantize_nets(nets_, self.int8_scope, self.act_scales)
         self.nets = nets_.to(self.device).eval()
+
+    def calibrate_int8(self, tiles_u8, save=True, max_tiles=32, batch=4,
+                       pct=None, per_channel=True):
+        """Calibrate static int8 activation scales on sample tiles ((N, s,
+        s, 3) uint8, the first ``max_tiles``, in batches of ``batch``; the
+        JAX session's ``calibrate_int8``), re-quantize the nets with them
+        and, with ``save``, write act_scales.json into the model dir (the
+        scales stay with this session when the dir cannot be written).
+        ``pct`` (default: the session's ``int8_calib_pct``) clips each
+        channel's range to that percentile of |x|. Returns the scales."""
+        if not self.d.quant_int8:
+            raise ValueError('calibrate_int8 requires --precision int8')
+        pct = self.int8_calib_pct if pct is None else float(pct)
+        tiles = np.asarray(tiles_u8)[:max_tiles]
+        scales = {}
+        for i in range(0, len(tiles), batch):
+            x = torch.from_numpy(np.ascontiguousarray(tiles[i:i + batch]))
+            x = x.to(self.device).float() / 127.5 - 1.0
+            dl.calibrate_act_scales(self.nets, x, self.d, out=scales,
+                                    per_channel=per_channel, pct=pct)
+        self.act_scales = {k: (v.tolist() if hasattr(v, 'tolist') else v)
+                           for k, v in scales.items()}
+        dl.quantize_nets(self.nets, self.int8_scope, self.act_scales)
+        if save:
+            quant.save_act_scales(self.model_dir, self.act_scales, pct,
+                                  len(tiles))
+        return self.act_scales
+
+    def _dynamic_int8_active(self, th, tw):
+        """True when every quantized conv runs the fused trunk kernel's
+        per-chunk dynamic scales at (th, tw) tiles (the JAX session's
+        ``_dynamic_int8_active``): scope 'resblocks', no static scales, and
+        every translator's int8 trunk passes the fused gate, so calibration
+        would serve nothing."""
+        if not self.d.quant_int8 or self.int8_scope != 'resblocks':
+            return False
+        if self.act_scales is not None:
+            return False
+        h, w = th // 4, tw // 4
+        return all(isinstance(g, ResnetGenerator)
+                   and g.int8_mode == 'dynamic'
+                   and g.model[7].weight.shape[0] % 128 == 0
+                   and h % 16 == 0 and w % 16 == 0 for g in self.nets.G)
 
     def _load_nets(self, model_dir):
         nets_ = dl.DeepLIIFNets(self.d)
@@ -226,6 +277,11 @@ class InferenceSession:
         elif want_seg:
             out['GS'] = np.zeros((n, th, tw, 3), np.uint8)
 
+        if (self.d.quant_int8 and self.act_scales is None
+                and self.int8_calibrate and len(nonempty)
+                and not self._dynamic_int8_active(th, tw)):
+            # the first real tiles an uncalibrated int8 session sees
+            self.calibrate_int8(tiles_u8[nonempty[:32]])
         pos = 0
         while pos < len(nonempty):
             b = self.batch_size(len(nonempty) - pos)
@@ -257,19 +313,23 @@ def _quantize_u8(y):
 
 def init_nets(model_dir, phase='test', epoch='latest', max_batch=None,
               precision=None, device='cuda', int8_scope=None,
-              fuse_stages=None):
+              fuse_stages=None, int8_calibrate=True, int8_calib_pct=100.0):
     """Cached session construction, one per (model dir, options, device)."""
     return _init_nets_cached(model_dir, phase, str(epoch), max_batch,
-                             precision, str(device), int8_scope, fuse_stages)
+                             precision, str(device), int8_scope, fuse_stages,
+                             bool(int8_calibrate), float(int8_calib_pct))
 
 
 @functools.lru_cache(maxsize=8)
 def _init_nets_cached(model_dir, phase, epoch, max_batch, precision, device,
-                      int8_scope, fuse_stages):
+                      int8_scope, fuse_stages, int8_calibrate,
+                      int8_calib_pct):
     return InferenceSession(model_dir, phase=phase, epoch=epoch,
                             max_batch=max_batch, precision=precision,
                             device=device, int8_scope=int8_scope,
-                            fuse_stages=fuse_stages)
+                            fuse_stages=fuse_stages,
+                            int8_calibrate=int8_calibrate,
+                            int8_calib_pct=int8_calib_pct)
 
 
 def find_marker_key(d):
@@ -284,7 +344,8 @@ def inference(img, tile_size, overlap_size, model_path, use_torchserve=False,
               return_seg_intermediate=False, seg_only=False, mod_only=False,
               seg_weights=None, opt_args=None, session=None, max_batch=None,
               precision=None, device='cuda', int8_scope=None,
-              fuse_stages=None, _device_seg=False):
+              fuse_stages=None, int8_calibrate=True, int8_calib_pct=100.0,
+              _device_seg=False):
     """Tiled ensemble inference on a PIL image; returns {name: PIL.Image}
     with the reference output key names: 'mod{i}-{Name}' per modality plus
     'Seg'.
@@ -302,7 +363,9 @@ def inference(img, tile_size, overlap_size, model_path, use_torchserve=False,
                                       is not None else 'latest'),
                             max_batch=max_batch, precision=precision,
                             device=device, int8_scope=int8_scope,
-                            fuse_stages=fuse_stages)
+                            fuse_stages=fuse_stages,
+                            int8_calibrate=int8_calibrate,
+                            int8_calib_pct=int8_calib_pct)
     opt = session.opt if opt is None else opt
     if opt_args:
         for k, v in opt_args.items():
@@ -445,7 +508,8 @@ def infer_modalities(img, tile_size, model_dir, eager_mode=False,
                      return_seg_intermediate=False, seg_only=False,
                      mod_only=False, seg_weights=None, max_batch=None,
                      device_quant=False, precision=None, device='cuda',
-                     int8_scope=None, fuse_stages=None):
+                     int8_scope=None, fuse_stages=None, int8_calibrate=True,
+                     int8_calib_pct=100.0):
     """Full tile-to-scoring pipeline: inference, then postprocess (host
     quantifier, or with ``device_quant`` True / 'auto' the device stitch and
     the device quantifier, as in the JAX package). ``color_dapi`` /
@@ -456,7 +520,9 @@ def infer_modalities(img, tile_size, model_dir, eager_mode=False,
                                   is not None else 'latest'),
                         max_batch=max_batch, precision=precision,
                         device=device, int8_scope=int8_scope,
-                        fuse_stages=fuse_stages)
+                        fuse_stages=fuse_stages,
+                        int8_calibrate=int8_calibrate,
+                        int8_calib_pct=int8_calib_pct)
     opt = session.opt if opt is None else opt
     images = inference(
         img, tile_size=tile_size, overlap_size=tile_size // 16,

@@ -13,8 +13,10 @@ boundary is a view.
 Precision (``DeepLIIFDef.dtype`` / ``quant_int8``, from the model's
 ``precision`` option as in the JAX package): float32; bfloat16, where every
 net runs in bf16 with float32 norm statistics; int8, which runs bf16
-around an int8 ResNet trunk (``quantize_translators``, scope
-``resblocks`` only). ``DeepLIIFDef.fuse_stages`` (the model's
+around int8 convs (``quantize_nets``: scope 'all', every conv with C_in
+and C_out >= 16, or 'resblocks', the ResNet trunk's), with static scales
+that ``calibrate_act_scales`` records or per-sample dynamic ones.
+``DeepLIIFDef.fuse_stages`` (the model's
 ``fuse_stages`` option; bfloat16 only, raises otherwise) runs the
 translators through their fused stages (``nets.resnet``), the counterpart
 of the JAX package's ``DEEPLIIF_FUSE_STAGES=1``.
@@ -31,6 +33,7 @@ import torch
 from torch import nn
 
 from .. import nets, roadmap
+from ..nets import layers as L
 from ..ops import quant
 
 
@@ -98,10 +101,17 @@ class DeepLIIFNets(nn.Module):
     """The generator ensemble: ``G[i]`` translators, ``GS[i]`` seg nets
     (``GS[0]`` consumes the input image, ``GS[i+1]`` translator i's output).
     Seg generators use define_G defaults: reflect padding, convtranspose
-    (reference DeepLIIF_model.py:93-99)."""
+    (reference DeepLIIF_model.py:93-99). ``prefixes``: each net's JAX param
+    path prefix ('G', or 'G/{i}' in a group of mixed architectures, which
+    the JAX package keeps as a list), the keys of act_scales.json."""
 
     def __init__(self, d: DeepLIIFDef):
         super().__init__()
+        self.prefixes = {
+            group: [group if len(set(archs)) == 1 else f'{group}/{i}'
+                    for i in range(len(archs))]
+            for group, archs in (('G', d.net_g),
+                                 ('GS', d.net_gs if d.seg_gen else ()))}
         cin = d.input_nc * d.input_no
         self.G = nn.ModuleList(
             nets.define_g(cin, d.output_nc, d.ngf, arch, d.norm, d.use_dropout,
@@ -122,20 +132,71 @@ class DeepLIIFNets(nn.Module):
                 g.fuse_stages = True
 
 
-def quantize_translators(nets_, act_scales=None):
-    """int8 at scope 'resblocks': quantize the resblock convs of every
-    translator (``ResnetGenerator.set_int8_trunk``); every other conv keeps
-    the compute dtype. ``act_scales``: the JAX package's act_scales.json
-    dict ({'G/res{i}_conv{j}': max |x|}, one vector shared by the
-    translators of the stacked group) or None for dynamic scales."""
-    for i, g in enumerate(nets_.G):
-        if not isinstance(g, nets.ResnetGenerator):
-            raise roadmap.not_ported(f'int8 translator {type(g).__name__} '
-                                     '(the XLA int8 path)', roadmap.INT8_ALL)
-        g.set_int8_trunk({k[len('G/'):]: v
-                          for k, v in (act_scales or {}).items()
-                          if k.startswith('G/')
-                          and quant.int8_scope_predicate('resblocks')(k)})
+def _groups(nets_):
+    return (('G', nets_.G), ('GS', nets_.GS))
+
+
+def quantizable_convs(nets_, min_ch=quant.MIN_CH):
+    """{JAX key: [(net, conv name), ...]} of every conv the min_ch gate admits
+    (the JAX package's ``_quantizable_conv_paths`` over the whole param
+    tree: the keys calibration records and quantization reads). A group of
+    one architecture shares its keys, as the JAX package stacks it."""
+    out = {}
+    for group, nets in _groups(nets_):
+        for prefix, net in zip(nets_.prefixes[group], nets):
+            for name, w, kind in net.conv_layout():
+                cin, cout = (w.shape[1], w.shape[0]) if kind == 'conv' \
+                    else (w.shape[0], w.shape[1])
+                if cin >= min_ch and cout >= min_ch:
+                    out.setdefault(f'{prefix}/{name}', []).append((net, name))
+    return out
+
+
+def quantize_nets(nets_, scope='all', act_scales=None):
+    """int8: quantize every conv the min_ch gate admits within ``scope``
+    ('all', or 'resblocks': the ResNet trunk's convs), the JAX package's
+    ``quantize_conv_tree_int8``. ``act_scales``: the act_scales.json dict
+    ({'G/down0_conv': max |x|, ...}, scalar or per input channel) or None;
+    a conv with a scale runs static (the scale folded into its weights),
+    one without runs per-sample dynamic scales."""
+    pred = quant.int8_scope_predicate(scope)
+    scales = {}
+    for key, convs in quantizable_convs(nets_).items():
+        if pred is None or pred(key):
+            for net, name in convs:
+                scales.setdefault(id(net), {})[name] = (act_scales or {}).get(
+                    key)
+    for _, nets in _groups(nets_):
+        for net in nets:
+            net.set_int8(scales.get(id(net), {}))
+
+
+def calibrate_act_scales(nets_, x, d: DeepLIIFDef, min_ch=quant.MIN_CH,
+                         out=None, per_channel=True, pct=100.0):
+    """Per-conv input ranges over one normalized input batch x (B, H, W, C)
+    for static int8 scales, the JAX package's ``calibrate_act_scales``:
+    replays the ensemble on float weights in the compute dtype, one net at
+    a time (the translators on their unfused trunk, which exposes every
+    resblock conv's input; the seg nets on the input and the translators'
+    outputs), recording each conv ``quantizable_convs`` admits
+    (``layers.ActCalibration``: per input channel max |x|, or its ``pct``
+    percentile; per tensor without ``per_channel``). Returns {'G/...':
+    range, 'GS/...': ...}; pass the same ``out`` across batches to
+    max-merge."""
+    if nets_.training:
+        raise roadmap.not_ported('training (call .eval())', roadmap.TRAINING)
+    cal = L.ActCalibration(quantizable_convs(nets_, min_ch), out,
+                           per_channel=per_channel, pct=pct)
+    xc = x.to(d.dtype).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        mods = [g.calibrate(xc, cal.at(prefix))
+                for prefix, g in zip(nets_.prefixes['G'], nets_.G)]
+        if d.seg_gen:
+            seg_in = [xc] + [y.contiguous(memory_format=torch.channels_last)
+                             for y in mods]
+            for prefix, gs, xi in zip(nets_.prefixes['GS'], nets_.GS, seg_in):
+                gs.calibrate(xi, cal.at(prefix))
+    return cal.out
 
 
 def generator_forward(nets_, x, d: DeepLIIFDef, *, seg_weights=None,

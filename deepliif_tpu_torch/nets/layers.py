@@ -25,6 +25,14 @@ picks by shape.
 ``conv2d_s2d`` and ``conv_transpose2d_s2d`` of the JAX package are TPU
 lowering tricks for a tiny output-channel count; their counterpart here is
 the plain conv.
+
+int8: a conv given an ``ops.quant.Int8Conv`` in place of its weight takes
+the JAX package's int8 route (layers.py conv2d, conv_transpose2d): the
+input quantized (static scale, or per sample below the dynamic spatial
+gate, else the float route), the int8 conv (``ops.conv_int8``: the CUDA
+kernel ``csrc/conv_s8.cu``, or its plain version on the CPU) in NHWC, the
+output a channels_last view. ``ActCalibration`` records conv inputs for
+static scales (the JAX ``act_calibration``), handed down explicitly.
 """
 
 from __future__ import annotations
@@ -32,11 +40,13 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .. import roadmap
-from ..ops import cuda_build
+from ..ops import conv_int8, cuda_build, quant
+from ..utils.checkpoints import weight_to_hwio
 
 _LIBS = {'plane_stats': ['plane_stats.cu']}
 
@@ -66,6 +76,32 @@ class CastCache:
         return self._cast
 
 
+class Int8Cache:
+    """The ``quant.Int8Conv`` of each quantized conv of a net, built once per
+    weight version (a net makes a new cache when its scales change)."""
+
+    def __init__(self):
+        self._key = None
+        self._convs = {}
+
+    def get(self, convs, scales, dtype):
+        """convs: [(name, weight, kind)] (kind conv or convT, torch layout),
+        each name a key of ``scales`` ({name: calibrated max |x| of the
+        conv's input, or None for dynamic scales}) -> {id(weight):
+        Int8Conv} with float weights in ``dtype``."""
+        key = (dtype,) + tuple((n, w.data_ptr(), w._version)
+                               for n, w, _ in convs)
+        if key != self._key:
+            with torch.no_grad():
+                self._convs = {
+                    id(w): quant.quantize_conv(
+                        w.detach(), weight_to_hwio(w.detach(), kind).float(),
+                        scales[n], dtype)
+                    for n, w, kind in convs}
+            self._key = key
+        return self._convs
+
+
 def _per_sample(fn, x, *args):
     """``fn(x, *args)``, on the CPU one sample at a time: every oneDNN
     call then has the shape of one tile, so a tile's result does not
@@ -78,9 +114,37 @@ def _per_sample(fn, x, *args):
     return torch.cat([fn(x[i:i + 1], *args) for i in range(x.shape[0])])
 
 
+def int8_input(x, qc):
+    """x (N, C, H, W) -> (x_q (N, H, W, C) int8 NHWC contiguous, deq):
+    quantized by qc's static scale (deq = w_s) or per sample (deq = s
+    w_s, (N, C_out)). A quantized input that is not channels_last is
+    copied to NHWC and counted in ``int8_input.relayouts``."""
+    if qc.static:
+        q, deq = quant.quant_act_static(x, qc.inv_a), qc.w_s
+    else:
+        q, s = quant.quant_act_dynamic(x)
+        deq = s[:, None] * qc.w_s[None]
+    q = q.permute(0, 2, 3, 1)
+    if not q.is_contiguous():
+        int8_input.relayouts += 1
+        q = q.contiguous()
+    return q, deq
+
+
+int8_input.relayouts = 0
+
+
 def conv2d(x, weight, bias=None, stride=1, padding=0):
     """2D conv in x.dtype; ``padding`` int means symmetric zero pad (torch
-    semantics); the bias is added after the conv."""
+    semantics); the bias is added after the conv. ``weight`` an
+    ``Int8Conv``: the int8 route where ``quant.int8_ok`` admits x, else the
+    float route with its float weight."""
+    if isinstance(weight, quant.Int8Conv):
+        if quant.int8_ok(x, weight.static):
+            q, deq = int8_input(x, weight)
+            return conv_int8.conv2d_int8(q, weight.w_q, deq, bias, stride,
+                                         padding, x.dtype).permute(0, 3, 1, 2)
+        weight = weight.w
     out = _per_sample(F.conv2d, x, weight, None, stride, padding)
     return out if bias is None else out + bias[None, :, None, None]
 
@@ -106,12 +170,84 @@ def conv_transpose2d(x, weight, bias=None, stride=2, padding=1,
     runs its NHWC tensor-core kernels. float32 stays NCHW there: cuDNN's
     float32 conv-transpose is NCHW-native, and a unet_512 runs slower
     with the re-view on the H100 (``experiments/torch_segnet_spread.py
-    --layout``)."""
+    --layout``). ``weight`` an ``Int8Conv``: as in ``conv2d``."""
+    if isinstance(weight, quant.Int8Conv):
+        if quant.int8_ok(x, weight.static):
+            q, deq = int8_input(x, weight)
+            return conv_int8.conv_transpose2d_int8(
+                q, weight.w_q, deq, bias, stride, padding, output_padding,
+                x.dtype).permute(0, 3, 1, 2)
+        weight = weight.w
     if x.device.type == 'cuda' and x.dtype != torch.float32:
         x = _channels_last_1x1(x)
     out = _per_sample(F.conv_transpose2d, x, weight, None, stride, padding,
                       output_padding)
     return out if bias is None else out + bias[None, :, None, None]
+
+
+def _percentile(a, pct):
+    """Per-row ``pct`` percentile of a (C, n) float32: jnp.percentile's
+    default, linear interpolation between the order statistics at
+    position q (n - 1), q = pct / 100, with q, the position and the weights
+    in float32."""
+    f32 = np.float32
+    pos = f32(f32(pct) / f32(100.0)) * f32(a.shape[1] - 1)
+    lo, hi = int(np.floor(pos)), int(np.ceil(pos))
+    w_hi = f32(pos - f32(lo))
+    srt = a.sort(dim=1).values
+    return srt[:, lo] * float(f32(1.0) - w_hi) + srt[:, hi] * float(w_hi)
+
+
+def record(calib, name, x):
+    """``calib.record(name, x)`` where a calibration is running."""
+    if calib is not None:
+        calib.record(name, x)
+
+
+class ActCalibration:
+    """Per-conv input ranges for static int8 scales, the JAX package's
+    ``act_calibration``: nets call ``record(key, x)`` with each conv's input
+    x (N, C, H, W) as the conv sees it (after any pad the net applies
+    first, before a pad inside the conv); ``keys`` holds the convs the
+    min_ch gate admits (JAX param paths such as 'G/down0_conv'), others
+    are ignored. Ranges max-merge into ``out`` across calls:
+    per-input-channel max |x| (``per_channel``), or its ``pct`` percentile
+    over the call's samples and pixels when ``pct`` < 100; per tensor, the
+    max |x| (``pct`` ignored, as in the JAX package). ``at(prefix)`` is
+    the view a net records through, by its own conv names."""
+
+    def __init__(self, keys, out=None, per_channel=True, pct=100.0):
+        self.keys = set(keys)
+        self.out = {} if out is None else out
+        self.per_channel = per_channel
+        self.pct = float(pct)
+
+    def at(self, prefix):
+        return _CalibrationView(self, prefix)
+
+    def record(self, key, x):
+        if key not in self.keys:
+            return
+        a = x.detach().float().abs()
+        if not self.per_channel:
+            prev = self.out.get(key, 0.0)
+            self.out[key] = max(float(np.max(prev)), float(a.max()))
+            return
+        flat = a.transpose(0, 1).reshape(a.shape[1], -1)
+        m = (flat.amax(dim=1) if self.pct >= 100.0
+             else _percentile(flat, self.pct))
+        m = m.cpu().numpy().astype(np.float32)
+        prev = self.out.get(key)
+        self.out[key] = m if prev is None else np.maximum(
+            np.asarray(prev, np.float32), m)
+
+
+class _CalibrationView:
+    def __init__(self, calib, prefix):
+        self.calib, self.prefix = calib, prefix
+
+    def record(self, name, x):
+        self.calib.record(f'{self.prefix}/{name}', x)
 
 
 def pad2d(x, n, mode='zero'):

@@ -9,12 +9,21 @@ layers in ``model.N.conv_block.M`` (Dropout slot included), so reference
 
 Inference runs the residual trunk through
 ``ops.fused_resblock.resblock_chain`` in NHWC (float32 or bfloat16, the
-net's ``compute_dtype``), or ``resblock_chain_int8`` once
-``set_int8_trunk`` has quantized the trunk convs: the CUDA kernels for a
-CUDA tensor, their plain twins for a CPU tensor. The head and tail are
-stock PyTorch convs with the per-sample batch-stat norm of ``layers``.
-Parameters stay float32; conv weights are cast to the compute dtype, and
-the trunk weights laid out (and quantized), once per weight version.
+net's ``compute_dtype``): the CUDA kernels for a CUDA tensor, their plain
+twins for a CPU tensor. The head and tail are stock PyTorch convs with the
+per-sample batch-stat norm of ``layers``. Parameters stay float32; conv
+weights are cast to the compute dtype, and the trunk weights laid out (and
+quantized), once per weight version.
+
+int8 (``set_int8``, the JAX package's ``quantize_conv_tree_int8`` for one
+net): the quantized down convs and up conv-transposes take the int8 route
+of ``layers`` (the ``conv_s8`` kernel); the trunk runs
+``resblock_chain_int8`` where the JAX package's fused gate would
+(``int8_chain_mode``: every resblock conv static, or every one dynamic;
+C % 128 == 0 and H, W % 16 == 0 at the trunk), else the unfused int8
+trunk, one ``layers.conv2d`` per resblock conv. ``calibrate`` replays the
+net in float on the unfused trunk and records each quantizable conv's
+input (``layers.ActCalibration``).
 
 ``fuse_stages = True`` (bfloat16 only) runs the fused translator stages
 instead, the counterpart of the JAX package's ``_apply_fused``
@@ -149,11 +158,13 @@ class ResnetGenerator(nn.Module):
         self.model = nn.Sequential(*layers)
         self.compute_dtype = torch.float32
         self.fuse_stages = False
-        # int8 trunk (set_int8_trunk): None, 'static' or 'dynamic', and the
-        # calibrated max |x| per resblock conv in static mode
+        # int8 (set_int8): the quantized convs' scales by JAX name, and the
+        # trunk's mode: None (float), 'static', 'dynamic' or 'unfused'
+        self.int8 = {}
         self.int8_mode = None
-        self._int8_scales = {}
+        self._int8_convs = L.Int8Cache()
         self._casts = L.CastCache()
+        self._trunk_casts = L.CastCache()
         self._stage_casts = L.CastCache()
         self._trunk_key = None
         self._trunk = None
@@ -191,48 +202,67 @@ class ResnetGenerator(nn.Module):
 
     # -- precision ----------------------------------------------------------
 
-    def set_int8_trunk(self, act_scales=None):
-        """Quantize the resblock convs to int8 (scope 'resblocks'; every
-        other conv keeps the compute dtype). ``act_scales`` maps
-        'res{i}_conv{j}' to the calibrated max |x| of that conv's input
-        (scalar or (C,)): the trunk runs static when every resblock conv
-        has one, dynamic (per-chunk scales, no calibration) when none has,
-        and anything else raises, as the JAX package would leave it to its
-        unfused XLA int8 path, which is not ported."""
-        act_scales = act_scales or {}
-        names = [f'res{i}_conv{j}' for i in range(self.n_blocks)
-                 for j in (1, 2)]
-        have = [n for n in names if n in act_scales]
-        if len(have) == len(names):
-            self.int8_mode = 'static'
-        elif not have:
-            self.int8_mode = 'dynamic'
+    def conv_layout(self):
+        """(JAX name, weight, kind) of every conv and conv-transpose."""
+        return [(path[0], self.get_submodule(prefix).weight, kind)
+                for path, prefix, kind in self.jax_layout() if kind != 'norm']
+
+    def resblock_convs(self):
+        return [f'res{i}_conv{j}' for i in range(self.n_blocks)
+                for j in (1, 2)]
+
+    def set_int8(self, scales):
+        """Quantize the convs named in ``scales`` ({JAX name: calibrated
+        max |x| of its input, scalar or (C_in,), or None for per-sample
+        dynamic scales}); every other conv keeps the compute dtype. The
+        trunk's mode is the JAX package's ``int8_chain_mode``: 'static'
+        when every resblock conv has a scale, 'dynamic' when none has (the
+        fused int8 kernel), 'unfused' when some have (the unfused int8
+        trunk), None when no resblock conv is quantized."""
+        self.int8 = dict(scales)
+        res = self.resblock_convs()
+        quantized = [n for n in res if n in self.int8]
+        n_static = sum(self.int8[n] is not None for n in quantized)
+        if not quantized:
+            self.int8_mode = None
+        elif len(quantized) == len(res) and n_static in (0, len(res)):
+            self.int8_mode = 'static' if n_static else 'dynamic'
         else:
-            raise roadmap.not_ported(
-                f'int8 with activation scales for {len(have)} of the '
-                f'{len(names)} resblock convs (the unfused XLA int8 path)',
-                roadmap.INT8_ALL)
-        self._int8_scales = {n: act_scales[n] for n in have}
+            self.int8_mode = 'unfused'
+        self._int8_convs = L.Int8Cache()
         self._trunk_key = None
 
-    def _cast(self):
-        """Function param -> param in the compute dtype (cached casts of
-        the head/tail conv weights and the tail bias)."""
-        if self.compute_dtype == torch.float32:
-            return lambda p: p
+    def _cast(self, int8=True):
+        """Function param -> what its conv takes: the ``Int8Conv`` of a
+        quantized conv (``int8``), else the weight or bias in the compute
+        dtype (cached casts)."""
         m = self.model
         up = 10 + self.n_blocks
         params = [m[1].weight, m[4].weight, m[7].weight, m[up].weight,
                   m[up + 3].weight, m[up + 7].weight, m[up + 7].bias]
-        casts = self._casts.get({id(p): p for p in params},
-                                self.compute_dtype)
-        return lambda p: casts[id(p)]
+        casts = {}
+        if self.compute_dtype != torch.float32:
+            casts = self._casts.get({id(p): p for p in params},
+                                    self.compute_dtype)
+            if not int8:
+                # the float trunk, unfused: only the calibration replay
+                trunk = [c.weight for b in self.blocks
+                         for c in (b.conv1, b.conv2)]
+                casts = {**casts, **self._trunk_casts.get(
+                    {id(p): p for p in trunk}, self.compute_dtype)}
+        q = {}
+        if int8 and self.int8:
+            q = self._int8_convs.get(
+                [c for c in self.conv_layout() if c[0] in self.int8],
+                self.int8, self.compute_dtype)
+        return lambda p: q[id(p)] if id(p) in q else casts.get(id(p), p)
 
     # -- inference ----------------------------------------------------------
 
     def trunk_blocks(self):
         """The residual blocks in ``resblock_chain`` form (or
-        ``resblock_chain_int8`` form with an int8 trunk): HWIO weights laid
+        ``resblock_chain_int8`` form in int8 mode 'static' or 'dynamic'):
+        HWIO weights laid
         out, cast or quantized once (rebuilt only when a weight changes or
         moves, or the precision does) and the live float32 norm
         parameters."""
@@ -257,55 +287,92 @@ class ResnetGenerator(nn.Module):
             if self.int8_mode == 'static':
                 out[f'w{j}q'], out[f'w{j}s'], out[f'a{j}'] = \
                     quant.quantize_conv_int8_static(
-                        w, self._int8_scales[f'res{i}_conv{j}'])
+                        w, self.int8[f'res{i}_conv{j}'])
             elif self.int8_mode == 'dynamic':
                 out[f'w{j}q'], out[f'w{j}s'] = quant.quantize_conv_int8(w)
             else:
                 out[f'w{j}'] = w.to(self.compute_dtype)
         return out
 
-    def head(self, x):
-        """(B, C_in, H, W) -> trunk input (B, H/4, W/4, 4 ngf), NHWC."""
+    def head(self, x, cast=None, calib=None):
+        """(B, C_in, H, W) -> trunk input (B, H/4, W/4, 4 ngf), NHWC.
+        ``cast``: as ``_cast()`` returns (default: the net's own);
+        ``calib``: a calibration view (``layers.ActCalibration.at``)
+        recording the down convs' inputs."""
         m = self.model
-        cast = self._cast()
+        cast = cast or self._cast()
         x = L.pad2d(x, 3, self.padding_type)
         x = L.conv2d(x, cast(m[1].weight))
         x = L.relu(L.batch_stat_norm(x, m[2].weight, m[2].bias))
-        for idx in (4, 7):
+        for i, idx in enumerate((4, 7)):
+            L.record(calib, f'down{i}_conv', x)
             x = L.conv2d(x, cast(m[idx].weight), None, 2, 1)
             x = L.relu(L.batch_stat_norm(x, m[idx + 1].weight, m[idx + 1].bias))
         return x.permute(0, 2, 3, 1).contiguous()
 
-    def trunk(self, x):
-        """NHWC trunk through the fused resblock chain."""
-        if self.int8_mode is None:
+    def trunk(self, x, cast=None, calib=None):
+        """NHWC trunk: the fused resblock chain (float, or int8 where the
+        JAX package's fused gate admits it), else, and while calibrating,
+        the unfused trunk."""
+        _, h, w, c = x.shape
+        if calib is None and self.int8_mode is None:
             return FR.resblock_chain(x, self.trunk_blocks(),
                                      padding=self.padding_type)
-        _, h, w, c = x.shape
-        if c % 128 or h % 16 or w % 16:
+        if (calib is None and self.int8_mode in ('static', 'dynamic')
+                and c % 128 == 0 and h % 16 == 0 and w % 16 == 0):
             # the JAX package's fused-kernel gate (deepliif_tpu/nets/
-            # resnet.py _fused_ok); past it, it runs the XLA int8 path
-            raise roadmap.not_ported(
-                f'int8 trunk at {h}x{w}x{c} (the fused kernel needs C % 128 '
-                f'== 0 and H, W % 16 == 0; else the unfused XLA int8 path)',
-                roadmap.INT8_ALL)
-        return FR.resblock_chain_int8(x, self.trunk_blocks(),
-                                      padding=self.padding_type,
-                                      dynamic=self.int8_mode == 'dynamic')
+            # resnet.py _fused_ok and int8_chain_mode)
+            return FR.resblock_chain_int8(x, self.trunk_blocks(),
+                                          padding=self.padding_type,
+                                          dynamic=self.int8_mode == 'dynamic')
+        return self.trunk_unfused(x.permute(0, 3, 1, 2), cast or self._cast(),
+                                  calib).permute(0, 2, 3, 1)
 
-    def tail(self, x):
+    def trunk_unfused(self, x, cast, calib=None):
+        """(B, C, H, W) -> the trunk's output, one ``layers.conv2d`` per
+        resblock conv (the JAX package's unfused loop): a reflect block pads
+        first and records the padded input, a zero block pads inside the
+        conv; norm per sample, ReLU after the first conv, the residual add
+        in x.dtype."""
+        reflect = self.padding_type == 'reflect'
+        for i, b in enumerate(self.blocks):
+            h = x
+            for j, conv, norm in ((1, b.conv1, b.norm1),
+                                  (2, b.conv2, b.norm2)):
+                if reflect:
+                    h = L.pad2d(h, 1, 'reflect')
+                L.record(calib, f'res{i}_conv{j}', h)
+                h = L.conv2d(h, cast(conv.weight), None, 1,
+                             0 if reflect else 1)
+                h = L.batch_stat_norm(h, norm.weight, norm.bias)
+                if j == 1:
+                    h = L.relu(h)
+            x = x + h
+        return x
+
+    def tail(self, x, cast=None, calib=None):
         """NHWC trunk output -> (B, C_out, H, W) in [-1, 1]."""
         m = self.model
-        cast = self._cast()
+        cast = cast or self._cast()
         x = x.permute(0, 3, 1, 2)
         idx = 10 + self.n_blocks
-        for _ in range(2):
+        for i in range(2):
+            L.record(calib, f'up{i}_conv', x)
             x = L.conv_transpose2d(x, cast(m[idx].weight), None, 2, 1, 1)
             x = L.relu(L.batch_stat_norm(x, m[idx + 1].weight, m[idx + 1].bias))
             idx += 3
         x = L.pad2d(x, 3, self.padding_type)
         x = L.conv2d(x, cast(m[idx + 1].weight), cast(m[idx + 1].bias))
         return L.tanh(x)
+
+    def calibrate(self, x, calib):
+        """The float forward of ``x`` (the JAX package's calibration replay:
+        float weights in the compute dtype, the unfused trunk), recording
+        each conv's input through ``calib``; returns the output."""
+        cast = self._cast(int8=False)
+        x = x.to(self.compute_dtype)
+        return self.tail(self.trunk(self.head(x, cast, calib), cast, calib),
+                         cast, calib)
 
     # -- fused translator stages ------------------------------------------
 
@@ -335,9 +402,9 @@ class ResnetGenerator(nn.Module):
         W)."""
         m, up = self.model, 10 + self.n_blocks
         _, _, h0, w0 = x.shape
-        fused_stages_gate(self.compute_dtype, self.int8_mode is not None,
+        fused_stages_gate(self.compute_dtype, bool(self.int8),
                           m[7].weight.shape[0], (h0, w0))
-        cast, w = self._cast(), self.stage_weights()
+        cast, w = self._cast(int8=False), self.stage_weights()
 
         def norm(st, bn, div):
             return FR.finalize_norm(st, bn.weight, bn.bias, h0 // div,

@@ -11,6 +11,12 @@ Dropout sits only on the intermediate ngf*8 blocks (depths 4..num_downs-2)
 and is inert at inference. The net runs in its ``compute_dtype`` (float32
 or bfloat16): parameters stay float32, conv weights and biases are cast
 once per weight version, norm statistics are taken in float32.
+
+int8 (``set_int8``): the quantized ``downconv`` and ``upconv`` of each block
+take the int8 route of ``layers`` (the ``conv_s8`` kernel); the min_ch gate
+leaves the outermost block's (3 channels in, 3 out) float. ``calibrate``
+replays the float net and records each conv's input (the unpadded input:
+these convs pad inside).
 """
 
 from __future__ import annotations
@@ -71,25 +77,33 @@ class UnetSkipConnectionBlock(nn.Module):
                     for p, prefix, kind in m[sub].jax_layout(path + ('sub',))]
         return out
 
-    def run(self, x, cast):
-        """Block forward; ``cast`` maps a conv parameter to the tensor to
-        use (its compute-dtype copy)."""
+    def run(self, x, cast, path='', calib=None):
+        """Block forward; ``cast`` maps a conv parameter to what its conv
+        takes (its compute-dtype copy or its ``Int8Conv``); ``path`` is the
+        block's JAX param path prefix ('', 'sub/', ...) and ``calib`` a
+        calibration view recording the convs' inputs under it."""
         m = self.model
+        sub = path + 'sub/'
         if self.outermost:
+            L.record(calib, path + 'downconv', x)
             h = L.conv2d(x, cast(m[0].weight), None, 2, 1)
-            h = L.relu(m[1].run(h, cast))
+            h = L.relu(m[1].run(h, cast, sub, calib))
+            L.record(calib, path + 'upconv', h)
             h = L.conv_transpose2d(h, cast(m[3].weight), cast(m[3].bias), 2,
                                    1, 0)
             return L.tanh(h)
         h = L.leaky_relu(x, 0.2)
+        L.record(calib, path + 'downconv', h)
         h = L.conv2d(h, cast(m[1].weight), None, 2, 1)
         if self.innermost:
             h = L.relu(h)
+            L.record(calib, path + 'upconv', h)
             h = L.conv_transpose2d(h, cast(m[3].weight), None, 2, 1, 0)
             h = L.batch_stat_norm(h, m[4].weight, m[4].bias)
         else:
             h = L.batch_stat_norm(h, m[2].weight, m[2].bias)
-            h = L.relu(m[3].run(h, cast))
+            h = L.relu(m[3].run(h, cast, sub, calib))
+            L.record(calib, path + 'upconv', h)
             h = L.conv_transpose2d(h, cast(m[5].weight), None, 2, 1, 0)
             h = L.batch_stat_norm(h, m[6].weight, m[6].bias)
         return torch.cat([x, h], dim=1)
@@ -111,23 +125,46 @@ class UnetGenerator(nn.Module):
         self.model = UnetSkipConnectionBlock(output_nc, ngf, input_nc,
                                              submodule=blk, outermost=True)
         self.compute_dtype = torch.float32
+        # int8 (set_int8): the quantized convs' scales by JAX path
+        self.int8 = {}
+        self._int8_convs = L.Int8Cache()
         self._casts = L.CastCache()
 
     def jax_layout(self):
         return [(p, f'model.{prefix}', kind)
                 for p, prefix, kind in self.model.jax_layout()]
 
-    def _cast(self):
-        """Function param -> param in the compute dtype (cached casts of
-        every conv and conv-transpose weight and bias)."""
-        if self.compute_dtype == torch.float32:
-            return lambda p: p
-        params = [p for mod in self.modules()
-                  if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d))
-                  for p in (mod.weight, mod.bias) if p is not None]
-        casts = self._casts.get({id(p): p for p in params},
-                                self.compute_dtype)
-        return lambda p: casts[id(p)]
+    def conv_layout(self):
+        """(JAX path joined by '/', weight, kind) of every conv and
+        conv-transpose."""
+        return [('/'.join(path), self.get_submodule(prefix).weight, kind)
+                for path, prefix, kind in self.jax_layout() if kind != 'norm']
+
+    def set_int8(self, scales):
+        """Quantize the convs named in ``scales`` ({JAX path: calibrated max
+        |x| of its input, scalar or (C_in,), or None for per-sample dynamic
+        scales}); every other conv keeps the compute dtype."""
+        self.int8 = dict(scales)
+        self._int8_convs = L.Int8Cache()
+
+    def _cast(self, int8=True):
+        """Function param -> what its conv takes: the ``Int8Conv`` of a
+        quantized conv (``int8``), else the weight or bias in the compute
+        dtype (cached casts of every conv and conv-transpose weight and
+        bias)."""
+        casts = {}
+        if self.compute_dtype != torch.float32:
+            params = [p for mod in self.modules()
+                      if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d))
+                      for p in (mod.weight, mod.bias) if p is not None]
+            casts = self._casts.get({id(p): p for p in params},
+                                    self.compute_dtype)
+        q = {}
+        if int8 and self.int8:
+            q = self._int8_convs.get(
+                [c for c in self.conv_layout() if c[0] in self.int8],
+                self.int8, self.compute_dtype)
+        return lambda p: q[id(p)] if id(p) in q else casts.get(id(p), p)
 
     def forward(self, x):
         """(B, C_in, H, W) in any float dtype -> output in the compute
@@ -135,3 +172,10 @@ class UnetGenerator(nn.Module):
         if self.training:
             raise roadmap.not_ported('training', roadmap.TRAINING)
         return self.model.run(x.to(self.compute_dtype), self._cast())
+
+    def calibrate(self, x, calib):
+        """The float forward of ``x`` (float weights in the compute dtype),
+        recording each conv's input through ``calib``; returns the
+        output."""
+        return self.model.run(x.to(self.compute_dtype), self._cast(int8=False),
+                              '', calib)

@@ -1,12 +1,15 @@
-"""int8 weight quantization and the activation-scale file, for the int8
-trunk (``--precision int8 --int8-scope resblocks``).
+"""int8 quantization: weights, activations, the scope and the
+activation-scale file (``--precision int8``, scopes 'all' and
+'resblocks').
 
-Port of the parts of deepliif_tpu/nets/layers.py (``quantize_conv_int8``,
-``int8_scope_predicate``, the per-input-channel folding of
-``quantize_conv_tree_int8``) and deepliif_tpu/models/__init__.py
-(``_load_act_scales``) that scope ``resblocks`` needs. Weights are HWIO
-(3, 3, C_in, C_out) float32, the JAX layout, so the quantized tensors equal
-the JAX package's bit for bit on the same weights.
+Port of deepliif_tpu/nets/layers.py ``quantize_conv_int8``,
+``int8_scope_predicate``, the min_ch gate and the per-input-channel folding
+of ``quantize_conv_tree_int8``, ``_quant_act`` / ``_quant_act_int8`` and
+the ``_int8_ok`` gate, and of deepliif_tpu/models/__init__.py
+``_load_act_scales``. Weights are HWIO (KH, KW, C_in, C_out) float32, the
+JAX layout (conv-transposes spatially flipped,
+``utils.checkpoints.weight_to_hwio``), so the quantized tensors equal the
+JAX package's bit for bit on the same weights.
 
 The JAX package reads its scope from ``DEEPLIIF_INT8_SCOPE``; here it is an
 explicit argument and no environment variable is read.
@@ -14,6 +17,7 @@ explicit argument and no environment variable is read.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -21,6 +25,13 @@ import re
 import torch
 
 SCOPES = ('all', 'resblocks')
+# convs with fewer input or output channels stay float (the heads fed by
+# 3-channel images, the 3-channel tails): quantize_conv_tree_int8's min_ch
+MIN_CH = 16
+# the dynamic route's largest conv input, H * W: past it the conv runs
+# float (layers._INT8_MAX_SPATIAL; static scales have no limit). It
+# decides which convs run int8, so it is part of the function computed
+INT8_MAX_SPATIAL = 256 * 256
 
 
 def _div127(t):
@@ -90,3 +101,75 @@ def load_act_scales(model_dir):
         doc = json.load(f)
     return {k: (v if isinstance(v, list) else float(v))
             for k, v in doc.get('scales', doc).items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class Int8Conv:
+    """One quantized conv, what ``nets.layers.conv2d`` /
+    ``conv_transpose2d`` take in place of a weight: ``w`` the weight in the
+    compute dtype and torch layout (the float route past the dynamic
+    spatial gate), ``w_q`` (KH, KW, C_in, C_out) int8 HWIO, ``w_s``
+    (C_out,) float32; static scales: ``a_s`` (scalar or (C_in,) float32)
+    and ``inv_a``, 1 / a_s in the compute dtype shaped to broadcast over
+    NCHW; dynamic: both None."""
+    w: torch.Tensor
+    w_q: torch.Tensor
+    w_s: torch.Tensor
+    a_s: torch.Tensor | None = None
+    inv_a: torch.Tensor | None = None
+
+    @property
+    def static(self):
+        return self.a_s is not None
+
+
+def quantize_conv(w, w_hwio, scale, dtype):
+    """Int8Conv of one conv: ``w`` its torch weight, ``w_hwio`` the same in
+    the JAX layout (float32), ``scale`` the calibrated max |x| of its input
+    (static) or None (dynamic), ``dtype`` the compute dtype."""
+    if scale is None:
+        w_q, w_s = quantize_conv_int8(w_hwio)
+        return Int8Conv(w.to(dtype), w_q, w_s)
+    w_q, w_s, a_s = quantize_conv_int8_static(w_hwio, scale)
+    # 1 / a_s in float32, rounded to the compute dtype (layers.py _quant_act)
+    inv = (1.0 / a_s).to(dtype)
+    return Int8Conv(w.to(dtype), w_q, w_s, a_s,
+                    inv.reshape(1, -1, 1, 1) if inv.dim() else inv)
+
+
+def int8_ok(x, static):
+    """The JAX package's ``_int8_ok`` on an NCHW conv input: static scales
+    always, dynamic ones up to INT8_MAX_SPATIAL pixels."""
+    return static or x.shape[2] * x.shape[3] <= INT8_MAX_SPATIAL
+
+
+def quant_act_static(x, inv_a):
+    """Static activation quantization (layers.py ``_quant_act``): x (N, C,
+    H, W) times ``inv_a`` (Int8Conv.inv_a, in x.dtype), the product rounded
+    to x.dtype, then round half to even and clip to +-127; int8 in x's
+    memory format."""
+    return torch.clamp(torch.round(x * inv_a), -127, 127).to(torch.int8)
+
+
+def quant_act_dynamic(x):
+    """Dynamic per-sample activation quantization (layers.py
+    ``_quant_act_int8``): s = max(max |x| over (C, H, W) in float32 / 127,
+    1e-12); q = clip(round(x / bf16(s)), +-127) with the division in
+    x.dtype. Returns (q int8 in x's memory format, s (N,) float32)."""
+    s = torch.clamp(_div127(x.float().abs().amax(dim=(1, 2, 3))), min=1e-12)
+    q = torch.clamp(torch.round(x / s.to(x.dtype)[:, None, None, None]),
+                    -127, 127).to(torch.int8)
+    return q, s
+
+
+def save_act_scales(model_dir, scales, pct, n_tiles):
+    """Write ``act_scales.json`` ({'scales', 'pct', 'n_tiles'}, the JAX
+    package's format). Returns False, writing nothing, when the model dir
+    cannot be written: the scales then serve this session alone."""
+    try:
+        with open(os.path.join(model_dir, 'act_scales.json'), 'w') as f:
+            json.dump({'scales': scales, 'pct': pct, 'n_tiles': int(n_tiles)},
+                      f, indent=1)
+    except OSError:
+        return False
+    return True

@@ -172,8 +172,7 @@ def test_not_ported_messages_name_roadmap_headings(tmp_path):
         json.dump(TINY_CFG, f)
     for call in (
             lambda: M.InferenceSession(md, device='cpu'),
-            lambda: M.InferenceSession(str(deepliif_md), device='cpu',
-                                       precision='int8', int8_scope='all'),
+            lambda: cli.int8_options({'DEEPLIIF_INT8_DYN': '0'}, 'int8'),
             lambda: M.postprocess(None, {}, 512, 'SDG'),
             lambda: cli.run_test(str(tmp_path), None, 64, md, seg_only=True,
                                  device='cpu'),

@@ -345,11 +345,16 @@ def test_session_int8_weights_bit_equal_to_jax(model_dir, tmp_path, monkeypatch,
 
 
 def test_int8_scope_all_and_partial_scales_raise(model_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match='int8-scope all'):
-        M.InferenceSession(model_dir, device='cpu', precision='int8')
-    with pytest.raises(NotImplementedError, match='int8 scope all'):
-        M.InferenceSession(model_dir, device='cpu', precision='int8',
-                           int8_scope='all')
+    """Scope 'all' is the default and runs (it raised before the port had
+    it); an unknown scope raises; an act_scales.json for 3 of the 4
+    resblock convs runs the unfused int8 trunk (it raised before the port
+    had that trunk)."""
+    for scope in (None, 'all'):
+        sess = M.InferenceSession(model_dir, device='cpu', precision='int8',
+                                  int8_scope=scope)
+        assert sess.int8_scope == 'all'
+        assert 'down0_conv' in sess.nets.G[0].int8
+        assert sess.nets.G[0].int8_mode == 'dynamic'
     with pytest.raises(ValueError):
         M.InferenceSession(model_dir, device='cpu', precision='int8',
                            int8_scope='trunk')
@@ -362,20 +367,29 @@ def test_int8_scope_all_and_partial_scales_raise(model_dir, tmp_path):
     scales.pop('G/res1_conv2')
     with open(os.path.join(md, 'act_scales.json'), 'w') as f:
         json.dump(scales, f)
-    with pytest.raises(NotImplementedError, match='3 of the 4'):
-        M.InferenceSession(md, device='cpu', precision='int8',
-                           int8_scope='resblocks')
+    sess = M.InferenceSession(md, device='cpu', precision='int8',
+                              int8_scope='resblocks')
+    assert sess.nets.G[0].int8_mode == 'unfused'
+    assert set(sess.nets.G[0].int8) == {f'res{i}_conv{j}' for i in range(2)
+                                        for j in (1, 2)}
+    tiles = np.random.default_rng(0).integers(0, 255, (1, 64, 64, 3),
+                                              np.uint8)
+    assert sess.run_tiles(tiles)['G1'].shape == (1, 64, 64, 3)
 
 
 def test_int8_fused_gate_raises(model_dir):
-    """48^2 tiles put a 12 x 12 trunk under the JAX kernel's H % 16 gate;
-    the JAX package would run its XLA int8 path there, which is not
-    ported."""
+    """96^2 tiles put a 24 x 24 trunk under the fused kernel's H % 16
+    gate; the port runs the unfused int8 trunk there, as the JAX package
+    runs its XLA int8 path (it raised before the port had that trunk).
+    Calibration is off, so the shared model dir stays without
+    act_scales.json."""
     sess = M.InferenceSession(model_dir, device='cpu', precision='int8',
-                              int8_scope='resblocks')
-    tiles = np.random.default_rng(0).integers(0, 255, (1, 48, 48, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match='fused kernel'):
-        sess.run_tiles(tiles)
+                              int8_scope='resblocks', int8_calibrate=False)
+    tiles = np.random.default_rng(0).integers(0, 255, (1, 96, 96, 3), np.uint8)
+    out = sess.run_tiles(tiles)
+    assert sess.nets.G[0].int8_mode == 'dynamic'
+    assert out['G1'].shape == (1, 96, 96, 3)
+    assert not os.path.exists(os.path.join(model_dir, 'act_scales.json'))
 
 
 def test_session_precision_from_config_and_defaults(model_dir, tmp_path):

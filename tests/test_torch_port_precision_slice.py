@@ -180,9 +180,14 @@ def test_cli_precision_options(model_dirs, tmp_path):
     common = dict(input_dir=str(inp), tile_size=128,
                   model_dir=model_dirs[False], device='cpu',
                   echo=lambda *a: None)
-    with pytest.raises(NotImplementedError, match='int8 scope all'):
-        cli.run_test(output_dir=str(tmp_path / 'a'), precision='int8',
-                     **common)
+    # int8 with no scope: scope 'all', calibrated on the first tiles into
+    # act_scales.json (in a copy: the shared dir stays without it)
+    md_all = str(tmp_path / 'all_md')
+    shutil.copytree(model_dirs[False], md_all)
+    cli.run_test(output_dir=str(tmp_path / 'a'), precision='int8',
+                 **dict(common, model_dir=md_all))
+    assert len(os.listdir(tmp_path / 'a')) == 6
+    assert os.path.exists(os.path.join(md_all, 'act_scales.json'))
     for precision in ('bfloat16', 'int8'):
         out = tmp_path / precision
         cli.run_test(output_dir=str(out), precision=precision,
