@@ -10,8 +10,9 @@ kernel ``tail_s2d_fused``) and int8 scope 'all' (the JAX package's default
 quantized; the trunk on the int8 trunk kernel, the 96 others on
 ``conv_s8``), calibrated on the first tiles (static) and with calibration
 off (dynamic, 92 ``conv_s8`` calls: the 512^2 down convs run float). The
-``conv_s8`` kernel is held bit-equal to its plain version at every call
-of that forward, static and dynamic, run to run and per sample, and a
+``conv_s8`` kernel (the bf16 input quantized in its load) is held
+bit-equal to its plain version at every call of that forward, static and
+dynamic, run to run and per sample, and a
 translator of the int8 'all' session byte-equal with the kernel swapped
 for its plain version. The float32 trunk kernel (split TF32 on the
 tensor cores) is held to the float32 tolerance beside two controls on the
@@ -1267,6 +1268,8 @@ def launch_counts(K):
             'plane_relayouts': L.plane_mean_var.relayouts,
             'label_components': LB.label_components.launches,
             'conv_s8': C.conv_s8.launches,
+            # the dynamic scales' max pass of conv_s8
+            's8_absmax': C.sample_absmax.launches,
             # int8 conv inputs not channels_last, copied to NHWC first
             'int8_relayouts': L.int8_input.relayouts}
 
@@ -1283,14 +1286,17 @@ def reset_counts(K):
     L.plane_mean_var.launches = L.plane_mean_var.relayouts = 0
     LB.label_components.launches = 0
     C.conv_s8.launches = L.int8_input.relayouts = 0
+    C.sample_absmax.launches = 0
 
 
-def expected_counts(precision, fused, n_forwards, quant_calls=0, s8=0):
+def expected_counts(precision, fused, n_forwards, quant_calls=0, s8=0,
+                    s8_dynamic=False):
     """Launches of each kernel per main-path run: the trunk kernel of the
     precision, the stage and tail kernels on the fused path only, the
     statistics kernel once per norm (no norm input copied first), the
     labeling kernel twice per device-quantifier call, ``s8`` conv_s8
-    launches per forward (int8 scope 'all' only; no int8 input copied)."""
+    launches per forward (int8 scope 'all' only; no int8 input copied),
+    each with its max pass where the scales are dynamic."""
     want = {kind: 0 for kind in ('float32', 'bfloat16', 'int8')}
     want[precision] = LAUNCHES_PER_FORWARD
     for name in ('conv3x3_s2_stats', 'convtranspose3_s2_stats'):
@@ -1299,6 +1305,7 @@ def expected_counts(precision, fused, n_forwards, quant_calls=0, s8=0):
     want['plane_stats'] = PLANE_PER_FORWARD[fused]
     want['plane_relayouts'] = 0
     want['conv_s8'] = s8
+    want['s8_absmax'] = s8 if s8_dynamic else 0
     want['int8_relayouts'] = 0
     want = {k: v * n_forwards for k, v in want.items()}
     want['label_components'] = LABEL_PER_QUANT * quant_calls
@@ -2028,105 +2035,126 @@ def s8_macs(kind, shape, cout, k, op):
     return (n, ho, wo, cout), n * ty * tx * cin * cout
 
 
-def s8_bound(kind, shape, cout, k, op):
+def s8_bound(kind, shape, cout, k, op, dynamic=False):
     """Least time (ms) of one conv_s8 call and what bounds it: 2 ops per
-    needed multiply-add at the int8 tensor-core peak, or x, w and the bf16
-    y moved once over HBM."""
+    needed multiply-add at the int8 tensor-core peak, or the bytes moved
+    once over HBM: x read as bf16 (dynamic scales: twice, the max pass and
+    the conv), the int8 weights and their f32 scales, the bf16 y."""
     out, macs = s8_macs(kind, shape, cout, k, op)
-    nbytes = int(np.prod(shape)) + k * k * shape[3] * cout \
-        + 2 * int(np.prod(out)) + 4 * shape[0] * cout
+    nx = int(np.prod(shape))
+    nbytes = 2 * nx * (2 if dynamic else 1) + k * k * shape[3] * cout \
+        + 4 * cout + 2 * int(np.prod(out))
     t_ops, t_bytes = 2.0 * macs / PEAK_OPS['int8'], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ('operations' if t_ops >= t_bytes
                                        else 'bytes'), macs
 
 
 def s8_call(C, kind, op, reference=False):
-    """(x_q, w_q, deq) -> the call's output through the wrapper (the kernel
-    on the card) or its plain version."""
+    """(x, qc) -> the call's output through the fused entry (the kernel on
+    the card) or its plain version."""
     if kind == 'conv':
-        fn = C.conv2d_int8_reference if reference else C.conv2d_int8
-        return lambda x, w, d: fn(x, w, d, None, 2, 1)
-    fn = (C.conv_transpose2d_int8_reference if reference
-          else C.conv_transpose2d_int8)
-    return lambda x, w, d: fn(x, w, d, None, 2, 1, op)
+        fn = C.conv2d_s8_reference if reference else C.conv2d_s8
+        return lambda x, qc: fn(x, qc, None, 2, 1)
+    fn = (C.conv_transpose2d_s8_reference if reference
+          else C.conv_transpose2d_s8)
+    return lambda x, qc: fn(x, qc, None, 2, 1, op)
+
+
+def s8_conv_params(rnd, x, kind, k, cout):
+    """The static and dynamic Int8Conv of an N(0, 0.02) conv whose input is
+    x: static scales calibrated as the session does (max |x| per input
+    channel), the weights packed once."""
+    from deepliif_tpu_torch.ops import quant
+    w = rnd(k, k, x.shape[3], cout, std=0.02)
+    scale = x.float().abs().amax(dim=(0, 1, 2)).cpu().tolist()
+    return {mode: quant.quantize_conv(w, w, scale if mode == 'static'
+                                      else None, torch.bfloat16)
+            for mode in ('static', 'dynamic')}
 
 
 def kernel_checks_conv_s8(C, rnd):
-    """conv_s8 at every call of the int8 'all' flagship forward (S8_CALLS),
-    with static (deq per output channel) and dynamic (per sample and
-    channel) scales: bit-equal to its plain version, byte-equal run to run
-    and for a sample alone against the same sample in the batch; each
-    call's kernel time and bound; the largest call (S8_TIMED) timed in
-    turns against its plain version, against torch._int_mm on the
-    im2col'd operands (the same int32 sums; F.unfold not counted) and
-    against cuDNN's bf16 conv of the same shape (another function: a bf16
-    conv, no quantization)."""
+    """conv_s8 (the bf16 input quantized in the load) at every call of the
+    int8 'all' flagship forward (S8_CALLS), with static (per input channel)
+    and dynamic (per sample, after the max pass) scales: bit-equal to its
+    plain version (torch's quantize, a float64 conv, the epilogue),
+    byte-equal run to run and for a sample alone against the same sample
+    in the batch; each call's kernel time, static and dynamic, against its
+    bound; the max pass timed at each call; the largest call (S8_TIMED)
+    timed in turns against its plain version, against torch._int_mm on the
+    im2col'd quantized operands (the same int32 sums; F.unfold and the
+    quantize not counted) and against cuDNN's bf16 conv of the same shape
+    (another function: a bf16 conv, no quantization)."""
     import torch.nn.functional as F
 
     out, per_call, worst = {}, {}, 0.0
     for name, kind, shape, cout, k, op in S8_CALLS:
-        n, cin = shape[0], shape[3]
-        x = torch.randint(-127, 128, shape, dtype=torch.int8, device='cuda',
-                          generator=rnd.gen_cuda)
-        w = torch.randint(-127, 128, (k, k, cin, cout), dtype=torch.int8,
-                          device='cuda', generator=rnd.gen_cuda)
+        x = rnd.big(*shape)
+        qcs = s8_conv_params(rnd, x, kind, k, cout)
         run, plain = s8_call(C, kind, op), s8_call(C, kind, op, True)
-        res = {}
-        for mode in ('static', 'dynamic'):
-            deq = (torch.rand((cout,) if mode == 'static' else (n, cout),
-                              device='cuda', generator=rnd.gen_cuda) * 1e-3)
-            y = run(x, w, deq)
-            want = plain(x, w, deq)
-            alone = run(x[3:4].contiguous(), w,
-                        deq if mode == 'static' else deq[3:4].contiguous())
+        res, rec = {}, {}
+        for mode, qc in qcs.items():
+            y = run(x, qc)
+            want = plain(x, qc)
+            alone = run(x[3:4].contiguous(), qc)
             res[mode] = dict(bit_equal=torch.equal(y, want),
-                             run_to_run=torch.equal(y, run(x, w, deq)),
+                             run_to_run=torch.equal(y, run(x, qc)),
                              alone_vs_batch=torch.equal(alone[0], y[3]))
             worst = max(worst, (y.float() - want.float()).abs().max().item())
             del y, want, alone
-        deq = torch.rand(cout, device='cuda', generator=rnd.gen_cuda) * 1e-3
-        ms = cuda_ms(lambda: run(x, w, deq), 3)
-        b_ms, b_by, macs = s8_bound(kind, shape, cout, k, op)
-        per_call[name] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by,
-                              tops=2.0 * macs / ms / 1e9)
+            ms = cuda_ms(lambda qc=qc: run(x, qc), 3)
+            b_ms, b_by, macs = s8_bound(kind, shape, cout, k, op,
+                                        mode == 'dynamic')
+            rec[mode] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by,
+                             bound_share=b_ms / ms,
+                             tops=2.0 * macs / ms / 1e9)
+        rec['absmax_ms'] = cuda_ms(lambda: C.sample_absmax(x), 3)
+        per_call[name] = rec
         phase('kernel_vs_plain', kernel='conv_s8', call=name, kind=kind,
               x=list(shape), cout=cout, k=k, output_padding=op, **res,
-              ms=ms, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms)
+              **{f'{m}_{k_}': v for m in ('static', 'dynamic')
+                 for k_, v in rec[m].items()}, absmax_ms=rec['absmax_ms'])
         check(all(all(v.values()) for v in res.values()),
               f'conv_s8 {name}: kernel vs plain / run to run / alone vs '
               f'batch: {res}')
         if name == S8_TIMED:
-            out['timed'] = timed_conv_s8(C, F, x, w, deq, kind, shape, cout,
-                                         k, op)
-        del x, w
+            out['timed'] = timed_conv_s8(C, F, x, qcs['static'], kind, shape,
+                                         cout, k, op)
+        del x, qcs
         torch.cuda.empty_cache()
     n_calls = {name: S8_NETS[name.split()[0]] for name, *_ in S8_CALLS}
+    dyn = [nm for nm in per_call if nm != 'translator down0']
+
+    def total(names, mode, key):
+        return sum(per_call[nm][mode][key] * n_calls[nm] for nm in names)
     out.update(
         per_call=per_call, err=worst,
-        forward_ms={mode: sum(per_call[nm]['ms'] * n_calls[nm]
-                              for nm in per_call
-                              if mode == 'static' or nm != 'translator down0')
-                    for mode in ('static', 'dynamic')},
-        forward_bound_ms=sum(per_call[nm]['bound_ms'] * n_calls[nm]
-                             for nm in per_call))
+        forward_ms={'static': total(per_call, 'static', 'ms'),
+                    'dynamic': total(dyn, 'dynamic', 'ms')},
+        forward_bound_ms={'static': total(per_call, 'static', 'bound_ms'),
+                          'dynamic': total(dyn, 'dynamic', 'bound_ms')},
+        absmax_forward_ms=sum(per_call[nm]['absmax_ms'] * n_calls[nm]
+                              for nm in dyn))
     phase('kernel_timing', kernel='conv_s8', what='the calls of one batch-16 '
-          'forward, summed (kernel time only)', **{
+          'forward, summed (kernel time, the quantize and, dynamic, the max '
+          'pass included)', **{
               f'forward_{k}': v for k, v in out['forward_ms'].items()},
-          forward_bound_ms=out['forward_bound_ms'])
+          **{f'forward_bound_{k}': v
+             for k, v in out['forward_bound_ms'].items()},
+          absmax_forward_ms=out['absmax_forward_ms'])
     return out
 
 
-def timed_conv_s8(C, F, x, w, deq, kind, shape, cout, k, op):
-    n, h, wd, cin = shape
+def timed_conv_s8(C, F, x, qc, kind, shape, cout, k, op):
     run, plain = s8_call(C, kind, op), s8_call(C, kind, op, True)
-    xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)   # channels_last memory
-    wb = w.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous()
-    cols = F.unfold(x.permute(0, 3, 1, 2).to(torch.float16), k, padding=1,
+    xb = x.permute(0, 3, 1, 2)                       # channels_last memory
+    wb = qc.w.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous()
+    xq, _ = C.quantize_reference(x, qc)
+    cols = F.unfold(xq.permute(0, 3, 1, 2).to(torch.float16), k, padding=1,
                     stride=2)                        # (N, Cin k k, L)
     a = cols.transpose(1, 2).reshape(-1, cols.shape[1]).to(
         torch.int8).contiguous()
-    b = w.permute(2, 0, 1, 3).reshape(-1, cout).contiguous()   # (Cin k k, C)
-    fns = {'plain': lambda: plain(x, w, deq), 'kernel': lambda: run(x, w, deq),
+    b = qc.w_q.permute(2, 0, 1, 3).reshape(-1, cout).contiguous()
+    fns = {'plain': lambda: plain(x, qc), 'kernel': lambda: run(x, qc),
            'cudnn_bf16': lambda: F.conv2d(xb, wb, None, 2, 1)}
     library_error = None
     for bb in (b, b.t().contiguous().t()):      # row-, then column-major B
@@ -2141,27 +2169,28 @@ def timed_conv_s8(C, F, x, w, deq, kind, shape, cout, k, op):
     runs, ms = in_turns(fns, {'plain': 1, 'kernel': 5, 'library': 5,
                               'cudnn_bf16': 5})
     ms.setdefault('library', None)
-    unfold_ms = cuda_ms(lambda: F.unfold(x.permute(0, 3, 1, 2).to(
-        torch.float16), k, padding=1, stride=2), 2)
     b_ms, b_by, macs = s8_bound(kind, shape, cout, k, op)
     phase('kernel_timing', kernel='conv_s8', call=S8_TIMED, x=list(shape),
           cout=cout, runs_ms=runs, **{f'{k_}_ms': v for k_, v in ms.items()},
-          unfold_ms=unfold_ms, library_error=library_error,
+          library_error=library_error,
           tops=2.0 * macs / ms['kernel'] / 1e9,
           bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms['kernel'],
-          library_call='torch._int_mm on the im2col\'d int8 operands (the '
-                       'int32 sums alone: no epilogue; F.unfold not counted)',
+          library_call='torch._int_mm on the im2col\'d quantized operands '
+                       '(the int32 sums alone: no quantize, no epilogue; '
+                       'F.unfold not counted)',
           cudnn_bf16_call='F.conv2d of the same shape in bf16, channels_last '
                           '(a different function: no quantization)')
-    del cols, a, b, xb
-    return dict(ms, unfold_ms=unfold_ms, bound_ms=b_ms, bound_by=b_by)
+    del cols, a, b, xb, xq
+    return dict(ms, bound_ms=b_ms, bound_by=b_by)
 
 
 def int8_all_breakdown(session, batch):
     """One batch-16 forward of the int8 'all' session traced with
     torch.profiler after a warm-up: device time by kernel (top 12), the
-    conv_s8 and trunk-kernel totals, and the device's busy time against
-    the host's wall time."""
+    conv_s8 (its quantize included) and trunk-kernel totals, the count and
+    device time of torch's own kernels (``at::native``: elementwise passes,
+    copies, reductions; the elementwise ones apart), and the device's busy
+    time against the host's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     tiles = torch.from_numpy(batch)
@@ -2184,29 +2213,42 @@ def int8_all_breakdown(session, batch):
     for a, b in spans:
         busy_us += max(0.0, b - max(a, end))
         end = max(end, b)
-    by_kernel = {}
+    by_kernel, n_by_kernel = {}, {}
     for e in dev:
         by_kernel[e.name[:90]] = by_kernel.get(e.name[:90], 0.0) + ms(e)
+        n_by_kernel[e.name[:90]] = n_by_kernel.get(e.name[:90], 0) + 1
     total = sum(by_kernel.values())
 
     def share(pred):
         return sum(v for k, v in by_kernel.items() if pred(k))
+
+    def count(pred):
+        return sum(v for k, v in n_by_kernel.items() if pred(k))
     trunk = ('conv_wgmma_kernel', 'quantize_blocks', 'chunk_max',
              'row_absmax', 'pack_weights', 'stats_reduce')
+    native = lambda k: 'at::native' in k                       # noqa: E731
+    elementwise = lambda k: native(k) and 'elementwise' in k   # noqa: E731
+    s8 = lambda k: 'conv_s8' in k                              # noqa: E731
     groups = {
-        'conv_s8': share(lambda k: 'conv_s8' in k),
+        'conv_s8 (quantize, conv, max pass, split epilogue)': share(s8),
         'trunk kernel #2 (all its passes)': share(
             lambda k: any(t in k for t in trunk)),
         'plane_stats': share(lambda k: 'plane_' in k),
         'cuDNN convs': share(lambda k: any(
             t in k for t in ('xmma', 'cudnn', 'cutlass', 'implicit_gemm'))),
-        'torch elementwise and copies (quantize, norm affine, ReLU, '
-        'residual adds, casts)': share(lambda k: 'at::native' in k)}
+        'torch elementwise and copies (norm affine, ReLU, residual adds, '
+        'concatenations, casts)': share(native)}
     groups['other'] = total - sum(groups.values())
     res = dict(batch=len(batch), host_wall_ms=wall_ms,
                device_busy_ms=busy_us / 1e3,
                device_idle_share=1.0 - busy_us / 1e3 / wall_ms,
                device_ms_summed=total, groups_ms=groups,
+               conv_s8_launches=count(s8),
+               torch_native_launches=count(native),
+               torch_native_ms=share(native),
+               torch_elementwise_launches=count(elementwise),
+               torch_elementwise_ms=share(elementwise),
+               device_launches=len(dev),
                top_kernels_ms=dict(sorted(by_kernel.items(),
                                           key=lambda kv: -kv[1])[:12]))
     phase('int8_all_breakdown', **res)
@@ -2270,7 +2312,7 @@ def int8_all_checks(M, K, md, img, f32_images, mode):
     check(all(g.int8_mode == mode for g in session.nets.G),
           f'{path}: trunk modes {[g.int8_mode for g in session.nets.G]}')
     want = expected_counts('int8', False, n_forwards,
-                           s8=S8_PER_FORWARD[mode])
+                           s8=S8_PER_FORWARD[mode], s8_dynamic=not static)
     if static:
         batches = -(-calib.get('tiles', 0) // CALIB_BATCH)
         phase('calibration', path=path, seconds=calib.get('seconds'),
@@ -2310,10 +2352,10 @@ def int8_all_checks(M, K, md, img, f32_images, mode):
     # the conv_s8 calls of one forward against S8_CALLS
     calls, kernel = [], C.conv_s8
 
-    def spy(x_q, w_q, deq, bias, **k):
-        calls.append((tuple(x_q.shape), tuple(w_q.shape), k['stride'],
+    def spy(x, qc, bias, **k):
+        calls.append((tuple(x.shape), tuple(qc.w_q.shape), k['stride'],
                       k['dil']))
-        return kernel(x_q, w_q, deq, bias, **k)
+        return kernel(x, qc, bias, **k)
     spy.launches = 0
     C.conv_s8 = spy
     try:
@@ -2338,15 +2380,15 @@ def int8_all_checks(M, K, md, img, f32_images, mode):
     net = session.nets.G[0]
     xin = (torch.from_numpy(batch[:2]).cuda().float() / 127.5 - 1.0).permute(
         0, 3, 1, 2).to(session.d.dtype)
-    conv, convt = C.conv2d_int8, C.conv_transpose2d_int8
+    conv, convt = C.conv2d_s8, C.conv_transpose2d_s8
     with torch.no_grad():
         got = net(xin)
-        C.conv2d_int8 = C.conv2d_int8_reference
-        C.conv_transpose2d_int8 = C.conv_transpose2d_int8_reference
+        C.conv2d_s8 = C.conv2d_s8_reference
+        C.conv_transpose2d_s8 = C.conv_transpose2d_s8_reference
         try:
             want_t = net(xin)
         finally:
-            C.conv2d_int8, C.conv_transpose2d_int8 = conv, convt
+            C.conv2d_s8, C.conv_transpose2d_s8 = conv, convt
     same = torch.equal(got, want_t)
     phase('translator_vs_plain_conv_s8', path=path, shape=list(got.shape),
           finite=bool(torch.isfinite(got).all()), byte_equal=same)
@@ -2562,24 +2604,36 @@ def main():
         'quantifier_labeling_share_of_device':
             breakdown['labeling_share_of_device']})
     tm = s8['timed']
+    bd = int8_all['static']['breakdown']
     report.append({
         'name': 'conv_s8', 'route': 'cuda',
         'source': 'deepliif_tpu_torch/csrc/conv_s8.cu',
-        'replaces': 'deepliif_tpu/nets/layers.py:114 (XLA int8 '
-                    'conv_general_dilated of conv2d, and :500 of '
-                    'conv_transpose2d; no TPU kernel)',
+        'replaces': 'deepliif_tpu/nets/layers.py:114 (the activation '
+                    'quantize :83 / :158 and XLA int8 conv_general_dilated of '
+                    'conv2d, and :500 of conv_transpose2d; no TPU kernel)',
         'launches': int8_all['static']['counts']['conv_s8'],
         'launches_dynamic': int8_all['dynamic']['counts']['conv_s8'],
+        'max_pass_launches_dynamic':
+            int8_all['dynamic']['counts']['s8_absmax'],
         'max_abs_err': s8['err'], 'ms': tm['kernel'],
         'plain_ms': tm['plain'], 'bound_ms': tm['bound_ms'],
         'bound_by': tm['bound_by'], 'library_ms': tm['library'],
-        'library_call': 'torch._int_mm on the im2col\'d operands (int32 '
-                        'sums only; F.unfold not counted)',
-        'unfold_ms': tm['unfold_ms'], 'cudnn_bf16_ms': tm['cudnn_bf16'],
-        'per': f'{S8_TIMED} {S8_CALLS[0][2]} -> {S8_CALLS[0][3]}, static '
-               'scales, at batch 16',
+        'library_call': 'torch._int_mm on the im2col\'d quantized operands '
+                        '(int32 sums only; no quantize; F.unfold not '
+                        'counted)',
+        'cudnn_bf16_ms': tm['cudnn_bf16'],
+        'per': f'{S8_TIMED} {S8_CALLS[0][2]} -> {S8_CALLS[0][3]}, bf16 in, '
+               'static scales, the quantize included, at batch 16',
+        'per_call': s8['per_call'],
         'forward_ms': s8['forward_ms'],
-        'forward_bound_ms': s8['forward_bound_ms']})
+        'forward_bound_ms': s8['forward_bound_ms'],
+        'max_pass_forward_ms': s8['absmax_forward_ms'],
+        'forward_traced': {
+            'conv_s8_ms': bd['groups_ms'][
+                'conv_s8 (quantize, conv, max pass, split epilogue)'],
+            'torch_elementwise_launches': bd['torch_elementwise_launches'],
+            'torch_elementwise_ms': bd['torch_elementwise_ms'],
+            'torch_native_launches': bd['torch_native_launches']}})
     print(json.dumps({'kernels': report}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -29,10 +29,12 @@ the plain conv.
 int8: a conv given an ``ops.quant.Int8Conv`` in place of its weight takes
 the JAX package's int8 route (layers.py conv2d, conv_transpose2d): the
 input quantized (static scale, or per sample below the dynamic spatial
-gate, else the float route), the int8 conv (``ops.conv_int8``: the CUDA
-kernel ``csrc/conv_s8.cu``, or its plain version on the CPU) in NHWC, the
-output a channels_last view. ``ActCalibration`` records conv inputs for
-static scales (the JAX ``act_calibration``), handed down explicitly.
+gate, else the float route), the int8 conv, in NHWC (``ops.conv_int8``:
+the CUDA kernel ``csrc/conv_s8.cu``, which quantizes the bf16 input while
+loading it; on the CPU its plain version, the quantize of ``int8_input``
+then a float64 conv), the output a channels_last view. ``ActCalibration``
+records conv inputs for static scales (the JAX ``act_calibration``),
+handed down explicitly.
 """
 
 from __future__ import annotations
@@ -114,21 +116,24 @@ def _per_sample(fn, x, *args):
     return torch.cat([fn(x[i:i + 1], *args) for i in range(x.shape[0])])
 
 
-def int8_input(x, qc):
-    """x (N, C, H, W) -> (x_q (N, H, W, C) int8 NHWC contiguous, deq):
-    quantized by qc's static scale (deq = w_s) or per sample (deq = s
-    w_s, (N, C_out)). A quantized input that is not channels_last is
-    copied to NHWC and counted in ``int8_input.relayouts``."""
-    if qc.static:
-        q, deq = quant.quant_act_static(x, qc.inv_a), qc.w_s
-    else:
-        q, s = quant.quant_act_dynamic(x)
-        deq = s[:, None] * qc.w_s[None]
-    q = q.permute(0, 2, 3, 1)
-    if not q.is_contiguous():
+def _nhwc(x):
+    """x (N, C, H, W) -> (N, H, W, C) contiguous: a view of channels_last
+    memory, else a copy counted in ``int8_input.relayouts``."""
+    xh = x.permute(0, 2, 3, 1)
+    if not xh.is_contiguous():
         int8_input.relayouts += 1
-        q = q.contiguous()
-    return q, deq
+        xh = xh.contiguous()
+    return xh
+
+
+def int8_input(x, qc):
+    """The plain quantize of the int8 route: x (N, C, H, W) -> (x_q (N, H,
+    W, C) int8 NHWC contiguous, deq), by qc's static scale (deq = w_s) or
+    per sample (deq = s w_s, (N, C_out)). On CUDA the conv_s8 kernel
+    quantizes while loading instead; ``int8_input.relayouts`` counts the
+    int8 route's inputs that were not channels_last and so copied to
+    NHWC."""
+    return conv_int8.quantize_reference(_nhwc(x), qc)
 
 
 int8_input.relayouts = 0
@@ -141,9 +146,8 @@ def conv2d(x, weight, bias=None, stride=1, padding=0):
     float route with its float weight."""
     if isinstance(weight, quant.Int8Conv):
         if quant.int8_ok(x, weight.static):
-            q, deq = int8_input(x, weight)
-            return conv_int8.conv2d_int8(q, weight.w_q, deq, bias, stride,
-                                         padding, x.dtype).permute(0, 3, 1, 2)
+            return conv_int8.conv2d_s8(_nhwc(x), weight, bias, stride,
+                                       padding).permute(0, 3, 1, 2)
         weight = weight.w
     out = _per_sample(F.conv2d, x, weight, None, stride, padding)
     return out if bias is None else out + bias[None, :, None, None]
@@ -173,10 +177,9 @@ def conv_transpose2d(x, weight, bias=None, stride=2, padding=1,
     --layout``). ``weight`` an ``Int8Conv``: as in ``conv2d``."""
     if isinstance(weight, quant.Int8Conv):
         if quant.int8_ok(x, weight.static):
-            q, deq = int8_input(x, weight)
-            return conv_int8.conv_transpose2d_int8(
-                q, weight.w_q, deq, bias, stride, padding, output_padding,
-                x.dtype).permute(0, 3, 1, 2)
+            return conv_int8.conv_transpose2d_s8(
+                _nhwc(x), weight, bias, stride, padding,
+                output_padding).permute(0, 3, 1, 2)
         weight = weight.w
     if x.device.type == 'cuda' and x.dtype != torch.float32:
         x = _channels_last_1x1(x)

@@ -103,20 +103,69 @@ def load_act_scales(model_dir):
             for k, v in doc.get('scales', doc).items()}
 
 
+# the input channels of one step of the conv_s8 kernel (csrc/conv_s8.cu)
+S8_KC = 32
+
+
+def s8_block_n(cout):
+    """The output channels of one conv_s8 item (csrc/conv_s8.cu block_n):
+    64 or 128 by C_out."""
+    return 64 if cout <= 64 else 128
+
+
+def s8_column_channel(n, bn):
+    """The output channel (within its block of ``bn``) of the GEMM column
+    ``n`` of the conv_s8 kernel: the wgmma accumulators give thread t of a
+    quad columns 8 v + 2 t + e, and these are channels t bn / 4 + 2 v + e."""
+    return (n % 8 // 2) * (bn // 4) + 2 * (n // 8) + n % 2
+
+
+def pack_s8_weights(w_q):
+    """The B operand image of ``csrc/conv_s8.cu`` from an HWIO int8 kernel
+    (KH, KW, C_in, C_out): (KH, KW, ceil(C_in / 32), C_out_pad * 32) int8,
+    C_out_pad = C_out rounded up to ``s8_block_n``. Per tap and 32-channel
+    step, every output channel's 32 input channels as K-major core matrices
+    (the wgmma descriptor's layout without swizzle): channel ci = 16 kc + e
+    of the block's column n at byte (n / 8) 256 + kc 128 + (n % 8) 16 + e;
+    zeros past C_in and C_out. A block of BN columns is then BN x 32
+    contiguous bytes: one bulk copy per step. Column n of block b holds
+    output channel b BN + ``s8_column_channel(n, BN)``, so that each thread
+    of the wgmma accumulator layout holds BN / 4 consecutive channels."""
+    kh, kw, cin, cout = w_q.shape
+    nkc = -(-cin // S8_KC)
+    bn = s8_block_n(cout)
+    cp = -(-cout // bn) * bn
+    w = torch.zeros((kh, kw, nkc * S8_KC, cp), dtype=torch.int8,
+                    device=w_q.device)
+    w[:, :, :cin, :cout] = w_q
+    n = torch.arange(bn)
+    order = (torch.arange(cp // bn)[:, None] * bn
+             + s8_column_channel(n, bn)[None]).reshape(-1)
+    w = w[..., order.to(w.device)]
+    # (kh, kw, step, kc, e, co / 8, co % 8) -> (kh, kw, step, co / 8, kc,
+    # co % 8, e)
+    w = w.reshape(kh, kw, nkc, 2, 16, cp // 8, 8).permute(0, 1, 2, 5, 3, 6, 4)
+    return w.contiguous().reshape(kh, kw, nkc, cp * S8_KC)
+
+
 @dataclasses.dataclass(frozen=True)
 class Int8Conv:
     """One quantized conv, what ``nets.layers.conv2d`` /
     ``conv_transpose2d`` take in place of a weight: ``w`` the weight in the
     compute dtype and torch layout (the float route past the dynamic
     spatial gate), ``w_q`` (KH, KW, C_in, C_out) int8 HWIO, ``w_s``
-    (C_out,) float32; static scales: ``a_s`` (scalar or (C_in,) float32)
-    and ``inv_a``, 1 / a_s in the compute dtype shaped to broadcast over
-    NCHW; dynamic: both None."""
+    (C_out,) float32, ``w_pk`` w_q packed for the conv_s8 kernel
+    (``pack_s8_weights``, once per session); static scales: ``a_s``
+    (scalar or (C_in,) float32), ``inv_a``, 1 / a_s in the compute dtype
+    shaped to broadcast over NCHW, and ``inv_c``, the same per input channel
+    ((C_in,), what the kernel reads); dynamic: the three None."""
     w: torch.Tensor
     w_q: torch.Tensor
     w_s: torch.Tensor
+    w_pk: torch.Tensor
     a_s: torch.Tensor | None = None
     inv_a: torch.Tensor | None = None
+    inv_c: torch.Tensor | None = None
 
     @property
     def static(self):
@@ -129,12 +178,14 @@ def quantize_conv(w, w_hwio, scale, dtype):
     (static) or None (dynamic), ``dtype`` the compute dtype."""
     if scale is None:
         w_q, w_s = quantize_conv_int8(w_hwio)
-        return Int8Conv(w.to(dtype), w_q, w_s)
+        return Int8Conv(w.to(dtype), w_q, w_s, pack_s8_weights(w_q))
     w_q, w_s, a_s = quantize_conv_int8_static(w_hwio, scale)
     # 1 / a_s in float32, rounded to the compute dtype (layers.py _quant_act)
     inv = (1.0 / a_s).to(dtype)
-    return Int8Conv(w.to(dtype), w_q, w_s, a_s,
-                    inv.reshape(1, -1, 1, 1) if inv.dim() else inv)
+    cin = w_hwio.shape[2]
+    return Int8Conv(w.to(dtype), w_q, w_s, pack_s8_weights(w_q), a_s,
+                    inv.reshape(1, -1, 1, 1) if inv.dim() else inv,
+                    inv.reshape(-1).expand(cin).contiguous())
 
 
 def int8_ok(x, static):

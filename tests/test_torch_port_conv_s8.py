@@ -203,19 +203,26 @@ def test_plain_int8_conv_worst_case_exact(kind):
 
 
 def test_cpu_tensors_take_the_plain_version():
+    """On CPU tensors the fused entries run their plain versions (the
+    quantize, then the float64 conv) and launch nothing; the launch itself
+    refuses a CPU tensor."""
     rng = np.random.default_rng(6)
-    x = torch.from_numpy(rng.integers(-127, 128, (2, 6, 6, 16)).astype(np.int8))
-    w = torch.from_numpy(rng.integers(-127, 128, (3, 3, 16, 8)).astype(np.int8))
-    deq = torch.from_numpy(rng.uniform(1e-4, 1e-3, (2, 8)).astype(np.float32))
-    n0 = C.conv_s8.launches
-    for fn, ref in ((C.conv2d_int8, C.conv2d_int8_reference),
-                    (C.conv_transpose2d_int8,
-                     C.conv_transpose2d_int8_reference)):
-        assert torch.equal(fn(x, w, deq), ref(x, w, deq))
-    assert C.conv_s8.launches == n0
-    with pytest.raises(ValueError, match='cuda'):
-        C.conv_s8(x, w, deq, None, stride=1, dil=1, pad=(1, 1),
-                  out_hw=(6, 6), out_dtype=torch.bfloat16)
+    x = torch.from_numpy(rng.normal(0, 1, (2, 6, 6, 16)).astype(
+        np.float32)).to(torch.bfloat16)
+    n0, m0 = C.conv_s8.launches, C.sample_absmax.launches
+    for static in (False, True):
+        _, qc = _params(rng, 'conv', 3, 16, 8, static)
+        _, qt = _params(rng, 'convT', 3, 16, 8, static)
+        assert torch.equal(C.conv2d_s8(x, qc, None, 2, 1),
+                           C.conv2d_s8_reference(x, qc, None, 2, 1))
+        assert torch.equal(C.conv_transpose2d_s8(x, qt, None, 2, 1, 1),
+                           C.conv_transpose2d_s8_reference(x, qt, None, 2, 1,
+                                                           1))
+        with pytest.raises(ValueError, match='cuda'):
+            C.conv_s8(x, qc, None, stride=1, dil=1, pad=(1, 1),
+                      out_hw=(6, 6))
+    assert torch.equal(C.sample_absmax(x), x.float().abs().amax((1, 2, 3)))
+    assert (C.conv_s8.launches, C.sample_absmax.launches) == (n0, m0)
 
 
 # -- on the card ------------------------------------------------------------
@@ -227,8 +234,9 @@ def cuda():
 
 
 # (kind, x shape, C_out, k, stride, padding, output_padding): each kind at
-# odd sizes (H, W not multiples of the 128-pixel tile, C_out not of its
-# 64-channel block, C_in not of its 64-channel stage)
+# odd sizes (H, W not multiples of a tile, M not of the 128 or 256 rows of
+# an item, C_out not of its channel block, C_in not of the 32-channel
+# step), and the U-Nets' 1 x 1 and 2 x 2 levels (split K)
 CUDA_CASES = [
     ('conv', (2, 37, 45, 16), 24, 3, 2, 1, 0),
     ('conv', (3, 19, 33, 48), 72, 4, 2, 1, 0),
@@ -246,38 +254,50 @@ CUDA_CASES = [
                          ids=['-'.join(map(str, (c[0], *c[1], c[2], c[3])))
                               for c in CUDA_CASES])
 def test_cuda_conv_s8_bit_equal_to_plain(cuda, case, static):
+    """The kernel (quantize in the load, the conv, the epilogue) equals its
+    plain version bit for bit, with and without the bias, run to run, and
+    for one sample alone against the same sample in the batch."""
     kind, shape, cout, k, s, pad, op = case
     rng = np.random.default_rng(8)
-    n = shape[0]
-    x = torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8)).cuda()
-    w = torch.from_numpy(rng.integers(-127, 128, (k, k, shape[3], cout))
-                         .astype(np.int8)).cuda()
-    deq = torch.from_numpy(rng.uniform(1e-6, 1e-3, (cout,) if static else
-                                       (n, cout)).astype(np.float32)).cuda()
-    bias = torch.from_numpy(rng.normal(0, 1, cout).astype(np.float32)).cuda()
-    fn, ref, args = ((C.conv2d_int8, C.conv2d_int8_reference, (s, pad))
+    cin = shape[3]
+    x = torch.from_numpy(rng.normal(0, 1.5, shape).astype(np.float32)).to(
+        torch.bfloat16).cuda()
+    _, qc = _params(rng, kind, k, cin, cout, static)
+    qc = _to_cuda(qc)
+    bias = torch.from_numpy(rng.normal(0, 1, cout).astype(np.float32)).to(
+        torch.bfloat16).cuda()
+    fn, ref, args = ((C.conv2d_s8, C.conv2d_s8_reference, (s, pad))
                      if kind == 'conv' else
-                     (C.conv_transpose2d_int8,
-                      C.conv_transpose2d_int8_reference, (s, pad, op)))
-    for b, out_dtype in ((None, torch.bfloat16), (bias, torch.bfloat16),
-                         (bias, torch.float32)):
+                     (C.conv_transpose2d_s8, C.conv_transpose2d_s8_reference,
+                      (s, pad, op)))
+    for b in (None, bias):
         n0 = C.conv_s8.launches
-        y = fn(x, w, deq, b, *args, out_dtype)
+        y = fn(x, qc, b, *args)
         assert C.conv_s8.launches == n0 + 1
-        want = ref(x, w, deq, b, *args, out_dtype)
-        assert y.dtype == out_dtype and y.shape == want.shape
+        want = ref(x, qc, b, *args)
+        assert y.dtype == torch.bfloat16 and y.shape == want.shape
         assert torch.equal(y, want)
-        assert torch.equal(y, fn(x, w, deq, b, *args, out_dtype))
-    one = fn(x[1:2].contiguous(), w, deq if static else deq[1:2].contiguous(),
-             None, *args)
-    assert torch.equal(one[0], fn(x, w, deq, None, *args)[1])
+        assert torch.equal(y, fn(x, qc, b, *args))
+    one = fn(x[1:2].contiguous(), qc, None, *args)
+    assert torch.equal(one[0], fn(x, qc, None, *args)[1])
+
+
+def _to_cuda(qc):
+    return quant.Int8Conv(*(None if t is None else t.cuda() for t in (
+        qc.w, qc.w_q, qc.w_s, qc.w_pk, qc.a_s, qc.inv_a, qc.inv_c)))
 
 
 @pytest.mark.cuda
 def test_cuda_conv_s8_refuses(cuda):
-    x = torch.zeros((1, 4, 4, 24), dtype=torch.int8, device='cuda')
-    w = torch.zeros((3, 3, 24, 8), dtype=torch.int8, device='cuda')
-    with pytest.raises(ValueError, match='C_in % 16'):
-        C.conv2d_int8(x, w, torch.ones(8, device='cuda'))
+    """Shapes and types the kernel does not take raise, with no launch."""
+    rng = np.random.default_rng(9)
+    n0 = C.conv_s8.launches
+    _, qc = _params(rng, 'conv', 3, 20, 8, True)
+    x = torch.zeros((1, 4, 4, 20), dtype=torch.bfloat16, device='cuda')
+    with pytest.raises(ValueError, match='C_in % 8'):
+        C.conv2d_s8(x, _to_cuda(qc))
+    _, qc = _params(rng, 'conv', 3, 24, 8, True)
+    x = torch.zeros((1, 4, 4, 24), device='cuda')
     with pytest.raises(TypeError):
-        C.conv2d_int8(x.float(), w, torch.ones(8, device='cuda'))
+        C.conv2d_s8(x, _to_cuda(qc))
+    assert C.conv_s8.launches == n0
