@@ -31,6 +31,21 @@ float32 main path once more with ``device_quant=True``. The labeling kernel
 is also held to the plain labeling on masks made to stress its tile borders
 (``adversarial_masks``), to scipy's labels on its worst case at 67.1 MPx,
 and one 67.1 MPx quantifier call is traced by op (``devquant_breakdown``).
+On the flagship dir the script also drives seg-only (``seg_only``, at
+float32 and bfloat16, with the config's seg weights and the legacy (0.5,
+0, 0, 0, 0.5): Seg and the marker byte-equal to the full forward, 18
+trunk launches per translator run) and the seg intermediates
+(``seg_intermediate``, float32: GS0..GS4, GS byte-equal to the full
+forward, run to run); then the other model families at their published
+defaults through ``infer_modalities`` (``family_checks``: DeepLIIFExt,
+4 x resnet_9blocks + 4 x unet_512 on 9 channels; SDG, 4 modalities on 2
+inputs; CycleGAN, GA and BtoA), each float32 whatever the precision asked,
+byte-equal run to run and batch-invariant, 72 / 72 / 18 trunk launches,
+and within 1 LSB on < 0.1 % of pixels of the same session with the plain
+versions of its kernels; and a flagship dir with ``unet_512_attention``
+seg nets at float32, bfloat16 and int8 scope 'all' (``att_unet_checks``:
+every ``conv_s8`` call of an int8 forward, the 1x1 gate convs among them,
+bit-equal to its plain version).
 
     python3 chip_smoke.py            # needs one CUDA card; exits 0 on success
 
@@ -255,6 +270,36 @@ S8_NETS = {'translator': 4, 'unet': 5}
 S8_PER_FORWARD = {'static': 4 * 4 + 5 * 16, 'dynamic': 4 * 3 + 5 * 16}
 # the timed conv_s8 call: the largest input of the forward
 S8_TIMED = 'translator down0'
+# seg-only and the seg intermediates (DeepLIIF, on the flagship dir): the
+# seg weights of the model dir's config, and the legacy ones, where 1
+# translator (Marker, which is also the marker output) and 2 seg nets run
+# of 4 + 5; trunk launches per translator (9 blocks x 2 convs) and
+# statistics calls per translator (5 norms) and per unet_512 (15)
+LEGACY_SEG_WEIGHTS = (0.5, 0.0, 0.0, 0.0, 0.5)
+TRUNK_PER_NET = 9 * 2
+PLANE_PER_TRANSLATOR, PLANE_PER_UNET = 5, 15
+# the attention U-Net's statistics calls: 6 encoder norms, 7 up norms and
+# 3 per attention gate (7 gates); its int8 convs at scope 'all' (static
+# scales): 7 down convs, 7 up conv-transposes, 14 1x1 gate convs (W_g,
+# W_x; the outermost convs and psi have fewer than 16 channels)
+PLANE_PER_ATT_UNET = 6 + 7 + 3 * 7
+S8_PER_ATT_UNET = 7 + 7 + 14
+# the other families at their published defaults (ngf 64, resnet_9blocks
+# translators, unet_512 seg nets): (name, model option, modalities,
+# input_no, seg nets, extra config); trunk launches per forward 72 / 72 /
+# 18, statistics calls 4 x 5 + 4 x 15 / 4 x 5 / 5
+FAMILY_CASES = (
+    ('ext', 'DeepLIIFExt', 4, 1, 4, {'seg_gen': True, 'seg_no': 4,
+                                     'net_gs': 'unet_512'}),
+    ('sdg', 'SDG', 4, 2, 0, {'seg_gen': False, 'seg_no': 0}),
+    ('cyclegan', 'CycleGAN', 1, 1, 0, {'seg_gen': False, 'seg_no': 0}),
+    ('cyclegan_btoa', 'CycleGAN', 1, 1, 0, {'seg_gen': False, 'seg_no': 0,
+                                            'BtoA': True}))
+# a family session against the same session with the plain versions of its
+# kernels (the trunk conv and the norm statistics): uint8 outputs within 1
+# LSB on fewer than 0.1 % of pixels (the truncating cast flips where the
+# two float32 results straddle an integer)
+FAMILY_U8_SHARE = 1e-3
 # calibration (static): the keys the flagship records (per translator 2
 # down, 18 trunk and 2 up convs; per unet_512 16), and the statistics
 # calls of one calibration batch: every norm of the float replay, whose
@@ -1208,18 +1253,20 @@ def plane_checks_up_norms(L, rnd):
         library_ms=ms['library'], bound_ms=bound_ms))
 
 
-def write_flagship_model_dir(md, dl, ck):
-    """DeepLIIFDef() defaults in the native npz layout, weights at the
-    reference init (conv ~ N(0, 0.02), norm scale ~ N(1, 0.02), biases 0)
-    drawn from a numpy seed."""
-    d = dl.DeepLIIFDef()
-    ens = dl.DeepLIIFNets(d)
-    rng = np.random.default_rng(SEED)
-    for group, nets_ in (('G', ens.G), ('GS', ens.GS)):
-        flat = ck.flatten_tree(ck.params_to_jax(nets_[0]))
+def write_model_dir(md, nets_, cfg, seed=SEED):
+    """The groups of ``nets_`` (``named_groups``) in the native npz layout,
+    weights at the reference init (conv ~ N(0, 0.02), norm scale ~ N(1,
+    0.02), biases 0) drawn from a numpy seed, and ``cfg`` as config.json."""
+    from deepliif_tpu_torch.utils import checkpoints as ck
+    os.makedirs(md, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for group, mods in nets_.named_groups():
+        if not len(mods):
+            continue
+        flat = ck.flatten_tree(ck.params_to_jax(mods[0]))
         out = {}
         for k, v in flat.items():
-            shape = (len(nets_),) + v.shape
+            shape = (len(mods),) + v.shape
             if k.endswith('/w'):
                 out[k] = rng.normal(0, 0.02, shape).astype(np.float32)
             elif k.endswith('/scale'):
@@ -1227,13 +1274,25 @@ def write_flagship_model_dir(md, dl, ck):
             else:
                 out[k] = np.zeros(shape, np.float32)
         np.savez(os.path.join(md, f'latest_net_{group}.npz'), **out)
-    cfg = {'model': 'DeepLIIF', 'modalities_no': 4, 'netG': 'resnet_9blocks',
-           'net_gs': 'unet_512', 'ngf': 64, 'norm': 'batch', 'padding': 'zero',
-           'upsample': 'convtranspose', 'scale_size': TILE,
-           'modalities_names': ['IHC', 'Hema', 'DAPI', 'Lap2', 'Marker'],
-           'seg_weights': list(d.seg_weights), 'precision': 'float32'}
     with open(os.path.join(md, 'config.json'), 'w') as f:
         json.dump(cfg, f)
+
+
+FLAGSHIP_CFG = {'model': 'DeepLIIF', 'modalities_no': 4,
+                'netG': 'resnet_9blocks', 'net_gs': 'unet_512', 'ngf': 64,
+                'norm': 'batch', 'padding': 'zero',
+                'upsample': 'convtranspose', 'scale_size': TILE,
+                'modalities_names': ['IHC', 'Hema', 'DAPI', 'Lap2', 'Marker'],
+                'precision': 'float32'}
+
+
+def write_flagship_model_dir(md, dl, net_gs='unet_512'):
+    """DeepLIIFDef() defaults (with ``net_gs`` seg nets) in the native npz
+    layout, weights at the reference init drawn from a numpy seed."""
+    d = dl.DeepLIIFDef(net_g=(FLAGSHIP_CFG['netG'],) * 4,
+                       net_gs=(net_gs,) * 5, ngf=FLAGSHIP_CFG['ngf'])
+    write_model_dir(md, dl.DeepLIIFNets(d), dict(
+        FLAGSHIP_CFG, net_gs=net_gs, seg_weights=list(d.seg_weights)))
 
 
 def ihc_like_image(size, seed):
@@ -1312,13 +1371,13 @@ def expected_counts(precision, fused, n_forwards, quant_calls=0, s8=0,
     return want
 
 
-def throughput(session, batch, iters=3):
-    session.run_tiles(batch)
+def throughput(session, batch, iters=3, **kw):
+    session.run_tiles(batch, **kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(iters):
-        session.run_tiles(batch)
+        session.run_tiles(batch, **kw)
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     return {'batch': len(batch), 'tiles_per_s': len(batch) * iters / seconds,
@@ -2443,6 +2502,377 @@ def int8_all_checks(M, K, md, img, f32_images, mode):
                 breakdown=breakdown, per_net_ms=ms)
 
 
+def crops(img, n, seed):
+    """``n`` random TILE^2 crops of ``img`` (PIL, 2 TILE square)."""
+    rng = np.random.default_rng(seed)
+    big = np.asarray(img)
+    origins = rng.integers(0, big.shape[0] - TILE + 1, (n, 2))
+    return np.stack([big[y:y + TILE, x:x + TILE] for y, x in origins])
+
+
+def count_forwards(session):
+    """Wraps ``session.forward`` to count batch forwards; returns the list
+    it appends to (``del session.forward`` restores the method)."""
+    forwards = []
+    run_batch = session.forward
+    session.forward = lambda *a, **k: forwards.append(1) or run_batch(*a,
+                                                                     **k)
+    return forwards
+
+
+def path_counts(trunk_kind, trunk, plane, n_forwards):
+    """Launches per main-path run of a path with ``trunk`` trunk-kernel
+    launches (of ``trunk_kind``) and ``plane`` statistics calls per batch
+    forward, and no other kernel."""
+    want = {k: 0 for k in ('float32', 'bfloat16', 'int8', 'conv3x3_s2_stats',
+                           'convtranspose3_s2_stats', 'tail_s2d',
+                           'plane_relayouts', 'label_components', 'conv_s8',
+                           's8_absmax', 'int8_relayouts')}
+    want[trunk_kind] = trunk * n_forwards
+    want['plane_stats'] = plane * n_forwards
+    return want
+
+
+def seg_only_checks(M, K, md, img, precision):
+    """Seg-only on the flagship session of ``precision`` (the cached one of
+    ``slice_checks``) with the config's seg weights and the legacy ones:
+    the main path through ``infer_modalities(seg_only=True)`` with its
+    launch counts (18 trunk launches per translator run, 5 + 15 statistics
+    calls per translator and seg net run), Seg and the marker byte-equal to
+    the full forward's in the same session, and tiles/s beside the full
+    forward's."""
+    kw = dict(device='cuda', max_batch=BATCH, precision=precision,
+              int8_scope=None, fuse_stages=False)
+    session = M.init_nets(md, **kw)
+    batch = crops(img, BATCH, SEED + 1)
+    names = session.opt.modalities_names[1:]
+    marker = f'G{names.index("Marker") + 1}'
+    out = {}
+    for label, weights in (('config', None), ('legacy', LEGACY_SEG_WEIGHTS)):
+        w = session.d.seg_weights if weights is None else weights
+        needed = [i for i in range(4) if w[i + 1] != 0]
+        translators = len(set(needed) | {names.index('Marker')})
+        seg_nets = len(needed) + (w[0] != 0)
+        forwards = count_forwards(session)
+        torch.cuda.synchronize()
+        reset_counts(K)
+        t0 = time.perf_counter()
+        images, scoring = M.infer_modalities(
+            img, TILE, md, device_quant=False, seg_only=True,
+            seg_weights=weights, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts(K)
+        n = len(forwards)
+        del session.forward
+        want = path_counts(precision, TRUNK_PER_NET * translators,
+                           PLANE_PER_TRANSLATOR * translators
+                           + PLANE_PER_UNET * seg_nets, n)
+        full = session.run_tiles(batch, seg_weights=weights)
+        pruned = session.run_tiles(batch, seg_weights=weights, seg_only=True)
+        equal = {k: bool(np.array_equal(pruned[k], full[k]))
+                 for k in ('GS', marker)}
+        t_full = throughput(session, batch, seg_weights=weights)
+        t_pruned = throughput(session, batch, seg_weights=weights,
+                              seg_only=True)
+        phase('seg_only', precision=precision, weights=list(w),
+              translators_run=translators, seg_nets_run=seg_nets,
+              seconds=seconds, batch_forwards=n, kernel_launches=counts,
+              outputs=sorted(images), scoring=scoring,
+              byte_equal_to_full_forward=equal,
+              tiles_per_s=t_pruned['tiles_per_s'],
+              full_forward_tiles_per_s=t_full['tiles_per_s'],
+              peak_mem_gib=t_pruned['peak_mem_gib'])
+        check(n >= 1, 'seg-only: no batch forward ran')
+        check(counts == want, f'seg-only {precision} {label}: kernel '
+                              f'launches {counts} for {n} forwards, want '
+                              f'{want}')
+        check(set(images) == {'Seg', 'SegOverlaid', 'SegRefined'},
+              f'seg-only outputs {sorted(images)}')
+        check(all(equal.values()), f'seg-only {precision} {label}: not '
+                                   f'byte-equal to the full forward {equal}')
+        out[label] = dict(trunk=counts[precision] // n,
+                          plane_stats=counts['plane_stats'] // n,
+                          tiles_per_s=t_pruned['tiles_per_s'],
+                          full_tiles_per_s=t_full['tiles_per_s'])
+    return out
+
+
+def seg_intermediate_checks(M, K, md, img):
+    """The seg intermediates on the float32 flagship session: GS0..GS4
+    present (named '{modality}_s' by ``infer_modalities``), GS byte-equal to
+    the full forward's, the outputs byte-equal run to run, the launches of
+    a full forward."""
+    kw = dict(device='cuda', max_batch=BATCH, precision='float32',
+              int8_scope=None, fuse_stages=False)
+    session = M.init_nets(md, **kw)
+    forwards = count_forwards(session)
+    torch.cuda.synchronize()
+    reset_counts(K)
+    images, scoring = M.infer_modalities(img, TILE, md, device_quant=False,
+                                         return_seg_intermediate=True, **kw)
+    torch.cuda.synchronize()
+    counts, n = launch_counts(K), len(forwards)
+    del session.forward
+    names = ['IHC', 'Hema', 'DAPI', 'Lap2', 'Marker']
+    want_names = OUTPUTS | {f'mod{i}-{nm}_s' for i, nm in enumerate(names)}
+    batch = crops(img, BATCH, SEED + 1)
+    full = session.run_tiles(batch)
+    runs = [session.run_tiles(batch, return_intermediate=True)
+            for _ in range(2)]
+    same = all(np.array_equal(runs[0][k], runs[1][k]) for k in runs[0])
+    gs_equal = bool(np.array_equal(runs[0]['GS'], full['GS']))
+    want = path_counts('float32', 4 * TRUNK_PER_NET,
+                       PLANE_PER_FORWARD[False], n)
+    phase('seg_intermediate', outputs=sorted(images), batch_forwards=n,
+          kernel_launches=counts, run_tiles_keys=sorted(runs[0]),
+          gs_byte_equal_to_full_forward=gs_equal, run_to_run_byte_equal=same,
+          scoring=scoring)
+    check(set(images) == want_names, f'intermediate outputs {sorted(images)}')
+    check({f'GS{i}' for i in range(5)} <= set(runs[0]),
+          f'run_tiles keys {sorted(runs[0])}')
+    check(counts == want, f'intermediates: launches {counts}, want {want}')
+    check(gs_equal, 'intermediates: GS differs from the full forward')
+    check(same, 'intermediates: two runs differ')
+    return dict(trunk=counts['float32'] // n,
+                plane_stats=counts['plane_stats'] // n)
+
+
+@contextlib.contextmanager
+def plain_kernels(FR, L):
+    """The float32 session's kernels swapped for their plain versions for
+    the duration of the block: the trunk conv (cuDNN float32 and the sums)
+    and the norm statistics (torch's two-pass mean)."""
+    conv, stats = FR.conv3x3_stats, L.plane_mean_var
+    FR.conv3x3_stats = FR.conv3x3_stats_reference
+    L.plane_mean_var = L.plane_mean_var_reference
+    try:
+        yield
+    finally:
+        FR.conv3x3_stats, L.plane_mean_var = conv, stats
+
+
+def u8_lsb(a, b):
+    """(max |a - b|, share of pixels that differ) of two uint8 images."""
+    d = np.abs(np.asarray(a).astype(np.int16) - np.asarray(b).astype(np.int16))
+    return int(d.max()), float((d > 0).mean())
+
+
+def family_checks(M, K, root, name, model, m, input_no, seg_nets, extra):
+    """One model family at its published defaults through the port's entry
+    points: a native dir of random weights, the main path
+    (``infer_modalities``) with its launches (the float32 trunk kernel, 18
+    per translator, and the statistics kernel), run to run and batch
+    invariance byte-equal, the session against itself with the plain
+    versions of its kernels (uint8 within 1 LSB on < 0.1 % of pixels), the
+    per-seg scoring (DeepLIIFExt), tiles/s and peak memory. The sessions
+    compute in float32 at any precision (the JAX family definitions)."""
+    from PIL import Image
+    from deepliif_tpu_torch.models import cyclegan, deepliif_ext, sdg
+    FR, L = K[0], K[2]
+    md = os.path.join(root, name)
+    arch = {k: FLAGSHIP_CFG[k] for k in ('netG', 'ngf')}
+    cfg = dict(model=model, modalities_no=m, input_no=input_no, norm='batch',
+               padding='zero', upsample='convtranspose', scale_size=TILE,
+               modalities_names=[f'mod{i}' for i in range(m + input_no)],
+               **arch, **extra)
+    nets_kw = dict(modalities_no=m, ngf=arch['ngf'],
+                   net_g=(arch['netG'],) * m)
+    if model == 'CycleGAN':
+        nets_ = cyclegan.make_nets(cyclegan.CycleGANDef(**nets_kw))
+    elif model == 'SDG':
+        nets_ = sdg.make_nets(sdg.SDGDef(input_no=input_no, **nets_kw))
+    else:
+        nets_ = deepliif_ext.make_nets(deepliif_ext.DeepLIIFExtDef(
+            net_gs=(extra['net_gs'],) * m, **nets_kw))
+    write_model_dir(md, nets_, cfg, seed=SEED + len(name))
+    del nets_
+    images_in = [Image.fromarray(ihc_like_image(2 * TILE, SEED + i))
+                 for i in range(input_no)]
+    img = images_in[0] if input_no == 1 else Image.fromarray(np.concatenate(
+        [np.asarray(im) for im in images_in], axis=1))
+    # the precision option does not reach these families: ask for bf16
+    kw = dict(device='cuda', max_batch=BATCH, precision='bfloat16')
+    t0 = time.perf_counter()
+    session = M.init_nets(md, **kw)
+    phase('session', path=name, seconds=time.perf_counter() - t0,
+          family=session.family, dtype=session.d.dtype,
+          groups=list(session.nets.groups))
+    check(session.d.dtype == torch.float32, f'{name}: dtype '
+                                            f'{session.d.dtype}')
+    forwards = count_forwards(session)
+    torch.cuda.synchronize()
+    reset_counts(K)
+    t0 = time.perf_counter()
+    images, scoring = M.infer_modalities(img, TILE, md, device_quant=False,
+                                         **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts, n = launch_counts(K), len(forwards)
+    del session.forward
+    want = path_counts('float32', TRUNK_PER_NET * m,
+                       PLANE_PER_TRANSLATOR * m + PLANE_PER_UNET * seg_nets,
+                       n)
+    phase('main_path', path=name, seconds=seconds, batch_forwards=n,
+          kernel_launches=counts, outputs=sorted(images), scoring=scoring)
+    check(n >= 1, f'{name}: no batch forward ran')
+    check(counts == want, f'{name}: kernel launches {counts} for {n} '
+                          f'forwards, want {want}')
+    prefix = 'GB' if extra.get('BtoA') else 'GA'
+    want_names = ({f'{prefix}_{i + 1}' for i in range(m)}
+                  if model == 'CycleGAN' else
+                  {f'mod{i + 1}' for i in range(m)} | {
+                      f'Seg{i + 1}{suffix}' for i in range(seg_nets)
+                      for suffix in ('', '_Overlaid', '_Refined')})
+    check(set(images) == want_names, f'{name}: outputs {sorted(images)}')
+    for k, im in images.items():
+        a = np.asarray(im)
+        check(a.shape == (2 * TILE, 2 * TILE, 3) and a.dtype == np.uint8,
+              f'{name} {k}: {a.shape} {a.dtype}')
+    if seg_nets:
+        check(set(scoring) == {f'Seg{i + 1}' for i in range(seg_nets)}
+              and all({'num_total', 'num_pos', 'num_neg', 'percent_pos'}
+                      <= set(v) for v in scoring.values()),
+              f'{name}: per-seg scoring {scoring}')
+    else:
+        check(scoring is None, f'{name}: scoring {scoring}')
+
+    images2, scoring2 = M.infer_modalities(img, TILE, md, device_quant=False,
+                                           **kw)
+    same = all(np.array_equal(np.asarray(images[k]), np.asarray(images2[k]))
+               for k in images) and scoring == scoring2
+    phase('run_to_run', path=name, byte_equal=same)
+    check(same, f'{name}: two runs differ')
+
+    with plain_kernels(FR, L):
+        plain, _ = M.infer_modalities(img, TILE, md, device_quant=False, **kw)
+    vs_plain = {k: u8_lsb(images[k], plain[k]) for k in images}
+    phase('session_vs_plain_kernels', path=name, max_lsb_and_share=vs_plain,
+          limit=[1, FAMILY_U8_SHARE])
+    check(all(d <= 1 and share < FAMILY_U8_SHARE
+              for d, share in vs_plain.values()),
+          f'{name}: session vs its plain kernels {vs_plain}')
+
+    batch = crops(img, BATCH, SEED + 1) if input_no == 1 else np.concatenate(
+        [crops(im, BATCH, SEED + 1) for im in images_in], axis=-1)
+    j = min(3, len(batch) - 1)
+    full = session.run_tiles(batch)
+    alone = session.run_tiles(batch[j:j + 1])
+    inv = {k: bool(np.array_equal(full[k][j], alone[k][0])) for k in full}
+    phase('batch_invariance', path=name, tile_alone_vs_in_batch=inv,
+          byte_equal=all(inv.values()))
+    check(all(inv.values()), f'{name}: a tile alone differs from the same '
+                             f'tile in a batch of {BATCH}: {inv}')
+    tput = throughput(session, batch)
+    phase('throughput', path=name, **tput)
+    return dict(trunk=counts['float32'] // n,
+                plane_stats=counts['plane_stats'] // n, tput=tput,
+                vs_plain=vs_plain)
+
+
+def s8_plain_spy(C):
+    """Swaps ``C.conv2d_s8`` / ``C.conv_transpose2d_s8`` for wrappers that
+    hold each call's kernel output against its plain version on the same
+    inputs; returns (calls, restore): ``calls`` collects (kind, k, equal)."""
+    calls, conv, convt = [], C.conv2d_s8, C.conv_transpose2d_s8
+
+    def spy(fn, ref, kind):
+        def run(x, qc, bias=None, *args):
+            y = fn(x, qc, bias, *args)
+            calls.append((kind, qc.w_q.shape[0],
+                          bool(torch.equal(y, ref(x, qc, bias, *args)))))
+            return y
+        return run
+    C.conv2d_s8 = spy(conv, C.conv2d_s8_reference, 'conv')
+    C.conv_transpose2d_s8 = spy(convt, C.conv_transpose2d_s8_reference,
+                                'convT')
+
+    def restore():
+        C.conv2d_s8, C.conv_transpose2d_s8 = conv, convt
+    return calls, restore
+
+
+def att_unet_checks(M, K, root, dl, img):
+    """A flagship dir with ``unet_512_attention`` seg nets at float32,
+    bfloat16 and int8 scope 'all' (static scales calibrated on the crops
+    first) through ``infer_modalities``: run to run, batch invariance, the
+    trunk launches (72), the statistics calls (4 x 5 translator norms + 5
+    x 34 per attention U-Net: 6 encoder, 7 up and 21 gate norms), no norm
+    input copied; at int8 the ``conv_s8`` launches (16 translator + 5 x 28
+    attention-net convs) and every call of one batch forward bit-equal to
+    its plain version, the 1x1 gate convs among them."""
+    C = K[4]
+    md = os.path.join(root, 'att_unet')
+    os.makedirs(md)
+    write_flagship_model_dir(md, dl, net_gs='unet_512_attention')
+    out = {}
+    for precision in ('float32', 'bfloat16', 'int8'):
+        kw = dict(device='cuda', max_batch=BATCH, precision=precision)
+        session = M.init_nets(md, **kw)
+        batch = crops(img, BATCH, SEED + 1)
+        if precision == 'int8':
+            session.calibrate_int8(batch, save=False)
+        forwards = count_forwards(session)
+        torch.cuda.synchronize()
+        reset_counts(K)
+        images, scoring = M.infer_modalities(img, TILE, md,
+                                             device_quant=False, **kw)
+        torch.cuda.synchronize()
+        counts, n = launch_counts(K), len(forwards)
+        del session.forward
+        want = path_counts(precision, 4 * TRUNK_PER_NET,
+                           4 * PLANE_PER_TRANSLATOR + 5 * PLANE_PER_ATT_UNET,
+                           n)
+        if precision == 'int8':
+            want['conv_s8'] = n * (4 * 4 + 5 * S8_PER_ATT_UNET)
+        images2, _ = M.infer_modalities(img, TILE, md, device_quant=False,
+                                        **kw)
+        same = all(np.array_equal(np.asarray(images[k]),
+                                  np.asarray(images2[k])) for k in images)
+        s8 = None
+        if precision == 'int8':
+            calls, restore = s8_plain_spy(C)
+            try:
+                with torch.no_grad():
+                    session.forward(torch.from_numpy(batch))
+            finally:
+                restore()
+            s8 = dict(calls=len(calls), bit_equal=sum(c[2] for c in calls),
+                      calls_1x1=sum(c[1] == 1 for c in calls),
+                      bit_equal_1x1=sum(c[2] for c in calls if c[1] == 1))
+        j = min(3, len(batch) - 1)
+        full = session.run_tiles(batch)
+        alone = session.run_tiles(batch[j:j + 1])
+        inv = {k: bool(np.array_equal(full[k][j], alone[k][0]))
+               for k in full}
+        tput = throughput(session, batch)
+        phase('att_unet', precision=precision, batch_forwards=n,
+              kernel_launches=counts, outputs=sorted(images),
+              run_to_run_byte_equal=same, tile_alone_vs_in_batch=inv,
+              conv_s8_vs_plain=s8, scoring=scoring, **tput)
+        check(counts == want, f'att_unet {precision}: launches {counts}, '
+                              f'want {want}')
+        if s8 is not None:
+            check(s8['calls'] == want['conv_s8'] // n
+                  and s8['bit_equal'] == s8['calls']
+                  and s8['calls_1x1'] == 5 * 14,
+                  f'att_unet int8: conv_s8 against its plain version {s8}')
+        check(set(images) == OUTPUTS, f'att_unet outputs {sorted(images)}')
+        check(same, f'att_unet {precision}: two runs differ')
+        check(all(inv.values()), f'att_unet {precision}: a tile alone '
+                                 f'differs from the same tile in a batch '
+                                 f'of {BATCH}: {inv}')
+        out[precision] = dict(trunk=counts[precision] // n,
+                              plane_stats=counts['plane_stats'] // n,
+                              conv_s8=counts['conv_s8'] // n, tput=tput,
+                              s8_vs_plain=s8)
+        M._init_nets_cached.cache_clear()
+        del session
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     check(torch.cuda.is_available(), 'torch.cuda.is_available() is false: '
           'chip_smoke.py needs a CUDA card')
@@ -2459,7 +2889,6 @@ def main():
     from deepliif_tpu_torch.nets import layers as L
     from deepliif_tpu_torch.ops import cuda_build, fused_resblock as FR
     from deepliif_tpu_torch.ops import conv_int8 as C, labeling as LB
-    from deepliif_tpu_torch.utils import checkpoints as ck
 
     M.configure_device(torch.device('cuda'))   # TF32 off for the plain paths
     t0 = time.perf_counter()
@@ -2492,7 +2921,7 @@ def main():
     img = Image.fromarray(ihc_like_image(2 * TILE, SEED))
     K = (FR, FS, L, LB, C)
     with tempfile.TemporaryDirectory() as md:
-        write_flagship_model_dir(md, dl, ck)
+        write_flagship_model_dir(md, dl)
         for precision, fused in (('float32', False), ('bfloat16', False),
                                  ('int8', False), ('bfloat16', True)):
             key = 'fused' if fused else precision
@@ -2500,6 +2929,11 @@ def main():
                 M, K, md, img, precision, fused, images.get('float32'))
             if key == 'float32':
                 launches['devquant'] = devquant_main_path(M, K, md, img, pp)
+                launches['seg_intermediate'] = seg_intermediate_checks(
+                    M, K, md, img)
+            if not fused and precision != 'int8':
+                launches[f'seg_only {precision}'] = seg_only_checks(
+                    M, K, md, img, precision)
             # one session on the card at a time, so that peak memory is
             # the next path's own
             M._init_nets_cached.cache_clear()
@@ -2513,11 +2947,40 @@ def main():
             gc.collect()
             torch.cuda.empty_cache()
 
+    # the other model families and the attention U-Net, at full width
+    with tempfile.TemporaryDirectory() as root:
+        for name, model, m, input_no, seg_nets, extra in FAMILY_CASES:
+            launches[name] = family_checks(M, K, root, name, model, m,
+                                           input_no, seg_nets, extra)
+            M._init_nets_cached.cache_clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+        launches['att_unet'] = att_unet_checks(M, K, root, dl, img)
+
     loaded = sorted(m for m in sys.modules if m == 'jax' or m == 'deepliif_tpu'
                     or m.startswith(('jax.', 'jaxlib', 'deepliif_tpu.')))
     phase('imports', jax_or_deepliif_tpu_modules=loaded,
           seconds_total=time.perf_counter() - t_start)
     check(not loaded, f'jax or deepliif_tpu was imported: {loaded}')
+
+    # launches per batch forward on the paths of the other families, seg-only
+    # and the attention U-Net: {path: (trunk kind, {kernel: launches})}
+    new_paths = {path: ('float32', launches[path]) for path in (
+        'ext', 'sdg', 'cyclegan', 'cyclegan_btoa', 'seg_intermediate')}
+    for precision in ('float32', 'bfloat16'):
+        for weights, v in launches[f'seg_only {precision}'].items():
+            new_paths[f'seg_only {precision} {weights}'] = (precision, v)
+    for precision, v in launches['att_unet'].items():
+        new_paths[f'att_unet {precision}'] = (precision, v)
+
+    def by_path(kind):
+        """Launches per batch forward of the new paths that run ``kind``:
+        a trunk precision, 'plane_stats' or 'conv_s8'."""
+        return {path: v[kind if kind in ('plane_stats', 'conv_s8')
+                        else 'trunk']
+                for path, (trunk_kind, v) in new_paths.items()
+                if kind in ('plane_stats', trunk_kind)
+                or (kind == 'conv_s8' and v.get('conv_s8'))}
 
     report = []
     for name, kind, replaces, elem, wb, extra in (
@@ -2536,7 +2999,11 @@ def main():
             'launches': launches[kind][kind], 'max_abs_err': err[kind],
             'ms': ms[kind]['kernel'], 'plain_ms': ms[kind]['plain'],
             'bound_ms': bound_ms, 'bound_by': bound_by,
-            'library_ms': ms[kind]['library'], **extra})
+            'library_ms': ms[kind]['library'],
+            'launches_by_path': by_path(kind),
+            'per': f'one trunk conv at {TIMING_SHAPE}; launches per batch '
+                   'forward of the flagship path, and of the new paths '
+                   'beside them', **extra})
     for name, replaces in (('conv3x3_s2_stats', ':141'),
                            ('convtranspose3_s2_stats', ':292')):
         st = stages[name]
@@ -2576,9 +3043,10 @@ def main():
         'float32': plane['float32'],
         'nchw_float32': plane['up_norms']['nchw_float32'],
         'up_norm_cases': plane['up_norms']['cases'],
+        'launches_by_path': by_path('plane_stats'),
         'per': f'one norm (one call, x read once) of ({BATCH}, 64, {TILE}, '
                f'{TILE}) bf16; float32 beside it, and the largest float32 '
-               'up-norm in NCHW memory'})
+               'up-norm in NCHW memory; launches per batch forward'})
     big = QUANT_CANVASES[-1]
     lab = [label[(*big, conn)] for conn in (4, 8)]
     report.append({
@@ -2612,6 +3080,7 @@ def main():
                     'quantize :83 / :158 and XLA int8 conv_general_dilated of '
                     'conv2d, and :500 of conv_transpose2d; no TPU kernel)',
         'launches': int8_all['static']['counts']['conv_s8'],
+        'launches_by_path': by_path('conv_s8'),
         'launches_dynamic': int8_all['dynamic']['counts']['conv_s8'],
         'max_pass_launches_dynamic':
             int8_all['dynamic']['counts']['s8_absmax'],

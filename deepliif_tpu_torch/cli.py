@@ -16,6 +16,14 @@ session's device (``ops.labeling``), off on the host, auto stitches the seg
 canvas on the device and quantifies there when it is a CUDA device and the
 canvas is at least the measured crossover and fits the card
 (``models._resolve_device_quant``).
+``--seg-only`` writes the seg and the marker modality alone (only the
+seg branches of weight other than 0 and the marker translator run);
+``--seg-intermediate`` adds each seg net's output as '{modality}_s'.
+Every model family of the JAX package runs (DeepLIIF, DeepLIIFExt, SDG,
+CycleGAN); DeepLIIFExt, SDG and CycleGAN compute in float32 whatever
+``--precision`` says, as in the JAX package, and, as there, ``--BtoA``
+does not reach the session: a CycleGAN dir runs GB when its own options
+say BtoA.
 The other commands are not ported yet (ROADMAP.md: "Serving", "WSI",
 "Training", "Stats"). click is imported when the command line is built,
 not when this module is imported.
@@ -73,7 +81,6 @@ def run_test(input_dir, output_dir, tile_size, model_dir, filename_pattern='*',
              fuse_stages=None, echo=print):
     """Tiled inference + quantification over a directory of images."""
     from PIL import Image
-    from . import roadmap
     from .config import get_opt, print_options
     from .models import infer_modalities
 
@@ -81,10 +88,6 @@ def run_test(input_dir, output_dir, tile_size, model_dir, filename_pattern='*',
         seg_only = seg_intermediate = False
     elif seg_intermediate and seg_only:
         seg_intermediate = False
-    if seg_only:
-        raise roadmap.not_ported('--seg-only', roadmap.SEG_ONLY)
-    if seg_intermediate:
-        raise roadmap.not_ported('--seg-intermediate', roadmap.SEG_ONLY)
 
     output_dir = output_dir or input_dir
     os.makedirs(output_dir, exist_ok=True)
@@ -106,8 +109,9 @@ def run_test(input_dir, output_dir, tile_size, model_dir, filename_pattern='*',
     for filename in image_files:
         img = Image.open(os.path.join(input_dir, filename)).convert('RGB')
         images, scoring = infer_modalities(
-            img, tile_size, model_dir, opt=opt, mod_only=mod_only,
-            seg_weights=seg_weights, max_batch=max_batch,
+            img, tile_size, model_dir, opt=opt,
+            return_seg_intermediate=seg_intermediate, seg_only=seg_only,
+            mod_only=mod_only, seg_weights=seg_weights, max_batch=max_batch,
             device_quant={'on': True, 'off': False}.get(device_quant, 'auto'),
             precision=precision, device=device, int8_scope=int8_scope,
             fuse_stages=fuse_stages, **int8)

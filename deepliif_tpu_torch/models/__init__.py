@@ -1,40 +1,54 @@
-"""The batched tile-inference engine, DeepLIIF family, at float32,
-bfloat16 and int8.
+"""The batched tile-inference engine: every model family of the JAX
+package (DeepLIIF, DeepLIIFExt, SDG, CycleGAN), at float32, bfloat16 and
+int8.
 
-Port of deepliif_tpu/models/__init__.py for the flagship path:
+Port of deepliif_tpu/models/__init__.py:
 
   init_nets  -> InferenceSession (cached per model dir and options): options
-                + the generator ensemble on ``device`` (native .npz or
+                + the family's generators on ``device`` (native .npz or
                 reference .pth/.pt weights) in the session's precision
-  run_tiles  -> (N, ts, ts, 3) uint8 tiles -> dict of uint8 outputs; empty
-                tiles (gray variance < 9) are skipped on host and filled with
-                the model's background colors
+  run_tiles  -> (N, ts, ts, C) uint8 tiles -> dict of uint8 outputs; empty
+                tiles (gray variance < 9, on the first three channels) are
+                skipped on host and filled with the model's background
+                colors; for DeepLIIF ``seg_only`` (only the seg branches of
+                weight other than 0 and the marker translator run) and
+                ``return_intermediate`` (each seg net's output, GS0..GSm)
   inference / infer_modalities / postprocess -> same API surface and output
                 key names as the JAX package; postprocess runs the port's
                 host quantifier (``deepliif_tpu_torch.postprocessing``) or,
                 with ``device_quant``, the device quantifier
                 (``ops.labeling.compute_final_results_device``) on the seg
                 canvas that ``inference`` stitched on the session's device
+                (DeepLIIF); DeepLIIFExt and SDG score each seg output on the
+                host
 
-Precision: ``precision=`` (or the model dir's ``precision`` option) is
-float32, bfloat16 or int8. int8 quantizes within ``int8_scope``: 'all'
-(the default, as in the JAX package: every conv with C_in and C_out >= 16;
-at the flagship the 72 ResNet-trunk convs run the fused int8 kernel and 96
-others the ``conv_s8`` kernel) or 'resblocks' (the trunk only; every other
-conv runs bf16). Activation scales are static when the model dir holds
-act_scales.json; else the session calibrates them on the first non-empty
-tiles it sees (up to 32, in batches of 4) and writes act_scales.json there
-(kept for the session alone when the dir cannot be written), unless
-``int8_calibrate`` is False or the fused trunk's per-chunk dynamic scales
-serve every quantized conv (scope 'resblocks'); then the scales are
-dynamic.
+Families (the JAX session's switch): DeepLIIF and DeepLIIFKD
+(``models.deepliif``), DeepLIIFExt (``models.deepliif_ext``), SDG
+(``models.sdg``: multi-input, the image split into ``input_no`` strips by
+width and their tiles concatenated by channel), CycleGAN
+(``models.cyclegan``: GA, or GB with the model's ``BtoA`` option; a dir
+may hold one direction). The JAX family definitions other than DeepLIIF
+take no compute dtype from ``precision``: those sessions compute in
+float32 whatever it says, as the JAX ones do.
+
+Precision (DeepLIIF): ``precision=`` (or the model dir's ``precision``
+option) is float32, bfloat16 or int8. int8 quantizes within ``int8_scope``:
+'all' (the default, as in the JAX package: every conv with C_in and C_out
+>= 16; at the flagship the 72 ResNet-trunk convs run the fused int8 kernel
+and 96 others the ``conv_s8`` kernel) or 'resblocks' (the trunk only;
+every other conv runs bf16). Activation scales are static when the model
+dir holds act_scales.json; else the session calibrates them on the first
+non-empty tiles it sees (up to 32, in batches of 4) and writes
+act_scales.json there (kept for the session alone when the dir cannot be
+written), unless ``int8_calibrate`` is False or the fused trunk's
+per-chunk dynamic scales serve every quantized conv (scope 'resblocks');
+then the scales are dynamic.
 ``fuse_stages=True`` (or the model dir's ``fuse_stages`` option; bfloat16
 only) runs the translators through their fused stages, the counterpart of
 the JAX package's ``DEEPLIIF_FUSE_STAGES=1``.
 
 The device is always explicit (``device='cuda'`` by default, never chosen
-by what is available). Not ported yet (ROADMAP.md): the other model
-families, seg-only and seg-intermediate outputs, and the TPU engine's mesh
+by what is available). Not ported yet (ROADMAP.md): the TPU engine's mesh
 (mesh-sharded labeling included) and async copy pipeline.
 """
 
@@ -47,15 +61,17 @@ import os
 import numpy as np
 import torch
 
-from .. import roadmap
 from ..config import get_opt
 from ..nets import ResnetGenerator
 from ..ops import quant
 from ..utils import checkpoints, luma_u8
 from ..utils.tiler import InferenceTiler
-from . import deepliif as dl
+from . import cyclegan as cg, deepliif as dl, deepliif_ext as ext, sdg
 
-_FAMILIES = ('DeepLIIF', 'DeepLIIFKD')
+# the model option -> the family (the JAX session's switch) and its module
+_FAMILIES = {'DeepLIIF': 'deepliif', 'DeepLIIFKD': 'deepliif',
+             'DeepLIIFExt': 'ext', 'SDG': 'sdg', 'CycleGAN': 'cyclegan'}
+_FAMILY_MODULES = {'deepliif': dl, 'ext': ext, 'sdg': sdg, 'cyclegan': cg}
 
 
 def _bucket(n, max_batch=16):
@@ -90,8 +106,11 @@ def configure_device(device):
 
 
 class InferenceSession:
-    """A loaded DeepLIIF model on ``device``, ready for batched tile
-    inference. Output keys: G1..Gm (modalities) and GS (seg).
+    """A loaded model of any family on ``device``, ready for batched tile
+    inference. Output keys by family (the reference net ids):
+    DeepLIIF G1..Gm and GS (+ GS0..GSm, the intermediates); DeepLIIFExt
+    G_1..G_m and GS_1..GS_m; SDG G_1..G_m; CycleGAN GA_1..GA_m (GB_* with
+    the model's ``BtoA`` option).
 
     ``precision`` (default: the model dir's ``precision`` option, else
     float32) is float32, bfloat16 or int8; ``int8_scope`` 'all' (default)
@@ -115,8 +134,13 @@ class InferenceSession:
         self.precision = getattr(self.opt, 'precision', None) or 'float32'
         self.model = getattr(self.opt, 'model', 'DeepLIIF')
         if self.model not in _FAMILIES:
-            raise roadmap.not_ported(f'model family {self.model}',
-                                     roadmap.FAMILIES)
+            raise NotImplementedError(f'unknown model family {self.model}')
+        self.family = _FAMILIES[self.model]
+        if self.family != 'deepliif' and getattr(self.opt, 'fuse_stages',
+                                                 False):
+            raise ValueError(f'fuse_stages runs the DeepLIIF translators in '
+                             f'bfloat16; a {self.model} session computes in '
+                             f'float32')
         self.int8_scope = int8_scope or 'all'
         quant.int8_scope_predicate(self.int8_scope)   # validates the name
         self.int8_calibrate = bool(int8_calibrate)
@@ -124,7 +148,7 @@ class InferenceSession:
         self.epoch = str(epoch)
         self.device = torch.device(device)
         configure_device(self.device)
-        self.d = dl.def_from_opt(self.opt)
+        self.d = _FAMILY_MODULES[self.family].def_from_opt(self.opt)
         self.max_batch = DEFAULT_MAX_BATCH if max_batch is None else max_batch
         nets_ = self._load_nets(model_dir)
         self.act_scales = None
@@ -176,32 +200,74 @@ class InferenceSession:
                    and g.model[7].weight.shape[0] % 128 == 0
                    and h % 16 == 0 and w % 16 == 0 for g in self.nets.G)
 
-    def _load_nets(self, model_dir):
-        nets_ = dl.DeepLIIFNets(self.d)
-        ep = self.epoch
-        if checkpoints.has_native_checkpoint(model_dir, ep):
-            checkpoints.load_group_npz(
-                os.path.join(model_dir, f'{ep}_net_G.npz'), nets_.G)
-            if self.d.seg_gen:
-                checkpoints.load_group_npz(
-                    os.path.join(model_dir, f'{ep}_net_GS.npz'), nets_.GS)
-            return nets_
-        # reference torch model dir; seg nets are GS0..GSm, or G51..G55 in
-        # legacy dirs (config.init_input_and_mod_id)
-        mod_id_seg = getattr(self.opt, 'mod_id_seg', 'S') or 'S'
-        input_id = int(getattr(self.opt, 'input_id', 0))
-        names = [f'G{i + 1}' for i in range(len(nets_.G))]
-        names += [f'G{mod_id_seg}{input_id + i}' for i in range(len(nets_.GS))]
-        for name, net in zip(names, list(nets_.G) + list(nets_.GS)):
-            path = checkpoints.find_net_file(model_dir, name, ep)
-            if path is None:
-                raise FileNotFoundError(f'missing checkpoint for {name} in '
+    def _make_nets(self, model_dir, native):
+        if self.family == 'deepliif':
+            return dl.DeepLIIFNets(self.d)
+        if self.family != 'cyclegan':
+            return _FAMILY_MODULES[self.family].make_nets(self.d)
+        # a CycleGAN dir may hold one direction only
+        m, ep = self.d.modalities_no, self.epoch
+        if native:
+            found = [k for k in ('GA', 'GB') if os.path.exists(
+                os.path.join(model_dir, f'{ep}_net_{k}.npz'))]
+        else:
+            found = [k for k in ('GA', 'GB') if all(
+                checkpoints.find_net_file(model_dir, f'{k}_{i + 1}', ep)
+                for i in range(m))]
+            if not found:
+                raise FileNotFoundError(f'no GA_*/GB_* checkpoints in '
                                         f'{model_dir}')
-            checkpoints.load_reference_state_dict(net, path)
+        return cg.make_nets(self.d, found)
+
+    def _load_nets(self, model_dir):
+        ep = self.epoch
+        native = checkpoints.has_native_checkpoint(model_dir, ep)
+        nets_ = self._make_nets(model_dir, native)
+        groups = [(name, group) for name, group in nets_.named_groups()
+                  if len(group)]
+        if native:
+            for name, group in groups:
+                checkpoints.load_group_npz(
+                    os.path.join(model_dir, f'{ep}_net_{name}.npz'), group)
+            return nets_
+        # reference torch model dir: DeepLIIF nets G1..Gm and GS0..GSm, or
+        # G51..G55 in legacy dirs (config.init_input_and_mod_id); the other
+        # families {group}_1..{group}_m
+        for name, group in groups:
+            if self.family != 'deepliif':
+                names = [f'{name}_{i + 1}' for i in range(len(group))]
+            elif name == 'G':
+                names = [f'G{i + 1}' for i in range(len(group))]
+            else:
+                mod_id_seg = getattr(self.opt, 'mod_id_seg', 'S') or 'S'
+                input_id = int(getattr(self.opt, 'input_id', 0))
+                names = [f'G{mod_id_seg}{input_id + i}'
+                         for i in range(len(group))]
+            for net_name, net in zip(names, group):
+                path = checkpoints.find_net_file(model_dir, net_name, ep)
+                if path is None:
+                    raise FileNotFoundError(f'missing checkpoint for '
+                                            f'{net_name} in {model_dir}')
+                checkpoints.load_reference_state_dict(net, path)
         return nets_
 
     def _mod_keys(self):
-        return [f'G{i + 1}' for i in range(self.d.modalities_no)]
+        m = self.d.modalities_no
+        if self.family == 'deepliif':
+            return [f'G{i + 1}' for i in range(m)]
+        if self.family == 'cyclegan':
+            prefix = 'GB' if getattr(self.opt, 'BtoA', False) else 'GA'
+            return [f'{prefix}_{i + 1}' for i in range(m)]
+        return [f'G_{i + 1}' for i in range(m)]
+
+    def _marker_index(self):
+        """The modality whose name holds 'Marker' (seg-only keeps it)."""
+        names = getattr(self.opt, 'modalities_names', []) or []
+        input_no = getattr(self.opt, 'input_no', 1)
+        for i, nm in enumerate(names[input_no:]):
+            if 'Marker' in nm:
+                return i
+        return None
 
     def batch_size(self, n):
         """Tiles per forward for ``n`` waiting tiles (short batches are
@@ -216,40 +282,69 @@ class InferenceSession:
             return self.max_batch
         return _bucket(n, self.max_batch)
 
-    def forward(self, tiles_u8, seg_weights=None, mod_only=False):
-        """One batch (B, s, s, 3) uint8 on any device -> dict of uint8
-        outputs on the session's device: 'mods' (M, B, s, s, 3), 'seg'."""
+    def forward(self, tiles_u8, seg_weights=None, mod_only=False,
+                seg_only=False, return_intermediate=False, marker_index=None):
+        """One batch (B, s, s, C) uint8 on any device -> dict of uint8
+        outputs on the session's device: 'mods' (M, B, s, s, 3), 'seg',
+        'segs' (the DeepLIIF intermediates, or DeepLIIFExt's seg per
+        modality); with ``seg_only`` (DeepLIIF) 'seg' and 'marker' (the
+        modality ``marker_index``) alone."""
         # normalized in float32, then cast to the compute dtype
         x = (tiles_u8.to(self.device).float() / 127.5 - 1.0).to(self.d.dtype)
+        seg_gen = self.d.seg_gen and not mod_only
         with torch.no_grad():
-            res = dl.inference_forward(self.nets, x, self.d,
-                                       seg_weights=seg_weights,
-                                       seg_gen=self.d.seg_gen and not mod_only)
+            if self.family == 'deepliif' and seg_only:
+                seg, marker = dl.seg_only_forward(
+                    self.nets, x, self.d, seg_weights=seg_weights,
+                    marker_index=marker_index)
+                res = {'seg': seg}
+                if marker is not None:
+                    res['marker'] = marker
+            elif self.family == 'deepliif':
+                res = dl.inference_forward(
+                    self.nets, x, self.d, seg_weights=seg_weights,
+                    seg_gen=seg_gen, return_intermediate=return_intermediate)
+            elif self.family == 'ext':
+                mods, segs = ext.generator_forward(self.nets, x, self.d,
+                                                   seg_gen=seg_gen)
+                res = {'mods': mods} if segs is None else {'mods': mods,
+                                                           'segs': segs}
+            elif self.family == 'sdg':
+                res = {'mods': sdg.generator_forward(self.nets, x, self.d)}
+            else:
+                res = {'mods': cg.inference_forward(
+                    self.nets, x, self.d,
+                    bto_a=getattr(self.opt, 'BtoA', False))}
         return {k: _quantize_u8(v) for k, v in res.items()}
 
     def run_tiles(self, tiles_u8, seg_weights=None, seg_only=False,
                   mod_only=False, return_intermediate=False,
                   device_keys=()):
-        """tiles_u8: (N, s, s, 3) uint8 -> dict of (N, s, s, 3) uint8 outputs
-        keyed by net id (G1..Gm, GS). Empty tiles are detected on host and
-        filled with background colors (reference run_wrapper).
+        """tiles_u8: (N, s, s, C) uint8 -> dict of (N, s, s, 3) uint8
+        outputs keyed by net id (``InferenceSession``). Empty tiles are
+        detected on host and filled with background colors (reference
+        run_wrapper).
 
-        ``device_keys`` (only ``('GS',)``): outputs kept on the session's
-        device, left out of the host dict and returned in a second dict of
-        (N, s, s, 3) uint8 tensors (zeros for empty tiles), for the device
-        stitch and quantifier; the return value is then ``(host_out,
-        device_out)``."""
-        if seg_only:
-            raise roadmap.not_ported('--seg-only', roadmap.SEG_ONLY)
-        if return_intermediate:
-            raise roadmap.not_ported('--seg-intermediate', roadmap.SEG_ONLY)
-        if any(k != 'GS' for k in device_keys):
-            raise ValueError(f'device_keys {device_keys}: only GS can stay '
-                             'on the device')
+        DeepLIIF: ``seg_only`` runs ``seg_only_forward`` (where every
+        translator and every seg net share one architecture; else the full
+        forward) and fills only GS and the marker modality; the other
+        modalities keep their background colors. ``return_intermediate``
+        adds GS0..GSm (filled where the nets share one architecture, else
+        left at their zero background, as in the JAX package).
+
+        ``device_keys`` (only ``('GS',)``, DeepLIIF): outputs kept on the
+        session's device, left out of the host dict and returned in a
+        second dict of (N, s, s, 3) uint8 tensors (zeros for empty tiles),
+        for the device stitch and quantifier; the return value is then
+        ``(host_out, device_out)``."""
+        if any(k != 'GS' for k in device_keys) or (
+                device_keys and self.family != 'deepliif'):
+            raise ValueError(f'device_keys {device_keys}: only a DeepLIIF '
+                             'GS can stay on the device')
         n = tiles_u8.shape[0]
         m = self.d.modalities_no
         # empty-tile detection: luma variance excluding pure 0/255 pixels
-        # (reference image_variance_gray)
+        # (reference image_variance_gray), on the first three channels
         gray = luma_u8(tiles_u8).astype(np.float32)
         valid = (gray != 0) & (gray != 255)
         cnt = valid.sum(axis=(1, 2))
@@ -269,13 +364,26 @@ class InferenceSession:
             color = tuple(bg[i]) if i < len(bg) else (10, 10, 10)
             out[mk] = np.tile(np.asarray(color, np.uint8)[None, None, None, :],
                               (n, th, tw, 1))
+        deepliif = self.family == 'deepliif'
         want_seg = self.d.seg_gen and not mod_only
+        intermediate = deepliif and want_seg and return_intermediate
+        # the seg outputs' background: zeros
+        seg_keys = []
         dev_out = {}
-        if want_seg and 'GS' in device_keys:
+        if want_seg and deepliif and 'GS' in device_keys:
             dev_out['GS'] = torch.zeros((n, th, tw, 3), dtype=torch.uint8,
                                         device=self.device)
-        elif want_seg:
-            out['GS'] = np.zeros((n, th, tw, 3), np.uint8)
+        elif want_seg and deepliif:
+            seg_keys.append('GS')
+        if intermediate:
+            seg_keys += [f'GS{i}' for i in range(m + 1)]
+        if want_seg and self.family == 'ext':
+            seg_keys += [f'GS_{i + 1}' for i in range(m)]
+        out.update({k: np.zeros((n, th, tw, 3), np.uint8) for k in seg_keys})
+        use_seg_only = (deepliif and seg_only and want_seg
+                        and not return_intermediate and self.d.uniform_g
+                        and self.d.uniform_gs)
+        marker_idx = self._marker_index() if use_seg_only else None
 
         if (self.d.quant_int8 and self.act_scales is None
                 and self.int8_calibrate and len(nonempty)
@@ -291,16 +399,27 @@ class InferenceSession:
                 chunk = np.concatenate([chunk, np.zeros(
                     (b - nvalid,) + chunk.shape[1:], chunk.dtype)])
             res = self.forward(torch.from_numpy(np.ascontiguousarray(chunk)),
-                               seg_weights, mod_only)
+                               seg_weights, mod_only, seg_only=use_seg_only,
+                               return_intermediate=intermediate,
+                               marker_index=marker_idx)
             idx = nonempty[pos:pos + nvalid]
-            mods = res['mods'].cpu().numpy()
-            for i, mk in enumerate(mod_keys):
-                out[mk][idx] = mods[i][:nvalid]
+            if 'mods' in res:
+                mods = res['mods'].cpu().numpy()
+                for i, mk in enumerate(mod_keys):
+                    out[mk][idx] = mods[i][:nvalid]
+            elif 'marker' in res:
+                out[mod_keys[marker_idx]][idx] = \
+                    res['marker'].cpu().numpy()[:nvalid]
             if 'GS' in dev_out:
                 dev_out['GS'][torch.from_numpy(idx).to(self.device)] = \
                     res['seg'][:nvalid]
-            elif want_seg:
+            elif 'seg' in res:
                 out['GS'][idx] = res['seg'].cpu().numpy()[:nvalid]
+            if 'segs' in res:
+                segs = res['segs'].cpu().numpy()
+                for i in range(segs.shape[0]):
+                    key = f'GS{i}' if deepliif else f'GS_{i + 1}'
+                    out[key][idx] = segs[i][:nvalid]
             pos += nvalid
         return (out, dev_out) if device_keys else out
 
@@ -374,10 +493,15 @@ def inference(img, tile_size, overlap_size, model_path, use_torchserve=False,
     if getattr(opt, 'seg_gen', True) is False:
         seg_only = False
         return_seg_intermediate = False
-    if getattr(opt, 'input_no', 1) > 1:
-        raise roadmap.not_ported('multi-input models', roadmap.FAMILIES)
 
-    orig = np.asarray(img.convert('RGB'))
+    multi_input = getattr(opt, 'input_no', 1) > 1 or opt.model == 'SDG'
+    if multi_input:
+        # the input modalities side by side: input_no strips by width
+        w, h = img.width // opt.input_no, img.height
+        orig = [np.asarray(img.crop((w * i, 0, w * (i + 1), h)))
+                for i in range(opt.input_no)]
+    else:
+        orig = np.asarray(img.convert('RGB'))
     scale_size = getattr(opt, 'scale_size', tile_size)
     tiler = InferenceTiler(orig, tile_size, overlap_size)
     tiles = tiler.tiles()
@@ -388,14 +512,21 @@ def inference(img, tile_size, overlap_size, model_path, use_torchserve=False,
         return np.stack([np.asarray(Image.fromarray(t).resize(
             (size, size), Image.BICUBIC)) for t in batch])
 
+    if multi_input:
+        # the tiles of each input modality concatenated by channel
+        net_in = np.concatenate([_resize(t, scale_size) for t in tiles],
+                                axis=-1)
+    else:
+        net_in = _resize(tiles, scale_size)
     use_device_seg = (
-        _device_seg and getattr(opt, 'seg_gen', True) and not mod_only
-        and not return_seg_intermediate
+        _device_seg and session.family == 'deepliif'
+        and getattr(opt, 'seg_gen', True) and not mod_only
+        and not return_seg_intermediate and not multi_input
         and tiler.pad_size == 0 and scale_size == tile_size)
     seg_canvas = None
     if use_device_seg:
         results_net, dev = session.run_tiles(
-            tiles, seg_weights=seg_weights, seg_only=seg_only,
+            net_in, seg_weights=seg_weights, seg_only=seg_only,
             mod_only=mod_only, device_keys=('GS',))
         tile_idx, ty, tx = (torch.from_numpy(a).to(session.device)
                             for a in tiler.ownership_maps())
@@ -404,9 +535,8 @@ def inference(img, tile_size, overlap_size, model_path, use_torchserve=False,
                                 :tiler.orig_width].contiguous()
     else:
         results_net = session.run_tiles(
-            _resize(tiles, scale_size), seg_weights=seg_weights,
-            seg_only=seg_only, mod_only=mod_only,
-            return_intermediate=return_seg_intermediate)
+            net_in, seg_weights=seg_weights, seg_only=seg_only,
+            mod_only=mod_only, return_intermediate=return_seg_intermediate)
     for key, batch in results_net.items():
         tiler.stitch_batch(key, _resize(batch, tile_size))
     results = {k: Image.fromarray(v) for k, v in tiler.results().items()}
@@ -415,6 +545,16 @@ def inference(img, tile_size, overlap_size, model_path, use_torchserve=False,
 
     # output naming (reference models/__init__.py:502-565)
     m = opt.modalities_no
+    if opt.model in ('DeepLIIFExt', 'SDG'):
+        images = {f'mod{i}': results[f'G_{i}'] for i in range(1, m + 1)}
+        if (opt.model == 'DeepLIIFExt' and getattr(opt, 'seg_gen', True)
+                and not mod_only):
+            images.update({f'Seg{i}': results[f'GS_{i}']
+                           for i in range(1, m + 1) if f'GS_{i}' in results})
+        return (images, None) if _device_seg else images
+    if opt.model == 'CycleGAN':
+        # the net ids as the keys (the reference's behavior)
+        return (results, None) if _device_seg else results
     input_no = getattr(opt, 'input_no', 1)
     modality_names = getattr(opt, 'modalities_names',
                              [f'mod{i}' for i in range(m + 1)])
@@ -425,8 +565,24 @@ def inference(img, tile_size, overlap_size, model_path, use_torchserve=False,
     d_modname2id = {nm: f'G{i + 1}' for i, nm in enumerate(l_modname)}
     if not mod_only and getattr(opt, 'seg_gen', True):
         d_modname2id['Seg'] = 'GS'
-    images = {nm: results[mid] for nm, mid in d_modname2id.items()
-              if mid in results}
+    if seg_only:
+        images = {'Seg': results['GS']}
+        marker_key = find_marker_key(d_modname2id)
+        if marker_key is not None and d_modname2id[marker_key] in results:
+            images[marker_key] = results[d_modname2id[marker_key]]
+    else:
+        images = {nm: results[mid] for nm, mid in d_modname2id.items()
+                  if mid in results}
+    if return_seg_intermediate and not seg_only and getattr(opt, 'seg_gen',
+                                                            True):
+        # each seg net's output as '{modality}_s' (reference
+        # models/__init__.py:545-556)
+        l_seg = [f'mod{i}' for i in range(m + 1)]
+        if l_seg != list(modality_names):
+            l_seg = [f'mod{i}-{nm}' for i, nm in enumerate(modality_names)]
+        for i, nm in enumerate(l_seg):
+            if f'GS{i}' in results:
+                images[f'{nm}_s'] = results[f'GS{i}']
     return (images, seg_canvas) if _device_seg else images
 
 
@@ -468,7 +624,9 @@ def postprocess(orig, images, tile_size, model, seg_thresh=120,
                 size_thresh_upper=None, device_quant=False, seg_device=None,
                 device=None):
     """Quantification: overlay/refined masks + IHC scoring dict. Resolution
-    from tile size: >384 -> 40x, >192 -> 20x, else 10x.
+    from tile size: >384 -> 40x, >192 -> 20x, else 10x. DeepLIIFExt and
+    SDG score each seg image on the host (``_postprocess_segs``; their
+    resolution rule differs).
 
     ``device_quant`` True runs the device quantifier
     (``ops.labeling.compute_final_results_device``) on ``seg_device`` (the
@@ -479,8 +637,13 @@ def postprocess(orig, images, tile_size, model, seg_thresh=120,
     from PIL import Image
     from .. import postprocessing as pp
 
-    if model not in _FAMILIES:
-        raise roadmap.not_ported(f'postprocess for {model}', roadmap.FAMILIES)
+    if model in ('DeepLIIFExt', 'SDG'):
+        return _postprocess_segs(orig, images, tile_size, seg_thresh,
+                                 size_thresh, marker_thresh,
+                                 size_thresh_upper)
+    if model not in ('DeepLIIF', 'DeepLIIFKD'):
+        raise NotImplementedError(f'postprocess() not implemented for '
+                                  f'{model}')
     device_quant = _resolve_device_quant(device_quant, seg_device)
     resolution = '40x' if tile_size > 384 else ('20x' if tile_size > 192 else '10x')
     marker = images.get(find_marker_key(images))
@@ -501,6 +664,32 @@ def postprocess(orig, images, tile_size, model, seg_thresh=120,
         overlay, refined, scoring = pp.compute_final_results(*args)
     return ({'SegOverlaid': Image.fromarray(overlay),
              'SegRefined': Image.fromarray(refined)}, scoring)
+
+
+def _postprocess_segs(orig, images, tile_size, seg_thresh, size_thresh,
+                      marker_thresh, size_thresh_upper):
+    """DeepLIIFExt / SDG: every image named with 'Seg' scored on the host
+    quantifier without a marker, giving '{name}_Overlaid' and
+    '{name}_Refined' and the scoring under its name. Resolution from tile
+    size: > 768 -> 40x, > 384 -> 20x, else 10x (the JAX package's rule for
+    these families, twice the DeepLIIF thresholds)."""
+    from PIL import Image
+    from .. import postprocessing as pp
+
+    resolution = '40x' if tile_size > 768 else ('20x' if tile_size > 384
+                                                else '10x')
+    orig = np.asarray(orig.convert('RGB') if hasattr(orig, 'convert')
+                      else orig)
+    processed, scoring = {}, {}
+    for name, im in list(images.items()):
+        if 'Seg' in name:
+            overlay, refined, score = pp.compute_final_results(
+                orig, np.asarray(im), None, resolution, size_thresh,
+                marker_thresh, size_thresh_upper, seg_thresh)
+            processed[name + '_Overlaid'] = Image.fromarray(overlay)
+            processed[name + '_Refined'] = Image.fromarray(refined)
+            scoring[name] = score
+    return processed, scoring
 
 
 def infer_modalities(img, tile_size, model_dir, eager_mode=False,
@@ -538,5 +727,8 @@ def infer_modalities(img, tile_size, model_dir, eager_mode=False,
                                            device_quant=device_quant,
                                            seg_device=seg_device,
                                            device=session.device)
-        return {**images, **post_images}, scoring
+        images = {**images, **post_images}
+        if seg_only:
+            images = {k: v for k, v in images.items() if 'Seg' in k}
+        return images, scoring
     return images, None

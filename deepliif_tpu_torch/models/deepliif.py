@@ -21,8 +21,15 @@ that ``calibrate_act_scales`` records or per-sample dynamic ones.
 translators through their fused stages (``nets.resnet``), the counterpart
 of the JAX package's ``DEEPLIIF_FUSE_STAGES=1``.
 
-Not ported yet: ``seg_only_forward``, ``forward_with_branches`` (ROADMAP.md,
-"Seg-only and intermediates") and training ("Training").
+``seg_only_forward`` runs only the translators and seg nets whose seg
+weight is not zero (and the marker's translator), the reference's seg-only
+pruning; ``forward_with_branches`` also returns each seg net's output (the
+intermediates). ``norm='spectral'`` divides every conv weight by its
+spectral norm (``layers.SpectralCache``, the JAX ``_maybe_spectral``).
+At int8 with spectral norm the quantized convs take the raw weights and
+their float route the normalized ones, as in the JAX package, which
+quantizes its params at load and normalizes in the forward
+(``layers.cast_function``). Not ported yet: training ("Training").
 """
 
 from __future__ import annotations
@@ -56,6 +63,14 @@ class DeepLIIFDef:
     dtype: torch.dtype = torch.float32   # compute dtype of every net
     quant_int8: bool = False             # int8 trunk (--precision int8)
     fuse_stages: bool = False            # fused translator stages (bf16)
+
+    @property
+    def uniform_g(self):
+        return len(set(self.net_g)) == 1
+
+    @property
+    def uniform_gs(self):
+        return len(set(self.net_gs)) == 1
 
 
 # compute dtype per --precision: int8 runs everything around the quantized
@@ -123,17 +138,20 @@ class DeepLIIFNets(nn.Module):
             for arch in (d.net_gs if d.seg_gen else ()))
         for net in list(self.G) + list(self.GS):
             net.compute_dtype = d.dtype
+            if d.norm == 'spectral':
+                L.add_spectral_buffers(net)
         if d.fuse_stages:
-            nets.resnet.fused_stages_gate(d.dtype, d.quant_int8, 4 * d.ngf)
+            nets.resnet.fused_stages_gate(
+                d.dtype, d.quant_int8, 4 * d.ngf,
+                variant=(d.norm, d.padding_type, d.upsample))
             for g in self.G:
                 if not isinstance(g, nets.ResnetGenerator):
                     raise ValueError(f'fuse_stages needs ResNet translators, '
                                      f'got {type(g).__name__}')
                 g.fuse_stages = True
 
-
-def _groups(nets_):
-    return (('G', nets_.G), ('GS', nets_.GS))
+    def named_groups(self):
+        return [('G', self.G), ('GS', self.GS)]
 
 
 def quantizable_convs(nets_, min_ch=quant.MIN_CH):
@@ -142,7 +160,7 @@ def quantizable_convs(nets_, min_ch=quant.MIN_CH):
     tree: the keys calibration records and quantization reads). A group of
     one architecture shares its keys, as the JAX package stacks it."""
     out = {}
-    for group, nets in _groups(nets_):
+    for group, nets in nets_.named_groups():
         for prefix, net in zip(nets_.prefixes[group], nets):
             for name, w, kind in net.conv_layout():
                 cin, cout = (w.shape[1], w.shape[0]) if kind == 'conv' \
@@ -166,7 +184,7 @@ def quantize_nets(nets_, scope='all', act_scales=None):
             for net, name in convs:
                 scales.setdefault(id(net), {})[name] = (act_scales or {}).get(
                     key)
-    for _, nets in _groups(nets_):
+    for _, nets in nets_.named_groups():
         for net in nets:
             net.set_int8(scales.get(id(net), {}))
 
@@ -199,11 +217,27 @@ def calibrate_act_scales(nets_, x, d: DeepLIIFDef, min_ch=quant.MIN_CH,
     return cal.out
 
 
+def _seg_sum(w, segs):
+    """The weighted seg sum over the branch axis, one tensordot: a branch
+    of weight 0 given as zeros leaves the sum's bits as they are."""
+    w = torch.as_tensor(w, dtype=torch.float32, device=segs.device)
+    return torch.tensordot(w.to(segs.dtype), segs, dims=1)
+
+
+def _seg_input(y):
+    # the seg nets take channels_last input, as GS[0] does: the fused
+    # translator tail returns NCHW, and a bf16 seg net fed NCHW runs every
+    # conv through cuDNN's NCHW <-> NHWC conversions (one small copy here
+    # instead)
+    return y.contiguous(memory_format=torch.channels_last)
+
+
 def generator_forward(nets_, x, d: DeepLIIFDef, *, seg_weights=None,
-                      seg_gen=None):
+                      seg_gen=None, branches=False):
     """Inference ensemble forward: x (B, H, W, C) -> (mods (M, B, H, W, C),
     seg (B, H, W, C) or None), in the compute dtype ``d.dtype`` (x is cast
-    to it). ``seg_gen=False`` skips the seg branches."""
+    to it). ``seg_gen=False`` skips the seg branches; ``branches`` also
+    returns the seg nets' outputs (M + 1, B, H, W, C)."""
     if nets_.training:
         raise roadmap.not_ported('training (call .eval())', roadmap.TRAINING)
     seg_gen = d.seg_gen if seg_gen is None else seg_gen
@@ -211,23 +245,66 @@ def generator_forward(nets_, x, d: DeepLIIFDef, *, seg_weights=None,
     mods = [g(xc) for g in nets_.G]
     mods_nhwc = torch.stack([y.permute(0, 2, 3, 1) for y in mods])
     if not seg_gen:
-        return mods_nhwc, None
-    w = torch.as_tensor(d.seg_weights if seg_weights is None else seg_weights,
-                        dtype=torch.float32, device=x.device)
-    # the seg nets take channels_last input, as GS[0] does: the fused
-    # translator tail returns NCHW, and a bf16 seg net fed NCHW runs every
-    # conv through cuDNN's NCHW <-> NHWC conversions (one small copy here
-    # instead)
-    mods_cl = [y.contiguous(memory_format=torch.channels_last) for y in mods]
-    segs = torch.stack([gs(xi).permute(0, 2, 3, 1)
-                        for gs, xi in zip(nets_.GS, [xc] + mods_cl)])
-    seg = torch.tensordot(w.to(segs.dtype), segs, dims=1)
-    return mods_nhwc, seg
+        return (mods_nhwc, None, None) if branches else (mods_nhwc, None)
+    segs = torch.stack([gs(xi).permute(0, 2, 3, 1) for gs, xi in
+                        zip(nets_.GS, [xc] + [_seg_input(y) for y in mods])])
+    seg = _seg_sum(d.seg_weights if seg_weights is None else seg_weights,
+                   segs)
+    return (mods_nhwc, seg, segs) if branches else (mods_nhwc, seg)
+
+
+def forward_with_branches(nets_, x, d: DeepLIIFDef, seg_weights=None):
+    """``generator_forward`` with the seg nets' outputs: (mods, seg, segs
+    (M + 1, B, H, W, C)), the JAX package's ``forward_with_branches`` (the
+    reference's return_seg_intermediate)."""
+    return generator_forward(nets_, x, d, seg_weights=seg_weights,
+                             seg_gen=True, branches=True)
+
+
+def seg_only_forward(nets_, x, d: DeepLIIFDef, seg_weights=None,
+                     marker_index=None):
+    """The seg alone (the JAX package's ``seg_only_forward``, the
+    reference's seg-only pruning): only the translators whose seg branch
+    has a weight other than 0, and the marker translator ``marker_index``
+    when given, then only the seg nets of weight other than 0. Returns
+    (seg (B, H, W, C), the marker modality (B, H, W, C) or None). With the
+    legacy weights (0.5, 0, 0, 0, 0.5) that is 1 translator and 2 seg nets
+    of 4 + 5. The pruned branches enter the weighted sum as zeros, so the
+    seg has the full forward's bits."""
+    if nets_.training:
+        raise roadmap.not_ported('training (call .eval())', roadmap.TRAINING)
+    w = tuple(float(v) for v in (d.seg_weights if seg_weights is None
+                                 else seg_weights))
+    needed = [i for i in range(d.modalities_no) if w[i + 1] != 0]
+    run = sorted(set(needed) | ({marker_index} if marker_index is not None
+                                else set()))
+    xc = x.to(d.dtype).permute(0, 3, 1, 2)
+    mods = {i: nets_.G[i](xc) for i in run}
+    inputs = {0: xc, **{i + 1: _seg_input(mods[i]) for i in needed}}
+    segs = {gi: nets_.GS[gi](inputs[gi]).permute(0, 2, 3, 1)
+            for gi in ([0] if w[0] != 0 else []) + [i + 1 for i in needed]}
+    if segs:
+        zero = torch.zeros_like(next(iter(segs.values())))
+        seg = _seg_sum(w, torch.stack([segs.get(i, zero)
+                                       for i in range(len(w))]))
+    else:
+        seg = torch.zeros_like(x)
+    marker = None if marker_index is None else \
+        mods[marker_index].permute(0, 2, 3, 1)
+    return seg, marker
 
 
 def inference_forward(nets_, x, d: DeepLIIFDef, seg_weights=None,
-                      seg_gen=None):
-    """Inference entry: dict {'mods': (M, B, H, W, C), 'seg': (B, H, W, C)}."""
+                      seg_gen=None, return_intermediate=False):
+    """Inference entry: dict {'mods': (M, B, H, W, C), 'seg': (B, H, W, C)}
+    (+ 'segs': (M + 1, B, H, W, C), each seg net's output, with
+    ``return_intermediate`` where every translator and every seg net share
+    one architecture, as in the JAX package)."""
+    seg_gen = d.seg_gen if seg_gen is None else seg_gen
+    if return_intermediate and seg_gen and d.uniform_g and d.uniform_gs:
+        mods, seg, segs = forward_with_branches(nets_, x, d,
+                                                seg_weights=seg_weights)
+        return {'mods': mods, 'seg': seg, 'segs': segs}
     mods, seg = generator_forward(nets_, x, d, seg_weights=seg_weights,
                                   seg_gen=seg_gen)
     out = {'mods': mods}

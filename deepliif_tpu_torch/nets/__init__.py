@@ -1,10 +1,10 @@
 """Generator factory mirroring deepliif_tpu.nets.define_g (reference
-define_G) for the ported architectures: resnet_Nblocks and
-unet_32..unet_512. Returns an ``nn.Module`` in the reference layout."""
+define_G): resnet_Nblocks, unet_32..unet_512 and unet_512_attention.
+Returns an ``nn.Module`` in the reference layout."""
 
 from __future__ import annotations
 
-from .. import roadmap
+from .att_unet import AttUnetGenerator
 from .resnet import ResnetGenerator
 from .unet import UnetGenerator
 
@@ -19,8 +19,12 @@ def define_g(input_nc, output_nc, ngf=64, net_g='resnet_9blocks', norm='batch',
             raise NotImplementedError(f'Generator [{net_g}] not recognized')
         return ResnetGenerator(input_nc, output_nc, ngf, int(blocks_str), norm,
                                use_dropout, padding_type, upsample)
-    if net_g.startswith('unet_') and net_g != 'unet_512_attention':
+    if net_g == 'unet_512_attention':
+        # fixed widths and batch norms, whatever ngf and norm say (as the
+        # JAX package and the reference build it)
+        return AttUnetGenerator(input_nc, output_nc)
+    if net_g.startswith('unet_'):
         size = int(net_g.split('_')[1])
         return UnetGenerator(input_nc, output_nc, UNET_DOWNS[size], ngf, norm,
                              use_dropout)
-    raise roadmap.not_ported(f'Generator [{net_g}]', roadmap.FAMILIES)
+    raise NotImplementedError(f'Generator [{net_g}] not recognized')

@@ -22,6 +22,15 @@ algorithm by the shape of the call, keeps one. On the CPU every conv and
 conv-transpose runs one sample at a time (``_per_sample``): oneDNN also
 picks by shape.
 
+Norms (``norm_layer`` / ``apply_norm``): 'batch' (per-sample statistics,
+``batch_stat_norm``), 'instance' (``instance_norm``, the same statistics
+kernel without the affine; the convs then carry a bias,
+``norm_use_bias``), 'none', and 'spectral' (no norm layer; the DeepLIIF
+family divides each conv weight by its spectral norm, ``SpectralCache``,
+the JAX ``spectral_normalize_tree``). Pads: zero, reflect, replicate;
+upsampling: ``upsample_nearest`` and ``pixel_shuffle`` besides the
+conv-transpose.
+
 ``conv2d_s2d`` and ``conv_transpose2d_s2d`` of the JAX package are TPU
 lowering tricks for a tiny output-channel count; their counterpart here is
 the plain conv.
@@ -40,13 +49,14 @@ handed down explicitly.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
-from .. import roadmap
 from ..ops import conv_int8, cuda_build, quant
 from ..utils.checkpoints import weight_to_hwio
 
@@ -102,6 +112,22 @@ class Int8Cache:
                     for n, w, kind in convs}
             self._key = key
         return self._convs
+
+
+def cast_function(casts, q, spectral=False):
+    """Function param -> what its conv takes: ``q[id(param)]`` (an
+    ``Int8Conv``) for a quantized conv, else ``casts[id(param)]`` (the
+    compute-dtype copy, or the spectrally normalized weight), else the
+    param itself; None stays None. With ``spectral`` the float route of a
+    quantized conv (past the dynamic gate) takes the normalized weight,
+    while its int8 weights come from the raw one: the JAX package
+    quantizes its params at load and normalizes only the float weights in
+    the forward."""
+    if spectral:
+        q = {k: dataclasses.replace(v, w=casts.get(k, v.w))
+             for k, v in q.items()}
+    return lambda p: None if p is None else (
+        q[id(p)] if id(p) in q else casts.get(id(p), p))
 
 
 def _per_sample(fn, x, *args):
@@ -254,11 +280,30 @@ class _CalibrationView:
 
 
 def pad2d(x, n, mode='zero'):
+    """Pad H and W by ``n``: 'zero', 'reflect' or 'replicate' (the edge
+    value, ``jnp.pad`` mode 'edge')."""
     if mode == 'zero':
         return F.pad(x, (n, n, n, n))
-    if mode == 'reflect':
-        return F.pad(x, (n, n, n, n), mode='reflect')
-    raise roadmap.not_ported(f'padding [{mode}]', roadmap.FAMILIES)
+    if mode in ('reflect', 'replicate'):
+        return F.pad(x, (n, n, n, n), mode=mode)
+    raise NotImplementedError(f'padding [{mode}] not implemented')
+
+
+def pad_layer(n, mode):
+    """The reference's pad module for ``mode``: it holds no parameters, so
+    it only keeps the indices of the reference ``nn.Sequential``."""
+    return {'reflect': nn.ReflectionPad2d, 'replicate': nn.ReplicationPad2d,
+            'zero': nn.ZeroPad2d}[mode](n)
+
+
+def upsample_nearest(x, factor=2):
+    """Nearest-neighbour upsampling of (N, C, H, W) by ``factor``."""
+    return F.interpolate(x, scale_factor=factor, mode='nearest')
+
+
+def pixel_shuffle(x, factor=2):
+    """torch PixelShuffle: (N, C r^2, H, W) -> (N, C, H r, W r)."""
+    return F.pixel_shuffle(x, factor)
 
 
 # the statistics kernel's chunk layout, decided here only: 16-byte loads a
@@ -400,6 +445,123 @@ def batch_stat_norm(x, scale, bias, eps=1e-5):
     s = inv * scale[None, :, None, None]
     b = bias[None, :, None, None] - mean * inv * scale[None, :, None, None]
     return x * s.to(x.dtype) + b.to(x.dtype)
+
+
+def instance_norm(x, eps=1e-5):
+    """InstanceNorm2d(affine=False): per-sample, per-channel statistics over
+    H, W (one ``plane_mean_var`` call, the statistics kernel on CUDA), in
+    float32; x * scale + bias in x.dtype."""
+    st = plane_mean_var(x)
+    mean, var = st[:, 0][:, :, None, None], st[:, 1][:, :, None, None]
+    inv = torch.rsqrt(var + eps)
+    return x * inv.to(x.dtype) + (-mean * inv).to(x.dtype)
+
+
+def norm_layer(norm, c):
+    """The reference's norm module for ``norm`` at ``c`` channels:
+    BatchNorm2d with its affine parameters (statistics per sample,
+    ``batch_stat_norm``), InstanceNorm2d without parameters, or an empty
+    slot ('none'; 'spectral' normalizes the conv weights instead)."""
+    if norm == 'batch':
+        return nn.BatchNorm2d(c, affine=True, track_running_stats=False)
+    if norm == 'instance':
+        return nn.InstanceNorm2d(c)
+    if norm in ('none', 'spectral'):
+        return nn.Identity()
+    raise NotImplementedError(f'norm [{norm}] not implemented')
+
+
+def norm_use_bias(norm):
+    """Convs carry a bias iff the norm is instance norm (the reference rule
+    use_bias = norm_layer == nn.InstanceNorm2d)."""
+    return norm == 'instance'
+
+
+def apply_norm(x, norm, layer):
+    """The inference norm of ``norm`` with the parameters of ``layer``
+    (``norm_layer``'s module)."""
+    if norm == 'batch':
+        return batch_stat_norm(x, layer.weight, layer.bias)
+    if norm == 'instance':
+        return instance_norm(x)
+    if norm in ('none', 'spectral'):
+        return x
+    raise NotImplementedError(f'norm [{norm}] not implemented')
+
+
+# spectral normalization (norm 'spectral', DeepLIIF family): each conv
+# keeps the power-iteration vector of the JAX package's param tree ('u',
+# over the rows of the HWIO kernel reshaped to (KH KW C_in, C_out)) as the
+# buffer ``spectral_u`` of its module
+SPECTRAL_ITERS = 3
+
+
+def conv_modules(net):
+    """[(module, kind)] of every conv ('conv') and conv-transpose ('convT')
+    of ``net``."""
+    return [(m, 'convT' if isinstance(m, nn.ConvTranspose2d) else 'conv')
+            for m in net.modules()
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d))]
+
+
+def add_spectral_buffers(net):
+    """Give every conv of ``net`` a ``spectral_u`` buffer (zeros until
+    loaded; ``KH KW C_in`` long)."""
+    for m, kind in conv_modules(net):
+        w = m.weight
+        cin = w.shape[1] if kind == 'conv' else w.shape[0]
+        m.register_buffer('spectral_u', torch.zeros(
+            w.shape[2] * w.shape[3] * cin))
+
+
+def drop_spectral_buffers(net):
+    """Remove the ``spectral_u`` buffers: the convs then run their weights
+    as they are (the JAX package imports a reference dir without 'u')."""
+    for m, _ in conv_modules(net):
+        if 'spectral_u' in m._buffers:
+            del m._buffers['spectral_u']
+
+
+def spectral_sigma(w_hwio, u, n_iter=SPECTRAL_ITERS):
+    """The JAX package's ``_sn_single``: ``n_iter`` power-iteration steps
+    from ``u`` on the (KH KW C_in, C_out) matrix of the HWIO kernel, in
+    float32; returns sigma = u' M v."""
+    mat = w_hwio.reshape(-1, w_hwio.shape[-1]).float()
+    u = u.float()
+    v = None
+    for _ in range(n_iter):
+        v = mat.T @ u
+        v = v / (torch.linalg.norm(v) + 1e-12)
+        u = mat @ v
+        u = u / (torch.linalg.norm(u) + 1e-12)
+    return u @ (mat @ v)
+
+
+class SpectralCache:
+    """The spectrally normalized weights of a net (weight / sigma, in
+    float32, then cast to the compute dtype), rebuilt when a weight, a
+    ``spectral_u`` or the dtype changes."""
+
+    def __init__(self):
+        self._key = None
+        self._w = {}
+
+    def get(self, net, dtype):
+        """{id(weight): normalized weight in ``dtype``} of every conv of
+        ``net`` that has a ``spectral_u`` buffer."""
+        convs = [(m, kind) for m, kind in conv_modules(net)
+                 if 'spectral_u' in m._buffers]
+        key = (dtype,) + tuple(
+            (t.data_ptr(), t._version) for m, _ in convs
+            for t in (m.weight, m.spectral_u))
+        if key != self._key:
+            with torch.no_grad():
+                self._w = {
+                    id(m.weight): (m.weight / spectral_sigma(
+                        weight_to_hwio(m.weight, kind), m.spectral_u))
+                    .to(dtype).contiguous() for m, kind in convs}
+            self._key = key
+        return self._w
 
 
 def relu(x):

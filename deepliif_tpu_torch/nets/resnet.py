@@ -35,6 +35,17 @@ affine and ReLU, the pad, the 7x7 conv, the bias and tanh in one pass
 (the JAX fused path runs that tail in XLA, with the same rounding points).
 Where the JAX package would fall back to the unfused path
 (``fused_stages_gate``), the port raises.
+
+Variants (JAX ``init`` / ``apply``): the norms of ``layers.norm_layer``
+(conv biases iff instance norm); 'replicate' padding, which pads the
+trunk's convs in the reflect layout (a pad module, then an unpadded conv)
+and the head and tail with zeros, as the JAX package does; up stages
+'resize_conv' (nearest x2, reflect pad 1, a 3x3 conv with bias) and
+'pixel_shuffle' (a 3x3 conv with bias to twice the channels, the shuffle,
+ReLU) besides the conv-transpose. The trunk kernels run where the JAX
+package's ``_fused_ok`` admits the trunk: batch norm with reflect or zero
+padding; every other trunk runs ``trunk_unfused`` (cuDNN and the
+statistics kernel).
 """
 
 from __future__ import annotations
@@ -49,12 +60,20 @@ from ..utils.checkpoints import weight_to_hwio
 from . import layers as L
 
 
-def fused_stages_gate(dtype, int8=False, trunk_c=None, hw=None):
+def fused_stages_gate(dtype, int8=False, trunk_c=None, hw=None,
+                      variant=('batch', 'zero', 'convtranspose')):
     """Raise ValueError where the fused translator stages do not apply:
     the gate of the JAX package (deepliif_tpu/nets/resnet.py apply,
     :217-230; there, it falls back to the unfused path without a word)
-    for a compute ``dtype``, an int8 trunk, the trunk width ``trunk_c``
-    and the input size ``hw`` (H, W), each checked when given."""
+    for a compute ``dtype``, an int8 trunk, the trunk width ``trunk_c``,
+    the input size ``hw`` (H, W), each checked when given, and the net's
+    ``variant`` (norm, padding, upsample)."""
+    norm, padding, upsample = variant
+    if norm != 'batch' or padding not in ('reflect', 'zero') \
+            or upsample != 'convtranspose':
+        raise ValueError(f'fuse_stages needs batch norm, reflect or zero '
+                         f'padding and conv-transpose up stages (the JAX '
+                         f'gate), got {norm}, {padding}, {upsample}')
     if int8:
         raise ValueError(
             'fuse_stages does not run at int8: the JAX package\'s gate passes '
@@ -75,29 +94,26 @@ def fused_stages_gate(dtype, int8=False, trunk_c=None, hw=None):
                              f'got {h}x{w}')
 
 
-def _bn(c):
-    # parameters only: statistics are per sample (layers.batch_stat_norm)
-    return nn.BatchNorm2d(c, affine=True, track_running_stats=False)
-
-
-def _pad(n, padding_type):
-    return nn.ReflectionPad2d(n) if padding_type == 'reflect' else nn.ZeroPad2d(n)
-
-
 class ResnetBlock(nn.Module):
     """Parameter container in the reference layout: pad1-conv3-norm-relu-
-    [dropout]-pad1-conv3-norm (zero padding folds the pads into the convs).
-    Inference runs all blocks at once through ``resblock_chain``."""
+    [dropout]-pad1-conv3-norm (zero padding folds the pads into the convs;
+    reflect and replicate keep pad modules). Inference runs all blocks at
+    once through ``resblock_chain``, or ``ResnetGenerator.trunk_unfused``."""
 
-    def __init__(self, dim, padding_type, use_dropout):
+    def __init__(self, dim, padding_type, use_dropout, norm='batch',
+                 use_bias=False):
         super().__init__()
-        seq = []
+        seq, slots = [], []
         for j in range(2):
-            if padding_type == 'reflect':
-                seq += [nn.ReflectionPad2d(1), nn.Conv2d(dim, dim, 3, bias=False)]
+            if padding_type in ('reflect', 'replicate'):
+                seq += [L.pad_layer(1, padding_type)]
+                conv = nn.Conv2d(dim, dim, 3, bias=use_bias)
             else:
-                seq += [nn.Conv2d(dim, dim, 3, padding=1, bias=False)]
-            seq.append(_bn(dim))
+                conv = nn.Conv2d(dim, dim, 3, padding=1, bias=use_bias)
+            slots.append(len(seq))
+            seq.append(conv)
+            slots.append(len(seq))
+            seq.append(L.norm_layer(norm, dim))
             if j == 0:
                 seq.append(nn.ReLU(True))
                 if use_dropout:
@@ -105,9 +121,7 @@ class ResnetBlock(nn.Module):
         self.conv_block = nn.Sequential(*seq)
         # conv_block indices of conv1, norm1, conv2, norm2 (plain ints, so
         # the modules are not registered a second time)
-        self.param_slots = tuple(
-            j for j, m in enumerate(seq)
-            if isinstance(m, (nn.Conv2d, nn.BatchNorm2d)))
+        self.param_slots = tuple(slots)
 
     @property
     def conv1(self):
@@ -126,35 +140,60 @@ class ResnetBlock(nn.Module):
         return self.conv_block[self.param_slots[3]]
 
 
+UPSAMPLES = ('convtranspose', 'resize_conv', 'pixel_shuffle')
+
+
 class ResnetGenerator(nn.Module):
     def __init__(self, input_nc, output_nc, ngf=64, n_blocks=9, norm='batch',
                  use_dropout=True, padding_type='reflect',
                  upsample='convtranspose'):
         super().__init__()
-        if norm != 'batch':
-            raise roadmap.not_ported(f'norm [{norm}]', roadmap.FAMILIES)
-        if padding_type not in ('reflect', 'zero'):
-            raise roadmap.not_ported(f'padding [{padding_type}]',
-                                     roadmap.FAMILIES)
-        if upsample != 'convtranspose':
-            raise roadmap.not_ported(f'upsample [{upsample}]',
-                                     roadmap.FAMILIES)
+        if padding_type not in ('reflect', 'zero', 'replicate'):
+            raise NotImplementedError(f'padding [{padding_type}] not '
+                                      'implemented')
+        if upsample not in UPSAMPLES:
+            raise NotImplementedError(f'upsample [{upsample}] not '
+                                      'implemented')
+        self.norm = norm
         self.padding_type = padding_type
+        # the head and tail pad: reflect, else zeros (replicate too, as the
+        # JAX package pads them)
+        self.pad_head = 'reflect' if padding_type == 'reflect' else 'zero'
+        self.upsample = upsample
         self.n_blocks = n_blocks
-        layers = [_pad(3, padding_type), nn.Conv2d(input_nc, ngf, 7, bias=False),
-                  _bn(ngf), nn.ReLU(True)]
+        bias = L.norm_use_bias(norm)
+        layers = [L.pad_layer(3, self.pad_head),
+                  nn.Conv2d(input_nc, ngf, 7, bias=bias),
+                  L.norm_layer(norm, ngf), nn.ReLU(True)]
         for i in range(2):
             mult = 2 ** i
-            layers += [nn.Conv2d(ngf * mult, ngf * mult * 2, 3, 2, 1, bias=False),
-                       _bn(ngf * mult * 2), nn.ReLU(True)]
-        layers += [ResnetBlock(ngf * 4, padding_type, use_dropout)
+            layers += [nn.Conv2d(ngf * mult, ngf * mult * 2, 3, 2, 1,
+                                 bias=bias),
+                       L.norm_layer(norm, ngf * mult * 2), nn.ReLU(True)]
+        layers += [ResnetBlock(ngf * 4, padding_type, use_dropout, norm, bias)
                    for _ in range(n_blocks)]
+        # (conv, norm) indices of the two up stages
+        self.up_slots = []
         for i in range(2):
             mult = 2 ** (2 - i)
-            layers += [nn.ConvTranspose2d(ngf * mult, ngf * mult // 2, 3, 2, 1,
-                                          output_padding=1, bias=False),
-                       _bn(ngf * mult // 2), nn.ReLU(True)]
-        layers += [_pad(3, padding_type), nn.Conv2d(ngf, output_nc, 7), nn.Tanh()]
+            cin, cout = ngf * mult, ngf * mult // 2
+            if upsample == 'convtranspose':
+                stage = [nn.ConvTranspose2d(cin, cout, 3, 2, 1,
+                                            output_padding=1, bias=bias)]
+                conv = 0
+            elif upsample == 'resize_conv':
+                stage = [nn.Upsample(scale_factor=2, mode='nearest'),
+                         nn.ReflectionPad2d(1), nn.Conv2d(cin, cout, 3)]
+                conv = 2
+            else:
+                stage = [nn.Conv2d(cin, cin * 2, 3, padding=1),
+                         nn.PixelShuffle(2), nn.ReLU(True)]
+                conv = 0
+            self.up_slots.append((len(layers) + conv, len(layers) + len(stage)))
+            layers += stage + [L.norm_layer(norm, cout), nn.ReLU(True)]
+        self.tail_slot = len(layers) + 1
+        layers += [L.pad_layer(3, self.pad_head), nn.Conv2d(ngf, output_nc, 7),
+                   nn.Tanh()]
         self.model = nn.Sequential(*layers)
         self.compute_dtype = torch.float32
         self.fuse_stages = False
@@ -166,8 +205,17 @@ class ResnetGenerator(nn.Module):
         self._casts = L.CastCache()
         self._trunk_casts = L.CastCache()
         self._stage_casts = L.CastCache()
+        self._spectral = L.SpectralCache()
+        self._param_sets = {}
         self._trunk_key = None
         self._trunk = None
+
+    @property
+    def trunk_kernel_ok(self):
+        """The norm and padding part of the JAX package's ``_fused_ok``:
+        the trunk kernels take batch norm with reflect or zero padding."""
+        return self.norm == 'batch' and self.padding_type in ('reflect',
+                                                              'zero')
 
     # -- reference layout ---------------------------------------------------
 
@@ -177,7 +225,8 @@ class ResnetGenerator(nn.Module):
 
     def jax_layout(self):
         """(JAX param path, torch module prefix, kind) for every parameter
-        group, kind in conv | convT | norm: the map between this module's
+        group, kind in conv | convT | norm (a norm without parameters, all
+        but batch norm, is an empty node): the map between this module's
         state dict and the deepliif_tpu.nets.resnet param tree."""
         out = [('head_conv', 'model.1', 'conv'), ('head_norm', 'model.2', 'norm')]
         idx = 4
@@ -193,11 +242,11 @@ class ResnetGenerator(nn.Module):
                     (f'res{i}_conv2', f'{base}.{c2}', 'conv'),
                     (f'res{i}_norm2', f'{base}.{n2}', 'norm')]
             idx += 1
-        for i in range(2):
-            out += [(f'up{i}_conv', f'model.{idx}', 'convT'),
-                    (f'up{i}_norm', f'model.{idx + 1}', 'norm')]
-            idx += 3
-        out.append(('tail_conv', f'model.{idx + 1}', 'conv'))
+        up_kind = 'convT' if self.upsample == 'convtranspose' else 'conv'
+        for i, (conv, norm) in enumerate(self.up_slots):
+            out += [(f'up{i}_conv', f'model.{conv}', up_kind),
+                    (f'up{i}_norm', f'model.{norm}', 'norm')]
+        out.append(('tail_conv', f'model.{self.tail_slot}', 'conv'))
         return [((name,), prefix, kind) for name, prefix, kind in out]
 
     # -- precision ----------------------------------------------------------
@@ -232,30 +281,39 @@ class ResnetGenerator(nn.Module):
         self._int8_convs = L.Int8Cache()
         self._trunk_key = None
 
-    def _cast(self, int8=True):
+    def _cast_params(self, trunk):
+        """The conv weights and biases outside the trunk, or (``trunk``)
+        the trunk's (collected once: the parameters keep their identity)."""
+        if trunk not in self._param_sets:
+            convs = [self.get_submodule(prefix) for path, prefix, kind
+                     in self.jax_layout() if kind != 'norm'
+                     and path[0].startswith('res') == trunk]
+            self._param_sets[trunk] = {id(p): p for c in convs
+                                       for p in (c.weight, c.bias)
+                                       if p is not None}
+        return self._param_sets[trunk]
+
+    def _cast(self, int8=True, trunk=False):
         """Function param -> what its conv takes: the ``Int8Conv`` of a
         quantized conv (``int8``), else the weight or bias in the compute
-        dtype (cached casts)."""
-        m = self.model
-        up = 10 + self.n_blocks
-        params = [m[1].weight, m[4].weight, m[7].weight, m[up].weight,
-                  m[up + 3].weight, m[up + 7].weight, m[up + 7].bias]
+        dtype (cached casts; with spectral norm the normalized weight);
+        ``trunk`` (or a float replay, ``int8`` False) adds the trunk's
+        convs for the unfused trunk."""
         casts = {}
         if self.compute_dtype != torch.float32:
-            casts = self._casts.get({id(p): p for p in params},
+            casts = self._casts.get(self._cast_params(False),
                                     self.compute_dtype)
-            if not int8:
-                # the float trunk, unfused: only the calibration replay
-                trunk = [c.weight for b in self.blocks
-                         for c in (b.conv1, b.conv2)]
+            if trunk or not int8:
                 casts = {**casts, **self._trunk_casts.get(
-                    {id(p): p for p in trunk}, self.compute_dtype)}
+                    self._cast_params(True), self.compute_dtype)}
+        if self.norm == 'spectral':
+            casts = {**casts, **self._spectral.get(self, self.compute_dtype)}
         q = {}
         if int8 and self.int8:
             q = self._int8_convs.get(
                 [c for c in self.conv_layout() if c[0] in self.int8],
                 self.int8, self.compute_dtype)
-        return lambda p: q[id(p)] if id(p) in q else casts.get(id(p), p)
+        return L.cast_function(casts, q, self.norm == 'spectral')
 
     # -- inference ----------------------------------------------------------
 
@@ -301,13 +359,13 @@ class ResnetGenerator(nn.Module):
         recording the down convs' inputs."""
         m = self.model
         cast = cast or self._cast()
-        x = L.pad2d(x, 3, self.padding_type)
-        x = L.conv2d(x, cast(m[1].weight))
-        x = L.relu(L.batch_stat_norm(x, m[2].weight, m[2].bias))
+        x = L.pad2d(x, 3, self.pad_head)
+        x = L.conv2d(x, cast(m[1].weight), cast(m[1].bias))
+        x = L.relu(L.apply_norm(x, self.norm, m[2]))
         for i, idx in enumerate((4, 7)):
             L.record(calib, f'down{i}_conv', x)
-            x = L.conv2d(x, cast(m[idx].weight), None, 2, 1)
-            x = L.relu(L.batch_stat_norm(x, m[idx + 1].weight, m[idx + 1].bias))
+            x = L.conv2d(x, cast(m[idx].weight), cast(m[idx].bias), 2, 1)
+            x = L.relu(L.apply_norm(x, self.norm, m[idx + 1]))
         return x.permute(0, 2, 3, 1).contiguous()
 
     def trunk(self, x, cast=None, calib=None):
@@ -315,36 +373,38 @@ class ResnetGenerator(nn.Module):
         JAX package's fused gate admits it), else, and while calibrating,
         the unfused trunk."""
         _, h, w, c = x.shape
-        if calib is None and self.int8_mode is None:
+        if calib is None and self.int8_mode is None and self.trunk_kernel_ok:
             return FR.resblock_chain(x, self.trunk_blocks(),
                                      padding=self.padding_type)
         if (calib is None and self.int8_mode in ('static', 'dynamic')
+                and self.trunk_kernel_ok
                 and c % 128 == 0 and h % 16 == 0 and w % 16 == 0):
             # the JAX package's fused-kernel gate (deepliif_tpu/nets/
             # resnet.py _fused_ok and int8_chain_mode)
             return FR.resblock_chain_int8(x, self.trunk_blocks(),
                                           padding=self.padding_type,
                                           dynamic=self.int8_mode == 'dynamic')
-        return self.trunk_unfused(x.permute(0, 3, 1, 2), cast or self._cast(),
+        return self.trunk_unfused(x.permute(0, 3, 1, 2),
+                                  cast or self._cast(trunk=True),
                                   calib).permute(0, 2, 3, 1)
 
     def trunk_unfused(self, x, cast, calib=None):
         """(B, C, H, W) -> the trunk's output, one ``layers.conv2d`` per
-        resblock conv (the JAX package's unfused loop): a reflect block pads
-        first and records the padded input, a zero block pads inside the
-        conv; norm per sample, ReLU after the first conv, the residual add
-        in x.dtype."""
-        reflect = self.padding_type == 'reflect'
+        resblock conv (the JAX package's unfused loop): a reflect or
+        replicate block pads first and records the padded input, a zero
+        block pads inside the conv; the net's norm, ReLU after the first
+        conv, the residual add in x.dtype."""
+        pad = self.padding_type in ('reflect', 'replicate')
         for i, b in enumerate(self.blocks):
             h = x
             for j, conv, norm in ((1, b.conv1, b.norm1),
                                   (2, b.conv2, b.norm2)):
-                if reflect:
-                    h = L.pad2d(h, 1, 'reflect')
+                if pad:
+                    h = L.pad2d(h, 1, self.padding_type)
                 L.record(calib, f'res{i}_conv{j}', h)
-                h = L.conv2d(h, cast(conv.weight), None, 1,
-                             0 if reflect else 1)
-                h = L.batch_stat_norm(h, norm.weight, norm.bias)
+                h = L.conv2d(h, cast(conv.weight), cast(conv.bias), 1,
+                             0 if pad else 1)
+                h = L.apply_norm(h, self.norm, norm)
                 if j == 1:
                     h = L.relu(h)
             x = x + h
@@ -355,14 +415,22 @@ class ResnetGenerator(nn.Module):
         m = self.model
         cast = cast or self._cast()
         x = x.permute(0, 3, 1, 2)
-        idx = 10 + self.n_blocks
-        for i in range(2):
-            L.record(calib, f'up{i}_conv', x)
-            x = L.conv_transpose2d(x, cast(m[idx].weight), None, 2, 1, 1)
-            x = L.relu(L.batch_stat_norm(x, m[idx + 1].weight, m[idx + 1].bias))
-            idx += 3
-        x = L.pad2d(x, 3, self.padding_type)
-        x = L.conv2d(x, cast(m[idx + 1].weight), cast(m[idx + 1].bias))
+        for i, (ci, ni) in enumerate(self.up_slots):
+            w, b = cast(m[ci].weight), cast(m[ci].bias)
+            if self.upsample == 'convtranspose':
+                L.record(calib, f'up{i}_conv', x)
+                x = L.conv_transpose2d(x, w, b, 2, 1, 1)
+            elif self.upsample == 'resize_conv':
+                x = L.pad2d(L.upsample_nearest(x, 2), 1, 'reflect')
+                L.record(calib, f'up{i}_conv', x)
+                x = L.conv2d(x, w, b, 1, 0)
+            else:
+                L.record(calib, f'up{i}_conv', x)
+                x = L.relu(L.pixel_shuffle(L.conv2d(x, w, b, 1, 1), 2))
+            x = L.relu(L.apply_norm(x, self.norm, m[ni]))
+        x = L.pad2d(x, 3, self.pad_head)
+        t = m[self.tail_slot]
+        x = L.conv2d(x, cast(t.weight), cast(t.bias))
         return L.tanh(x)
 
     def calibrate(self, x, calib):
@@ -380,10 +448,11 @@ class ResnetGenerator(nn.Module):
         """The down-conv, up-conv-transpose and tail kernels in the JAX HWIO
         layout (``weight_to_hwio``) and the tail bias, cast to the compute
         dtype once per weight version."""
-        m, up = self.model, 10 + self.n_blocks
+        m, (up0, _), (up1, _) = self.model, *self.up_slots
+        tail = m[self.tail_slot]
         tensors = {'down0': m[4].weight, 'down1': m[7].weight,
-                   'up0': m[up].weight, 'up1': m[up + 3].weight,
-                   'tail': m[up + 7].weight, 'tail_b': m[up + 7].bias}
+                   'up0': m[up0].weight, 'up1': m[up1].weight,
+                   'tail': tail.weight, 'tail_b': tail.bias}
 
         def layout(k, t):
             if k == 'tail_b':
@@ -400,10 +469,11 @@ class ResnetGenerator(nn.Module):
         up0's), then the tail (``tail_s2d_fused``: up1's norm affine and
         ReLU, pad 3, 7x7 conv, bias, tanh), which returns (B, C_out, H,
         W)."""
-        m, up = self.model, 10 + self.n_blocks
+        m, (_, up0), (_, up1) = self.model, *self.up_slots
         _, _, h0, w0 = x.shape
         fused_stages_gate(self.compute_dtype, bool(self.int8),
-                          m[7].weight.shape[0], (h0, w0))
+                          m[7].weight.shape[0], (h0, w0),
+                          (self.norm, self.padding_type, self.upsample))
         cast, w = self._cast(int8=False), self.stage_weights()
 
         def norm(st, bn, div):
@@ -414,7 +484,7 @@ class ResnetGenerator(nn.Module):
             return torch.relu(y * sc.to(y.dtype)[:, None, None]
                               + bi.to(y.dtype)[:, None, None])
 
-        x = L.conv2d(L.pad2d(x, 3, self.padding_type), cast(m[1].weight))
+        x = L.conv2d(L.pad2d(x, 3, self.pad_head), cast(m[1].weight))
         sc, bi = norm(L.plane_sums(x), m[2], 1)
         x = x.permute(0, 2, 3, 1).contiguous()
         for i, idx in enumerate((4, 7)):
@@ -423,10 +493,10 @@ class ResnetGenerator(nn.Module):
             sc, bi = norm(st, m[idx + 1], 2 ** (i + 1))
         x = self.trunk(affine_relu(x, sc, bi))
         x, st = FS.convtranspose3_s2_stats(x, w['up0'])
-        sc, bi = norm(st, m[up + 1], 2)
+        sc, bi = norm(st, m[up0], 2)
         x, st = FS.convtranspose3_s2_stats(x, w['up1'], in_scale=sc,
                                            in_bias=bi, in_relu=True)
-        sc, bi = norm(st, m[up + 4], 1)
+        sc, bi = norm(st, m[up1], 1)
         return FS.tail_s2d_fused(x, w['tail'], w['tail_b'], in_scale=sc,
                                  in_bias=bi, in_relu=True,
                                  padding=self.padding_type)

@@ -17,6 +17,9 @@ take the int8 route of ``layers`` (the ``conv_s8`` kernel); the min_ch gate
 leaves the outermost block's (3 channels in, 3 out) float. ``calibrate``
 replays the float net and records each conv's input (the unpadded input:
 these convs pad inside).
+
+Norms: those of ``layers.norm_layer``; with instance norm every conv
+carries a bias (the reference rule), the outermost up conv always does.
 """
 
 from __future__ import annotations
@@ -28,30 +31,31 @@ from .. import roadmap
 from . import layers as L
 
 
-def _bn(c):
-    return nn.BatchNorm2d(c, affine=True, track_running_stats=False)
-
-
 class UnetSkipConnectionBlock(nn.Module):
     def __init__(self, outer_nc, inner_nc, input_nc=None, submodule=None,
-                 outermost=False, innermost=False, use_dropout=False):
+                 outermost=False, innermost=False, use_dropout=False,
+                 norm='batch'):
         super().__init__()
         self.outermost = outermost
         self.innermost = innermost
+        self.norm = norm
+        bias = L.norm_use_bias(norm)
         if input_nc is None:
             input_nc = outer_nc
-        downconv = nn.Conv2d(input_nc, inner_nc, 4, 2, 1, bias=False)
+        downconv = nn.Conv2d(input_nc, inner_nc, 4, 2, 1, bias=bias)
         if outermost:
             up = nn.ConvTranspose2d(inner_nc * 2, outer_nc, 4, 2, 1)
             seq = [downconv, submodule, nn.ReLU(True), up, nn.Tanh()]
         elif innermost:
-            up = nn.ConvTranspose2d(inner_nc, outer_nc, 4, 2, 1, bias=False)
+            up = nn.ConvTranspose2d(inner_nc, outer_nc, 4, 2, 1, bias=bias)
             seq = [nn.LeakyReLU(0.2, True), downconv, nn.ReLU(True), up,
-                   _bn(outer_nc)]
+                   L.norm_layer(norm, outer_nc)]
         else:
-            up = nn.ConvTranspose2d(inner_nc * 2, outer_nc, 4, 2, 1, bias=False)
-            seq = [nn.LeakyReLU(0.2, True), downconv, _bn(inner_nc), submodule,
-                   nn.ReLU(True), up, _bn(outer_nc)]
+            up = nn.ConvTranspose2d(inner_nc * 2, outer_nc, 4, 2, 1,
+                                    bias=bias)
+            seq = [nn.LeakyReLU(0.2, True), downconv,
+                   L.norm_layer(norm, inner_nc), submodule, nn.ReLU(True), up,
+                   L.norm_layer(norm, outer_nc)]
             if use_dropout:
                 seq.append(nn.Dropout(0.5))
         self.model = nn.Sequential(*seq)
@@ -86,7 +90,7 @@ class UnetSkipConnectionBlock(nn.Module):
         sub = path + 'sub/'
         if self.outermost:
             L.record(calib, path + 'downconv', x)
-            h = L.conv2d(x, cast(m[0].weight), None, 2, 1)
+            h = L.conv2d(x, cast(m[0].weight), cast(m[0].bias), 2, 1)
             h = L.relu(m[1].run(h, cast, sub, calib))
             L.record(calib, path + 'upconv', h)
             h = L.conv_transpose2d(h, cast(m[3].weight), cast(m[3].bias), 2,
@@ -94,18 +98,20 @@ class UnetSkipConnectionBlock(nn.Module):
             return L.tanh(h)
         h = L.leaky_relu(x, 0.2)
         L.record(calib, path + 'downconv', h)
-        h = L.conv2d(h, cast(m[1].weight), None, 2, 1)
+        h = L.conv2d(h, cast(m[1].weight), cast(m[1].bias), 2, 1)
         if self.innermost:
             h = L.relu(h)
             L.record(calib, path + 'upconv', h)
-            h = L.conv_transpose2d(h, cast(m[3].weight), None, 2, 1, 0)
-            h = L.batch_stat_norm(h, m[4].weight, m[4].bias)
+            h = L.conv_transpose2d(h, cast(m[3].weight), cast(m[3].bias), 2,
+                                   1, 0)
+            h = L.apply_norm(h, self.norm, m[4])
         else:
-            h = L.batch_stat_norm(h, m[2].weight, m[2].bias)
+            h = L.apply_norm(h, self.norm, m[2])
             h = L.relu(m[3].run(h, cast, sub, calib))
             L.record(calib, path + 'upconv', h)
-            h = L.conv_transpose2d(h, cast(m[5].weight), None, 2, 1, 0)
-            h = L.batch_stat_norm(h, m[6].weight, m[6].bias)
+            h = L.conv_transpose2d(h, cast(m[5].weight), cast(m[5].bias), 2,
+                                   1, 0)
+            h = L.apply_norm(h, self.norm, m[6])
         return torch.cat([x, h], dim=1)
 
 
@@ -113,22 +119,26 @@ class UnetGenerator(nn.Module):
     def __init__(self, input_nc, output_nc, num_downs, ngf=64, norm='batch',
                  use_dropout=True):
         super().__init__()
-        if norm != 'batch':
-            raise roadmap.not_ported(f'norm [{norm}]', roadmap.FAMILIES)
-        blk = UnetSkipConnectionBlock(ngf * 8, ngf * 8, innermost=True)
+        self.norm = norm
+        blk = UnetSkipConnectionBlock(ngf * 8, ngf * 8, innermost=True,
+                                      norm=norm)
         for _ in range(num_downs - 5):
             blk = UnetSkipConnectionBlock(ngf * 8, ngf * 8, submodule=blk,
-                                          use_dropout=use_dropout)
-        blk = UnetSkipConnectionBlock(ngf * 4, ngf * 8, submodule=blk)
-        blk = UnetSkipConnectionBlock(ngf * 2, ngf * 4, submodule=blk)
-        blk = UnetSkipConnectionBlock(ngf, ngf * 2, submodule=blk)
+                                          use_dropout=use_dropout, norm=norm)
+        blk = UnetSkipConnectionBlock(ngf * 4, ngf * 8, submodule=blk,
+                                      norm=norm)
+        blk = UnetSkipConnectionBlock(ngf * 2, ngf * 4, submodule=blk,
+                                      norm=norm)
+        blk = UnetSkipConnectionBlock(ngf, ngf * 2, submodule=blk, norm=norm)
         self.model = UnetSkipConnectionBlock(output_nc, ngf, input_nc,
-                                             submodule=blk, outermost=True)
+                                             submodule=blk, outermost=True,
+                                             norm=norm)
         self.compute_dtype = torch.float32
         # int8 (set_int8): the quantized convs' scales by JAX path
         self.int8 = {}
         self._int8_convs = L.Int8Cache()
         self._casts = L.CastCache()
+        self._spectral = L.SpectralCache()
 
     def jax_layout(self):
         return [(p, f'model.{prefix}', kind)
@@ -151,7 +161,7 @@ class UnetGenerator(nn.Module):
         """Function param -> what its conv takes: the ``Int8Conv`` of a
         quantized conv (``int8``), else the weight or bias in the compute
         dtype (cached casts of every conv and conv-transpose weight and
-        bias)."""
+        bias; with spectral norm the normalized weights)."""
         casts = {}
         if self.compute_dtype != torch.float32:
             params = [p for mod in self.modules()
@@ -159,12 +169,14 @@ class UnetGenerator(nn.Module):
                       for p in (mod.weight, mod.bias) if p is not None]
             casts = self._casts.get({id(p): p for p in params},
                                     self.compute_dtype)
+        if self.norm == 'spectral':
+            casts = {**casts, **self._spectral.get(self, self.compute_dtype)}
         q = {}
         if int8 and self.int8:
             q = self._int8_convs.get(
                 [c for c in self.conv_layout() if c[0] in self.int8],
                 self.int8, self.compute_dtype)
-        return lambda p: q[id(p)] if id(p) in q else casts.get(id(p), p)
+        return L.cast_function(casts, q, self.norm == 'spectral')
 
     def forward(self, x):
         """(B, C_in, H, W) in any float dtype -> output in the compute

@@ -4,8 +4,6 @@ stays right when the queue is renumbered)."""
 
 from __future__ import annotations
 
-SEG_ONLY = 'Seg-only and intermediates'
-FAMILIES = 'Other families'
 SERVING = 'Serving'
 WSI = 'WSI'
 TRAINING = 'Training'
@@ -14,7 +12,7 @@ STATS = 'Stats'
 INT8_ALL = 'int8 scope all'
 
 # in the order of ROADMAP.md's Queue 1
-ITEMS = (SEG_ONLY, FAMILIES, SERVING, WSI, TRAINING, STATS, INT8_ALL)
+ITEMS = (SERVING, WSI, TRAINING, STATS, INT8_ALL)
 
 
 def not_ported(what, item):

@@ -3,8 +3,8 @@
 Native model dirs hold one ``{epoch}_net_{group}.npz`` per net group (G,
 GS, ...), written by deepliif_tpu.utils.checkpoints: keys are the JAX
 param-tree paths joined by '/', and a group of identical architectures is
-stacked along a leading net axis. (Groups of mixed architectures, saved as
-lists keyed '0/...', are not read yet.) Reference model dirs hold torch
+stacked along a leading net axis; a group of mixed architectures is a list
+keyed '0/...', '1/...' (``group_trees``). Reference model dirs hold torch
 state dicts (``{epoch}_net_{name}.pth`` or TorchScript ``{name}.pt``) that
 load into the modules as they are.
 
@@ -19,6 +19,7 @@ use) are:
   conv_transpose  HWIO, spatially
                   flipped             -> IOHW  (transpose 2, 3, 0, 1 + flip)
   norm            scale / bias        -> weight / bias
+  spectral norm   u (conv nodes)      -> spectral_u (a buffer of the conv)
 """
 
 from __future__ import annotations
@@ -31,8 +32,12 @@ import torch
 _RUNNING_STATS = ('running_mean', 'running_var', 'num_batches_tracked')
 
 
-def _get(tree, path):
+def _get(tree, path, default=None):
+    """tree[path[0]][path[1]]...; ``default`` (when given) where a key is
+    missing: an npz holds no key for an empty node."""
     for k in path:
+        if default is not None and (tree is None or k not in tree):
+            return default
         tree = tree[k]
     return tree
 
@@ -63,15 +68,20 @@ def params_from_jax(net, tree):
 
     sd = {}
     for path, prefix, kind in net.jax_layout():
-        p = _get(tree, path)
         if kind == 'norm':
+            p = _get(tree, path, {})
+            if not p:       # a norm without parameters
+                continue
             sd[f'{prefix}.weight'] = f32(p['scale'])
             sd[f'{prefix}.bias'] = f32(p['bias'])
             continue
+        p = _get(tree, path)
         sd[f'{prefix}.weight'] = weight_from_hwio(f32(p['w']),
                                                   kind).contiguous()
         if 'b' in p:
             sd[f'{prefix}.bias'] = f32(p['b'])
+        if 'u' in p:
+            sd[f'{prefix}.spectral_u'] = f32(p['u'])
     return sd
 
 
@@ -87,12 +97,15 @@ def params_to_jax(net, state_dict=None):
     for path, prefix, kind in net.jax_layout():
         if kind == 'norm':
             node = {'scale': arr(f'{prefix}.weight'),
-                    'bias': arr(f'{prefix}.bias')}
+                    'bias': arr(f'{prefix}.bias')} \
+                if f'{prefix}.weight' in sd else {}
         else:
             w = weight_to_hwio(sd[f'{prefix}.weight'].detach().cpu(), kind)
             node = {'w': np.ascontiguousarray(w.numpy())}
             if f'{prefix}.bias' in sd:
                 node['b'] = arr(f'{prefix}.bias')
+            if f'{prefix}.spectral_u' in sd:
+                node['u'] = arr(f'{prefix}.spectral_u')
         parent = tree
         for k in path[:-1]:
             parent = parent.setdefault(k, {})
@@ -159,7 +172,11 @@ def load_group_npz(path, nets):
 
 
 def has_native_checkpoint(model_dir, epoch='latest'):
-    return os.path.exists(os.path.join(model_dir, f'{epoch}_net_G.npz'))
+    """A native dir holds ``{epoch}_net_G.npz``, or ``{epoch}_net_GA.npz``
+    (CycleGAN)."""
+    return any(os.path.exists(os.path.join(model_dir,
+                                           f'{epoch}_net_{g}.npz'))
+               for g in ('G', 'GA'))
 
 
 def find_net_file(model_dir, name, epoch='latest'):
@@ -185,4 +202,9 @@ def load_reference_state_dict(net, path):
     sd = {(k[len('module.'):] if k.startswith('module.') else k): v
           for k, v in sd.items()}
     sd = {k: v for k, v in sd.items() if k.rsplit('.', 1)[-1] not in _RUNNING_STATS}
+    if not any(k.endswith('.spectral_u') for k in sd):
+        # a reference dir carries no power-iteration vectors: its convs run
+        # the weights as they are, as the JAX package's import gives them
+        from ..nets import layers
+        layers.drop_spectral_buffers(net)
     net.load_state_dict(sd, strict=True)

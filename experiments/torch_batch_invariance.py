@@ -215,7 +215,6 @@ def main():
     from deepliif_tpu_torch.models import deepliif as dl
     from deepliif_tpu_torch.nets import layers as L
     from deepliif_tpu_torch.ops import fused_resblock as FR
-    from deepliif_tpu_torch.utils import checkpoints as ck
 
     targets = [(L, ('conv2d', 'conv_transpose2d', 'batch_stat_norm',
                     'plane_mean_var')),
@@ -227,7 +226,7 @@ def main():
     tiles = np.stack([img[y:y + smoke.TILE, x:x + smoke.TILE]
                       for y, x in origins])
     with tempfile.TemporaryDirectory() as md:
-        smoke.write_flagship_model_dir(md, dl, ck)
+        smoke.write_flagship_model_dir(md, dl)
         for path in args.paths.split(','):
             precision, fused = PATHS[path]
             sess = M.InferenceSession(

@@ -36,7 +36,6 @@ def main():
         sys.exit('the batch sweep needs a CUDA card')
     from deepliif_tpu_torch import models as M
     from deepliif_tpu_torch.models import deepliif as dl
-    from deepliif_tpu_torch.utils import checkpoints as ck
 
     M.configure_device(torch.device('cuda'))
     img = smoke.ihc_like_image(4 * smoke.TILE, smoke.SEED)
@@ -46,7 +45,7 @@ def main():
     tiles = np.stack([img[y:y + smoke.TILE, x:x + smoke.TILE]
                       for y, x in origins])
     with tempfile.TemporaryDirectory() as md:
-        smoke.write_flagship_model_dir(md, dl, ck)
+        smoke.write_flagship_model_dir(md, dl)
         for precision in args.precisions.split(','):
             for b in batches:
                 session = M.InferenceSession(

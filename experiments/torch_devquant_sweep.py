@@ -77,7 +77,7 @@ def d2h_mbps(nbytes):
     return nbytes / 1e6 / (time.perf_counter() - t0)
 
 
-def session_peak_bytes(M, dl, ck):
+def session_peak_bytes(M, dl):
     """Peak device memory of a batch-16 float32 flagship session over one
     run_tiles of 16 tiles."""
     img = smoke.ihc_like_image(2 * smoke.TILE, smoke.SEED)
@@ -86,7 +86,7 @@ def session_peak_bytes(M, dl, ck):
     tiles = np.stack([img[y:y + smoke.TILE, x:x + smoke.TILE]
                       for y, x in origins])
     with tempfile.TemporaryDirectory() as md:
-        smoke.write_flagship_model_dir(md, dl, ck)
+        smoke.write_flagship_model_dir(md, dl)
         session = M.InferenceSession(md, max_batch=smoke.BATCH,
                                      precision='float32')
         res = smoke.throughput(session, tiles, iters=1)
@@ -106,7 +106,6 @@ def main():
     from deepliif_tpu_torch import models as M, postprocessing as pp
     from deepliif_tpu_torch.models import deepliif as dl
     from deepliif_tpu_torch.ops import labeling as LB
-    from deepliif_tpu_torch.utils import checkpoints as ck
 
     M.configure_device(torch.device('cuda'))
     kw = dict(size_thresh='default', marker_thresh='default')
@@ -144,7 +143,7 @@ def main():
 
     probe_mbps = d2h_mbps(4 * 2 ** 20)
     big_mbps = d2h_mbps(256 * 2 ** 20)
-    sess_peak = session_peak_bytes(M, dl, ck)
+    sess_peak = session_peak_bytes(M, dl)
     total = torch.cuda.get_device_properties(0).total_memory
     print(json.dumps({'d2h_probe_mbps': probe_mbps,
                       'd2h_256mib_mbps': big_mbps,

@@ -203,8 +203,7 @@ def forward_cases(M, other_m, md):
     'all' static session on the same model dir and tiles."""
     import numpy as np
     from deepliif_tpu_torch.models import deepliif as dl
-    from deepliif_tpu_torch.utils import checkpoints as ck
-    smoke.write_flagship_model_dir(md, dl, ck)
+    smoke.write_flagship_model_dir(md, dl)
     big = np.asarray(smoke.ihc_like_image(2 * smoke.TILE, smoke.SEED))
     rng = np.random.default_rng(smoke.SEED + 1)
     origins = rng.integers(0, smoke.TILE + 1, (smoke.BATCH, 2))

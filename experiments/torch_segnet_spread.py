@@ -164,7 +164,6 @@ def main():
     from deepliif_tpu_torch.models import deepliif as dl
     from deepliif_tpu_torch.nets import layers as L
     from deepliif_tpu_torch.ops import cuda_build, fused_resblock as FR
-    from deepliif_tpu_torch.utils import checkpoints as ck
 
     M.configure_device(torch.device('cuda'))
     cuda_build.build({**FR._LIBS, **L._LIBS})
@@ -174,7 +173,7 @@ def main():
     batch = np.stack([big[y:y + smoke.TILE, x:x + smoke.TILE]
                       for y, x in origins])
     with tempfile.TemporaryDirectory() as md:
-        smoke.write_flagship_model_dir(md, dl, ck)
+        smoke.write_flagship_model_dir(md, dl)
         if args.layout:
             layout_probe(M, L, md, batch, args.rounds)
             print(smoke.nvidia_smi())

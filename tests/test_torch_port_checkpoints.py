@@ -1,5 +1,5 @@
 """Native ``.npz`` model groups in both layouts the JAX package writes, and
-the padding the port does not run yet.
+replicate padding against the JAX ResNet.
 
 A uniform group (every translator, or every seg net, of one architecture)
 stacks each leaf along a leading net axis; a group of mixed architectures
@@ -19,7 +19,7 @@ import torch
 
 from deepliif_tpu.models import deepliif as dl_jax
 from deepliif_tpu.utils import checkpoints as ck_jax
-from deepliif_tpu_torch import nets, roadmap
+from deepliif_tpu_torch import nets
 from deepliif_tpu_torch.models import deepliif as dl
 from deepliif_tpu_torch.nets import layers
 from deepliif_tpu_torch.utils import checkpoints as ck
@@ -78,7 +78,29 @@ def test_group_trees_rejects_a_group_of_the_wrong_size():
     lambda: layers.pad2d(torch.zeros(1, 3, 8, 8), 1, 'replicate'),
 ], ids=['ResnetGenerator', 'pad2d'])
 def test_replicate_padding_names_its_roadmap_item(call):
-    with pytest.raises(NotImplementedError) as e:
-        call()
-    assert f'ROADMAP.md, "{roadmap.FAMILIES}"' in str(e.value)
-    assert 'padding [replicate]' in str(e.value)
+    """Replicate padding, which raised under its ROADMAP item until it was
+    ported, now runs: the generator pads its trunk convs in the reflect
+    layout (a pad module, then an unpadded conv) and matches the JAX
+    ResNet on the same weights; the pad equals ``jnp.pad`` mode 'edge'."""
+    from deepliif_tpu.nets import layers as L_jax, resnet as resnet_jax
+    out = call()
+    x = np.random.default_rng(4).uniform(-1, 1, (2, 3, 16, 16)).astype(
+        np.float32)
+    if isinstance(out, torch.Tensor):
+        x = np.random.default_rng(4).uniform(-1, 1, (1, 8, 8, 3)).astype(
+            np.float32)
+        got = layers.pad2d(torch.from_numpy(x).permute(0, 3, 1, 2), 1,
+                           'replicate').permute(0, 2, 3, 1).numpy()
+        np.testing.assert_array_equal(
+            got, np.asarray(L_jax.pad2d(jnp.asarray(x), 1, 'replicate')))
+        return
+    block = out.blocks[0].conv_block
+    assert isinstance(block[0], torch.nn.ReplicationPad2d)
+    assert block[1].padding == (0, 0)
+    tree = ck.params_to_jax(out)
+    ref = resnet_jax.apply(tree, jnp.asarray(x.transpose(0, 2, 3, 1)),
+                           n_blocks=2, norm='batch', use_dropout=True,
+                           padding_type='replicate')
+    with torch.no_grad():
+        got = out.eval()(torch.from_numpy(x)).permute(0, 2, 3, 1).numpy()
+    assert np.abs(got - np.asarray(ref)).max() < TOL

@@ -35,8 +35,10 @@ def _one_torch_thread():
 
 # (kind, k, stride, padding, output_padding, pad first): the translators'
 # down convs and up conv-transposes, the U-Nets' down convs and
-# conv-transposes, the unfused trunk's zero and reflect convs
-KINDS = {'conv3x3_s2': ('conv', 3, 2, 1, 0, None),
+# conv-transposes, the unfused trunk's zero and reflect convs, the
+# attention U-Net's 1x1 gate convs
+KINDS = {'conv1x1_s1': ('conv', 1, 1, 0, 0, None),
+         'conv3x3_s2': ('conv', 3, 2, 1, 0, None),
          'convT3x3_s2_op1': ('convT', 3, 2, 1, 1, None),
          'conv4x4_s2': ('conv', 4, 2, 1, 0, None),
          'convT4x4_s2_op0': ('convT', 4, 2, 1, 0, None),
@@ -236,8 +238,13 @@ def cuda():
 # (kind, x shape, C_out, k, stride, padding, output_padding): each kind at
 # odd sizes (H, W not multiples of a tile, M not of the 128 or 256 rows of
 # an item, C_out not of its channel block, C_in not of the 32-channel
-# step), and the U-Nets' 1 x 1 and 2 x 2 levels (split K)
+# step), and the U-Nets' 1 x 1 and 2 x 2 levels (split K); the attention
+# U-Net's 1x1 gate convs at a ragged grid, its 256^2 level's widths and
+# its innermost 4 x 4 x 512 gate
 CUDA_CASES = [
+    ('conv', (2, 37, 45, 128), 64, 1, 1, 0, 0),
+    ('conv', (2, 64, 64, 64), 32, 1, 1, 0, 0),
+    ('conv', (2, 4, 4, 512), 512, 1, 1, 0, 0),
     ('conv', (2, 37, 45, 16), 24, 3, 2, 1, 0),
     ('conv', (3, 19, 33, 48), 72, 4, 2, 1, 0),
     ('conv', (2, 2, 2, 512), 512, 4, 2, 1, 0),

@@ -22,7 +22,6 @@ from deepliif_tpu import utils as utils_jax
 from deepliif_tpu.utils import tiler as tiler_jax
 from deepliif_tpu_torch import cli, config, models as M, native
 from deepliif_tpu_torch import nets, postprocessing as pp, roadmap, utils
-from deepliif_tpu_torch.nets import layers
 from deepliif_tpu_torch.utils import tiler
 from test_inference import TINY_CFG
 
@@ -163,25 +162,14 @@ def test_not_ported_messages_name_roadmap_headings(tmp_path):
         roadmap.not_ported('x', 'Queue 1 item 7')
 
     errors = []
-    md = str(tmp_path)
-    with open(os.path.join(md, 'config.json'), 'w') as f:
-        json.dump(dict(TINY_CFG, model='CycleGAN'), f)
-    deepliif_md = tmp_path / 'deepliif'
-    deepliif_md.mkdir()
-    with open(deepliif_md / 'config.json', 'w') as f:
-        json.dump(TINY_CFG, f)
     for call in (
-            lambda: M.InferenceSession(md, device='cpu'),
             lambda: cli.int8_options({'DEEPLIIF_INT8_DYN': '0'}, 'int8'),
-            lambda: M.postprocess(None, {}, 512, 'SDG'),
-            lambda: cli.run_test(str(tmp_path), None, 64, md, seg_only=True,
-                                 device='cpu'),
-            lambda: M.InferenceSession.run_tiles(
-                None, np.zeros((1, 64, 64, 3), np.uint8),
-                return_intermediate=True),
-            lambda: nets.ResnetGenerator(3, 3, 8, n_blocks=2,
-                                         padding_type='replicate'),
-            lambda: layers.pad2d(torch.zeros(1, 3, 8, 8), 1, 'replicate')):
+            lambda: nets.ResnetGenerator(3, 3, 8, n_blocks=2)(
+                torch.zeros(1, 3, 16, 16)),
+            lambda: nets.define_g(3, 3, 8, 'unet_32')(
+                torch.zeros(1, 3, 32, 32)),
+            lambda: nets.define_g(3, 3, 8, 'unet_512_attention')(
+                torch.zeros(1, 3, 256, 256))):
         with pytest.raises(NotImplementedError) as e:
             call()
         errors.append(str(e.value))

@@ -125,12 +125,20 @@ def test_empty_tile_short_circuit(model_dir, session, monkeypatch):
     assert (np.asarray(images['Seg']) == 0).all()
 
 
-def test_unported_options_raise(session):
-    tiles = np.zeros((1, 64, 64, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        session.run_tiles(tiles, seg_only=True)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        session.run_tiles(tiles, return_intermediate=True)
+def test_unported_options_raise(model_dir, session):
+    """The options that raised before they were ported, seg-only and the
+    seg intermediates, now run and match the JAX engine (the names of
+    their outputs and the values within the uint8 tolerance); the full
+    checks are in tests/test_torch_port_seg_only.py."""
+    tiles = np.random.default_rng(5).integers(0, 255, (2, 64, 64, 3),
+                                              np.uint8)
+    jax_session = M_jax.InferenceSession(model_dir, n_devices=1)
+    for kw in ({'seg_only': True}, {'return_intermediate': True}):
+        ref, got = jax_session.run_tiles(tiles, **kw), session.run_tiles(
+            tiles, **kw)
+        assert set(got) == set(ref)
+        for k in ref:
+            _assert_u8_close(got[k], ref[k])
 
 
 def test_cli_writes_same_files_as_jax_cli(model_dir, tmp_path):

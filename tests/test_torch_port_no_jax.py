@@ -1,11 +1,12 @@
 """The port imports neither jax nor anything of the JAX package
 ``deepliif_tpu``, not even through an import chain: a fresh interpreter
 imports the port, runs a tiny run_tiles on the CPU from a native model dir
-(bfloat16, int8 and the fused translator stages too), the host
-postprocess (the port's own config, tiler, quantifier and native helper)
-and the device quantifier on the CPU (``ops.labeling``, the device stitch),
-and finds no ``jax``, ``jaxlib`` or ``deepliif_tpu`` / ``deepliif_tpu.*``
-module loaded."""
+(bfloat16, int8 and the fused translator stages too, seg-only and the seg
+intermediates), the other families (DeepLIIFExt, SDG, CycleGAN) and the
+attention U-Net, the host postprocess (the port's own config, tiler,
+quantifier and native helper) and the device quantifier on the CPU
+(``ops.labeling``, the device stitch), and finds no ``jax``, ``jaxlib`` or
+``deepliif_tpu`` / ``deepliif_tpu.*`` module loaded."""
 
 import json
 import os
@@ -25,7 +26,9 @@ from PIL import Image
 import deepliif_tpu_torch
 from deepliif_tpu_torch import cli, config, models, native, nets, postprocessing
 from deepliif_tpu_torch.labs import fused_stages
-from deepliif_tpu_torch.models import deepliif as dl
+from deepliif_tpu_torch.models import cyclegan, deepliif as dl
+from deepliif_tpu_torch.models import deepliif_ext, family, sdg
+from deepliif_tpu_torch.nets import att_unet
 from deepliif_tpu_torch.ops import fused_resblock, labeling, quant
 from deepliif_tpu_torch.utils import checkpoints as ck, tiler
 
@@ -49,6 +52,41 @@ for precision, fused in (('float32', None), ('bfloat16', None),
         md, device='cpu', precision=precision, fuse_stages=fused,
         int8_scope='resblocks' if precision == 'int8' else None).run_tiles(tiles)
     assert sorted(out) == ['G1', 'GS'], sorted(out)
+for kw in ({'seg_only': True}, {'return_intermediate': True}):
+    out2 = models.InferenceSession(md, device='cpu').run_tiles(tiles, **kw)
+    assert 'GS' in out2, sorted(out2)
+
+
+def write_family(path, model, nets_, **cfg):
+    os.makedirs(path)
+    for group, mods in nets_.named_groups():
+        flat = [ck.flatten_tree(ck.params_to_jax(n)) for n in mods]
+        np.savez(os.path.join(path, f'latest_net_{group}.npz'),
+                 **{k: np.stack([f[k] for f in flat]) for k in flat[0]})
+    with open(os.path.join(path, 'config.json'), 'w') as f:
+        json.dump(dict(model=model, modalities_no=1, netG='resnet_2blocks',
+                       ngf=8, padding='zero', scale_size=64, **cfg), f)
+    return path
+
+
+ext_d = deepliif_ext.DeepLIIFExtDef(modalities_no=1, net_g=('resnet_2blocks',),
+                                    net_gs=('unet_32',), ngf=8)
+for model, nets_, cfg, c, want in (
+        ('DeepLIIFExt', deepliif_ext.make_nets(ext_d),
+         dict(seg_gen=True, seg_no=1, net_gs='unet_32'), 3, ['GS_1', 'G_1']),
+        ('SDG', sdg.make_nets(sdg.SDGDef(modalities_no=1, input_no=2,
+                                         net_g=('resnet_2blocks',), ngf=8)),
+         dict(input_no=2), 6, ['G_1']),
+        ('CycleGAN', cyclegan.make_nets(cyclegan.CycleGANDef(
+            net_g=('resnet_2blocks',), ngf=8), ('GA',)),
+         dict(seg_gen=False, seg_no=0), 3, ['GA_1'])):
+    fmd = write_family(os.path.join(md, model), model, nets_, **cfg)
+    x = np.random.default_rng(1).integers(0, 255, (1, 64, 64, c), np.uint8)
+    out3 = models.InferenceSession(fmd, device='cpu').run_tiles(x)
+    assert sorted(out3) == want, sorted(out3)
+with torch.no_grad():
+    att_unet.AttUnetGenerator().eval()(torch.zeros(1, 3, 256, 256))
+
 images = {'Seg': Image.fromarray(out['GS'][0]),
           'mod1-Marker': Image.fromarray(out['G1'][0])}
 _, scoring = models.postprocess(Image.fromarray(tiles[0]), images, 64,
