@@ -45,7 +45,20 @@ and within 1 LSB on < 0.1 % of pixels of the same session with the plain
 versions of its kernels; and a flagship dir with ``unet_512_attention``
 seg nets at float32, bfloat16 and int8 scope 'all' (``att_unet_checks``:
 every ``conv_s8`` call of an int8 forward, the 1x1 gate convs among them,
-bit-equal to its plain version).
+bit-equal to its plain version). Then the serving, serialize and
+whole-slide entry points on the float32 flagship dir: the REST server
+(``serve.make_server`` on 127.0.0.1, any free port, ``max_batch`` 18) with
+8 concurrent 1024^2 /api/infer requests queued together behind the
+dispatcher's device lock, at least one device call coalescing requests,
+each response byte-equal to the request sent alone and to ``inference``
+plus the host quantifier on the session directly, /api/batch/infer, a
+/api/postprocess and a 400 (``serve_checks``); ``serialize`` of a
+reference-layout flagship dir on the card, its parity gate and the npz
+against ``params_to_jax`` (``serialize_checks``); ``test-wsi`` and
+``wsi-cells`` through the CLI on a 3000 x 2200 pyramidal TIFF at AppMag
+40 in four regions, the outputs byte-equal run to run and to the
+per-region stitch, the scoring and the cells the per-region sums
+(``wsi_checks``). Each of these paths reads its kernel launches.
 
     python3 chip_smoke.py            # needs one CUDA card; exits 0 on success
 
@@ -2873,6 +2886,459 @@ def att_unet_checks(M, K, root, dl, img):
     return out
 
 
+# the serving, serialize and whole-slide phases: 8 concurrent /api/infer
+# requests of 1024^2 (9 tiles of 512^2 each); a device call coalesces
+# requests only while their tiles fit max_batch, and on CUDA every call
+# runs max_batch tiles, so the server runs at 18, the least batch that two
+# requests share (the default 16 never coalesces them; at 32 a lone
+# request took 3.7 s, median of 8, on one NVIDIA H100 80GB HBM3 at
+# 700.00 W)
+SERVE_REQUESTS, SERVE_SIZE, SERVE_MAX_BATCH = 8, 2 * TILE, 18
+# the server's resolution query for a tile size (serve.RESOLUTION_TILE_SIZE)
+RESOLUTION = {512: '40x', 256: '20x', 128: '10x'}
+# the slide: about 3000 x 2200 px at AppMag 40 (tile size 512 from the
+# metadata), in regions of 1536 (2 x 2 regions, three of them ragged)
+WSI_SIZE, WSI_REGION = (2200, 3000), 1536
+WSI_DESC = ('Aperio Image Library v12.0.15\n3000x2200 [0,0 3000x2200] '
+            '(256x256) RGB|AppMag = 40|MPP = 0.25')
+
+
+def _multipart(fields):
+    body = b''
+    for name, data in fields.items():
+        body += (f'--smoke\r\nContent-Disposition: form-data; name="{name}"; '
+                 f'filename="{name}.png"\r\n\r\n').encode() + data + b'\r\n'
+    return body + b'--smoke--\r\n'
+
+
+def http_post(url, fields, timeout=600):
+    """(status, JSON body) of a multipart POST of ``fields``."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=_multipart(fields), method='POST',
+                                 headers={'Content-Type': 'multipart/form-'
+                                          'data; boundary=smoke'})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def http_get(url):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def png_bytes(arr):
+    import io
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format='PNG')
+    return buf.getvalue()
+
+
+def ms_summary(ms):
+    return {'median_ms': float(np.median(ms)), 'max_ms': float(np.max(ms)),
+            'ms': [float(v) for v in ms]}
+
+
+def serve_checks(M, K, md, smi):
+    """The port's REST server (``serve.make_server``, the session loaded and
+    its kernels built before it answers) on the float32 flagship: 8
+    concurrent /api/infer requests queued behind the dispatcher's device
+    lock (an empty blocker tile holds the dispatcher, so that they queue
+    together), each response byte-equal to the same request sent alone and
+    to ``inference`` + the host quantifier on the session directly; the
+    launches of the concurrent part; the 8 again at once with nothing held
+    (byte-equal, and their wall ms); /api/batch/infer submit and poll,
+    /api/postprocess on a returned Seg, and a 400."""
+    import base64
+    import io
+    import threading
+    from PIL import Image
+    from deepliif_tpu_torch import postprocessing as pp
+    from deepliif_tpu_torch.serve import _b64_png, make_server
+    from deepliif_tpu_torch.utils.tiler import InferenceTiler
+
+    t0 = time.perf_counter()
+    srv = make_server(md, '127.0.0.1', 0, max_batch=SERVE_MAX_BATCH,
+                      device='cuda')
+    startup = time.perf_counter() - t0
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f'http://127.0.0.1:{srv.server_address[1]}'
+    ds = srv.RequestHandlerClass.get_session()
+    session = ds._session
+    try:
+        arrays = [ihc_like_image(SERVE_SIZE, SEED + 100 + i)
+                  for i in range(SERVE_REQUESTS)]
+        pngs = [png_bytes(a) for a in arrays]
+        query = f'/api/infer?resolution={RESOLUTION[TILE]}'
+        out = [None] * len(pngs)
+        wall = [None] * len(pngs)
+
+        def client(i):
+            t = time.perf_counter()
+            out[i] = http_post(url + query, {'img': pngs[i]})
+            wall[i] = (time.perf_counter() - t) * 1e3
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(pngs))]
+        blocker = threading.Thread(target=ds.run_tiles, args=(
+            np.zeros((1, TILE, TILE, 3), np.uint8),))
+        forwards = count_forwards(session)
+        before = dict(ds.stats)
+        torch.cuda.synchronize()
+        reset_counts(K)
+        with ds._device_lock:
+            blocker.start()
+            deadline = time.time() + 60
+            while ds._q.qsize() and time.time() < deadline:
+                time.sleep(0.005)
+            time.sleep(0.05)        # the dispatcher waits on the lock now
+            for t in threads:
+                t.start()
+            while ds._q.qsize() < len(pngs) and time.time() < deadline:
+                time.sleep(0.01)
+            queued = ds._q.qsize()
+        for t in threads + [blocker]:
+            t.join(timeout=600)
+        torch.cuda.synchronize()
+        counts, n = launch_counts(K), len(forwards)
+        del session.forward
+        stats = {k: ds.stats[k] - before[k] for k in ('device_calls',
+                                                      'coalesced_calls')}
+        health = http_get(url + '/healthz')
+        check(all(s == 200 for s, _ in out),
+              f'serve: statuses {[s for s, _ in out]}')
+        check(queued == len(pngs), f'serve: {queued} of {len(pngs)} '
+                                   'requests queued behind the blocker')
+        check(stats['coalesced_calls'] >= 1,
+              f'serve: no device call carried tiles of more than one '
+              f'request {stats}')
+        want = expected_counts('float32', False, n)
+        check(n >= 1 and counts == want,
+              f'serve: launches {counts} for {n} forwards, want {want}')
+
+        # the same requests at once with nothing held: the dispatcher takes
+        # the first alone and coalesces what queued behind it
+        natural, natural_wall = [None] * len(pngs), [None] * len(pngs)
+
+        def natural_client(i):
+            t = time.perf_counter()
+            natural[i] = http_post(url + query, {'img': pngs[i]})
+            natural_wall[i] = (time.perf_counter() - t) * 1e3
+
+        before = dict(ds.stats)
+        threads = [threading.Thread(target=natural_client, args=(i,))
+                   for i in range(len(pngs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        natural_stats = {k: ds.stats[k] - before[k]
+                         for k in ('device_calls', 'coalesced_calls')}
+        equal_natural = [got == want for got, want in zip(natural, out)]
+
+        # the same requests alone, and inference + the host quantifier on
+        # the session directly
+        lone_wall, equal_alone, equal_direct = [], [], []
+        for i, png in enumerate(pngs):
+            t = time.perf_counter()
+            status, alone = http_post(url + query, {'img': png})
+            lone_wall.append((time.perf_counter() - t) * 1e3)
+            check(status == 200, f'serve: lone request {i}: {status}')
+            equal_alone.append(alone == out[i][1])
+            img = Image.fromarray(arrays[i])
+            images = M.inference(img, tile_size=TILE, overlap_size=OVERLAP,
+                                 model_path=md, opt=session.opt,
+                                 session=session)
+            marker = images.get(M.find_marker_key(images))
+            overlay, refined, scoring = pp.compute_final_results(
+                img, images['Seg'], pp.to_array(marker, True),
+                RESOLUTION[TILE], 'default', None, None, 150)
+            images['SegOverlaid'] = Image.fromarray(overlay)
+            images['SegRefined'] = Image.fromarray(refined)
+            direct = {'images': {k: _b64_png(v) for k, v in images.items()},
+                      'scoring': json.loads(json.dumps(scoring))}
+            equal_direct.append(direct == out[i][1])
+
+        # the async contract, the postprocess endpoint, a client error
+        status, task = http_post(
+            f'{url}/api/batch/infer?resolution={RESOLUTION[TILE]}',
+            {'img': pngs[0]})
+        check(status == 200 and 'task_id' in task, f'batch submit {task}')
+        for _ in range(600):
+            polled = http_get(f'{url}/api/batch/infer/{task["task_id"]}')
+            if polled['state'] != 'PENDING':
+                break
+            time.sleep(0.1)
+        seg = np.asarray(Image.open(io.BytesIO(base64.b64decode(
+            out[0][1]['images']['Seg']))))
+        status_pp, post = http_post(
+            f'{url}/api/postprocess?resolution={RESOLUTION[TILE]}',
+            {'img': pngs[0], 'seg_img': png_bytes(seg)})
+        overlay, refined, scoring = pp.compute_final_results(
+            Image.fromarray(arrays[0]), Image.fromarray(seg), None,
+            RESOLUTION[TILE], 'default', None, None, 150)
+        status_400, err = http_post(url + query, {'other': b'x'})
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        ds.close()
+    phase('serve', nvidia_smi=smi, requests=len(pngs), image=SERVE_SIZE,
+          max_batch=SERVE_MAX_BATCH, startup_seconds=startup,
+          tiles_per_request=len(InferenceTiler(arrays[0], TILE,
+                                               OVERLAP).tiles()),
+          concurrent=ms_summary(wall),
+          concurrent_note='from each request sent to its response; the '
+                          'dispatcher held until all were queued',
+          alone=ms_summary(lone_wall), dispatch=stats,
+          concurrent_unheld=ms_summary(natural_wall),
+          dispatch_unheld=natural_stats,
+          unheld_byte_equal_to_held=equal_natural,
+          healthz_dispatch=health.get('dispatch'), batch_forwards=n,
+          kernel_launches=counts,
+          byte_equal_to_alone=equal_alone,
+          byte_equal_to_direct=equal_direct,
+          batch_poll=polled['state'], postprocess_status=status_pp,
+          scoring=out[0][1]['scoring'], missing_img_status=status_400)
+    check(all(equal_alone), f'serve: concurrent != alone {equal_alone}')
+    check(all(equal_natural), f'serve: unheld concurrent != held '
+                              f'{equal_natural}')
+    check(all(equal_direct), f'serve: response != inference + host '
+                             f'quantifier {equal_direct}')
+    check(polled['state'] == 'SUCCESS' and polled['result'] == out[0][1],
+          f'serve: batch poll {polled["state"]}')
+    check(status_pp == 200 and post['scoring'] == json.loads(json.dumps(
+        scoring)) and post['images']['SegRefined'] == _b64_png(
+            Image.fromarray(refined)), 'serve: /api/postprocess differs from '
+                                       'the host quantifier')
+    check(status_400 == 400 and 'img' in err['error'],
+          f'serve: missing img gave {status_400} {err}')
+    return dict(trunk=counts['float32'] // n,
+                plane_stats=counts['plane_stats'] // n,
+                median_ms_alone=float(np.median(lone_wall)),
+                median_ms_concurrent=float(np.median(natural_wall)))
+
+
+def write_reference_dir(session, out):
+    """The nets of a flagship session as a reference-layout dir:
+    latest_net_G{i}.pth and latest_net_GS{i}.pth state dicts and the
+    session's config.json."""
+    os.makedirs(out)
+    for i, net in enumerate(session.nets.G):
+        torch.save(net.state_dict(), os.path.join(out,
+                                                  f'latest_net_G{i + 1}.pth'))
+    for i, net in enumerate(session.nets.GS):
+        torch.save(net.state_dict(), os.path.join(out,
+                                                  f'latest_net_GS{i}.pth'))
+    with open(os.path.join(session.model_dir, 'config.json')) as f:
+        cfg = f.read()
+    with open(os.path.join(out, 'config.json'), 'w') as f:
+        f.write(cfg)
+
+
+def serialize_checks(M, K, md, root):
+    """The port's ``serialize`` on a reference-layout flagship dir on the
+    card: the parity gate (sum |diff| <= 10 on a seeded 512^2 tile, both
+    sessions on the card) passes, and the written npz files hold the keys
+    and the array bytes of ``params_to_jax`` of the nets loaded from the
+    reference dir."""
+    from deepliif_tpu_torch import cli
+    from deepliif_tpu_torch.utils import checkpoints as ck
+
+    ref, out = os.path.join(root, 'reference'), os.path.join(root, 'native')
+    write_reference_dir(M.init_nets(md, device='cuda'), ref)
+    M._init_nets_cached.cache_clear()
+    torch.cuda.synchronize()
+    reset_counts(K)
+    t0 = time.perf_counter()
+    diff = cli.run_serialize(ref, out, device='cuda', echo=lambda *_: None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts(K)
+    loaded = M.InferenceSession(ref, device='cpu')
+    same, files = True, sorted(f for f in os.listdir(out)
+                               if f.endswith('.npz'))
+    for name, group in loaded.nets.named_groups():
+        with np.load(os.path.join(out, f'latest_net_{name}.npz')) as data:
+            written = {k: data[k] for k in data.files}
+        for i, net in enumerate(group):
+            want = ck.flatten_tree(ck.params_to_jax(net))
+            same = same and sorted(written) == sorted(want) and all(
+                written[k][i].dtype == want[k].dtype
+                and written[k][i].tobytes() == want[k].tobytes()
+                for k in want)
+    del loaded
+    # the gate's two sessions each run one batch forward of the tile
+    want_counts = expected_counts('float32', False, 2)
+    phase('serialize', sum_abs_diff=diff, seconds=seconds, files=files,
+          npz_equal_to_loaded_nets=same, kernel_launches=counts)
+    check(diff is not None and diff <= 10, f'serialize: parity {diff}')
+    check(files == ['latest_net_G.npz', 'latest_net_GS.npz'],
+          f'serialize: wrote {files}')
+    check(same, 'serialize: the npz differs from params_to_jax of the '
+                'loaded nets')
+    check(counts == want_counts, f'serialize: launches {counts}, want '
+                                 f'{want_counts}')
+    return dict(trunk=counts['float32'] // 2,
+                plane_stats=counts['plane_stats'] // 2, sum_abs_diff=diff)
+
+
+def wsi_slide(path):
+    """A pyramidal TIFF of WSI_SIZE from IHC-like content with an Aperio
+    description at AppMag 40; returns its pixels."""
+    from deepliif_tpu_torch.utils import tiff
+    h, w = WSI_SIZE
+    pixels = np.ascontiguousarray(ihc_like_image(max(h, w), SEED + 7)[:h, :w])
+    tiff.write_pyramid_tiff(path, pixels, description=WSI_DESC)
+    return pixels
+
+
+def wsi_regions():
+    h, w = WSI_SIZE
+    return [(x, y, min(WSI_REGION, w - x), min(WSI_REGION, h - y))
+            for y in range(0, h, WSI_REGION) for x in range(0, w, WSI_REGION)]
+
+
+def wsi_checks(M, K, md, root, smi):
+    """``test-wsi`` (tile size from the slide's AppMag, 2 x 2 regions) and
+    ``wsi-cells`` through the port's CLI on the float32 flagship: every
+    .ome.tiff written and read back, each level 0 byte-equal to the stitch
+    of ``infer_modalities`` on each region alone, the slide JSON the sum of
+    the per-region scorings, a second run byte-equal; the cells equal to
+    the per-region cell quantifier's, offset to slide coordinates."""
+    from click.testing import CliRunner
+    from PIL import Image
+    from deepliif_tpu_torch import cli, postprocessing as pp
+    from deepliif_tpu_torch.utils import tiff
+
+    slides = os.path.join(root, 'slides')
+    os.makedirs(slides)
+    pixels = wsi_slide(os.path.join(slides, 'slide.svs'))
+    session = M.init_nets(md, device='cuda')
+
+    def run(cmd, out):
+        forwards = count_forwards(session)
+        torch.cuda.synchronize()
+        reset_counts(K)
+        t0 = time.perf_counter()
+        res = CliRunner().invoke(cli.make_cli(), [
+            cmd, '--input-dir', slides, '--filename', 'slide.svs',
+            '--output-dir', out, '--model-dir', md, '--region-size',
+            str(WSI_REGION), '--device', 'cuda'])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts, n = launch_counts(K), len(forwards)
+        del session.forward
+        if res.exception is not None:
+            import traceback
+            traceback.print_exception(res.exception)
+        check(res.exit_code == 0, f'{cmd}: {res.output}')
+        return res.output, seconds, counts, n
+
+    outs = [os.path.join(root, f'wsi{i}') for i in range(2)]
+    output, seconds, counts, n = run('test-wsi', outs[0])
+    _, seconds2, _, _ = run('test-wsi', outs[1])
+    names = sorted(OUTPUTS)
+    files = sorted(os.listdir(outs[0]))
+    check(files == sorted([f'slide_{k}.ome.tiff' for k in names]
+                          + ['slide.json']), f'test-wsi wrote {files}')
+    same_bytes = True
+    for fn in files:
+        with open(os.path.join(outs[0], fn), 'rb') as a, \
+                open(os.path.join(outs[1], fn), 'rb') as b:
+            same_bytes = same_bytes and a.read() == b.read()
+    levels = {}
+    for k in names:
+        r = tiff.TiledTiffReader(os.path.join(outs[0], f'slide_{k}.ome.tiff'))
+        check(r.size == (WSI_SIZE[1], WSI_SIZE[0]), f'{k}: size {r.size}')
+        levels[k] = r.read_region(0, 0, *r.size)
+        r.close()
+    with open(os.path.join(outs[0], 'slide.json')) as f:
+        slide_scoring = json.load(f)
+
+    # the stitch of infer_modalities on each region alone
+    stitch = {k: np.zeros_like(v) for k, v in levels.items()}
+    total = {'num_total': 0, 'num_pos': 0, 'num_neg': 0}
+    cells, size_t, marker_t = [], [], []
+    for x, y, w, h in wsi_regions():
+        region = Image.fromarray(pixels[y:y + h, x:x + w])
+        images, scoring = M.infer_modalities(region, TILE, md, device='cuda')
+        for k, im in images.items():
+            stitch[k][y:y + h, x:x + w] = np.asarray(im)
+        for k in total:
+            total[k] += scoring[k]
+        seg_only = M.inference(region, tile_size=TILE, overlap_size=OVERLAP,
+                               model_path=md, opt=session.opt, seg_only=True,
+                               session=session)
+        data = pp.compute_cell_results(
+            seg_only['Seg'], seg_only.get(M.find_marker_key(seg_only)),
+            RESOLUTION[TILE], version=3)
+        size_t.append(data['settings']['default_size_thresh'])
+        if data['settings'].get('default_marker_thresh') is not None:
+            marker_t.append(data['settings']['default_marker_thresh'])
+        for c in data['cells']:
+            c['bbox'] = [(c['bbox'][0][0] + x, c['bbox'][0][1] + y),
+                         (c['bbox'][1][0] + x, c['bbox'][1][1] + y)]
+            c['centroid'] = (c['centroid'][0] + x, c['centroid'][1] + y)
+            c['boundary'] = [(bx + x, by + y) for bx, by in c['boundary']]
+            cells.append(pp.encode_cell_data_v4(c))
+    total['percent_pos'] = (round(total['num_pos'] / total['num_total']
+                                  * 100, 1) if total['num_total'] else 0)
+    stitched = {k: bool(np.array_equal(levels[k], stitch[k])) for k in names}
+
+    cells_out = os.path.join(root, 'cells')
+    _, cells_seconds, cell_counts, cell_n = run('wsi-cells', cells_out)
+    with open(os.path.join(cells_out, 'slide_cells.json')) as f:
+        got_cells = json.load(f)
+    cells_equal = got_cells['cells'] == json.loads(json.dumps(cells))
+    n_regions = len(wsi_regions())
+    phase('wsi', nvidia_smi=smi, slide=list(WSI_SIZE), region=WSI_REGION,
+          regions=n_regions, tile_from_metadata=f'tile size {TILE} from '
+          'slide magnification metadata' in output,
+          seconds=[seconds, seconds2],
+          regions_per_s=[n_regions / seconds, n_regions / seconds2],
+          batch_forwards=n, kernel_launches=counts, files=files,
+          byte_equal_run_to_run=same_bytes, equal_to_region_stitch=stitched,
+          scoring=slide_scoring, per_region_sum=total,
+          cells=len(got_cells['cells']), per_region_cells=len(cells),
+          cells_equal=cells_equal, cells_seconds=cells_seconds,
+          cells_batch_forwards=cell_n, cells_kernel_launches=cell_counts)
+    check(f'tile size {TILE} from slide magnification metadata' in output,
+          f'test-wsi: tile size not from the metadata: {output}')
+    want = expected_counts('float32', False, n)
+    check(n >= 1 and counts == want, f'test-wsi: launches {counts} for {n} '
+                                     f'forwards, want {want}')
+    check(same_bytes, 'test-wsi: two runs differ')
+    check(all(stitched.values()), f'test-wsi: not the per-region stitch '
+                                  f'{stitched}')
+    check(slide_scoring == total, f'test-wsi: scoring {slide_scoring} != the '
+                                  f'per-region sum {total}')
+    check(cells_equal and len(got_cells['cells']) == len(cells),
+          f'wsi-cells: {len(got_cells["cells"])} cells, per region '
+          f'{len(cells)}')
+    # seg-only (seg_only_checks): the translators of the weighted seg
+    # branches and the marker's, and the seg nets of weight other than 0
+    w = session.d.seg_weights
+    needed = [i for i in range(4) if w[i + 1] != 0]
+    translators = len(set(needed) | {session._marker_index()})
+    seg_nets = len(needed) + (w[0] != 0)
+    want = path_counts('float32', TRUNK_PER_NET * translators,
+                       PLANE_PER_TRANSLATOR * translators
+                       + PLANE_PER_UNET * seg_nets, cell_n)
+    check(cell_n >= 1 and cell_counts == want,
+          f'wsi-cells: launches {cell_counts} for {cell_n} forwards, want '
+          f'{want}')
+    return ({'trunk': counts['float32'] // n,
+             'plane_stats': counts['plane_stats'] // n,
+             'regions_per_s': n_regions / seconds2},
+            {'trunk': cell_counts['float32'] // cell_n,
+             'plane_stats': cell_counts['plane_stats'] // cell_n})
+
+
 def main():
     check(torch.cuda.is_available(), 'torch.cuda.is_available() is false: '
           'chip_smoke.py needs a CUDA card')
@@ -2946,6 +3412,20 @@ def main():
             M._init_nets_cached.cache_clear()
             gc.collect()
             torch.cuda.empty_cache()
+        # the serving, serialize and whole-slide entry points (float32)
+        launches['serve'] = serve_checks(M, K, md, smi)
+        M._init_nets_cached.cache_clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as root:
+            launches['serialize'] = serialize_checks(M, K, md, root)
+            gc.collect()
+            torch.cuda.empty_cache()
+            launches['wsi'], launches['wsi_cells'] = wsi_checks(M, K, md,
+                                                                root, smi)
+            M._init_nets_cached.cache_clear()
+            gc.collect()
+            torch.cuda.empty_cache()
 
     # the other model families and the attention U-Net, at full width
     with tempfile.TemporaryDirectory() as root:
@@ -2963,10 +3443,12 @@ def main():
           seconds_total=time.perf_counter() - t_start)
     check(not loaded, f'jax or deepliif_tpu was imported: {loaded}')
 
-    # launches per batch forward on the paths of the other families, seg-only
-    # and the attention U-Net: {path: (trunk kind, {kernel: launches})}
+    # launches per batch forward on the paths of the other families, seg-only,
+    # the attention U-Net, the server, serialize's parity gate, test-wsi and
+    # wsi-cells: {path: (trunk kind, {kernel: launches})}
     new_paths = {path: ('float32', launches[path]) for path in (
-        'ext', 'sdg', 'cyclegan', 'cyclegan_btoa', 'seg_intermediate')}
+        'ext', 'sdg', 'cyclegan', 'cyclegan_btoa', 'seg_intermediate',
+        'serve', 'serialize', 'wsi', 'wsi_cells')}
     for precision in ('float32', 'bfloat16'):
         for weights, v in launches[f'seg_only {precision}'].items():
             new_paths[f'seg_only {precision} {weights}'] = (precision, v)

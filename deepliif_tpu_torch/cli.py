@@ -1,7 +1,9 @@
-"""Command-line interface of the PyTorch port: ``deepliif-tpu-torch test``.
+"""Command-line interface of the PyTorch port: ``deepliif-tpu-torch test``,
+``serialize``, ``serve``, ``test-wsi`` and ``wsi-cells``.
 
-Same options, output file names and scoring JSON as ``deepliif-tpu test``
-(deepliif_tpu/cli.py), plus ``--device`` (default cuda).
+Same options, output file names and scoring JSON as the commands of
+``deepliif-tpu`` (deepliif_tpu/cli.py), plus ``--device`` (default cuda;
+``serialize`` uses it where the JAX command ignores it).
 ``--precision {float32,bfloat16,int8}`` picks the compute precision;
 ``--int8-scope`` (default all, as in the JAX package) which convs int8
 quantizes. An int8 session calibrates static activation scales on its
@@ -24,12 +26,23 @@ CycleGAN); DeepLIIFExt, SDG and CycleGAN compute in float32 whatever
 ``--precision`` says, as in the JAX package, and, as there, ``--BtoA``
 does not reach the session: a CycleGAN dir runs GB when its own options
 say BtoA.
-The other commands are not ported yet (ROADMAP.md: "Serving", "WSI",
-"Training", "Stats"). click is imported when the command line is built,
-not when this module is imported.
+``serialize`` writes a model dir (reference torch or native) as native
+npz files and holds the written dir to the source with the reference's
+parity gate (sum |diff| <= 10 on a seeded random tile, both sessions on
+``--device``). ``serve`` runs the REST server (``deepliif_tpu_torch.serve``)
+with ``--device``, ``--precision``, ``--int8-scope`` and ``--fuse-stages``
+as on ``test``. ``test-wsi`` and ``wsi-cells`` run whole slides region by
+region (``utils.wsi``): TIFF-family slides through the tiled TIFF reader,
+other images through PIL; the other slide formats of the JAX package raise
+NotImplementedError (ROADMAP.md, "WSI"). The commands not ported yet are
+listed under ROADMAP.md's "Training" and "Stats". click is imported when
+the command line is built, not when this module is imported.
 
     python -m deepliif_tpu_torch.cli test --input-dir imgs --tile-size 512 \\
         --model-dir model --output-dir out --device cuda --precision int8
+    python -m deepliif_tpu_torch.cli serve --model-dir model --port 8080
+    python -m deepliif_tpu_torch.cli test-wsi --input-dir slides \\
+        --filename slide.svs --output-dir out --model-dir model
 """
 
 from __future__ import annotations
@@ -124,6 +137,67 @@ def run_test(input_dir, output_dir, tile_size, model_dir, filename_pattern='*',
         echo(f'processed {filename}')
 
 
+def run_serialize(model_dir, output_dir=None, do_verify=True, epoch='latest',
+                  tile_size=None, device='cuda', verbose=False, echo=print):
+    """Write the nets of ``model_dir`` (torch or native) as native npz files
+    into ``output_dir`` (default: ``model_dir``), copy train_opt.txt and
+    config.json, and with ``do_verify`` hold a session of the written dir
+    to one of the source on one seeded random tile (the model's
+    scale_size, else 512; both on ``device``): sum |diff| over the uint8
+    outputs at most 10 (reference util/__init__.py:718-741), else
+    AssertionError. Returns that sum (None without ``do_verify``)."""
+    import shutil
+
+    import numpy as np
+    from .models import InferenceSession
+    from .utils import checkpoints
+
+    output_dir = output_dir or model_dir
+    os.makedirs(output_dir, exist_ok=True)
+    session = InferenceSession(model_dir, epoch=epoch, device=device)
+    checkpoints.save_networks(output_dir, session.nets)
+    if verbose:
+        for name, group in session.nets.named_groups():
+            if len(group):
+                echo(f'serialized net {name}')
+    for fn in ('train_opt.txt', 'config.json'):
+        src = os.path.join(model_dir, fn)
+        if os.path.exists(src) and (os.path.abspath(model_dir)
+                                    != os.path.abspath(output_dir)):
+            shutil.copy(src, os.path.join(output_dir, fn))
+    echo(f'serialized networks -> {output_dir}')
+    if not do_verify:
+        return None
+    size = tile_size or getattr(session.opt, 'scale_size', 512)
+    nc = 3 * getattr(session.opt, 'input_no', 1)
+    rng = np.random.default_rng(0)
+    tile = rng.integers(0, 255, (1, size, size, nc), np.uint8)
+    reloaded = InferenceSession(output_dir, device=device)
+    out1 = session.run_tiles(tile)
+    out2 = reloaded.run_tiles(tile)
+    diff = sum(float(np.abs(out1[k].astype(np.int64)
+                            - out2[k].astype(np.int64)).sum()) for k in out1)
+    if diff > 10:
+        raise AssertionError(f'serialized-vs-original parity failed: {diff}')
+    echo(f'parity check passed (sum|diff| = {diff:.1f} <= 10)')
+    return diff
+
+
+def _resolve_wsi_tile_size(tile_size, input_dir, filename, echo=print):
+    """The tile size from the slide's objective magnification when
+    --tile-size is omitted (reference get_wsi_resolution,
+    models/__init__.py:730-782); 512 (40x) without metadata."""
+    if tile_size is not None:
+        return tile_size
+    from .utils.wsi import get_wsi_resolution
+    detected = get_wsi_resolution(os.path.join(input_dir, filename))
+    if detected:
+        echo(f'tile size {detected} from slide magnification metadata')
+        return detected
+    echo('no magnification metadata; using tile size 512 (40x)')
+    return 512
+
+
 def make_cli():
     import click
 
@@ -190,6 +264,123 @@ def make_cli():
                  epoch, seg_intermediate, seg_only, mod_only, btoa, max_batch,
                  precision, int8_scope, device_quant, device,
                  fuse_stages=fuse_stages, echo=click.echo)
+
+    @cli.command()
+    @click.option('--model-dir', default='./model-server/DeepLIIF_Latest_Model/',
+                  help='reads models from here')
+    @click.option('--output-dir', help='saves results here', default=None)
+    @click.option('--verify/--no-verify', 'do_verify', default=True,
+                  help='run the eager-vs-serialized parity check')
+    @click.option('--epoch', default='latest',
+                  help='checkpoint suffix to serialize (reference --epoch)')
+    @click.option('--tile-size', default=None, type=int,
+                  help='parity-check tile size (default: model scale_size)')
+    @click.option('--device', default='cuda',
+                  help='torch device of both parity sessions, e.g. cuda or '
+                       'cpu')
+    @click.option('--verbose', is_flag=True, help='print serialized net names')
+    def serialize(model_dir, output_dir, do_verify, epoch, tile_size, device,
+                  verbose):
+        """Convert a model dir (torch or native) to the native npz artifact.
+
+        Parity contract as the reference serialize (cli.py:763-830): the
+        serialized model's output on a random tile must match the source
+        within sum|diff| <= 10 over the uint8 outputs.
+        """
+        run_serialize(model_dir, output_dir, do_verify, epoch, tile_size,
+                      device, verbose, echo=click.echo)
+
+    @cli.command()
+    @click.option('--model-dir', required=True, help='model directory to serve')
+    @click.option('--host', default='0.0.0.0')
+    @click.option('--port', default=8080, type=int)
+    @click.option('--max-batch', default=None, type=int,
+                  help='tile-batch cap of a device call (default 16, '
+                       'models.DEFAULT_MAX_BATCH)')
+    @click.option('--precision', default=None,
+                  type=click.Choice(['float32', 'bfloat16', 'int8']),
+                  help='override the model dir compute precision')
+    @click.option('--int8-scope', default=None,
+                  type=click.Choice(['all', 'resblocks']),
+                  help='which convs --precision int8 quantizes (see `test`)')
+    @click.option('--max-image-dim', default=4096, type=int,
+                  help='reject larger request images with 400 (the reference '
+                       'cloud client bound, DeepliifClient.java:23-24); larger '
+                       'inputs belong on test-wsi')
+    @click.option('--request-timeout', default=60.0, type=float,
+                  help='per-request budget in seconds -> 504 (the reference '
+                       'cloud contract, README.md:406); 0 disables')
+    @click.option('--device', default='cuda',
+                  help='torch device to run on, e.g. cuda, cuda:1 or cpu')
+    @click.option('--fuse-stages', is_flag=True, default=None,
+                  help='run the translators\' fused stages; needs '
+                       '--precision bfloat16')
+    def serve(model_dir, host, port, max_batch, precision, int8_scope,
+              max_image_dim, request_timeout, device, fuse_stages):
+        """Run the REST API server (POST /api/infer, /api/postprocess) —
+        the reference cloud contract, so the ImageJ plugin works unchanged."""
+        from .config import get_opt
+        from .serve import serve as run_server
+        int8 = int8_options(os.environ, precision or getattr(
+            get_opt(model_dir, mode='test'), 'precision', None))
+        run_server(model_dir, host, port, max_batch, precision=precision,
+                   max_image_dim=max_image_dim,
+                   request_timeout=request_timeout or None, device=device,
+                   int8_scope=int8_scope, fuse_stages=fuse_stages, **int8)
+
+    @cli.command(name='test-wsi')
+    @click.option('--input-dir', required=True)
+    @click.option('--filename', required=True)
+    @click.option('--output-dir', required=True)
+    @click.option('--tile-size', type=click.IntRange(min=1), default=None,
+                  help='default: from slide magnification metadata, else 512')
+    @click.option('--model-dir', default='./model-server/DeepLIIF_Latest_Model/')
+    @click.option('--region-size', default=20000, type=int)
+    @click.option('--seg-intermediate', is_flag=True)
+    @click.option('--seg-only', is_flag=True)
+    @click.option('--color-dapi', is_flag=True,
+                  help='color the DAPI modality (reference test_wsi flag)')
+    @click.option('--color-marker', is_flag=True,
+                  help='color the marker modality (reference test_wsi flag)')
+    @click.option('--device', default='cuda',
+                  help='torch device to run on, e.g. cuda, cuda:1 or cpu')
+    def test_wsi(input_dir, filename, output_dir, tile_size, model_dir,
+                 region_size, seg_intermediate, seg_only, color_dapi,
+                 color_marker, device):
+        """Whole-slide inference: region streaming + stitched pyramid
+        output."""
+        from .utils.wsi import infer_results_for_wsi
+        tile_size = _resolve_wsi_tile_size(tile_size, input_dir, filename,
+                                           echo=click.echo)
+        infer_results_for_wsi(input_dir, filename, output_dir, model_dir,
+                              tile_size, region_size, seg_only=seg_only,
+                              seg_intermediate=seg_intermediate,
+                              color_dapi=color_dapi,
+                              color_marker=color_marker, device=device)
+
+    @cli.command(name='wsi-cells')
+    @click.option('--input-dir', required=True)
+    @click.option('--filename', required=True)
+    @click.option('--output-dir', required=True)
+    @click.option('--tile-size', type=click.IntRange(min=1), default=None,
+                  help='default: from slide magnification metadata, else 512')
+    @click.option('--model-dir', default='./model-server/DeepLIIF_Latest_Model/')
+    @click.option('--region-size', default=20000, type=int)
+    @click.option('--version', default='4',
+                  type=click.Choice(['3', '4', '5', '6']))
+    @click.option('--device', default='cuda',
+                  help='torch device to run on, e.g. cuda, cuda:1 or cpu')
+    def wsi_cells(input_dir, filename, output_dir, tile_size, model_dir,
+                  region_size, version, device):
+        """Per-cell encoded data for a WSI (global coordinates, averaged
+        auto-thresholds) — the reference infer_cells_for_wsi path."""
+        from .utils.wsi import infer_cells_for_wsi
+        tile_size = _resolve_wsi_tile_size(tile_size, input_dir, filename,
+                                           echo=click.echo)
+        results = infer_cells_for_wsi(input_dir, filename, output_dir,
+                                      model_dir, tile_size, region_size,
+                                      version=int(version), device=device)
+        click.echo(f'{len(results["cells"])} cells -> {output_dir}')
 
     return cli
 

@@ -49,7 +49,8 @@ the JAX package's ``DEEPLIIF_FUSE_STAGES=1``.
 
 The device is always explicit (``device='cuda'`` by default, never chosen
 by what is available). Not ported yet (ROADMAP.md): the TPU engine's mesh
-(mesh-sharded labeling included) and async copy pipeline.
+(mesh-sharded labeling included; ``DEEPLIIF_INFER_DEVICES`` above 1 raises
+NotImplementedError, "Serving") and async copy pipeline.
 """
 
 from __future__ import annotations
@@ -124,6 +125,13 @@ class InferenceSession:
                  epoch='latest', precision=None, device='cuda',
                  int8_scope=None, fuse_stages=None, int8_calibrate=True,
                  int8_calib_pct=100.0):
+        n_devices = os.environ.get('DEEPLIIF_INFER_DEVICES')
+        if n_devices and int(n_devices) > 1:
+            # the JAX session's mesh over N chips (its n_devices)
+            from .. import roadmap
+            raise roadmap.not_ported(f'DEEPLIIF_INFER_DEVICES={n_devices} '
+                                     '(replicas on several devices)',
+                                     roadmap.SERVING)
         self.model_dir = model_dir
         self.opt = opt if opt is not None else get_opt(model_dir, mode=phase)
         for name, value in (('precision', precision),
@@ -156,6 +164,25 @@ class InferenceSession:
             self.act_scales = quant.load_act_scales(model_dir)
             dl.quantize_nets(nets_, self.int8_scope, self.act_scales)
         self.nets = nets_.to(self.device).eval()
+
+    def build_kernels(self):
+        """Build and load now (nvcc, once per process and source hash) the
+        CUDA libraries that this session's forward launches: the trunk and
+        norm statistics kernels, the fused stages' with ``fuse_stages``,
+        ``conv_s8`` at int8 scope 'all'. A server calls this before it
+        answers, so that no request waits on a build. Nothing to build on
+        the CPU; returns {name: ctypes handle}."""
+        if self.device.type != 'cuda':
+            return {}
+        from ..labs import fused_stages
+        from ..nets import layers
+        from ..ops import conv_int8, cuda_build, fused_resblock
+        libs = {**fused_resblock._LIBS, **layers._LIBS}
+        if getattr(self.opt, 'fuse_stages', False):
+            libs.update(fused_stages._LIBS)
+        if self.d.quant_int8 and self.int8_scope == 'all':
+            libs.update(conv_int8._LIBS)
+        return cuda_build.build(libs)
 
     def calibrate_int8(self, tiles_u8, save=True, max_tiles=32, batch=4,
                        pct=None, per_channel=True):

@@ -5,7 +5,9 @@ compiled on first use with the system C++ compiler into the git-ignored
 ``_build/`` directory (keyed by a hash of the source, never beside it).
 Callers check for ``None`` and fall back to the numpy/scipy code of
 ``postprocessing``, which stays the reference semantics; this is host
-code, not a GPU kernel.
+code, not a GPU kernel. The first call builds and loads under a lock, so
+threads that call at once (the server's request threads) all get the
+library once it is built, and ``None`` only when the build failed.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 
 import numpy as np
 
@@ -23,11 +26,12 @@ _BUILD_DIR = os.path.join(_PKG, '_build')
 _FLAGS = ('-O3', '-shared', '-fPIC')
 _lib = None
 _tried = False
+_lock = threading.Lock()
 
 
 def _build(lib_path):
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f'{lib_path}.tmp-{os.getpid()}'
+    tmp = f'{lib_path}.tmp-{os.getpid()}-{threading.get_ident()}'
     for cc in ('c++', 'g++', 'clang++'):
         try:
             subprocess.run([cc, *_FLAGS, '-o', tmp, _SRC], check=True,
@@ -41,30 +45,41 @@ def _build(lib_path):
 
 
 def _load():
-    global _lib, _tried
     if _lib is not None or _tried:
         return _lib
-    _tried = True
-    with open(_SRC, 'rb') as f:
-        h = hashlib.sha256(f.read() + ' '.join(_FLAGS).encode()).hexdigest()
-    lib_path = os.path.join(_BUILD_DIR, f'libpostproc-{h[:16]}.so')
-    if not os.path.exists(lib_path) and not _build(lib_path):
-        return None
-    try:
-        lib = ctypes.CDLL(lib_path)
-    except OSError:
-        return None
-    lib.moore_trace.restype = ctypes.c_int
-    lib.moore_trace.argtypes = [
-        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int32),
-        ctypes.c_int, ctypes.POINTER(ctypes.c_int32)]
-    lib.label8.restype = ctypes.c_int
-    lib.label8.argtypes = [
-        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_int32)]
-    _lib = lib
+    with _lock:
+        if not _tried:
+            _load_locked()
     return _lib
+
+
+def _load_locked():
+    """Build (where needed) and load the library; sets ``_tried`` only once
+    that has finished or failed, so a caller that finds it set finds
+    ``_lib`` set too where the build worked."""
+    global _lib, _tried
+    try:
+        with open(_SRC, 'rb') as f:
+            h = hashlib.sha256(f.read() + ' '.join(_FLAGS).encode()).hexdigest()
+        lib_path = os.path.join(_BUILD_DIR, f'libpostproc-{h[:16]}.so')
+        if not os.path.exists(lib_path) and not _build(lib_path):
+            return
+        try:
+            lib = ctypes.CDLL(lib_path)
+        except OSError:
+            return
+        lib.moore_trace.restype = ctypes.c_int
+        lib.moore_trace.argtypes = [
+            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int32),
+            ctypes.c_int, ctypes.POINTER(ctypes.c_int32)]
+        lib.label8.restype = ctypes.c_int
+        lib.label8.argtypes = [
+            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int32)]
+        _lib = lib
+    finally:
+        _tried = True
 
 
 def available():

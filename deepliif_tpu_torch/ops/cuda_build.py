@@ -7,7 +7,9 @@ loaded with ctypes. The build runs at first use, goes into
 sources, the shared headers (``csrc/*.cuh``) and the flags, so an edited
 source is rebuilt and an unchanged one is reused. ``build`` starts one nvcc
 per library, all at once. A missing nvcc or a failed build raises: there is
-no fallback.
+no fallback. ``build`` holds a process-wide lock, so threads that ask for
+the same library at once (the server's request threads) build and load it
+once; each temporary file carries the pid and the thread id.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -28,6 +31,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 _loaded = {}
 build_seconds = {}
+_lock = threading.Lock()
 
 
 def _nvcc():
@@ -55,7 +59,13 @@ def _lib_path(name, sources):
 def build(libs):
     """Compile the libraries ``libs`` ({name: [source file names under
     csrc/]}) that are not built yet, one nvcc process each, all started
-    together; returns {name: ctypes handle}."""
+    together; returns {name: ctypes handle}. Thread-safe: a second caller
+    waits for the first one's build and gets its handles."""
+    with _lock:
+        return _build_locked(libs)
+
+
+def _build_locked(libs):
     todo = {name: srcs for name, srcs in libs.items() if name not in _loaded}
     procs = {}
     try:
@@ -64,7 +74,7 @@ def build(libs):
             if os.path.exists(path):
                 continue
             os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f'{path}.tmp-{os.getpid()}'
+            tmp = f'{path}.tmp-{os.getpid()}-{threading.get_ident()}'
             cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp,
                    *[os.path.join(CSRC, s) for s in srcs]]
             procs[name] = (path, tmp, time.perf_counter(),

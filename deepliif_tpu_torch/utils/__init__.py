@@ -1,5 +1,6 @@
-"""Host utilities of the port: checkpoint loading, the weight bridge, the
-tiler, and ``luma_u8`` (the port's own copy of
+"""Host utilities of the port: checkpoint loading and writing, the weight
+bridge, the tiler, the TIFF reader and writer (``tiff``), whole-slide
+inference (``wsi``), and ``luma_u8`` (the port's own copy of
 deepliif_tpu.utils.luma_u8)."""
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""Checkpoints into the port's modules, and the weight bridge to JAX trees.
+"""Checkpoints into and out of the port's modules, and the weight bridge to
+JAX trees.
 
 Native model dirs hold one ``{epoch}_net_{group}.npz`` per net group (G,
 GS, ...), written by deepliif_tpu.utils.checkpoints: keys are the JAX
@@ -7,6 +8,10 @@ stacked along a leading net axis; a group of mixed architectures is a list
 keyed '0/...', '1/...' (``group_trees``). Reference model dirs hold torch
 state dicts (``{epoch}_net_{name}.pth`` or TorchScript ``{name}.pt``) that
 load into the modules as they are.
+
+``save_networks`` writes the native layout from the modules (the port's
+``serialize``), the counterpart of deepliif_tpu.utils.checkpoints
+``save_networks``.
 
 ``params_from_jax`` / ``params_to_jax`` map one net's JAX param tree (numpy
 arrays, NHWC/HWIO layouts) to and from the module's state dict; they are
@@ -25,6 +30,7 @@ use) are:
 from __future__ import annotations
 
 import os
+import threading
 
 import numpy as np
 import torch
@@ -160,6 +166,50 @@ def group_trees(flat, n_nets):
                              f'{v.shape}')
     return [unflatten({k: v[i] for k, v in flat.items()})
             for i in range(n_nets)]
+
+
+def group_flat(nets):
+    """The npz dict of one net group (a list of modules), in the layout
+    ``group_trees`` reads and the JAX package writes: each leaf stacked
+    along a leading net axis when the nets share one architecture (every
+    key and shape equal; one net is a group of one), else each net's keys
+    under '0/', '1/', ..."""
+    flats = [flatten_tree(params_to_jax(net)) for net in nets]
+    layout = {k: v.shape for k, v in flats[0].items()}
+    if all({k: v.shape for k, v in f.items()} == layout for f in flats[1:]):
+        return {k: np.stack([f[k] for f in flats]) for k in flats[0]}
+    return {f'{i}/{k}': v for i, f in enumerate(flats) for k, v in f.items()}
+
+
+def save_npz(path, flat):
+    """Atomic write of ``flat`` to ``path`` (a temp file, then os.replace):
+    a crash mid-save never truncates the file a later load reads."""
+    tmp = f'{path}.tmp-{os.getpid()}-{threading.get_ident()}'
+    try:
+        np.savez(tmp, **flat)
+        # np.savez appends .npz when the name lacks it
+        written = tmp if os.path.exists(tmp) else tmp + '.npz'
+        os.replace(written, path)
+    finally:
+        for cand in (tmp, tmp + '.npz'):
+            if os.path.exists(cand):
+                os.remove(cand)
+
+
+def save_networks(save_dir, nets, epoch='latest'):
+    """Write each non-empty group of ``nets`` (``named_groups()``: G / GS,
+    G / GS of DeepLIIFExt, G of SDG, GA / GB of CycleGAN) as
+    ``{epoch}_net_{group}.npz`` in the JAX key layout; a numbered epoch
+    also refreshes ``latest_net_{group}.npz``."""
+    os.makedirs(save_dir, exist_ok=True)
+    epochs = [str(epoch)] if str(epoch) == 'latest' else [str(epoch),
+                                                          'latest']
+    for name, group in nets.named_groups():
+        if not len(group):
+            continue
+        flat = group_flat(group)
+        for ep in epochs:
+            save_npz(os.path.join(save_dir, f'{ep}_net_{name}.npz'), flat)
 
 
 def load_group_npz(path, nets):

@@ -1,6 +1,8 @@
 """The port's own copies of the JAX package's host modules (``config``,
 ``utils.luma_u8``, ``utils.tiler``, ``postprocessing`` with its C++ helper)
-against the originals, and the errors for what is not ported yet.
+against the originals, the lazy builds from many threads at once (the C++
+helper and, with a stand-in nvcc, ``ops.cuda_build``), and the errors for
+what is not ported yet.
 
 Tolerance: none. The copies run the same numpy/scipy code, so results are
 equal: the scoring dict equal and the overlays byte-equal, on a synthetic
@@ -10,6 +12,9 @@ stitched canvases byte-equal, options equal."""
 import json
 import os
 import re
+import stat
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -22,7 +27,7 @@ from deepliif_tpu import utils as utils_jax
 from deepliif_tpu.utils import tiler as tiler_jax
 from deepliif_tpu_torch import cli, config, models as M, native
 from deepliif_tpu_torch import nets, postprocessing as pp, roadmap, utils
-from deepliif_tpu_torch.utils import tiler
+from deepliif_tpu_torch.utils import tiler, wsi
 from test_inference import TINY_CFG
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -101,6 +106,76 @@ def test_native_helpers_match_jax_and_build_outside_the_sources():
     assert any(f.startswith('libpostproc-') for f in os.listdir(build))
 
 
+def _race(fn, n=8):
+    """``fn()`` from ``n`` threads released together, with a short switch
+    interval; returns the results."""
+    barrier = threading.Barrier(n)
+    out = [None] * n
+
+    def run(i):
+        barrier.wait()
+        out[i] = fn()
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    return out
+
+
+def test_native_load_from_many_threads_builds_once(tmp_path, monkeypatch):
+    """Eight threads on a cold ``native._load`` all get the library: none
+    finds it 'tried' while the first one builds, and it is built once."""
+    monkeypatch.setattr(native, '_BUILD_DIR', str(tmp_path))
+    monkeypatch.setattr(native, '_lib', None)
+    monkeypatch.setattr(native, '_tried', False)
+    builds = []
+    build = native._build
+    monkeypatch.setattr(native, '_build',
+                        lambda path: builds.append(path) or build(path))
+    libs = _race(native._load)
+    assert all(lib is not None for lib in libs)
+    assert len({id(lib) for lib in libs}) == 1
+    assert len(builds) == 1
+    assert [f for f in os.listdir(tmp_path) if f.endswith('.so')] == \
+        [os.path.basename(builds[0])]
+
+
+def test_cuda_build_from_many_threads_builds_once(tmp_path, monkeypatch):
+    """Eight threads asking ``cuda_build.load`` for one library at once get
+    one handle, and the compiler runs once (a stand-in for nvcc that builds
+    an empty shared library with the system C compiler and logs each
+    run)."""
+    from deepliif_tpu_torch.ops import cuda_build
+    csrc, log = tmp_path / 'csrc', tmp_path / 'nvcc.log'
+    csrc.mkdir()
+    (csrc / 'k.cu').write_text('// a kernel\n')
+    nvcc = tmp_path / 'nvcc'
+    nvcc.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                    f'echo "$2" >> {log}\nsleep 0.2\n'
+                    'exec cc -shared -fPIC -o "$2" -x c /dev/null\n')
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(cuda_build, 'CSRC', str(csrc))
+    monkeypatch.setattr(cuda_build, 'BUILD_DIR', str(tmp_path / 'build'))
+    monkeypatch.setattr(cuda_build, '_nvcc', lambda: str(nvcc))
+    monkeypatch.setattr(cuda_build, '_loaded', {})
+    handles = _race(lambda: cuda_build.load('k', ['k.cu']))
+    assert len({id(h) for h in handles}) == 1
+    runs = log.read_text().split()
+    # one run, into a temporary file named by the pid and the thread id
+    assert len(runs) == 1
+    assert re.search(rf'\.tmp-{os.getpid()}-\d+$', runs[0]), runs
+    assert os.listdir(tmp_path / 'build') == [
+        os.path.basename(cuda_build._lib_path('k', ['k.cu']))]
+
+
 def test_luma_and_tiler_match_jax():
     rng = np.random.default_rng(3)
     img = rng.integers(0, 255, (217, 300, 3), np.uint8)
@@ -152,7 +227,7 @@ def test_roadmap_items_follow_queue_order():
     assert [h for h in order if h in roadmap.ITEMS] == list(roadmap.ITEMS)
 
 
-def test_not_ported_messages_name_roadmap_headings(tmp_path):
+def test_not_ported_messages_name_roadmap_headings(tmp_path, monkeypatch):
     """Every item a "not ported" error can name is a heading of ROADMAP.md,
     the errors raised name one, and no message of the port cites an item
     by number."""
@@ -169,10 +244,15 @@ def test_not_ported_messages_name_roadmap_headings(tmp_path):
             lambda: nets.define_g(3, 3, 8, 'unet_32')(
                 torch.zeros(1, 3, 32, 32)),
             lambda: nets.define_g(3, 3, 8, 'unet_512_attention')(
-                torch.zeros(1, 3, 256, 256))):
-        with pytest.raises(NotImplementedError) as e:
-            call()
+                torch.zeros(1, 3, 256, 256)),
+            lambda: wsi.WSIReader(str(tmp_path / 'slide.czi')),
+            lambda: M.InferenceSession(str(tmp_path), device='cpu')):
+        with monkeypatch.context() as mp:
+            mp.setenv('DEEPLIIF_INFER_DEVICES', '2')
+            with pytest.raises(NotImplementedError) as e:
+                call()
         errors.append(str(e.value))
+    assert '"WSI"' in errors[-2] and '"Serving"' in errors[-1]
     for msg in errors:
         item = re.search(r'ROADMAP\.md, "([^"]+)"', msg)
         assert item and item.group(1) in headings, msg

@@ -5,8 +5,10 @@ imports the port, runs a tiny run_tiles on the CPU from a native model dir
 intermediates), the other families (DeepLIIFExt, SDG, CycleGAN) and the
 attention U-Net, the host postprocess (the port's own config, tiler,
 quantifier and native helper) and the device quantifier on the CPU
-(``ops.labeling``, the device stitch), and finds no ``jax``, ``jaxlib`` or
-``deepliif_tpu`` / ``deepliif_tpu.*`` module loaded."""
+(``ops.labeling``, the device stitch), then answers one request on the REST
+server and runs ``serialize``, ``test-wsi`` and ``wsi-cells`` through the
+CLI, and finds no ``jax``, ``jaxlib`` or ``deepliif_tpu`` /
+``deepliif_tpu.*`` module loaded."""
 
 import json
 import os
@@ -100,6 +102,36 @@ images, dev_scoring = models.infer_modalities(
     Image.fromarray(tiles[0]), 64, md, device_quant=True, device='cpu')
 assert 'SegOverlaid' in images and 'num_total' in dev_scoring
 assert native.label8(np.ones((4, 4), np.uint8)) is not None
+
+import io, threading, urllib.request
+from deepliif_tpu_torch import serve
+from deepliif_tpu_torch.utils import tiff
+srv = serve.make_server(md, '127.0.0.1', 0, device='cpu')
+threading.Thread(target=srv.serve_forever, daemon=True).start()
+buf = io.BytesIO()
+Image.fromarray(tiles[0]).save(buf, 'PNG')
+body = (b'--b\r\nContent-Disposition: form-data; name="img"; '
+        b'filename="a.png"\r\n\r\n' + buf.getvalue() + b'\r\n--b--\r\n')
+req = urllib.request.Request(
+    f'http://127.0.0.1:{srv.server_address[1]}/api/infer?resolution=10x',
+    data=body, method='POST',
+    headers={'Content-Type': 'multipart/form-data; boundary=b'})
+with urllib.request.urlopen(req, timeout=120) as r:
+    assert 'SegRefined' in json.loads(r.read())['images']
+srv.shutdown()
+run = cli.make_cli().main
+run(['serialize', '--model-dir', md, '--output-dir', os.path.join(md, 'ser'),
+     '--device', 'cpu'], standalone_mode=False)
+slides = os.path.join(md, 'slides')
+os.makedirs(slides)
+tiff.write_pyramid_tiff(os.path.join(slides, 's.svs'),
+                        np.tile(tiles[0], (2, 3, 1)), description='|AppMag = 5|')
+for cmd in ('test-wsi', 'wsi-cells'):
+    run([cmd, '--input-dir', slides, '--filename', 's.svs', '--output-dir',
+         os.path.join(md, 'wsi'), '--model-dir', md, '--region-size', '96',
+         '--device', 'cpu'], standalone_mode=False)
+assert {'s.json', 's_cells.json', 's_Seg.ome.tiff'} <= set(
+    os.listdir(os.path.join(md, 'wsi')))
 print(json.dumps(sorted(m for m in sys.modules
                         if m in ('jax', 'deepliif_tpu')
                         or m.startswith(('jax.', 'jaxlib', 'deepliif_tpu.')))))
