@@ -58,7 +58,15 @@ against ``params_to_jax`` (``serialize_checks``); ``test-wsi`` and
 ``wsi-cells`` through the CLI on a 3000 x 2200 pyramidal TIFF at AppMag
 40 in four regions, the outputs byte-equal run to run and to the
 per-region stitch, the scoring and the cells the per-region sums
-(``wsi_checks``). Each of these paths reads its kernel launches.
+(``wsi_checks``). Each of these paths reads its kernel launches. Last,
+training at float32: the statistics kernel under autograd
+(``plane_mean_var_train``, forward and backward) against autograd of its
+plain version (``train_stats_checks``), one step of a narrow flagship
+layout on the card against the same step on the CPU (``train_step_vs_cpu``:
+every loss term and gradient), and the full-width flagship through the
+CLI's ``train`` (batch 2, 512^2, 4 steps, one ``latest`` save; s/step,
+peak memory, statistics launches a step, the max |Δparam| of two identical
+runs) with its checkpoint served back through ``test`` (``train_checks``).
 
     python3 chip_smoke.py            # needs one CUDA card; exits 0 on success
 
@@ -3339,6 +3347,496 @@ def wsi_checks(M, K, md, root, smi):
              'plane_stats': cell_counts['plane_stats'] // cell_n})
 
 
+# training (float32): the statistics Function's shapes (a trunk norm and a
+# head norm at batch 2), the step held against the CPU, the CLI's run
+TRAIN_STATS_SHAPES = ((2, 256, 128, 128), (2, 64, 512, 512))
+TRAIN_STATS_TOL, TRAIN_DX_TOL = 1e-6, 1e-5   # forward rel., dx / max |dx|
+TRAIN_STEP_CFG = dict(modalities_no=4, net_g=('resnet_9blocks',) * 4,
+                      net_gs=('unet_128',) * 5, n_layers_d=4, ngf=16, ndf=16,
+                      use_dropout=False)
+TRAIN_STEP_SIZE, TRAIN_BATCH = 128, 2
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3  # loss rel., |Δg| / max |g|
+# the card's gradient may also miss the float64 reference by this many
+# times the CPU float32 run's own miss (beyond TRAIN_GRAD_TOL max |g|)
+TRAIN_GRAD_CPU_FACTOR = 2
+# a replayed ReLU branch may differ from the CPU's own only where |x| is
+# within this share of that call's max |x| of 0 (rounding, not a fault)
+TRAIN_BRANCH_TOL = 1e-4
+TRAIN_ROWS, TRAIN_STEPS, TRAIN_REPRO_STEPS = 8, 4, 2
+# statistics calls a flagship step: the forward's norms (4 translators of
+# 23 with the trunk unfused, 5 unet_512 of 15), 4 in each of the 18
+# discriminator calls of the D loss and the 9 of the G loss; the backward
+# launches none
+PLANE_PER_TRAIN_STEP = 4 * 23 + 5 * 15 + (18 + 9) * 4
+
+
+def train_stats_checks(L, rnd):
+    """``plane_mean_var_train`` (the statistics kernel under autograd) on
+    the card, forward and backward, against autograd of
+    ``plane_mean_var_reference``, float32, channels_last and NCHW: forward
+    within TRAIN_STATS_TOL of max |statistic|, dx within TRAIN_DX_TOL of
+    max |dx|; one kernel launch per forward. Both timed (forward +
+    backward) in turns."""
+    out = []
+    for shape in TRAIN_STATS_SHAPES:
+        for layout in ('channels_last', 'nchw'):
+            x = rnd.big(*shape, dtype=torch.float32) + 0.5
+            if layout == 'channels_last':
+                x = x.contiguous(memory_format=torch.channels_last)
+            g = rnd.big(shape[0], 2, shape[1], dtype=torch.float32)
+            xk = x.clone().requires_grad_(True)
+            xr = x.clone().requires_grad_(True)
+            before = L.plane_mean_var.launches
+            st = L.plane_mean_var_train(xk)
+            dx, = torch.autograd.grad(st, xk, g)
+            launched = L.plane_mean_var.launches - before
+            ref = L.plane_mean_var_reference(xr)
+            dref, = torch.autograd.grad(ref, xr, g)
+            torch.cuda.synchronize()
+            fwd = stats_rel(st.detach(), ref.detach())
+            dxe = ((dx - dref).abs().max() / dref.abs().max()).item()
+            runs, ms = in_turns({
+                'plain': lambda: torch.autograd.grad(
+                    L.plane_mean_var_reference(xr), xr, g),
+                'kernel': lambda: torch.autograd.grad(
+                    L.plane_mean_var_train(xk), xk, g)},
+                {'plain': 5, 'kernel': 10})
+            # x read once forward and once backward, dx written once
+            bound_ms = 3 * x.numel() * 4 / PEAK_BYTES * 1e3
+            res = dict(shape=list(shape), layout=layout,
+                       forward_rel_err=fwd, dx_rel_err=dxe,
+                       launches=launched, runs_ms=runs,
+                       kernel_ms=ms['kernel'], plain_ms=ms['plain'],
+                       bound_ms=bound_ms, bound_by='bytes',
+                       bound_share=bound_ms / ms['kernel'])
+            phase('train_stats_vs_plain', **res,
+                  what='forward (the kernel) + backward (one elementwise '
+                       'pass) against autograd of the plain version')
+            check(launched == 1, f'train stats: {launched} launches')
+            check(fwd <= TRAIN_STATS_TOL, f'train stats {shape} {layout}: '
+                                          f'forward {fwd} > {TRAIN_STATS_TOL}')
+            check(dxe <= TRAIN_DX_TOL, f'train stats {shape} {layout}: dx '
+                                       f'{dxe} > {TRAIN_DX_TOL}')
+            out.append(res)
+            del x, xk, xr, st, dx, ref, dref
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_batch_arrays(size, batch, m, seed):
+    """A training batch in [-1, 1] (numpy, NHWC): 'A', 'B_mods', 'B_seg'."""
+    rng = np.random.default_rng(seed)
+    return {'A': rng.uniform(-1, 1, (batch, size, size, 3)),
+            'B_mods': rng.uniform(-1, 1, (m, batch, size, size, 3)),
+            'B_seg': rng.uniform(-1, 1, (batch, size, size, 3))}
+
+
+def named_grads(state):
+    return {f'{group}.{i}.{k}': p.grad.detach().cpu()
+            for group, nets in state.nets.named_groups()
+            for i, net in enumerate(nets)
+            for k, p in net.named_parameters() if p.grad is not None}
+
+
+class SharedBranches:
+    """The branch each ReLU and leaky ReLU of the nets takes (its x > 0),
+    recorded in call order on the card and replayed on the CPU, so that a
+    CPU run differentiates the card's branch of the piecewise-linear
+    function. An input within rounding of 0 can take the other branch on
+    another device, and a single such position moves the gradient of every
+    net upstream of it by a local impulse: percent of the max of a tensor
+    whose gradient is a sum with heavy cancellation (a trunk norm's bias,
+    the conv weights before it). A replay counts the positions where the
+    CPU's own input takes the other branch, and the largest |x| among them
+    relative to that call's max |x| (``flips``, ``flip_rel``)."""
+
+    def __init__(self, L):
+        self.L = L
+        self.masks, self.replay = [], None
+        self.flips, self.flip_rel = 0, 0.0
+
+    def _replayed(self, x):
+        want = next(self.replay, None)
+        check(want is not None and want.shape == x.shape,
+              'train_step_vs_cpu: the CPU run calls its ReLUs in another '
+              'order than the card')
+        want = want.to(x.device)
+        off = (x.detach() > 0) != want
+        if off.any():
+            a = x.detach().abs()
+            self.flips += int(off.sum())
+            self.flip_rel = max(self.flip_rel,
+                                (a[off].max() / a.max()).item())
+        return want
+
+    @contextlib.contextmanager
+    def on(self, record):
+        """Record (the card) or replay (the CPU) inside the block."""
+        L = self.L
+        relu, leaky = L.relu, L.leaky_relu
+        if record:
+            self.masks = []
+
+            def b_relu(x):
+                self.masks.append((x.detach() > 0).cpu())
+                return relu(x)
+
+            def b_leaky(x, slope=0.2):
+                self.masks.append((x.detach() > 0).cpu())
+                return leaky(x, slope)
+        else:
+            self.replay = iter(self.masks)
+
+            def b_relu(x):
+                return torch.where(self._replayed(x), x, torch.zeros_like(x))
+
+            def b_leaky(x, slope=0.2):
+                return torch.where(self._replayed(x), x, slope * x)
+        L.relu, L.leaky_relu = b_relu, b_leaky
+        try:
+            yield self
+        finally:
+            L.relu, L.leaky_relu = relu, leaky
+        if not record:
+            check(next(self.replay, None) is None,
+                  'train_step_vs_cpu: the CPU run calls fewer ReLUs than '
+                  'the card')
+
+
+def train_step_vs_cpu(dl, vgg):
+    """One flagship-layout step (TRAIN_STEP_CFG: 4 resnet_9blocks, 5
+    unet_128, n_layers-4 discriminators, ngf = ndf = 16, 128^2, batch 2,
+    no dropout) on the card against the same step on the CPU: the same
+    weights (drawn on the CPU from one seed), the same batch, TF32 off.
+    Every loss term of the step within TRAIN_LOSS_TOL relative. The
+    optimizer is held apart: the CPU step's G loss runs against the card's
+    updated discriminators (copied in after the CPU's own D update), since
+    Adam's first update is lr sign(g) and a D gradient near 0 can take
+    either sign on the two devices.
+
+    Gradients: the D gradients of the step and the G gradients, both at the
+    initial weights, on the card, the CPU in float32 and a float64
+    reference on the CPU. Two step functions are shared, so that each
+    difference is rounding: the CPU runs replay the card's ReLU branches
+    (``SharedBranches``; every position where a CPU input takes the other
+    branch must lie within TRAIN_BRANCH_TOL of 0 relative to that call's
+    max |x|), and the perceptual term's gradient w.r.t. the generators'
+    outputs is the card's (the loss without the term + <outputs, the
+    card's upstream gradient>: the term is an L1 of VGG features, a step
+    function of sign(a - b)); that upstream gradient on its own, at the
+    card's outputs, within TRAIN_GRAD_TOL of its max plus twice the CPU
+    float32 run's distance from float64. Held for each of the 613
+    gradient tensors: the card within TRAIN_GRAD_TOL of its max |g| of the
+    CPU float32 run, and of the float64 reference plus
+    TRAIN_GRAD_CPU_FACTOR times the CPU float32 run's own distance; and
+    each net's whole gradient (the 9 generators' and the 9
+    discriminators') within TRAIN_GRAD_TOL of float64 in relative L2."""
+    import dataclasses
+    from deepliif_tpu_torch.config import Options, TRAIN_DEFAULTS
+    from deepliif_tpu_torch.nets import layers as L
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32,
+          'train_step_vs_cpu: TF32 is on')
+    d = dl.DeepLIIFDef(**TRAIN_STEP_CFG)
+    d_rest = dataclasses.replace(d, lambda_feat=0.0)
+    opt = Options(d_params=dict(TRAIN_DEFAULTS))
+    arrays = train_batch_arrays(TRAIN_STEP_SIZE, TRAIN_BATCH,
+                                d.modalities_no, SEED)
+    w_feat = d.lambda_feat * torch.tensor(
+        d.loss_g_weights[:d.modalities_no], dtype=torch.float64)
+    branches = SharedBranches(L)
+    res, card, flips = {}, {}, {}
+    for side, dev, dt in (('card', 'cuda', torch.float32),
+                          ('cpu', 'cpu', torch.float32),
+                          ('float64', 'cpu', torch.float64)):
+        vnet = vgg.VGG19Features().to(dev, dt)
+        batch = {k: torch.tensor(v, dtype=dt, device=dev)
+                 for k, v in arrays.items()}
+        state = dl.create_train_state(d, opt, 1, SEED, dev)
+        state.nets.to(dt)
+        branches.flips, branches.flip_rel = 0, 0.0
+        with branches.on(record=side == 'card'):
+            loss, (_, g_out) = dl.g_loss_fn(state.nets, batch, d_rest, vnet)
+            # the perceptual term's gradient w.r.t. the outputs: the
+            # card's own, and every side's at the card's outputs
+            mods = (g_out['mods'] if side == 'card' else card['mods'].to(dt)
+                    ).detach().requires_grad_(True)
+            up, = torch.autograd.grad((vgg.vgg_loss(
+                vnet, mods.movedim(-1, -3), batch['B_mods'].movedim(-1, -3))
+                * w_feat.to(dev, dt)).sum(), mods)
+            if side == 'card':
+                card.update(mods=mods.detach().cpu(), up=up.cpu())
+            dl._set_grads(state.g_params, loss + (
+                g_out['mods'] * card['up'].to(dev, dt)).sum())
+            g_grads = named_grads(state)
+            d_loss, _ = dl.d_loss_fn(state.nets, g_out, batch, d)
+            dl._set_grads(state.d_params, d_loss)
+        if side != 'card':
+            flips[side] = dict(positions=branches.flips,
+                               max_abs_x_rel=branches.flip_rel)
+        d_grads = {k: v for k, v in named_grads(state).items()
+                   if k.startswith('D')}
+        res[side] = dict(up=up.cpu(), g_grads={
+            k: v for k, v in g_grads.items() if k.startswith('G')},
+            d_grads=d_grads)
+        del state, g_out, loss, d_loss
+        if side == 'float64':
+            break
+        # the step
+        state = dl.create_train_state(d, opt, 1, SEED, dev)
+        step = dl.make_train_step(d, vnet)
+        if side == 'cpu':
+            own_update = state.d_opt.step
+
+            def card_update(update=own_update, params=state.d_params):
+                update()
+                with torch.no_grad():
+                    for p, q in zip(params, card['d']):
+                        p.copy_(q)
+            state.d_opt.step = card_update
+        t0 = time.perf_counter()
+        _, metrics, _ = step(state, batch)
+        torch.cuda.synchronize()
+        res[side].update(seconds=time.perf_counter() - t0,
+                         metrics={k: v.cpu() for k, v in metrics.items()})
+        card['d'] = [p.detach().cpu() for p in state.d_params]
+        del state, step, batch, vnet
+    relu_calls, branches.masks = len(branches.masks), []
+    gc.collect()
+    torch.cuda.empty_cache()
+    gpu, cpu, ref = res['card'], res['cpu'], res['float64']
+
+    def err(a, b):
+        return (a.double() - b.double()).abs().max().item()
+    loss_rel = {k: err(gpu['metrics'][k], v) / max(v.abs().max().item(),
+                                                   1e-30)
+                for k, v in cpu['metrics'].items()}
+    tensors = {('up', 'up'): None}
+    tensors.update({('d_grads', k): None for k in ref['d_grads']})
+    tensors.update({('g_grads', k): None for k in ref['g_grads']})
+
+    def net_l2(side):
+        """{net: relative L2 distance of its whole gradient to float64}"""
+        acc = {}
+        for part in ('d_grads', 'g_grads'):
+            for k, want in ref[part].items():
+                a = acc.setdefault('.'.join(k.split('.')[:2]), [0.0, 0.0])
+                a[0] += (side[part][k].double() - want).pow(2).sum().item()
+                a[1] += want.pow(2).sum().item()
+        return {k: (a / max(b, 1e-60)) ** 0.5 for k, (a, b) in acc.items()}
+    rows, past_cpu, past_f64 = {}, [], []
+    nets_l2, cpu_l2 = net_l2(gpu), net_l2(cpu)
+    for part, k in tensors:
+        want = ref[part] if part == 'up' else ref[part][k]
+        got = gpu[part] if part == 'up' else gpu[part][k]
+        own = cpu[part] if part == 'up' else cpu[part][k]
+        scale = max(want.abs().max().item(), 1e-30)
+        e_card, e_cpu = err(got, want), err(own, want)
+        rows[k] = dict(card_vs_cpu=err(got, own) / scale,
+                       card_vs_float64=e_card / scale,
+                       cpu_vs_float64=e_cpu / scale)
+        if e_card > TRAIN_GRAD_TOL * scale + TRAIN_GRAD_CPU_FACTOR * e_cpu:
+            past_f64.append((k, rows[k]))
+        if part != 'up' and rows[k]['card_vs_cpu'] > TRAIN_GRAD_TOL:
+            past_cpu.append((k, rows[k]))
+
+    def worst(key, keys=rows):
+        k = max(keys, key=lambda n: rows[n][key])
+        return k, rows[k][key]
+    grad_keys = [k for k in rows if k != 'up']
+    phase('train_step_vs_cpu', config={k: str(v) for k, v in
+                                       TRAIN_STEP_CFG.items()},
+          size=TRAIN_STEP_SIZE, batch=TRAIN_BATCH,
+          cuda_seconds=gpu['seconds'], cpu_seconds=cpu['seconds'],
+          loss_rel_err=loss_rel, max_loss_rel_err=max(loss_rel.values()),
+          d_grad_tensors=len(ref['d_grads']),
+          g_grad_tensors=len(ref['g_grads']),
+          relu_calls=relu_calls,
+          branch_flips_replayed=flips,
+          worst_card_vs_cpu=worst('card_vs_cpu', grad_keys),
+          worst_card_vs_float64=worst('card_vs_float64', grad_keys),
+          worst_cpu_vs_float64=worst('cpu_vs_float64', grad_keys),
+          perceptual_upstream=rows['up'],
+          nets_relative_l2_vs_float64=nets_l2,
+          cpu_nets_relative_l2_vs_float64=cpu_l2,
+          max_net_relative_l2=max(nets_l2.values()),
+          max_cpu_net_relative_l2=max(cpu_l2.values()),
+          tensors_past_cpu_limit=past_cpu,
+          tensors_past_float64_limit=past_f64,
+          losses={k: v.tolist() for k, v in gpu['metrics'].items()})
+    check(max(loss_rel.values()) <= TRAIN_LOSS_TOL,
+          f'train_step_vs_cpu: loss terms {loss_rel}')
+    for side, f in flips.items():
+        check(f['max_abs_x_rel'] <= TRAIN_BRANCH_TOL,
+              f'train_step_vs_cpu: a ReLU input of the {side} run takes '
+              f'the other branch than the card at {f}')
+    check(not past_cpu, f'train_step_vs_cpu: gradient tensors past '
+                        f'{TRAIN_GRAD_TOL} max|g| from the CPU: {past_cpu}')
+    check(not past_f64, f'train_step_vs_cpu: past {TRAIN_GRAD_TOL} max|g| '
+                        f'+ {TRAIN_GRAD_CPU_FACTOR} x the CPU float32 run\'s '
+                        f'own error from float64: {past_f64}')
+    worst_net = max(nets_l2, key=nets_l2.get)
+    check(nets_l2[worst_net] <= TRAIN_GRAD_TOL,
+          f'train_step_vs_cpu: net {worst_net} gradient {nets_l2[worst_net]}'
+          f' from float64 in relative L2, over {TRAIN_GRAD_TOL}')
+    return dict(max_loss_rel_err=max(loss_rel.values()),
+                max_net_relative_l2=nets_l2[worst_net],
+                max_cpu_net_relative_l2=max(cpu_l2.values()),
+                branch_flips_replayed=flips,
+                worst_card_vs_cpu=worst('card_vs_cpu', grad_keys),
+                worst_card_vs_float64=worst('card_vs_float64', grad_keys),
+                worst_cpu_vs_float64=worst('cpu_vs_float64', grad_keys))
+
+
+def train_rows(dataroot, n, seed):
+    """``n`` aligned training rows of 3072 x 512 (A | B1..B4 | B_seg, PNG)
+    from IHC-like content: each modality a channel mix of the input, the
+    seg black with the nuclei drawn red or blue."""
+    from PIL import Image
+    os.makedirs(os.path.join(dataroot, 'train'), exist_ok=True)
+    for i in range(n):
+        a = ihc_like_image(TILE, seed + i)
+        f = a.astype(np.float32)
+        mods = [np.clip(f[..., perm] * gain, 0, 255).astype(np.uint8)
+                for perm, gain in (((2, 1, 0), 1.0), ((1, 1, 1), 0.9),
+                                   ((0, 2, 1), 1.1), ((1, 0, 2), 1.0))]
+        dark = f.mean(-1) < 160
+        seg = np.zeros_like(a)
+        seg[dark & (f[..., 2] > f[..., 0])] = (0, 0, 255)
+        seg[dark & (f[..., 2] <= f[..., 0])] = (255, 0, 0)
+        Image.fromarray(np.concatenate([a] + mods + [seg], axis=1)).save(
+            os.path.join(dataroot, 'train', f'row{i}.png'))
+
+
+def train_checks(M, K, dl, root):
+    """The full-width flagship (ngf = ndf = 64, 512^2, batch 2) through the
+    CLI's ``train`` on TRAIN_ROWS synthetic rows: TRAIN_STEPS steps, one
+    ``latest`` save; every step's loss terms finite, PLANE_PER_TRAIN_STEP
+    statistics launches a step and no trunk kernel; s/step (median of
+    steps 2..), peak memory, the save's seconds. Then two identical
+    TRAIN_REPRO_STEPS-step runs from one seed (saves skipped): their max
+    |Δparam| is printed, not held (cuDNN's weight gradients need not be
+    bitwise reproducible). Then the checkpoint served back through ``test``
+    at float32 on one 512^2 tile: 72 trunk and 95 statistics launches, the
+    outputs finite."""
+    from PIL import Image as PILImage
+    from deepliif_tpu_torch import cli, train_loop
+
+    dataroot, ckpt = os.path.join(root, 'data'), os.path.join(root, 'ckpt')
+    train_rows(dataroot, TRAIN_ROWS, SEED + 50)
+    steps, saves = [], []
+    make_step, save_state = dl.make_train_step, train_loop._save_state
+
+    def timed_make_step(d, vgg_net):
+        step = make_step(d, vgg_net)
+
+        def run(state, batch, rng=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(state, batch, rng)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0,
+                          {k: v.cpu().tolist() for k, v in out[1].items()}))
+            return out
+        return run
+
+    def timed_save(*a, **kw):
+        t0 = time.perf_counter()
+        save_state(*a, **kw)
+        saves.append(time.perf_counter() - t0)
+
+    args = ['train', '--dataroot', dataroot, '--checkpoints-dir', ckpt,
+            '--name', 'flagship', '--batch-size', str(TRAIN_BATCH),
+            '--n-epochs', '1', '--n-epochs-decay', '0', '--seed', str(SEED),
+            '--print-freq', str(TRAIN_BATCH), '--device', 'cuda']
+    dl.make_train_step, train_loop._save_state = timed_make_step, timed_save
+    try:
+        reset_counts(K)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cli.make_cli().main(args, standalone_mode=False)
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        counts = launch_counts(K)
+    finally:
+        dl.make_train_step, train_loop._save_state = make_step, save_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    md = os.path.join(ckpt, 'flagship')
+    per_step = [t for t, _ in steps]
+    finite = all(np.isfinite(np.asarray(v, np.float64)).all()
+                 for _, m in steps for v in m.values())
+    res = dict(steps=len(steps), seconds_per_step=per_step,
+               median_s_per_step=float(np.median(per_step[1:])),
+               peak_mem_gib=peak / 2 ** 30, save_seconds=saves,
+               seconds_total=seconds, kernel_launches=counts,
+               plane_stats_per_step=counts['plane_stats'] / max(len(steps), 1),
+               files=sorted(os.listdir(md)),
+               losses=[m for _, m in steps])
+    phase('train', **res)
+    check(len(steps) == TRAIN_STEPS, f'train: {len(steps)} steps')
+    check(finite, 'train: a loss is not finite')
+    check(len(saves) == 1 and os.path.exists(
+        os.path.join(md, 'latest_optim.npz')), f'train: saves {saves}')
+    check(counts['plane_stats'] == TRAIN_STEPS * PLANE_PER_TRAIN_STEP
+          and counts['float32'] == 0,
+          f'train: launches {counts}, want {PLANE_PER_TRAIN_STEP} '
+          f'statistics a step and no trunk kernel')
+
+    # two identical runs from one seed, through the train command's own
+    # argument parsing; without flips, which the loader draws from Python's
+    # global random state (unseeded, as in the JAX package)
+    repro = [a for a in args if a not in ('train',)] + [
+        '--no-flip', '--debug', '--debug-data-size', str(TRAIN_REPRO_STEPS * TRAIN_BATCH),
+        '--print-freq', str(10 ** 6), '--checkpoints-dir',
+        os.path.join(root, 'repro')]
+    train_loop._save_state = lambda *a, **kw: None
+    try:
+        params = []
+        for _ in range(2):
+            kwargs = cli.make_cli().commands['train'].make_context(
+                'train', list(repro)).params
+            state, _ = cli.run_train(kwargs, echo=lambda *_: None)
+            params.append([p.detach().cpu() for _, g in
+                           state.nets.named_groups() for p in g.parameters()])
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        train_loop._save_state = save_state
+    delta = max((a - b).abs().max().item() for a, b in zip(*params))
+    phase('train_reproducibility', steps=TRAIN_REPRO_STEPS,
+          max_abs_param_delta=delta, bitwise_equal=delta == 0.0)
+    del params
+
+    # the checkpoint served through `test`
+    imgs, out = os.path.join(root, 'imgs'), os.path.join(root, 'out')
+    os.makedirs(imgs)
+    PILImage.fromarray(ihc_like_image(TILE, SEED + 90)).save(
+        os.path.join(imgs, 'tile.png'))
+    reset_counts(K)
+    t0 = time.perf_counter()
+    cli.run_test(imgs, out, TILE, md, device='cuda', echo=lambda *_: None)
+    torch.cuda.synchronize()
+    served = time.perf_counter() - t0
+    counts = launch_counts(K)
+    pngs = sorted(f for f in os.listdir(out) if f.endswith('.png'))
+    means = {f: float(np.asarray(PILImage.open(os.path.join(out, f)),
+                                 np.float64).mean()) for f in pngs}
+    phase('train_checkpoint_served', seconds=served, outputs=means,
+          kernel_launches=counts)
+    check(counts['float32'] == LAUNCHES_PER_FORWARD
+          and counts['plane_stats'] == PLANE_PER_FORWARD[False],
+          f'train: served checkpoint launches {counts}')
+    check(len(pngs) >= 5 and all(np.isfinite(v) for v in means.values()),
+          f'train: served outputs {pngs}')
+    M._init_nets_cached.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    res.update(repro_delta=delta, served_seconds=served)
+    return res
+
+
 def main():
     check(torch.cuda.is_available(), 'torch.cuda.is_available() is false: '
           'chip_smoke.py needs a CUDA card')
@@ -3436,6 +3934,18 @@ def main():
             gc.collect()
             torch.cuda.empty_cache()
         launches['att_unet'] = att_unet_checks(M, K, root, dl, img)
+    M._init_nets_cached.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # training at float32: the statistics under autograd, one step against
+    # the CPU, the flagship through the CLI's train and its checkpoint
+    # served back
+    from deepliif_tpu_torch.nets import vgg
+    train_stats = train_stats_checks(L, rnd)
+    train_step = train_step_vs_cpu(dl, vgg)
+    with tempfile.TemporaryDirectory() as root:
+        train = train_checks(M, K, dl, root)
 
     loaded = sorted(m for m in sys.modules if m == 'jax' or m == 'deepliif_tpu'
                     or m.startswith(('jax.', 'jaxlib', 'deepliif_tpu.')))
@@ -3526,9 +4036,19 @@ def main():
         'nchw_float32': plane['up_norms']['nchw_float32'],
         'up_norm_cases': plane['up_norms']['cases'],
         'launches_by_path': by_path('plane_stats'),
+        'training': {
+            'launches_per_step': train['plane_stats_per_step'],
+            'step': {k: train[k] for k in ('median_s_per_step',
+                                           'peak_mem_gib')},
+            'step_vs_cpu': train_step,
+            'forward_backward': [
+                {k: v[k] for k in ('shape', 'layout', 'kernel_ms',
+                                   'plain_ms', 'bound_ms', 'dx_rel_err')}
+                for v in train_stats]},
         'per': f'one norm (one call, x read once) of ({BATCH}, 64, {TILE}, '
                f'{TILE}) bf16; float32 beside it, and the largest float32 '
-               'up-norm in NCHW memory; launches per batch forward'})
+               'up-norm in NCHW memory; launches per batch forward, and per '
+               'flagship training step (batch 2, 512^2)'})
     big = QUANT_CANVASES[-1]
     lab = [label[(*big, conn)] for conn in (4, 8)]
     report.append({

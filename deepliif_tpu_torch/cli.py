@@ -1,5 +1,5 @@
-"""Command-line interface of the PyTorch port: ``deepliif-tpu-torch test``,
-``serialize``, ``serve``, ``test-wsi`` and ``wsi-cells``.
+"""Command-line interface of the PyTorch port: ``deepliif-tpu-torch train``,
+``test``, ``serialize``, ``serve``, ``test-wsi`` and ``wsi-cells``.
 
 Same options, output file names and scoring JSON as the commands of
 ``deepliif-tpu`` (deepliif_tpu/cli.py), plus ``--device`` (default cuda;
@@ -34,10 +34,19 @@ with ``--device``, ``--precision``, ``--int8-scope`` and ``--fuse-stages``
 as on ``test``. ``test-wsi`` and ``wsi-cells`` run whole slides region by
 region (``utils.wsi``): TIFF-family slides through the tiled TIFF reader,
 other images through PIL; the other slide formats of the JAX package raise
-NotImplementedError (ROADMAP.md, "WSI"). The commands not ported yet are
-listed under ROADMAP.md's "Training" and "Stats". click is imported when
-the command line is built, not when this module is imported.
+NotImplementedError (ROADMAP.md, "WSI"). ``train`` trains the DeepLIIF
+model at float32 on one device (``train_loop``) with the JAX command's
+options, names and defaults: the card unless ``--device cpu``, one
+``--gpu-ids`` entry picks the card, background colors inferred from the
+train dir; the other families, bfloat16, spectral norm, orbax checkpoints
+and several cards raise NotImplementedError ("Training"), as do
+``trainlaunch``, ``eval``, ``prepare-training-data``,
+``prepare-testing-data``, ``register`` and ``visualize``
+(``compute-statistics``: "Stats"). click is imported when the command line
+is built, not when this module is imported.
 
+    python -m deepliif_tpu_torch.cli train --dataroot data --name run \\
+        --batch-size 2 --device cuda
     python -m deepliif_tpu_torch.cli test --input-dir imgs --tile-size 512 \\
         --model-dir model --output-dir out --device cuda --precision int8
     python -m deepliif_tpu_torch.cli serve --model-dir model --port 8080
@@ -50,6 +59,8 @@ from __future__ import annotations
 import glob
 import json
 import os
+
+from . import roadmap
 
 
 # the JAX package's switches of its fused int8 trunk kernel and their
@@ -67,8 +78,6 @@ def int8_options(environ, precision):
     ``DEEPLIIF_INT8_CALIB_PCT`` (default 100). At ``precision`` int8 a
     kernel switch set to anything but its default raises
     NotImplementedError."""
-    from . import roadmap
-
     for name, default in _INT8_KERNEL_SWITCHES.items():
         value = environ.get(name)
         if precision == 'int8' and value not in (None, default):
@@ -198,12 +207,126 @@ def _resolve_wsi_tile_size(tile_size, input_dir, filename, echo=print):
     return 512
 
 
+# torch-compat and display flags of the JAX ``train`` that change nothing
+_IGNORED_TRAIN_FLAGS = ('display_server', 'display_port', 'display_env',
+                        'display_id', 'display_ncols', 'display_winsize',
+                        'update_html_freq', 'local_rank')
+
+# the JAX package's commands that the port does not run yet, by ROADMAP item
+_NOT_PORTED_COMMANDS = {
+    **{name: roadmap.TRAINING for name in (
+        'trainlaunch', 'eval', 'prepare-training-data',
+        'prepare-testing-data', 'register', 'visualize')},
+    'compute-statistics': roadmap.STATS}
+
+
+def train_device(device, gpu_ids):
+    """The torch device of ``train``: ``device`` (default cuda), where one
+    ``--gpu-ids`` entry N makes it cuda:N. Several ids raise
+    NotImplementedError ("Training"), anything else (a negative or
+    non-integer id, ids beside a CPU device) ValueError."""
+    device = device or 'cuda'
+    if gpu_ids is None or str(gpu_ids).strip() == '':
+        return device
+    ids = [s.strip() for s in str(gpu_ids).split(',') if s.strip()]
+    if not all(i.isdigit() for i in ids):
+        raise ValueError(f'--gpu-ids takes card numbers, got {gpu_ids!r} '
+                         '(train on the CPU with --device cpu)')
+    if len(ids) > 1:
+        raise roadmap.not_ported(f'training on {len(ids)} cards (--gpu-ids '
+                                 f'{gpu_ids})', roadmap.TRAINING)
+    if not device.startswith('cuda'):
+        raise ValueError(f'--gpu-ids {gpu_ids} picks a card, but --device is '
+                         f'{device}')
+    return f'cuda:{ids[0]}'
+
+
+def train_options(kwargs, echo=print):
+    """The training ``Options`` from the ``train`` command's arguments, as
+    the JAX command builds them (weights, names, dataset mode, the inferred
+    background colors), plus ``device``."""
+    from .config import Options, TRAIN_DEFAULTS
+
+    d_params = dict(TRAIN_DEFAULTS)
+    d_params.update({k: v for k, v in kwargs.items() if v is not None})
+    m = d_params['modalities_no']
+    model = d_params['model']
+    for ignored in _IGNORED_TRAIN_FLAGS:
+        if d_params.pop(ignored, None) is not None:
+            echo(f'note: --{ignored.replace("_", "-")} is ignored')
+    d_params['device'] = train_device(d_params.get('device'),
+                                      d_params.pop('gpu_ids', None))
+    lr = d_params.pop('lr', None)
+    if lr is not None:
+        d_params['lr_g'] = d_params['lr_d'] = lr
+    d_params['n_layers_D'] = d_params.pop('n_layers_d', 4)
+    names = d_params.pop('modalities_names', None)
+    if names:
+        d_params['modalities_names'] = [s.strip() for s in names.split(',')]
+    load_iter = d_params.pop('load_iter', 0)
+    if load_iter:
+        d_params['epoch'] = f'iter_{load_iter}'
+        d_params['continue_train'] = True
+
+    def default_weights(default):
+        if model in ('DeepLIIF', 'DeepLIIFKD') and m == 4:
+            return default
+        if model in ('DeepLIIF', 'DeepLIIFKD'):
+            return [1 / (m + 1)] * (m + 1)
+        return [1 / m] * m
+
+    for key, default in (('seg_weights', [0.25, 0.15, 0.25, 0.1, 0.25]),
+                         ('loss_weights_g', [0.2] * 5),
+                         ('loss_weights_d', [0.2] * 5)):
+        val = d_params.get(key, '')
+        d_params[key] = ([float(x) for x in val.split(',')] if val
+                         else default_weights(default))
+    d_params['loss_G_weights'] = d_params.pop('loss_weights_g')
+    d_params['loss_D_weights'] = d_params.pop('loss_weights_d')
+    d_params['netG'] = d_params['net_g']
+    d_params['netD'] = d_params['net_d']
+    d_params['phase'] = 'train'
+    if not d_params.get('dataset_mode'):
+        d_params['dataset_mode'] = ('unaligned' if model == 'CycleGAN'
+                                    else 'aligned')
+
+    # per-modality background colors from empty training tiles (reference
+    # cli.py:326-331), used by the inference empty-tile fill
+    if model in ('DeepLIIF', 'DeepLIIFKD', 'DeepLIIFExt'):
+        from .utils.background import infer_background_colors
+        train_dir = os.path.join(d_params['dataroot'], 'train')
+        if os.path.isdir(train_dir):
+            colors = infer_background_colors(
+                train_dir, input_no=d_params.get('input_no', 1),
+                modalities_no=m, seg_no=d_params.get('seg_no', 1),
+                return_list=True)
+            if colors is not None:
+                d_params['background_colors'] = colors
+    return Options(d_params=d_params, mode='train')
+
+
+def run_train(kwargs, echo=print):
+    """``train``: the options, printed, then ``train_loop.train_model``;
+    returns its (state, metrics)."""
+    from .config import print_options
+    from .train_loop import check_trainable, train_model
+
+    opt = train_options(kwargs, echo)
+    check_trainable(opt)
+    print_options(opt)
+    return train_model(opt)
+
+
 def make_cli():
     import click
 
     @click.group()
     def cli():
         """DeepLIIF on PyTorch and CUDA (port of deepliif-tpu)."""
+
+    _train_command(cli, click)
+    for name, item in _NOT_PORTED_COMMANDS.items():
+        _not_ported_command(cli, click, name, item)
 
     @cli.command()
     @click.option('--input-dir', default='./Sample_Large_Tissues/',
@@ -383,6 +506,115 @@ def make_cli():
         click.echo(f'{len(results["cells"])} cells -> {output_dir}')
 
     return cli
+
+
+def _not_ported_command(cli, click, name, item):
+    @cli.command(name=name, add_help_option=False,
+                 help=f'Not ported yet (ROADMAP.md, "{item}").',
+                 context_settings=dict(ignore_unknown_options=True,
+                                       allow_extra_args=True))
+    def command():
+        raise roadmap.not_ported(f'the {name} command', item)
+
+
+def _train_command(cli, click):
+    """``train``, with the options of the JAX package's command
+    (deepliif_tpu/cli.py:51-152) and ``--device``."""
+    options = [
+        ('--dataroot', dict(required=True, help='path to images (should have subfolders train, val, etc.)')),
+        ('--name', dict(default='experiment_name', help='name of the experiment, where to store samples and models')),
+        ('--checkpoints-dir', dict(default='./checkpoints', help='models are saved here')),
+        ('--model', dict(default='DeepLIIF', type=click.Choice(['DeepLIIF', 'DeepLIIFExt', 'SDG', 'CycleGAN', 'DeepLIIFKD']),
+                         help='DeepLIIF trains; the other families raise NotImplementedError')),
+        ('--modalities-no', dict(default=4, type=int, help='number of targets')),
+        ('--input-no', dict(default=1, type=int, help='number of input modalities (SDG multi-input)')),
+        ('--seg-no', dict(default=1, type=int, help='number of seg tiles per row')),
+        ('--seg-gen', dict(default=True, type=bool, help='enable segmentation generators')),
+        ('--net-g', dict(default='resnet_9blocks', help='generator architecture')),
+        ('--net-gs', dict(default='unet_512', help='segmentation generator architecture')),
+        ('--net-d', dict(default='n_layers', help='discriminator architecture')),
+        ('--ngf', dict(default=64, type=int)),
+        ('--ndf', dict(default=64, type=int)),
+        ('--norm', dict(default='batch', help='batch | instance | none (spectral raises)')),
+        ('--no-dropout', dict(is_flag=True)),
+        ('--padding', dict(default='zero', help='reflect | replicate | zero')),
+        ('--upsample', dict(default='convtranspose', help='convtranspose | resize_conv | pixel_shuffle')),
+        ('--batch-size', dict(default=1, type=int)),
+        ('--load-size', dict(default=512, type=int)),
+        ('--crop-size', dict(default=512, type=int)),
+        ('--scale-size', dict(default=512, type=int)),
+        ('--preprocess', dict(default='resize_and_crop')),
+        ('--no-flip', dict(is_flag=True)),
+        ('--gan-mode', dict(default='vanilla', help='vanilla | lsgan | wgangp')),
+        ('--gan-mode-s', dict(default='lsgan', help='GAN mode for seg branch')),
+        ('--optimizer', dict(default='adam', help='adam | adamw | sgd | rmsprop | adagrad (optax semantics)')),
+        ('--beta1', dict(default=0.5, type=float)),
+        ('--lr-g', dict(default=0.0002, type=float)),
+        ('--lr-d', dict(default=0.0002, type=float)),
+        ('--lr-policy', dict(default='linear', help='linear | step | cosine | plateau')),
+        ('--lr-decay-iters', dict(default=50, type=int)),
+        ('--n-epochs', dict(default=100, type=int)),
+        ('--n-epochs-decay', dict(default=100, type=int)),
+        ('--epoch-count', dict(default=1, type=int)),
+        ('--continue-train', dict(is_flag=True)),
+        ('--epoch', dict(default='latest')),
+        ('--seg-weights', dict(default='', help='comma-separated seg weights')),
+        ('--loss-weights-g', dict(default='', help='comma-separated G loss weights')),
+        ('--loss-weights-d', dict(default='', help='comma-separated D loss weights')),
+        ('--seed', dict(default=None, type=int)),
+        ('--with-val', dict(is_flag=True, help='compute val losses + cell count metrics')),
+        ('--print-freq', dict(default=100, type=int)),
+        ('--display-freq', dict(default=400, type=int)),
+        ('--save-latest-freq', dict(default=500, type=int)),
+        ('--save-by-iter', dict(is_flag=True, help='save iter_<N> snapshots instead of overwriting latest')),
+        ('--save-epoch-freq', dict(default=100, type=int)),
+        ('--max-dataset-size', dict(default=None, type=int)),
+        ('--precision', dict(default='float32', type=click.Choice(['float32', 'bfloat16']),
+                             help='float32 trains; bfloat16 raises NotImplementedError')),
+        ('--remote', dict(default=False, type=bool, help='pickle plot snapshots for `visualize`')),
+        ('--remote-transfer-cmd', dict(default=None, help='module.function invoked with each saved checkpoint path')),
+        ('--model-dir-teacher', dict(default=None, help='teacher model dir (DeepLIIFKD)')),
+        ('--pool-size', dict(default=50, type=int, help='CycleGAN image pool size')),
+        ('--lr', dict(default=None, type=float, help='sets both --lr-g and --lr-d (reference single-lr flag)')),
+        ('--init-type', dict(default='normal', help='normal | xavier | kaiming | orthogonal')),
+        ('--init-gain', dict(default=0.02, type=float)),
+        ('--n-layers-d', dict(default=4, type=int, help='PatchGAN depth (reference n_layers_D)')),
+        ('--net-ds', dict(default='n_layers', help='Ext seg discriminator architecture')),
+        ('--input-nc', dict(default=3, type=int)),
+        ('--output-nc', dict(default=3, type=int)),
+        ('--label-smoothing', dict(default=0.0, type=float, help='CycleGAN GAN-loss label smoothing')),
+        ('--modalities-names', dict(default=None, help='comma-separated modality names')),
+        ('--num-threads', dict(default=2, type=int, help='loader prefetch depth')),
+        ('--serial-batches', dict(is_flag=True)),
+        ('--dataset-mode', dict(default=None, help='aligned (unaligned, single: other families)')),
+        ('--direction', dict(default='AtoB', help='CycleGAN direction')),
+        ('--debug', dict(is_flag=True, help='cap each epoch at --debug-data-size iterations')),
+        ('--debug-data-size', dict(default=10, type=int)),
+        ('--verbose', dict(is_flag=True, help='print parameter counts per net')),
+        ('--load-iter', dict(default=0, type=int, help='resume from the iter_<N> checkpoint (with --save-by-iter)')),
+        ('--gpu-ids', dict(default=None, help='one card number: train on cuda:<n> (several raise NotImplementedError)')),
+        ('--display-server', dict(default=None, help='ignored (no visdom)')),
+        ('--display-port', dict(default=None, help='ignored (no visdom)')),
+        ('--display-env', dict(default=None, help='ignored (no visdom)')),
+        ('--display-id', dict(default=None, help='ignored (no visdom)')),
+        ('--display-ncols', dict(default=None, help='ignored (no visdom)')),
+        ('--display-winsize', dict(default=None, help='ignored (no visdom)')),
+        ('--no-html', dict(is_flag=True, help='skip HTML epoch galleries')),
+        ('--update-html-freq', dict(default=None, type=int, help='ignored (galleries follow --display-freq)')),
+        ('--local-rank', dict(default=None, help='ignored (torch DDP compat)')),
+        ('--checkpoint-format', dict(default='npz', type=click.Choice(['npz', 'orbax']),
+                                     help='npz (orbax raises NotImplementedError)')),
+        ('--monitor-image', dict(default=None, help='only display visuals for rows whose path ends with this')),
+        ('--device', dict(default='cuda', help='torch device to train on, e.g. cuda, cuda:1 or cpu')),
+    ]
+
+    def train(**kwargs):
+        """Train a DeepLIIF model at float32 on one device."""
+        run_train(kwargs, echo=click.echo)
+
+    for flag, kw in reversed(options):
+        train = click.option(flag, **kw)(train)
+    cli.command()(train)
 
 
 def main():

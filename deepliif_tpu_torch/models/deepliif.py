@@ -1,8 +1,9 @@
-"""DeepLIIF flagship model, inference: 4 translators + 5 seg generators.
+"""DeepLIIF flagship model: 4 translators + 5 seg generators, and for
+training 4 + 5 discriminators.
 
-Port of the inference half of deepliif_tpu/models/deepliif.py. The JAX
-package stacks identical nets and vmaps them; here the translators (G) and
-the seg generators (GS) are ``nn.ModuleList``s run in a Python loop, and
+Port of deepliif_tpu/models/deepliif.py. The JAX package stacks identical
+nets and vmaps them; here the translators (G), the seg generators (GS) and
+the discriminators (D, DS) are ``nn.ModuleList``s run in a Python loop, and
 the seg aggregation is a tensordot with ``seg_weights``.
 
 Public functions keep the JAX package's layout: x is (B, H, W, C) NHWC,
@@ -29,7 +30,21 @@ spectral norm (``layers.SpectralCache``, the JAX ``_maybe_spectral``).
 At int8 with spectral norm the quantized convs take the raw weights and
 their float route the normalized ones, as in the JAX package, which
 quantizes its params at load and normalizes in the forward
-(``layers.cast_function``). Not ported yet: training ("Training").
+(``layers.cast_function``).
+
+Training (float32; the JAX package's training half, :478-680):
+``init_nets`` draws every net with discriminators from a
+``torch.Generator``, ``d_loss_fn`` / ``g_loss_fn`` are the losses of
+backward_D / backward_G (GAN (modalities ``gan_mode``, seg ``gan_mode_s``)
++ SmoothL1 * lambda_L1 + VGG * lambda_feat on the modalities, GAN +
+SmoothL1 on the seg), and ``make_train_step`` runs them in the JAX order:
+the forward, the D loss on detached fakes, the D update, the G loss
+against the updated discriminators, the G update. The forward is run
+once and serves both losses (the JAX step recomputes it with the same
+rng; without running statistics that is the same function). Fakes and
+reals go through a discriminator in separate calls, each with its own
+batch statistics. Other families, bfloat16, int8 and spectral norm raise
+NotImplementedError ("Training").
 """
 
 from __future__ import annotations
@@ -40,7 +55,7 @@ import torch
 from torch import nn
 
 from .. import nets, roadmap
-from ..nets import layers as L
+from ..nets import layers as L, losses, vgg
 from ..ops import quant
 
 
@@ -63,6 +78,18 @@ class DeepLIIFDef:
     dtype: torch.dtype = torch.float32   # compute dtype of every net
     quant_int8: bool = False             # int8 trunk (--precision int8)
     fuse_stages: bool = False            # fused translator stages (bf16)
+    # training (the JAX DeepLIIFDef's other fields)
+    ndf: int = 64
+    net_d: str = 'n_layers'
+    n_layers_d: int = 4
+    gan_mode: str = 'vanilla'
+    gan_mode_s: str = 'lsgan'
+    lambda_l1: float = 100.0
+    lambda_feat: float = 100.0
+    loss_g_weights: tuple = (0.2,) * 5
+    loss_d_weights: tuple = (0.2,) * 5
+    init_type: str = 'normal'
+    init_gain: float = 0.02
 
     @property
     def uniform_g(self):
@@ -109,6 +136,17 @@ def def_from_opt(opt) -> DeepLIIFDef:
         dtype=PRECISIONS[precision],
         quant_int8=precision == 'int8',
         fuse_stages=bool(getattr(opt, 'fuse_stages', False)),
+        ndf=getattr(opt, 'ndf', 64),
+        net_d=getattr(opt, 'netD', getattr(opt, 'net_d', 'n_layers')),
+        n_layers_d=getattr(opt, 'n_layers_D', 4),
+        gan_mode=getattr(opt, 'gan_mode', 'vanilla'),
+        gan_mode_s=getattr(opt, 'gan_mode_s', 'lsgan'),
+        lambda_l1=float(getattr(opt, 'lambda_L1', 100.0)),
+        lambda_feat=float(getattr(opt, 'lambda_feat', 100.0)),
+        loss_g_weights=tuple(getattr(opt, 'loss_G_weights', (0.2,) * (m + 1))),
+        loss_d_weights=tuple(getattr(opt, 'loss_D_weights', (0.2,) * (m + 1))),
+        init_type=getattr(opt, 'init_type', 'normal'),
+        init_gain=getattr(opt, 'init_gain', 0.02),
     )
 
 
@@ -118,9 +156,12 @@ class DeepLIIFNets(nn.Module):
     Seg generators use define_G defaults: reflect padding, convtranspose
     (reference DeepLIIF_model.py:93-99). ``prefixes``: each net's JAX param
     path prefix ('G', or 'G/{i}' in a group of mixed architectures, which
-    the JAX package keeps as a list), the keys of act_scales.json."""
+    the JAX package keeps as a list), the keys of act_scales.json. With
+    ``with_discriminators`` also ``D[i]``, modality i's discriminator on
+    concat(input, modality), and ``DS[i]``, seg branch i's on
+    concat(input or real modality i - 1, seg) (training)."""
 
-    def __init__(self, d: DeepLIIFDef):
+    def __init__(self, d: DeepLIIFDef, with_discriminators=False):
         super().__init__()
         self.prefixes = {
             group: [group if len(set(archs)) == 1 else f'{group}/{i}'
@@ -149,9 +190,23 @@ class DeepLIIFNets(nn.Module):
                     raise ValueError(f'fuse_stages needs ResNet translators, '
                                      f'got {type(g).__name__}')
                 g.fuse_stages = True
+        self.with_discriminators = with_discriminators
+        if with_discriminators:
+            self.D = nn.ModuleList(_d_net(d) for _ in range(d.modalities_no))
+            self.DS = nn.ModuleList(
+                _d_net(d) for _ in range(d.modalities_no + 1 if d.seg_gen
+                                         else 0))
 
     def named_groups(self):
-        return [('G', self.G), ('GS', self.GS)]
+        groups = [('G', self.G), ('GS', self.GS)]
+        if self.with_discriminators:
+            groups += [('D', self.D), ('DS', self.DS)]
+        return groups
+
+
+def _d_net(d: DeepLIIFDef):
+    return nets.define_d(d.input_nc * d.input_no + d.output_nc, d.ndf,
+                         d.net_d, d.n_layers_d, d.norm)
 
 
 def quantizable_convs(nets_, min_ch=quant.MIN_CH):
@@ -311,3 +366,226 @@ def inference_forward(nets_, x, d: DeepLIIFDef, seg_weights=None,
     if seg is not None:
         out['seg'] = seg
     return out
+
+
+# ---------------------------------------------------------------------------
+# training (deepliif_tpu/models/deepliif.py :478-680)
+# ---------------------------------------------------------------------------
+
+def init_nets(d: DeepLIIFDef, generator=None, with_discriminators=True):
+    """Every net of ``d`` (the discriminators with
+    ``with_discriminators``), on the CPU, initialized by ``d.init_type`` /
+    ``d.init_gain`` from ``generator`` (``layers.init_net``), the
+    counterpart of the JAX ``init_params``."""
+    if d.dtype != torch.float32 or d.quant_int8 or d.fuse_stages:
+        raise roadmap.not_ported('training at bfloat16, int8 or with the '
+                                 'fused stages', roadmap.TRAINING)
+    if d.norm == 'spectral':
+        raise roadmap.not_ported('training with spectral norm',
+                                 roadmap.TRAINING)
+    nets_ = DeepLIIFNets(d, with_discriminators)
+    for _, group in nets_.named_groups():
+        for net in group:
+            L.init_net(net, d.init_type, d.init_gain, generator)
+    return nets_
+
+
+def _param_dtype(nets_):
+    """The nets' parameter dtype: float32 in training (float64 where a
+    test or check makes a float64 reference on the CPU)."""
+    return next(nets_.parameters()).dtype
+
+
+def _nchw(t):
+    """(..., H, W, C) -> (..., C, H, W), a view."""
+    return t.movedim(-1, -3)
+
+
+def train_forward(nets_, x, d: DeepLIIFDef, rng=None):
+    """The train-mode ensemble forward under autograd: x (B, H, W, C) ->
+    {'mods': (M, B, H, W, C), 'seg': (B, H, W, C)} (no 'seg' without seg
+    generators), in the nets' parameter dtype; dropout masks drawn from ``rng`` (a
+    ``torch.Generator`` on x's device), net after net. The seg nets take
+    the translators' outputs with their gradient."""
+    xc = _nchw(x.to(_param_dtype(nets_)))
+    mods = [g(xc, rng=rng) for g in nets_.G]
+    out = {'mods': torch.stack([_nchw_to_nhwc(y) for y in mods])}
+    if d.seg_gen:
+        segs = torch.stack([gs(xi, rng=rng) for gs, xi in
+                            zip(nets_.GS, [xc] + mods)])
+        out['seg'] = _nchw_to_nhwc(_seg_sum(d.seg_weights, segs))
+    return out
+
+
+def _nchw_to_nhwc(y):
+    return y.permute(0, 2, 3, 1)
+
+
+def _d_preds(ds, conds, imgs):
+    """Discriminator i on concat(conds[i], imgs[i]), one call each."""
+    return [dn(torch.cat([c, im], dim=1)) for dn, c, im in zip(ds, conds,
+                                                              imgs)]
+
+
+def _d_pred_seg(ds, x, real_mods, seg, d: DeepLIIFDef):
+    """Seg discriminators: DS[0] conditioned on x, DS[i] on real modality
+    i - 1; the prediction of the loss is the seg-weighted sum of the patch
+    maps (DeepLIIF_model.py:249-262)."""
+    conds = [x] + real_mods
+    return _seg_sum(d.seg_weights, torch.stack(
+        _d_preds(ds, conds, [seg] * len(conds))))
+
+
+def _weights(w, like):
+    return torch.as_tensor(w, dtype=torch.float32, device=like.device)
+
+
+def d_loss_fn(nets_, g_out, batch, d: DeepLIIFDef):
+    """The discriminator loss on detached fakes: (loss, terms). ``batch``:
+    {'A': (B, H, W, C), 'B_mods': (M, B, H, W, C), 'B_seg': (B, H, W, C)}
+    tensors; ``g_out`` as ``train_forward`` returns it."""
+    dt = _param_dtype(nets_)
+    x = _nchw(batch['A'].to(dt))
+    real = [_nchw(t.to(dt)) for t in batch['B_mods']]
+    fake = [_nchw(t).detach() for t in g_out['mods']]
+    m = d.modalities_no
+    w_d = _weights(d.loss_d_weights, x)
+    lf = torch.stack([losses.gan_loss(p, False, d.gan_mode)
+                      for p in _d_preds(nets_.D, [x] * m, fake)])
+    lr = torch.stack([losses.gan_loss(p, True, d.gan_mode)
+                      for p in _d_preds(nets_.D, [x] * m, real)])
+    loss = ((lf + lr) * 0.5 * w_d[:m]).sum()
+    terms = {'D_fake': lf, 'D_real': lr}
+    if d.seg_gen:
+        fake_seg = _nchw(g_out['seg']).detach()
+        real_seg = _nchw(batch['B_seg'].to(dt))
+        lfs = losses.gan_loss(_d_pred_seg(nets_.DS, x, real, fake_seg, d),
+                              False, d.gan_mode_s)
+        lrs = losses.gan_loss(_d_pred_seg(nets_.DS, x, real, real_seg, d),
+                              True, d.gan_mode_s)
+        loss = loss + (lfs + lrs) * 0.5 * w_d[m]
+        terms.update(D_fake_S=lfs, D_real_S=lrs)
+    return loss, terms
+
+
+def g_loss_fn(nets_, batch, d: DeepLIIFDef, vgg_net, rng=None, g_out=None):
+    """The generator loss against the current discriminators: (loss,
+    (terms, g_out)); runs ``train_forward`` unless ``g_out`` (its result)
+    is given. The VGG terms of the M modalities run as one batch of M B
+    images."""
+    dt = _param_dtype(nets_)
+    x = _nchw(batch['A'].to(dt))
+    if g_out is None:
+        g_out = train_forward(nets_, batch['A'], d, rng)
+    real_nhwc = batch['B_mods'].to(dt)
+    real = [_nchw(t) for t in real_nhwc]
+    mods = [_nchw(t) for t in g_out['mods']]
+    m = d.modalities_no
+    w_g = _weights(d.loss_g_weights, x)
+    l_gan = torch.stack([losses.gan_loss(p, True, d.gan_mode)
+                         for p in _d_preds(nets_.D, [x] * m, mods)])
+    l_l1 = torch.stack([losses.smooth_l1(a, b) for a, b in zip(mods, real)]
+                       ) * d.lambda_l1
+    l_vgg = vgg.vgg_loss(vgg_net, _nchw(g_out['mods']),
+                         _nchw(real_nhwc)) * d.lambda_feat
+    loss = ((l_gan + l_l1 + l_vgg) * w_g[:m]).sum()
+    terms = {'G_GAN': l_gan, 'G_L1': l_l1, 'G_VGG': l_vgg}
+    if d.seg_gen:
+        seg = _nchw(g_out['seg'])
+        real_seg = _nchw(batch['B_seg'].to(dt))
+        l_gan_s = losses.gan_loss(_d_pred_seg(nets_.DS, x, real, seg, d),
+                                  True, d.gan_mode_s)
+        l_l1_s = losses.smooth_l1(seg, real_seg) * d.lambda_l1
+        loss = loss + (l_gan_s + l_l1_s) * w_g[m]
+        terms.update(G_GAN_S=l_gan_s, G_L1_S=l_l1_s)
+    return loss, (terms, g_out)
+
+
+class TrainState:
+    """The nets (generators and discriminators, in train mode), their two
+    optimizers (``nets.optim.OptaxOptimizer``) and the step count."""
+
+    def __init__(self, nets_, g_opt, d_opt, step=0):
+        self.nets, self.g_opt, self.d_opt, self.step = nets_, g_opt, d_opt, step
+
+    def group_params(self, names):
+        return [p for name, group in self.nets.named_groups()
+                if name in names for p in group.parameters()]
+
+    @property
+    def g_params(self):
+        return self.group_params(('G', 'GS'))
+
+    @property
+    def d_params(self):
+        return self.group_params(('D', 'DS'))
+
+
+def create_train_state(d: DeepLIIFDef, opt, steps_per_epoch=1, seed=0,
+                       device='cpu'):
+    """Nets drawn from a generator seeded ``seed`` (on the CPU, so every
+    device gets the same weights), moved to ``device`` in train mode, and
+    the G and D optimizers (``opt.optimizer`` at ``opt.lr_g`` /
+    ``opt.lr_d`` with ``opt.lr_policy``'s schedule)."""
+    nets_ = init_nets(d, torch.Generator().manual_seed(seed))
+    nets_ = nets_.to(device).train()
+    state = TrainState(nets_, None, None)
+    state.g_opt = nets.make_optimizer(opt, state.g_params,
+                                      getattr(opt, 'lr_g', 2e-4),
+                                      steps_per_epoch)
+    state.d_opt = nets.make_optimizer(opt, state.d_params,
+                                      getattr(opt, 'lr_d', 2e-4),
+                                      steps_per_epoch)
+    return state
+
+
+def _set_grads(params, loss):
+    """p.grad = d loss / d p for every p (zeros where p does not reach the
+    loss, as JAX's grad gives)."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    for p, g in zip(params, grads):
+        p.grad = torch.zeros_like(p) if g is None else g
+
+
+def _detached(metrics):
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+def make_train_step(d: DeepLIIFDef, vgg_net):
+    """The alternating update (reference optimize_parameters,
+    DeepLIIF_model.py:431-467): forward -> D gradients on detached fakes
+    -> D update -> G gradients against the updated discriminators -> G
+    update. Returns step(state, batch, rng) -> (state, metrics, g_out);
+    the gradients stay in each parameter's ``.grad``."""
+
+    def step(state, batch, rng=None):
+        g_out = train_forward(state.nets, batch['A'], d, rng)
+        d_loss, d_terms = d_loss_fn(state.nets, g_out, batch, d)
+        _set_grads(state.d_params, d_loss)
+        state.d_opt.step()
+        g_loss, (g_terms, _) = g_loss_fn(state.nets, batch, d, vgg_net,
+                                         g_out=g_out)
+        _set_grads(state.g_params, g_loss)
+        state.g_opt.step()
+        state.step += 1
+        metrics = _detached({'loss_G': g_loss, 'loss_D': d_loss, **g_terms,
+                             **d_terms})
+        return state, metrics, _detached(g_out)
+
+    return step
+
+
+def make_eval_losses(d: DeepLIIFDef, vgg_net):
+    """Validation losses without updates (reference calculate_losses,
+    DeepLIIF_model.py:469-507): the train-mode forward and both losses,
+    without gradients."""
+
+    def eval_losses(state, batch, rng=None):
+        with torch.no_grad():
+            g_out = train_forward(state.nets, batch['A'], d, rng)
+            d_loss, d_terms = d_loss_fn(state.nets, g_out, batch, d)
+            g_loss, (g_terms, _) = g_loss_fn(state.nets, batch, d, vgg_net,
+                                             g_out=g_out)
+        return {'loss_G': g_loss, 'loss_D': d_loss, **g_terms, **d_terms}
+
+    return eval_losses

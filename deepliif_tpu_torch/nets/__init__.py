@@ -1,10 +1,15 @@
-"""Generator factory mirroring deepliif_tpu.nets.define_g (reference
-define_G): resnet_Nblocks, unet_32..unet_512 and unet_512_attention.
-Returns an ``nn.Module`` in the reference layout."""
+"""Network factories mirroring deepliif_tpu.nets (reference define_G /
+define_D): generators resnet_Nblocks, unet_32..unet_512 and
+unet_512_attention, discriminators basic / n_layers / pixel, each an
+``nn.Module`` in the reference layout; and the optimizers and
+learning-rate schedules of training, with optax's semantics
+(``nets.optim``)."""
 
 from __future__ import annotations
 
 from .att_unet import AttUnetGenerator
+from .discriminators import NLayerDiscriminator, PixelDiscriminator
+from .optim import make_lr_schedule, make_optimizer  # noqa: F401
 from .resnet import ResnetGenerator
 from .unet import UnetGenerator
 
@@ -28,3 +33,15 @@ def define_g(input_nc, output_nc, ngf=64, net_g='resnet_9blocks', norm='batch',
         return UnetGenerator(input_nc, output_nc, UNET_DOWNS[size], ngf, norm,
                              use_dropout)
     raise NotImplementedError(f'Generator [{net_g}] not recognized')
+
+
+def define_d(input_nc, ndf=64, net_d='n_layers', n_layers_d=3, norm='batch'):
+    """Discriminator factory: basic (PatchGAN, n_layers 3) | n_layers |
+    pixel."""
+    if net_d == 'basic':
+        net_d, n_layers_d = 'n_layers', 3
+    if net_d == 'n_layers':
+        return NLayerDiscriminator(input_nc, ndf, n_layers_d, norm)
+    if net_d == 'pixel':
+        return PixelDiscriminator(input_nc, ndf, norm)
+    raise NotImplementedError(f'Discriminator [{net_d}] not recognized')

@@ -1,6 +1,7 @@
-"""Functional layer primitives for inference, NCHW (PyTorch's layout).
+"""Functional layer primitives, NCHW (PyTorch's layout).
 
-Port of the parts of deepliif_tpu/nets/layers.py that inference needs. The
+Port of deepliif_tpu/nets/layers.py (spectral norm's training half, the
+int8 calibration helpers and the TPU lowering tricks aside). The
 nets of this package keep the reference torch layout (NCHW activations,
 OIHW conv and IOHW conv-transpose weights) so reference state dicts load as
 they are; deepliif_tpu.utils.torch_import converts between the two layouts
@@ -35,6 +36,17 @@ conv-transpose.
 lowering tricks for a tiny output-channel count; their counterpart here is
 the plain conv.
 
+Training (float32; the nets' train mode): ``init_net`` draws every conv
+and norm parameter of a net as the JAX initializers do (normal, xavier,
+kaiming, orthogonal; norm scale N(1, gain), bias 0) from an explicit
+``torch.Generator``; ``dropout`` draws its mask from a generator on the
+device; the norms take their statistics through ``plane_mean_var_train``,
+an autograd Function whose forward is the statistics kernel (its plain
+version on the CPU) and whose backward is one elementwise pass; batch norm
+couples the samples (``train_batch_norm``: statistics over (B, H, W), the
+JAX ``batch_stat_norm(per_sample=False)``), built from the per-sample
+statistics of one call.
+
 int8: a conv given an ``ops.quant.Int8Conv`` in place of its weight takes
 the JAX package's int8 route (layers.py conv2d, conv_transpose2d): the
 input quantized (static scale, or per sample below the dynamic spatial
@@ -58,7 +70,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import conv_int8, cuda_build, quant
-from ..utils.checkpoints import weight_to_hwio
+from ..utils.checkpoints import weight_from_hwio, weight_to_hwio
 
 _LIBS = {'plane_stats': ['plane_stats.cu']}
 
@@ -353,9 +365,9 @@ def _plane_geometry(p, c, elem, nchw=False):
 
 def plane_mean_var_reference(x):
     """Plain PyTorch version of ``plane_mean_var`` (same signature and
-    result): the JAX package's two-pass formula in float32, the mean, then
-    the mean of (x - mean)^2."""
-    d = x.float()
+    result): the JAX package's two-pass formula in float32 (float64 for a
+    float64 x), the mean, then the mean of (x - mean)^2."""
+    d = x.to(torch.promote_types(x.dtype, torch.float32))
     mean = d.mean(dim=(2, 3))
     var = ((d - mean[:, :, None, None]) ** 2).mean(dim=(2, 3))
     return torch.stack([mean, var], dim=1)
@@ -429,6 +441,32 @@ def plane_sums(x):
     return torch.stack([mean * p, (var + mean * mean) * p], dim=1)
 
 
+class _PlaneMeanVar(torch.autograd.Function):
+    """``plane_mean_var`` with a gradient: the forward is the statistics
+    kernel (on the CPU its plain version), the backward one elementwise
+    pass, dx = (g_mean + 2 g_var (x - mean)) / P over the P pixels of a
+    plane (the XLA fusion of the JAX package's backward; no TPU kernel)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        st = plane_mean_var(x)
+        ctx.save_for_backward(x, st)
+        return st
+
+    @staticmethod
+    def backward(ctx, g):
+        x, st = ctx.saved_tensors
+        p = x.shape[2] * x.shape[3]
+        gm, gv = g[:, 0, :, None, None], g[:, 1, :, None, None]
+        dx = (gm + 2 * gv * (x - st[:, 0, :, None, None])) / p
+        return dx.to(x.dtype)
+
+
+def plane_mean_var_train(x):
+    """``plane_mean_var`` under autograd (the train-mode norms)."""
+    return _PlaneMeanVar.apply(x)
+
+
 def batch_stat_norm(x, scale, bias, eps=1e-5):
     """BatchNorm2d with batch statistics (biased variance), affine, with the
     statistics taken per sample (over H, W): the reference inference
@@ -439,19 +477,37 @@ def batch_stat_norm(x, scale, bias, eps=1e-5):
     (x - mean)^2, one ``plane_mean_var`` call), scale and bias are computed
     in float32, then cast to x.dtype for ``x * scale + bias``."""
     st = plane_mean_var(x)
-    mean, var = st[:, 0], st[:, 1]
-    inv = torch.rsqrt(var + eps)[:, :, None, None]
-    mean = mean[:, :, None, None]
+    return _affine(x, st[:, 0], st[:, 1], scale, bias, eps)
+
+
+def _affine(x, mean, var, scale, bias, eps):
+    """x * s + b with s = scale / sqrt(var + eps), b = bias - mean s, the
+    statistics (S, C) or (C,) and s, b computed in float32."""
+    mean = mean.reshape(-1, mean.shape[-1], 1, 1)
+    inv = torch.rsqrt(var.reshape(mean.shape) + eps)
     s = inv * scale[None, :, None, None]
     b = bias[None, :, None, None] - mean * inv * scale[None, :, None, None]
     return x * s.to(x.dtype) + b.to(x.dtype)
 
 
-def instance_norm(x, eps=1e-5):
+def train_batch_norm(x, scale, bias, eps=1e-5):
+    """Train-mode BatchNorm2d: statistics over (B, H, W), coupling the
+    samples (the JAX ``batch_stat_norm(per_sample=False)``), from one
+    ``plane_mean_var_train`` call: mean the mean of the per-sample means,
+    var the mean of (var_s + (mean_s - mean)^2)."""
+    st = plane_mean_var_train(x)
+    mean_s, var_s = st[:, 0], st[:, 1]
+    mean = mean_s.mean(0)
+    var = (var_s + (mean_s - mean) ** 2).mean(0)
+    return _affine(x, mean, var, scale, bias, eps)
+
+
+def instance_norm(x, eps=1e-5, train=False):
     """InstanceNorm2d(affine=False): per-sample, per-channel statistics over
-    H, W (one ``plane_mean_var`` call, the statistics kernel on CUDA), in
-    float32; x * scale + bias in x.dtype."""
-    st = plane_mean_var(x)
+    H, W (one ``plane_mean_var`` call, the statistics kernel on CUDA;
+    ``train``: through ``plane_mean_var_train``), in float32; x * scale +
+    bias in x.dtype."""
+    st = (plane_mean_var_train if train else plane_mean_var)(x)
     mean, var = st[:, 0][:, :, None, None], st[:, 1][:, :, None, None]
     inv = torch.rsqrt(var + eps)
     return x * inv.to(x.dtype) + (-mean * inv).to(x.dtype)
@@ -460,8 +516,9 @@ def instance_norm(x, eps=1e-5):
 def norm_layer(norm, c):
     """The reference's norm module for ``norm`` at ``c`` channels:
     BatchNorm2d with its affine parameters (statistics per sample,
-    ``batch_stat_norm``), InstanceNorm2d without parameters, or an empty
-    slot ('none'; 'spectral' normalizes the conv weights instead)."""
+    ``batch_stat_norm``, or over the batch in training), InstanceNorm2d
+    without parameters, or an empty slot ('none'; 'spectral' normalizes the
+    conv weights instead)."""
     if norm == 'batch':
         return nn.BatchNorm2d(c, affine=True, track_running_stats=False)
     if norm == 'instance':
@@ -477,13 +534,17 @@ def norm_use_bias(norm):
     return norm == 'instance'
 
 
-def apply_norm(x, norm, layer):
-    """The inference norm of ``norm`` with the parameters of ``layer``
-    (``norm_layer``'s module)."""
+def apply_norm(x, norm, layer, train=False):
+    """The norm of ``norm`` with the parameters of ``layer``
+    (``norm_layer``'s module): inference statistics per sample, or with
+    ``train`` the train-mode norm (batch statistics over the batch, under
+    autograd)."""
     if norm == 'batch':
+        if train:
+            return train_batch_norm(x, layer.weight, layer.bias)
         return batch_stat_norm(x, layer.weight, layer.bias)
     if norm == 'instance':
-        return instance_norm(x)
+        return instance_norm(x, train=train)
     if norm in ('none', 'spectral'):
         return x
     raise NotImplementedError(f'norm [{norm}] not implemented')
@@ -562,6 +623,71 @@ class SpectralCache:
                     .to(dtype).contiguous() for m, kind in convs}
             self._key = key
         return self._w
+
+
+def dropout(x, rng, rate=0.5, train=False):
+    """Train-mode dropout (the JAX ``dropout``): keep with probability 1 -
+    ``rate``, the kept values divided by 1 - ``rate``; the mask drawn from
+    ``rng``, a ``torch.Generator`` on x's device. x as it is outside
+    ``train`` or at rate 0; in ``train`` without a generator it raises, so
+    that a missing ``rng`` cannot switch dropout off."""
+    if not train or rate == 0.0:
+        return x
+    if rng is None:
+        raise ValueError('train-mode dropout needs a torch.Generator (rng)')
+    keep = torch.empty_like(x, dtype=torch.float32).uniform_(
+        generator=rng) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+# initializers (deepliif_tpu/nets/layers.py :37-77, reference networks.py
+# :84-115): drawn in the JAX HWIO layout from a torch.Generator, so each
+# init type has the JAX package's distribution (not its values)
+
+def init_kernel(shape, init_type='normal', init_gain=0.02, generator=None):
+    """A conv kernel of HWIO ``shape`` (float32, on the CPU)."""
+    def normal(*s):
+        return torch.randn(*s, generator=generator, dtype=torch.float32)
+
+    fan_in = shape[0] * shape[1] * shape[2]
+    fan_out = shape[0] * shape[1] * shape[3]
+    if init_type == 'normal':
+        return init_gain * normal(*shape)
+    if init_type == 'xavier':
+        return init_gain * (2.0 / (fan_in + fan_out)) ** 0.5 * normal(*shape)
+    if init_type == 'kaiming':
+        return (2.0 / fan_in) ** 0.5 * normal(*shape)
+    if init_type == 'orthogonal':
+        rows, cols = fan_in, shape[3]
+        a = normal(rows, cols)
+        q, r = torch.linalg.qr(a if rows >= cols else a.T)
+        q = q * torch.sign(torch.diagonal(r))
+        if rows < cols:
+            q = q.T
+        return (init_gain * q).reshape(shape)
+    raise NotImplementedError(f'init [{init_type}] not implemented')
+
+
+def init_net(net, init_type='normal', init_gain=0.02, generator=None):
+    """Initialize every parameter of ``net`` (a module with ``jax_layout``)
+    in place as the JAX package's ``init_conv`` / ``init_norm`` do: conv
+    kernels by ``init_kernel`` (drawn in HWIO, then laid out as the
+    module's), biases 0, norm scales N(1, ``init_gain``), norm biases 0."""
+    with torch.no_grad():
+        for _, prefix, kind in net.jax_layout():
+            mod = net.get_submodule(prefix)
+            if kind == 'norm':
+                if getattr(mod, 'weight', None) is not None:
+                    mod.weight.copy_(1.0 + init_gain * torch.randn(
+                        mod.weight.shape, generator=generator))
+                    mod.bias.zero_()
+                continue
+            hwio = weight_to_hwio(mod.weight, kind).shape
+            mod.weight.copy_(weight_from_hwio(
+                init_kernel(tuple(hwio), init_type, init_gain, generator),
+                kind))
+            if mod.bias is not None:
+                mod.bias.zero_()
 
 
 def relu(x):

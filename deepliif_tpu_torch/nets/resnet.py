@@ -1,5 +1,5 @@
 """ResNet generator (c7s1-64, 2x down, n residual blocks, 2x up, c7s1-out,
-tanh) for inference.
+tanh).
 
 Port of deepliif_tpu/nets/resnet.py with the reference module layout
 (reference networks.py ResnetGenerator): ``model`` is an ``nn.Sequential``
@@ -46,6 +46,13 @@ ReLU) besides the conv-transpose. The trunk kernels run where the JAX
 package's ``_fused_ok`` admits the trunk: batch norm with reflect or zero
 padding; every other trunk runs ``trunk_unfused`` (cuDNN and the
 statistics kernel).
+
+Train mode (``net.train()``, float32; the JAX ``apply(train=True)``): the
+trunk runs ``trunk_unfused`` (the trunk kernel has no backward, and the
+JAX package trains on XLA convs too), every norm takes batch statistics
+through the statistics kernel under autograd (``layers.apply_norm(...,
+train=True)``), and each resblock drops out after its first ReLU when the
+net has dropout, its mask drawn from the generator ``forward`` is given.
 """
 
 from __future__ import annotations
@@ -92,6 +99,19 @@ def fused_stages_gate(dtype, int8=False, trunk_c=None, hw=None,
             raise ValueError(f'fuse_stages needs H, W % 16 == 0 at the input '
                              f'and at the trunk (H/4, W/4; the JAX gate), '
                              f'got {h}x{w}')
+
+
+def check_trainable(net):
+    """Raise NotImplementedError ("Training") for a net that train mode does
+    not run: a compute dtype other than float32, int8, spectral norm or the
+    fused translator stages."""
+    if net.compute_dtype != torch.float32 or getattr(net, 'int8', None) \
+            or getattr(net, 'fuse_stages', False):
+        raise roadmap.not_ported(f'training at {net.compute_dtype}, int8 or '
+                                 'with the fused stages', roadmap.TRAINING)
+    if net.norm == 'spectral':
+        raise roadmap.not_ported('training with spectral norm',
+                                 roadmap.TRAINING)
 
 
 class ResnetBlock(nn.Module):
@@ -156,6 +176,7 @@ class ResnetGenerator(nn.Module):
                                       'implemented')
         self.norm = norm
         self.padding_type = padding_type
+        self.use_dropout = use_dropout
         # the head and tail pad: reflect, else zeros (replicate too, as the
         # JAX package pads them)
         self.pad_head = 'reflect' if padding_type == 'reflect' else 'zero'
@@ -361,11 +382,11 @@ class ResnetGenerator(nn.Module):
         cast = cast or self._cast()
         x = L.pad2d(x, 3, self.pad_head)
         x = L.conv2d(x, cast(m[1].weight), cast(m[1].bias))
-        x = L.relu(L.apply_norm(x, self.norm, m[2]))
+        x = L.relu(L.apply_norm(x, self.norm, m[2], self.training))
         for i, idx in enumerate((4, 7)):
             L.record(calib, f'down{i}_conv', x)
             x = L.conv2d(x, cast(m[idx].weight), cast(m[idx].bias), 2, 1)
-            x = L.relu(L.apply_norm(x, self.norm, m[idx + 1]))
+            x = L.relu(L.apply_norm(x, self.norm, m[idx + 1], self.training))
         return x.permute(0, 2, 3, 1).contiguous()
 
     def trunk(self, x, cast=None, calib=None):
@@ -388,12 +409,13 @@ class ResnetGenerator(nn.Module):
                                   cast or self._cast(trunk=True),
                                   calib).permute(0, 2, 3, 1)
 
-    def trunk_unfused(self, x, cast, calib=None):
+    def trunk_unfused(self, x, cast, calib=None, rng=None):
         """(B, C, H, W) -> the trunk's output, one ``layers.conv2d`` per
         resblock conv (the JAX package's unfused loop): a reflect or
         replicate block pads first and records the padded input, a zero
         block pads inside the conv; the net's norm, ReLU after the first
-        conv, the residual add in x.dtype."""
+        conv (in train mode then dropout, its mask from ``rng``), the
+        residual add in x.dtype."""
         pad = self.padding_type in ('reflect', 'replicate')
         for i, b in enumerate(self.blocks):
             h = x
@@ -404,9 +426,11 @@ class ResnetGenerator(nn.Module):
                 L.record(calib, f'res{i}_conv{j}', h)
                 h = L.conv2d(h, cast(conv.weight), cast(conv.bias), 1,
                              0 if pad else 1)
-                h = L.apply_norm(h, self.norm, norm)
+                h = L.apply_norm(h, self.norm, norm, self.training)
                 if j == 1:
                     h = L.relu(h)
+                    if self.use_dropout:
+                        h = L.dropout(h, rng, 0.5, self.training)
             x = x + h
         return x
 
@@ -427,7 +451,7 @@ class ResnetGenerator(nn.Module):
             else:
                 L.record(calib, f'up{i}_conv', x)
                 x = L.relu(L.pixel_shuffle(L.conv2d(x, w, b, 1, 1), 2))
-            x = L.relu(L.apply_norm(x, self.norm, m[ni]))
+            x = L.relu(L.apply_norm(x, self.norm, m[ni], self.training))
         x = L.pad2d(x, 3, self.pad_head)
         t = m[self.tail_slot]
         x = L.conv2d(x, cast(t.weight), cast(t.bias))
@@ -501,11 +525,18 @@ class ResnetGenerator(nn.Module):
                                  in_bias=bi, in_relu=True,
                                  padding=self.padding_type)
 
-    def forward(self, x):
+    def forward(self, x, rng=None):
         """(B, C_in, H, W) in any float dtype -> output in the compute
-        dtype."""
+        dtype; in train mode in the parameters' dtype (float32; float64
+        for a reference on the CPU) under autograd, dropout masks drawn
+        from ``rng`` (a ``torch.Generator`` on x's device)."""
         if self.training:
-            raise roadmap.not_ported('training', roadmap.TRAINING)
+            check_trainable(self)
+            h = self.head(x.to(self.model[1].weight.dtype),
+                          self._cast(int8=False, trunk=True))
+            h = self.trunk_unfused(h.permute(0, 3, 1, 2), self._cast(
+                int8=False, trunk=True), rng=rng)
+            return self.tail(h.permute(0, 2, 3, 1))
         x = x.to(self.compute_dtype)
         if self.fuse_stages:
             return self.fused_stages(x)

@@ -1,4 +1,4 @@
-"""U-Net generator with skip connections, for inference.
+"""U-Net generator with skip connections.
 
 Port of deepliif_tpu/nets/unet.py with the reference module layout
 (reference networks.py UnetGenerator / UnetSkipConnectionBlock): each block
@@ -20,6 +20,12 @@ these convs pad inside).
 
 Norms: those of ``layers.norm_layer``; with instance norm every conv
 carries a bias (the reference rule), the outermost up conv always does.
+
+Train mode (``net.train()``, float32; the JAX ``apply(train=True)``):
+every norm takes batch statistics under autograd (``layers.apply_norm(...,
+train=True)``), and the intermediate ngf*8 blocks drop out after their up
+norm when the net has dropout, the masks drawn from the generator
+``forward`` is given.
 """
 
 from __future__ import annotations
@@ -27,8 +33,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .. import roadmap
 from . import layers as L
+from .resnet import check_trainable
 
 
 class UnetSkipConnectionBlock(nn.Module):
@@ -39,6 +45,7 @@ class UnetSkipConnectionBlock(nn.Module):
         self.outermost = outermost
         self.innermost = innermost
         self.norm = norm
+        self.use_dropout = use_dropout
         bias = L.norm_use_bias(norm)
         if input_nc is None:
             input_nc = outer_nc
@@ -81,17 +88,19 @@ class UnetSkipConnectionBlock(nn.Module):
                     for p, prefix, kind in m[sub].jax_layout(path + ('sub',))]
         return out
 
-    def run(self, x, cast, path='', calib=None):
+    def run(self, x, cast, path='', calib=None, rng=None):
         """Block forward; ``cast`` maps a conv parameter to what its conv
         takes (its compute-dtype copy or its ``Int8Conv``); ``path`` is the
         block's JAX param path prefix ('', 'sub/', ...) and ``calib`` a
-        calibration view recording the convs' inputs under it."""
+        calibration view recording the convs' inputs under it; ``rng`` the
+        generator of the train-mode dropout masks."""
         m = self.model
         sub = path + 'sub/'
+        train = self.training
         if self.outermost:
             L.record(calib, path + 'downconv', x)
             h = L.conv2d(x, cast(m[0].weight), cast(m[0].bias), 2, 1)
-            h = L.relu(m[1].run(h, cast, sub, calib))
+            h = L.relu(m[1].run(h, cast, sub, calib, rng))
             L.record(calib, path + 'upconv', h)
             h = L.conv_transpose2d(h, cast(m[3].weight), cast(m[3].bias), 2,
                                    1, 0)
@@ -104,14 +113,16 @@ class UnetSkipConnectionBlock(nn.Module):
             L.record(calib, path + 'upconv', h)
             h = L.conv_transpose2d(h, cast(m[3].weight), cast(m[3].bias), 2,
                                    1, 0)
-            h = L.apply_norm(h, self.norm, m[4])
+            h = L.apply_norm(h, self.norm, m[4], train)
         else:
-            h = L.apply_norm(h, self.norm, m[2])
-            h = L.relu(m[3].run(h, cast, sub, calib))
+            h = L.apply_norm(h, self.norm, m[2], train)
+            h = L.relu(m[3].run(h, cast, sub, calib, rng))
             L.record(calib, path + 'upconv', h)
             h = L.conv_transpose2d(h, cast(m[5].weight), cast(m[5].bias), 2,
                                    1, 0)
-            h = L.apply_norm(h, self.norm, m[6])
+            h = L.apply_norm(h, self.norm, m[6], train)
+            if self.use_dropout:
+                h = L.dropout(h, rng, 0.5, train)
         return torch.cat([x, h], dim=1)
 
 
@@ -178,11 +189,15 @@ class UnetGenerator(nn.Module):
                 self.int8, self.compute_dtype)
         return L.cast_function(casts, q, self.norm == 'spectral')
 
-    def forward(self, x):
+    def forward(self, x, rng=None):
         """(B, C_in, H, W) in any float dtype -> output in the compute
-        dtype."""
+        dtype; in train mode in the parameters' dtype (float32; float64
+        for a reference on the CPU) under autograd, dropout masks drawn
+        from ``rng`` (a ``torch.Generator`` on x's device)."""
         if self.training:
-            raise roadmap.not_ported('training', roadmap.TRAINING)
+            check_trainable(self)
+            return self.model.run(x.to(next(self.parameters()).dtype),
+                                  self._cast(int8=False), rng=rng)
         return self.model.run(x.to(self.compute_dtype), self._cast())
 
     def calibrate(self, x, calib):

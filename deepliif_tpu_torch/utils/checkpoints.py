@@ -10,8 +10,13 @@ state dicts (``{epoch}_net_{name}.pth`` or TorchScript ``{name}.pt``) that
 load into the modules as they are.
 
 ``save_networks`` writes the native layout from the modules (the port's
-``serialize``), the counterpart of deepliif_tpu.utils.checkpoints
-``save_networks``.
+``serialize`` and ``train``), the counterpart of
+deepliif_tpu.utils.checkpoints ``save_networks``; ``load_networks`` reads
+it back (``--continue-train``). ``save_optim`` / ``load_optim`` write and
+read a training run's ``{epoch}_optim.npz`` in the JAX package's layout
+(``save_pytree`` of {'g': optax state, 'd': optax state, 'step'}, keys
+such as 'g/0/.count', 'g/0/.mu/G/head_conv/w', 'g/1/.count'), so a run
+resumes in either package.
 
 ``params_from_jax`` / ``params_to_jax`` map one net's JAX param tree (numpy
 arrays, NHWC/HWIO layouts) to and from the module's state dict; they are
@@ -168,13 +173,16 @@ def group_trees(flat, n_nets):
             for i in range(n_nets)]
 
 
-def group_flat(nets):
+def group_flat(nets, state_dicts=None):
     """The npz dict of one net group (a list of modules), in the layout
     ``group_trees`` reads and the JAX package writes: each leaf stacked
     along a leading net axis when the nets share one architecture (every
     key and shape equal; one net is a group of one), else each net's keys
-    under '0/', '1/', ..."""
-    flats = [flatten_tree(params_to_jax(net)) for net in nets]
+    under '0/', '1/', ... ``state_dicts`` (one per net, default the nets'
+    own) may hold other tensors of the parameters' shapes, such as an
+    optimizer's moments."""
+    flats = [flatten_tree(params_to_jax(net, sd)) for net, sd in
+             zip(nets, state_dicts or [None] * len(nets))]
     layout = {k: v.shape for k, v in flats[0].items()}
     if all({k: v.shape for k, v in f.items()} == layout for f in flats[1:]):
         return {k: np.stack([f[k] for f in flats]) for k in flats[0]}
@@ -210,6 +218,96 @@ def save_networks(save_dir, nets, epoch='latest'):
         flat = group_flat(group)
         for ep in epochs:
             save_npz(os.path.join(save_dir, f'{ep}_net_{name}.npz'), flat)
+
+
+def load_networks(save_dir, nets, epoch='latest'):
+    """Load every non-empty group of ``nets`` from
+    ``{epoch}_net_{group}.npz`` in ``save_dir`` (FileNotFoundError when
+    one is missing), the JAX package's ``load_networks``."""
+    for name, group in nets.named_groups():
+        if not len(group):
+            continue
+        path = os.path.join(save_dir, f'{epoch}_net_{name}.npz')
+        if not os.path.exists(path):
+            raise FileNotFoundError(path)
+        load_group_npz(path, group)
+
+
+def _optim_prefixes(kind, plateau):
+    """(keys of the update counts, prefix of the moments) of an optax
+    optimizer's state, as the JAX package's ``make_optimizer`` builds it:
+    chain(transform, scale_by_schedule) (adamw: a weight-decay transform
+    in between), or under ``plateau`` inject_hyperparams around
+    chain(transform, scale)."""
+    own = ['.count'] if kind in ('adam', 'adamw') else []
+    if plateau:
+        return ['.count'] + [f'.inner_state/0/{c}' for c in own], \
+            '.inner_state/0/'
+    sched = 2 if kind == 'adamw' else 1
+    return [f'{sched}/.count'] + [f'0/{c}' for c in own], '0/'
+
+
+def _optim_flat(optimizer, groups, plateau):
+    from ..nets.optim import MOMENTS
+    counts, inner = _optim_prefixes(optimizer.kind, plateau)
+    flat = {c: np.asarray(optimizer.count, np.int32) for c in counts}
+    if plateau:
+        flat['.hyperparams/learning_rate'] = np.asarray(
+            optimizer.param_groups[0]['lr'], np.float32)
+    for m in MOMENTS[optimizer.kind]:
+        for name, nets in groups:
+            sds = [{k: optimizer.moment(p, m)
+                    for k, p in net.named_parameters()} for net in nets]
+            for k, v in group_flat(nets, sds).items():
+                flat[f'{inner}.{m}/{name}/{k}'] = v
+    return flat
+
+
+def save_optim(path, state, plateau=False):
+    """Write ``state``'s optimizer states and step (a
+    ``models.deepliif.TrainState``) to ``path`` atomically, in the JAX
+    package's ``{epoch}_optim.npz`` layout (``plateau``: the
+    inject_hyperparams state of the plateau policy, its learning rate
+    included)."""
+    flat = {'step': np.asarray(state.step, np.int32)}
+    for key, optimizer, names in (('g', state.g_opt, ('G', 'GS')),
+                                  ('d', state.d_opt, ('D', 'DS'))):
+        groups = [(n, g) for n, g in state.nets.named_groups()
+                  if n in names and len(g)]
+        flat.update({f'{key}/{k}': v for k, v in
+                     _optim_flat(optimizer, groups, plateau).items()})
+    save_npz(path, flat)
+
+
+def load_optim(path, state, plateau=False):
+    """Read an ``{epoch}_optim.npz`` (either package's) into ``state``: the
+    optimizers' counts, moments (and under ``plateau`` learning rates) and
+    the step. KeyError where a key of the layout is missing."""
+    from ..nets.optim import MOMENTS
+    with np.load(path) as data:
+        flat = {k: data[k] for k in data.files}
+    state.step = int(flat['step'])
+    for key, optimizer, names in (('g', state.g_opt, ('G', 'GS')),
+                                  ('d', state.d_opt, ('D', 'DS'))):
+        counts, inner = _optim_prefixes(optimizer.kind, plateau)
+        optimizer.count = int(flat[f'{key}/{counts[0]}'])
+        if plateau:
+            lr = float(flat[f'{key}/.hyperparams/learning_rate'])
+            for group in optimizer.param_groups:
+                group['lr'] = lr
+        for m in MOMENTS[optimizer.kind]:
+            for name, nets in state.nets.named_groups():
+                if name not in names or not len(nets):
+                    continue
+                pre = f'{key}/{inner}.{m}/{name}/'
+                sub = {k[len(pre):]: v for k, v in flat.items()
+                       if k.startswith(pre)}
+                if not sub:
+                    raise KeyError(f'{path} holds no {pre}*')
+                for net, tree in zip(nets, group_trees(sub, len(nets))):
+                    sd = params_from_jax(net, tree)
+                    for k, p in net.named_parameters():
+                        optimizer.state[p][m] = sd[k].to(p.device)
 
 
 def load_group_npz(path, nets):

@@ -227,6 +227,12 @@ def test_roadmap_items_follow_queue_order():
     assert [h for h in order if h in roadmap.ITEMS] == list(roadmap.ITEMS)
 
 
+def _bf16(net):
+    """A net in train mode at bfloat16, which training does not run."""
+    net.compute_dtype = torch.bfloat16
+    return net
+
+
 def test_not_ported_messages_name_roadmap_headings(tmp_path, monkeypatch):
     """Every item a "not ported" error can name is a heading of ROADMAP.md,
     the errors raised name one, and no message of the port cites an item
@@ -239,10 +245,12 @@ def test_not_ported_messages_name_roadmap_headings(tmp_path, monkeypatch):
     errors = []
     for call in (
             lambda: cli.int8_options({'DEEPLIIF_INT8_DYN': '0'}, 'int8'),
-            lambda: nets.ResnetGenerator(3, 3, 8, n_blocks=2)(
+            lambda: _bf16(nets.ResnetGenerator(3, 3, 8, n_blocks=2))(
                 torch.zeros(1, 3, 16, 16)),
-            lambda: nets.define_g(3, 3, 8, 'unet_32')(
+            lambda: nets.define_g(3, 3, 8, 'unet_32', norm='spectral')(
                 torch.zeros(1, 3, 32, 32)),
+            lambda: cli.make_cli().main(['trainlaunch'],
+                                        standalone_mode=False),
             lambda: nets.define_g(3, 3, 8, 'unet_512_attention')(
                 torch.zeros(1, 3, 256, 256)),
             lambda: wsi.WSIReader(str(tmp_path / 'slide.czi')),

@@ -7,8 +7,10 @@ attention U-Net, the host postprocess (the port's own config, tiler,
 quantifier and native helper) and the device quantifier on the CPU
 (``ops.labeling``, the device stitch), then answers one request on the REST
 server and runs ``serialize``, ``test-wsi`` and ``wsi-cells`` through the
-CLI, and finds no ``jax``, ``jaxlib`` or ``deepliif_tpu`` /
-``deepliif_tpu.*`` module loaded."""
+CLI, trains a tiny DeepLIIF model one step through the CLI's ``train``
+(the losses, discriminators, VGG, optimizers, loader, visualizer and
+background modules of training), and finds no ``jax``, ``jaxlib`` or
+``deepliif_tpu`` / ``deepliif_tpu.*`` module loaded."""
 
 import json
 import os
@@ -132,6 +134,19 @@ for cmd in ('test-wsi', 'wsi-cells'):
          '--device', 'cpu'], standalone_mode=False)
 assert {'s.json', 's_cells.json', 's_Seg.ome.tiff'} <= set(
     os.listdir(os.path.join(md, 'wsi')))
+from deepliif_tpu_torch import data, train_loop
+from deepliif_tpu_torch.nets import discriminators, losses, optim, vgg
+from deepliif_tpu_torch.utils import background, visualizer
+rows = os.path.join(md, 'rows', 'train')
+os.makedirs(rows)
+Image.fromarray(np.tile(tiles[0], (1, 3, 1))).save(os.path.join(rows, 'r.png'))
+run(['train', '--dataroot', os.path.dirname(rows), '--checkpoints-dir',
+     os.path.join(md, 'ckpt'), '--modalities-no', '1', '--net-g',
+     'resnet_2blocks', '--net-gs', 'unet_32', '--ngf', '8', '--ndf', '8',
+     '--load-size', '64', '--crop-size', '64', '--n-epochs', '1',
+     '--n-epochs-decay', '0', '--device', 'cpu'], standalone_mode=False)
+assert os.path.exists(os.path.join(md, 'ckpt', 'experiment_name',
+                                   'latest_optim.npz'))
 print(json.dumps(sorted(m for m in sys.modules
                         if m in ('jax', 'deepliif_tpu')
                         or m.startswith(('jax.', 'jaxlib', 'deepliif_tpu.')))))
