@@ -17,9 +17,14 @@ translator of the int8 'all' session byte-equal with the kernel swapped
 for its plain version. The float32 trunk kernel (split TF32 on the
 tensor cores) is held to the float32 tolerance beside two controls on the
 same inputs: cuDNN's 1x TF32 conv must fail it, the plain 3x TF32 emulation
-must pass it. Every path must give a
-tile the same outputs alone as inside a batch of 16 (``batch_invariance``;
-the engine runs every forward at its one batch shape of 16 tiles). The
+must pass it. Every path must give
+tiles alone and in small batches (1, 2, 4, 8, 9) the outputs they get
+inside a batch of 16 (``batch_invariance``; the engine runs a short
+batch in a power-of-two bucket only where its probe holds it bitwise
+against the full batch), and 40 tiles with four empty ones in one
+pipelined ``run_tiles`` call (two batches in flight) the bytes of the
+same tiles 16 at a time, with no host wait inside a forward and at most
+one between launches (``pipeline``, traced with ``utils.profiling``). The
 bf16 trunk is held to accuracy against float32, beside two controls that
 must come out either way (``bf16_chain_check``: an exactly rounded conv
 passes, a conv rounded toward zero fails), on its 9-block chain, on one
@@ -58,7 +63,11 @@ against ``params_to_jax`` (``serialize_checks``); ``test-wsi`` and
 ``wsi-cells`` through the CLI on a 3000 x 2200 pyramidal TIFF at AppMag
 40 in four regions, the outputs byte-equal run to run and to the
 per-region stitch, the scoring and the cells the per-region sums
-(``wsi_checks``). Each of these paths reads its kernel launches. Last,
+(``wsi_checks``); the same server at ``--precision int8``, dynamic and
+static, its launches of #2 and ``conv_s8`` per forward
+(``serve_int8_checks``); the CLI's ``eval`` over four aligned rows, each
+written image byte-equal to ``run_tiles`` of the row's A tile
+(``eval_checks``). Each of these paths reads its kernel launches. Last,
 training at float32: the statistics kernel under autograd
 (``plane_mean_var_train``, forward and backward) against autograd of its
 plain version (``train_stats_checks``), one step of a narrow flagship
@@ -79,6 +88,7 @@ Any failure exits non-zero before that line. There is no CPU path.
 from __future__ import annotations
 
 import contextlib
+import copy
 import gc
 import json
 import os
@@ -331,8 +341,14 @@ CALIB_BATCH = 4
 CALIB_PLANE_PER_BATCH = 4 * (5 + 18) + 5 * 15
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name, **info):
-    print(json.dumps({'phase': name, **info}, default=str), flush=True)
+    """One JSON line per phase, with the seconds since the script began."""
+    print(json.dumps({'phase': name, **info,
+                      'elapsed_s': round(time.perf_counter() - _T0, 1)},
+                     default=str), flush=True)
 
 
 def fail(msg):
@@ -1392,6 +1408,175 @@ def expected_counts(precision, fused, n_forwards, quant_calls=0, s8=0,
     return want
 
 
+# phase 'pipeline': 40 tiles, four of them empty, so that the pipelined
+# run_tiles call runs three batches, the last one short (16, 16 and 4 at
+# BATCH 16)
+PIPE_TILES, PIPE_EMPTY = 40, (5, 17, 30, 39)
+# the host's waits on the device (utils.profiling.Trace.host_syncs) that a
+# pipelined run_tiles needs from one batch's launch to the next: none
+# before the second launch; then one, the event wait that collects the
+# batch before; from the last launch to the end two collects and the
+# trace's own closing cudaDeviceSynchronize. None inside a forward.
+PIPE_SYNCS_FIRST, PIPE_SYNCS_MIDDLE, PIPE_SYNCS_LAST = 0, 1, 3
+# phase 'batch_invariance': tile counts held against the same tiles in a
+# batch of BATCH
+INVARIANCE_COUNTS = (1, 2, 4, 8, 9)
+# the profiler range around each batch forward (``batches_run``)
+FORWARD_RANGE = 'InferenceSession.forward'
+
+
+def run_u8(session, tiles, **kw):
+    """``run_tiles``' outputs as one dict of host arrays (the device-kept GS
+    fetched after the call)."""
+    out = session.run_tiles(tiles, **kw)
+    if isinstance(out, tuple):
+        host, dev = out
+        out = {**host, **{k: v.cpu().numpy() for k, v in dev.items()}}
+    return out
+
+
+@contextlib.contextmanager
+def batches_run(session):
+    """The batch size of each forward that ``session`` runs in the block
+    (its bucket probes, ``raw=True``, left out), each forward inside the
+    profiler range FORWARD_RANGE."""
+    from torch.profiler import record_function
+    sizes, run, own = [], session.forward, 'forward' in vars(session)
+
+    def forward(tiles, *a, **k):
+        if not k.get('raw'):
+            sizes.append(int(tiles.shape[0]))
+        with record_function(FORWARD_RANGE):
+            return run(tiles, *a, **k)
+    session.forward = forward
+    try:
+        yield sizes
+    finally:
+        if own:
+            session.forward = run
+        else:
+            del session.forward
+
+
+def padded_calls(keys):
+    """{'kind dtype': count} of a bucket's padded library calls."""
+    out = {}
+    for k in keys:
+        out[f'{k[0]} {k[3]}'] = out.get(f'{k[0]} {k[3]}', 0) + 1
+    return out
+
+
+def bucket_probes(session):
+    """The session's bucket probes as a list of records, the padded
+    library calls counted by kind and dtype."""
+    return [{'tile': list(shape), 'path': {k: v for k, v in path},
+             'bucket': b, **p, 'padded': padded_calls(p['padded'])}
+            for (shape, path), probes in session.bucket_probes.items()
+            for b, p in probes.items()]
+
+
+def batch_invariance_checks(session, batch, path, **kw):
+    """Phase 'batch_invariance': INVARIANCE_COUNTS tiles of ``batch`` (one
+    alone, 2, 4, 8, 9) against the same tiles in the batch of BATCH,
+    byte-equal (hard); the batch each call ran, and the buckets the
+    session's probes refused, with the outputs that differed."""
+    full = run_u8(session, batch, **kw)
+    j, ran, inv = 3, {}, {}
+    for n in INVARIANCE_COUNTS:
+        with batches_run(session) as sizes:
+            part = run_u8(session, batch[j:j + n], **kw)
+        ran[n] = sizes
+        inv[n] = {k: bool(np.array_equal(full[k][j:j + n], part[k]))
+                  for k in full}
+    probes = bucket_probes(session)
+    ok = all(all(v.values()) for v in inv.values())
+    phase('batch_invariance', path=path, byte_equal=ok,
+          tiles_vs_in_batch=inv, batch_ran=ran,
+          refused=[p for p in probes if not p['holds']], probes=probes)
+    check(ok, f'{path}: tiles alone or in small batches differ from the '
+              f'same tiles in a batch of {BATCH}: {inv}')
+    return ran
+
+
+def one_tile_ms(session, tile, **kw):
+    """Median ms of three lone-tile ``run_tiles`` calls, and the batch it
+    ran."""
+    ms = []
+    for _ in range(3):
+        with batches_run(session) as sizes:
+            t0 = time.perf_counter()
+            run_u8(session, tile, **kw)
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms)), sizes
+
+
+def pipeline_tiles(img):
+    tiles = crops(img, PIPE_TILES, SEED + 2)
+    tiles[list(PIPE_EMPTY)] = 128
+    return tiles
+
+
+def pipeline_checks(session, tiles, path, **kw):
+    """Phase 'pipeline': ``tiles`` (PIPE_TILES, some empty) in one
+    ``run_tiles`` call, whose batches are pipelined two deep, against the
+    same tiles run BATCH at a time through separate calls (byte-equal,
+    hard); one call traced with ``utils.profiling``: the host's waits on
+    the device inside each forward (none allowed) and in each window from
+    one batch's launch to the next (PIPE_SYNCS_*), and the share of the
+    call the device was idle; the call's wall ms beside the separate
+    calls' sum."""
+    from deepliif_tpu_torch.utils import profiling as P
+    # warm already: ``batch_invariance_checks`` probed the buckets and
+    # allocated the host buffers of a batch of BATCH
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    separate = [run_u8(session, tiles[i:i + BATCH], **kw)
+                for i in range(0, len(tiles), BATCH)]
+    torch.cuda.synchronize()
+    separate_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    got = run_u8(session, tiles, **kw)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with batches_run(session) as sizes, P.trace() as tr:
+        traced = session.run_tiles(tiles, **kw)
+    if isinstance(traced, tuple):
+        traced = {**traced[0], **{k: v.cpu().numpy()
+                                  for k, v in traced[1].items()}}
+    equal = {k: bool(np.array_equal(got[k], np.concatenate(
+        [s_[k] for s_ in separate])) and np.array_equal(got[k], traced[k]))
+        for k in got}
+    spans = tr.spans(FORWARD_RANGE)
+    check(spans and tr.device_events(), f'{path}: the pipeline trace saw no '
+                                        'forward or no device activity')
+    starts = [a for a, _ in spans] + [tr.window[1]]
+    in_forward = [tr.host_syncs(a, b) for a, b in spans]
+    per_window = [tr.host_syncs(starts[i], starts[i + 1])
+                  for i in range(len(spans))]
+    allowed = [PIPE_SYNCS_FIRST] + [PIPE_SYNCS_MIDDLE] * (len(spans) - 2) \
+        + [PIPE_SYNCS_LAST]
+    syncs_ok = (not any(in_forward) and all(
+        sum(w.values()) <= a for w, a in zip(per_window, allowed)))
+    phase('pipeline', path=path, tiles=len(tiles),
+          empty=len(PIPE_EMPTY), batches=sizes, wall_ms=wall_ms,
+          separate_calls_ms=separate_ms,
+          traced_wall_ms=(tr.window[1] - tr.window[0]) / 1e3,
+          device_busy_ms=tr.busy_ms(), idle_share=tr.idle_share(),
+          idle_share_from_first_launch=tr.idle_share(starts[0],
+                                                     tr.window[1]),
+          host_syncs=tr.host_syncs(), host_syncs_in_forward=in_forward,
+          host_syncs_per_window=per_window, allowed_per_window=allowed,
+          sync_sites_in_forward=[tr.sync_sites(a, b) for a, b in spans],
+          byte_equal=equal)
+    check(all(equal.values()), f'{path}: the pipelined call differs from '
+                               f'the same tiles {BATCH} at a time: {equal}')
+    check(len(sizes) == 3, f'{path}: batches {sizes}, want three')
+    check(syncs_ok, f'{path}: host waits in forwards {in_forward}, per '
+                    f'window {per_window}, allowed {allowed}')
+    return dict(wall_ms=wall_ms, separate_calls_ms=separate_ms,
+                idle_share=tr.idle_share(), batches=sizes)
+
+
 def throughput(session, batch, iters=3, **kw):
     session.run_tiles(batch, **kw)
     torch.cuda.synchronize()
@@ -1626,19 +1811,15 @@ def slice_checks(M, K, md, img, precision, fuse_stages=False,
     origins = rng.integers(0, 2 * TILE - TILE + 1, (BATCH, 2))
     batch = np.stack([big[y:y + TILE, x:x + TILE] for y, x in origins])
 
-    # batch invariance of the whole path: one tile alone vs in a batch
-    full = session.run_tiles(batch)
-    alone = session.run_tiles(batch[3:4])
-    inv = {k: bool(np.array_equal(full[k][3], alone[k][0])) for k in full}
-    phase('batch_invariance', path=path, tile_alone_vs_in_batch=inv,
-          byte_equal=all(inv.values()))
-    check(all(inv.values()), f'{path}: a tile alone differs from the same '
-                             f'tile in a batch of {BATCH}: {inv}')
+    # batch invariance of the whole path: tiles alone and in small
+    # buckets vs in a batch; then the batch pipeline
+    batch_invariance_checks(session, batch, path)
+    pipe = pipeline_checks(session, pipeline_tiles(img), path)
 
     tput = throughput(session, batch)
-    t0 = time.perf_counter()
-    session.run_tiles(batch[3:4])
-    tput['one_tile_ms'] = (time.perf_counter() - t0) * 1e3
+    tput['one_tile_ms'], tput['one_tile_batch'] = one_tile_ms(session,
+                                                              batch[3:4])
+    tput['pipeline'] = pipe
     phase('throughput', path=path, default_max_batch=session.max_batch
           == M.DEFAULT_MAX_BATCH, **tput)
 
@@ -2091,6 +2272,12 @@ def devquant_main_path(M, K, md, img, pp):
     phase('run_to_run', path='float32 device_quant', byte_equal=same)
     check(same, 'two device_quant runs differ')
     del session.forward
+
+    # the engine with the seg kept on the card, as this path runs it
+    path = 'float32 device_quant'
+    batch_invariance_checks(session, crops(img, BATCH, SEED + 1), path,
+                            device_keys=('GS',))
+    pipeline_checks(session, pipeline_tiles(img), path, device_keys=('GS',))
     return counts
 
 
@@ -2492,18 +2679,13 @@ def int8_all_checks(M, K, md, img, f32_images, mode):
           f'{path}: device_quant run: {dq_counts}, {dq_scoring} vs '
           f'{scoring}')
 
-    full = session.run_tiles(batch)
-    alone = session.run_tiles(batch[3:4])
-    inv = {k: bool(np.array_equal(full[k][3], alone[k][0])) for k in full}
-    phase('batch_invariance', path=path, tile_alone_vs_in_batch=inv,
-          byte_equal=all(inv.values()))
-    check(all(inv.values()), f'{path}: a tile alone differs from the same '
-                             f'tile in a batch of {BATCH}: {inv}')
+    batch_invariance_checks(session, batch, path)
+    pipe = pipeline_checks(session, pipeline_tiles(img), path)
 
     tput = throughput(session, batch)
-    t0 = time.perf_counter()
-    session.run_tiles(batch[3:4])
-    tput['one_tile_ms'] = (time.perf_counter() - t0) * 1e3
+    tput['one_tile_ms'], tput['one_tile_batch'] = one_tile_ms(session,
+                                                              batch[3:4])
+    tput['pipeline'] = pipe
     dist = u8_distance(images, f32_images)
     phase('throughput', path=path, **tput)
     phase('vs_float32', path=path, mean_lsb_and_share_within_2=dist)
@@ -2529,6 +2711,23 @@ def crops(img, n, seed):
     big = np.asarray(img)
     origins = rng.integers(0, big.shape[0] - TILE + 1, (n, 2))
     return np.stack([big[y:y + TILE, x:x + TILE] for y, x in origins])
+
+
+@contextlib.contextmanager
+def session_forwards(M):
+    """Every ``InferenceSession.forward`` in the block, of sessions that
+    entry points make inside it: a list of (batch, raw), raw the bucket
+    probes' forwards."""
+    calls, run = [], M.InferenceSession.forward
+
+    def forward(self, tiles, *a, **k):
+        calls.append((int(tiles.shape[0]), bool(k.get('raw'))))
+        return run(self, tiles, *a, **k)
+    M.InferenceSession.forward = forward
+    try:
+        yield calls
+    finally:
+        M.InferenceSession.forward = run
 
 
 def count_forwards(session):
@@ -2776,14 +2975,7 @@ def family_checks(M, K, root, name, model, m, input_no, seg_nets, extra):
 
     batch = crops(img, BATCH, SEED + 1) if input_no == 1 else np.concatenate(
         [crops(im, BATCH, SEED + 1) for im in images_in], axis=-1)
-    j = min(3, len(batch) - 1)
-    full = session.run_tiles(batch)
-    alone = session.run_tiles(batch[j:j + 1])
-    inv = {k: bool(np.array_equal(full[k][j], alone[k][0])) for k in full}
-    phase('batch_invariance', path=name, tile_alone_vs_in_batch=inv,
-          byte_equal=all(inv.values()))
-    check(all(inv.values()), f'{name}: a tile alone differs from the same '
-                             f'tile in a batch of {BATCH}: {inv}')
+    batch_invariance_checks(session, batch, name)
     tput = throughput(session, batch)
     phase('throughput', path=name, **tput)
     return dict(trunk=counts['float32'] // n,
@@ -2902,6 +3094,8 @@ def att_unet_checks(M, K, root, dl, img):
 # request took 3.7 s, median of 8, on one NVIDIA H100 80GB HBM3 at
 # 700.00 W)
 SERVE_REQUESTS, SERVE_SIZE, SERVE_MAX_BATCH = 8, 2 * TILE, 18
+# the aligned rows of phase 'eval'
+EVAL_ROWS = 4
 # the server's resolution query for a tile size (serve.RESOLUTION_TILE_SIZE)
 RESOLUTION = {512: '40x', 256: '20x', 128: '10x'}
 # the slide: about 3000 x 2200 px at AppMag 40 (tile size 512 from the
@@ -3050,27 +3244,48 @@ def serve_checks(M, K, md, smi):
         equal_natural = [got == want for got, want in zip(natural, out)]
 
         # the same requests alone, and inference + the host quantifier on
-        # the session directly
-        lone_wall, equal_alone, equal_direct = [], [], []
-        for i, png in enumerate(pngs):
-            t = time.perf_counter()
-            status, alone = http_post(url + query, {'img': png})
-            lone_wall.append((time.perf_counter() - t) * 1e3)
-            check(status == 200, f'serve: lone request {i}: {status}')
-            equal_alone.append(alone == out[i][1])
-            img = Image.fromarray(arrays[i])
+        # the session directly: as the server runs it (a lone request's 9
+        # tiles in the bucket of 16 where it holds against 18), and with
+        # each call's tiles padded with other tiles to a batch of 16
+        filler = crops(Image.fromarray(arrays[-1]), BATCH, SEED + 3)
+
+        def direct(arr, sess):
+            img = Image.fromarray(arr)
             images = M.inference(img, tile_size=TILE, overlap_size=OVERLAP,
                                  model_path=md, opt=session.opt,
-                                 session=session)
+                                 session=sess)
             marker = images.get(M.find_marker_key(images))
             overlay, refined, scoring = pp.compute_final_results(
                 img, images['Seg'], pp.to_array(marker, True),
                 RESOLUTION[TILE], 'default', None, None, 150)
             images['SegOverlaid'] = Image.fromarray(overlay)
             images['SegRefined'] = Image.fromarray(refined)
-            direct = {'images': {k: _b64_png(v) for k, v in images.items()},
-                      'scoring': json.loads(json.dumps(scoring))}
-            equal_direct.append(direct == out[i][1])
+            return {'images': {k: _b64_png(v) for k, v in images.items()},
+                    'scoring': json.loads(json.dumps(scoring))}
+
+        lone_wall, equal_alone, equal_direct, equal_16 = [], [], [], []
+        for i, png in enumerate(pngs):
+            t = time.perf_counter()
+            status, alone = http_post(url + query, {'img': png})
+            lone_wall.append((time.perf_counter() - t) * 1e3)
+            check(status == 200, f'serve: lone request {i}: {status}')
+            equal_alone.append(alone == out[i][1])
+            equal_direct.append(direct(arrays[i], session) == out[i][1])
+            equal_16.append(direct(arrays[i], PaddedSession(
+                session, filler)) == out[i][1])
+
+        # a lone 512^2 request: one tile, in the smallest bucket that holds
+        small = ihc_like_image(TILE, SEED + 99)
+        small_ms = []
+        for _ in range(3):
+            with batches_run(session) as small_batches:
+                t = time.perf_counter()
+                status, small_out = http_post(url + query,
+                                              {'img': png_bytes(small)})
+                small_ms.append((time.perf_counter() - t) * 1e3)
+            check(status == 200, f'serve: 512^2 request: {status}')
+        small_16 = direct(small, PaddedSession(session, filler)) == \
+            small_out
 
         # the async contract, the postprocess endpoint, a client error
         status, task = http_post(
@@ -3110,6 +3325,10 @@ def serve_checks(M, K, md, smi):
           kernel_launches=counts,
           byte_equal_to_alone=equal_alone,
           byte_equal_to_direct=equal_direct,
+          byte_equal_to_batch_of_16=equal_16,
+          lone_512_ms=ms_summary(small_ms), lone_512_batch=small_batches,
+          lone_512_byte_equal_to_batch_of_16=small_16,
+          probes=bucket_probes(session),
           batch_poll=polled['state'], postprocess_status=status_pp,
           scoring=out[0][1]['scoring'], missing_img_status=status_400)
     check(all(equal_alone), f'serve: concurrent != alone {equal_alone}')
@@ -3117,6 +3336,9 @@ def serve_checks(M, K, md, smi):
                               f'{equal_natural}')
     check(all(equal_direct), f'serve: response != inference + host '
                              f'quantifier {equal_direct}')
+    check(all(equal_16) and small_16, f'serve: response != the same tiles '
+                                      f'in a batch of {BATCH}: {equal_16}, '
+                                      f'512^2: {small_16}')
     check(polled['state'] == 'SUCCESS' and polled['result'] == out[0][1],
           f'serve: batch poll {polled["state"]}')
     check(status_pp == 200 and post['scoring'] == json.loads(json.dumps(
@@ -3128,7 +3350,162 @@ def serve_checks(M, K, md, smi):
     return dict(trunk=counts['float32'] // n,
                 plane_stats=counts['plane_stats'] // n,
                 median_ms_alone=float(np.median(lone_wall)),
-                median_ms_concurrent=float(np.median(natural_wall)))
+                median_ms_concurrent=float(np.median(natural_wall)),
+                median_ms_512=float(np.median(small_ms)),
+                batch_512=small_batches)
+
+
+class PaddedSession:
+    """A session whose ``run_tiles`` runs the caller's tiles padded with
+    ``filler`` tiles to a batch of BATCH (or more, in batches of BATCH),
+    and returns the caller's tiles' outputs."""
+
+    def __init__(self, session, filler):
+        self._session, self._filler = session, filler
+
+    def __getattr__(self, name):
+        return getattr(self._session, name)
+
+    def run_tiles(self, tiles, **kw):
+        n = len(tiles)
+        pad = -n % BATCH
+        out = {}
+        for i in range(0, n + pad, BATCH):
+            part = np.concatenate([tiles, self._filler[:pad]])[i:i + BATCH]
+            for k, v in self._session.run_tiles(part, **kw).items():
+                out.setdefault(k, []).append(v)
+        return {k: np.concatenate(v)[:n] for k, v in out.items()}
+
+
+def serve_int8_checks(M, K, md, smi):
+    """The flagship through the REST server at ``--precision int8`` (scope
+    'all', dynamic with calibration off, then static scales calibrated on
+    the first request into act_scales.json, deleted after): one 1024^2
+    request after the first, its launches of the int8 trunk kernel (#2)
+    and of conv_s8 held to 72 and 96 (92 dynamic, each with its max pass)
+    per forward, and no float trunk."""
+    from deepliif_tpu_torch.serve import make_server
+    import threading
+    png = png_bytes(ihc_like_image(SERVE_SIZE, SEED + 100))
+    query = f'/api/infer?resolution={RESOLUTION[TILE]}'
+    res = {}
+    for mode in ('dynamic', 'static'):   # static writes act_scales.json
+        srv = make_server(md, '127.0.0.1', 0, max_batch=SERVE_MAX_BATCH,
+                          device='cuda', precision='int8',
+                          int8_calibrate=mode == 'static')
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        url = f'http://127.0.0.1:{srv.server_address[1]}'
+        ds = srv.RequestHandlerClass.get_session()
+        session = ds._session
+        try:
+            first, _ = http_post(url + query, {'img': png})
+            forwards = count_forwards(session)
+            torch.cuda.synchronize()
+            reset_counts(K)
+            t = time.perf_counter()
+            status, body = http_post(url + query, {'img': png})
+            ms = (time.perf_counter() - t) * 1e3
+            torch.cuda.synchronize()
+            counts, n = launch_counts(K), len(forwards)
+            del session.forward
+            scope = session.int8_scope
+            modes = [g.int8_mode for g in session.nets.G]
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            ds.close()
+        want = expected_counts('int8', False, n, s8=S8_PER_FORWARD[mode],
+                               s8_dynamic=mode == 'dynamic')
+        phase('serve_int8', mode=mode, nvidia_smi=smi, status=[first, status],
+              request_ms=ms, int8_scope=scope, trunk_modes=modes,
+              batch_forwards=n, kernel_launches=counts,
+              int8_trunk_per_forward=counts['int8'] / max(n, 1),
+              conv_s8_per_forward=counts['conv_s8'] / max(n, 1),
+              scoring=body.get('scoring') if isinstance(body, dict) else None)
+        check(first == 200 and status == 200, f'serve int8 {mode}: statuses '
+                                              f'{first}, {status}')
+        check(scope == 'all' and all(m_ == mode for m_ in modes),
+              f'serve int8 {mode}: scope {scope}, trunk modes {modes}')
+        check(n >= 1 and counts == want, f'serve int8 {mode}: launches '
+                                         f'{counts} for {n} forwards, want '
+                                         f'{want}')
+        res[mode] = {'trunk': counts['int8'] // n,
+                     'plane_stats': counts['plane_stats'] // n,
+                     'conv_s8': counts['conv_s8'] // n,
+                     's8_absmax': counts['s8_absmax'] // n}
+        M._init_nets_cached.cache_clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    act = os.path.join(md, 'act_scales.json')
+    check(os.path.exists(act), 'serve int8 static: no act_scales.json')
+    os.remove(act)
+    return res
+
+
+def eval_checks(M, K, md, root):
+    """The CLI's ``eval`` on the card over EVAL_ROWS aligned rows (A |
+    B1..B4 | B_seg, crops of ``ihc_like_image``): its launches per forward;
+    each written image byte-equal to ``run_tiles`` of that row's A tile on
+    the same session (real_A the tile itself, fake_B_i modality i,
+    fake_B_5 the seg); index.html lists every image."""
+    from PIL import Image
+    from deepliif_tpu_torch import cli
+    from deepliif_tpu_torch.config import get_opt
+    from deepliif_tpu_torch.data.aligned import AlignedDataset
+    rows = os.path.join(root, 'eval_rows', 'test')
+    os.makedirs(rows)
+    for i in range(EVAL_ROWS):
+        tiles = crops(Image.fromarray(ihc_like_image(2 * TILE, SEED + 200 + i)),
+                      6, SEED + i)
+        Image.fromarray(np.concatenate(list(tiles), axis=1)).save(
+            os.path.join(rows, f'row{i}.png'))
+    out_dir = os.path.join(root, 'eval_out')
+    session = M.init_nets(md, device='cuda')     # the one eval loads
+    forwards = count_forwards(session)           # its bucket probes too
+    torch.cuda.synchronize()
+    reset_counts(K)
+    t0 = time.perf_counter()
+    with batches_run(session) as batches:
+        cli.make_cli().main(['eval', '--dataroot', os.path.dirname(rows),
+                             '--model-dir', md, '--output-dir', out_dir,
+                             '--device', 'cuda'], standalone_mode=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts, n = launch_counts(K), len(forwards)
+    del session.forward
+    want = expected_counts('float32', False, n)
+    opt = copy.copy(get_opt(md, mode='test'))
+    opt.dataroot, opt.preprocess, opt.no_flip = os.path.dirname(rows), \
+        'none', True
+    ds = AlignedDataset(opt, phase='test')
+    equal, files = {}, sorted(os.listdir(out_dir))
+    for i in range(len(ds)):
+        item = ds[i]
+        a_u8 = ((item['A'] + 1) * 127.5).astype(np.uint8)[None]
+        res = session.run_tiles(a_u8)
+        want_images = {'real_A': a_u8[0], **{
+            'fake_B_5' if k == 'GS' else f'fake_B_{k[1:]}': v[0]
+            for k, v in res.items()}}
+        stem = os.path.splitext(os.path.basename(item['A_paths']))[0]
+        for label, arr in want_images.items():
+            f = f'{stem}_{label}.png'
+            equal[f] = f in files and np.array_equal(
+                np.asarray(Image.open(os.path.join(out_dir, f))), arr)
+    with open(os.path.join(out_dir, 'index.html')) as f:
+        html = f.read()
+    pngs = [f for f in files if f.endswith('.png')]
+    listed = all(f'src="{f}"' in html for f in pngs)
+    phase('eval', rows=EVAL_ROWS, seconds=seconds, batches=batches,
+          forwards_with_probes=n, kernel_launches=counts, images=len(pngs),
+          byte_equal_to_run_tiles=all(equal.values()), gallery_lists_all=listed)
+    check(len(batches) == EVAL_ROWS and counts == want,
+          f'eval: launches {counts} for {n} forwards ({batches} of the rows), '
+          f'want {want}')
+    check(len(pngs) == len(equal) == EVAL_ROWS * 6 and all(equal.values()),
+          f'eval: images differ from run_tiles of the A tiles: {equal}')
+    check(listed, 'eval: index.html does not list every image')
+    return {'trunk': counts['float32'] // n,
+            'plane_stats': counts['plane_stats'] // n}
 
 
 def write_reference_dir(session, out):
@@ -3163,10 +3540,12 @@ def serialize_checks(M, K, md, root):
     torch.cuda.synchronize()
     reset_counts(K)
     t0 = time.perf_counter()
-    diff = cli.run_serialize(ref, out, device='cuda', echo=lambda *_: None)
+    with session_forwards(M) as calls:
+        diff = cli.run_serialize(ref, out, device='cuda',
+                                 echo=lambda *_: None)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = launch_counts(K)
+    counts, n = launch_counts(K), len(calls)
     loaded = M.InferenceSession(ref, device='cpu')
     same, files = True, sorted(f for f in os.listdir(out)
                                if f.endswith('.npz'))
@@ -3180,10 +3559,14 @@ def serialize_checks(M, K, md, root):
                 and written[k][i].tobytes() == want[k].tobytes()
                 for k in want)
     del loaded
-    # the gate's two sessions each run one batch forward of the tile
-    want_counts = expected_counts('float32', False, 2)
+    # the gate's two sessions each run one batch forward of the tile,
+    # after their bucket probes
+    want_counts = expected_counts('float32', False, n)
     phase('serialize', sum_abs_diff=diff, seconds=seconds, files=files,
-          npz_equal_to_loaded_nets=same, kernel_launches=counts)
+          npz_equal_to_loaded_nets=same, forwards=calls,
+          kernel_launches=counts)
+    check(sum(not raw for _, raw in calls) == 2,
+          f'serialize: forwards {calls}, want two of the gate\'s tile')
     check(diff is not None and diff <= 10, f'serialize: parity {diff}')
     check(files == ['latest_net_G.npz', 'latest_net_GS.npz'],
           f'serialize: wrote {files}')
@@ -3191,8 +3574,8 @@ def serialize_checks(M, K, md, root):
                 'loaded nets')
     check(counts == want_counts, f'serialize: launches {counts}, want '
                                  f'{want_counts}')
-    return dict(trunk=counts['float32'] // 2,
-                plane_stats=counts['plane_stats'] // 2, sum_abs_diff=diff)
+    return dict(trunk=counts['float32'] // n,
+                plane_stats=counts['plane_stats'] // n, sum_abs_diff=diff)
 
 
 def wsi_slide(path):
@@ -3816,18 +4199,20 @@ def train_checks(M, K, dl, root):
         os.path.join(imgs, 'tile.png'))
     reset_counts(K)
     t0 = time.perf_counter()
-    cli.run_test(imgs, out, TILE, md, device='cuda', echo=lambda *_: None)
+    with session_forwards(M) as calls:
+        cli.run_test(imgs, out, TILE, md, device='cuda', echo=lambda *_: None)
     torch.cuda.synchronize()
     served = time.perf_counter() - t0
-    counts = launch_counts(K)
+    counts, n = launch_counts(K), len(calls)
     pngs = sorted(f for f in os.listdir(out) if f.endswith('.png'))
     means = {f: float(np.asarray(PILImage.open(os.path.join(out, f)),
                                  np.float64).mean()) for f in pngs}
     phase('train_checkpoint_served', seconds=served, outputs=means,
-          kernel_launches=counts)
-    check(counts['float32'] == LAUNCHES_PER_FORWARD
-          and counts['plane_stats'] == PLANE_PER_FORWARD[False],
-          f'train: served checkpoint launches {counts}')
+          forwards=calls, kernel_launches=counts)
+    check(sum(not raw for _, raw in calls) == 1
+          and counts['float32'] == n * LAUNCHES_PER_FORWARD
+          and counts['plane_stats'] == n * PLANE_PER_FORWARD[False],
+          f'train: served checkpoint launches {counts} for {calls}')
     check(len(pngs) >= 5 and all(np.isfinite(v) for v in means.values()),
           f'train: served outputs {pngs}')
     M._init_nets_cached.cache_clear()
@@ -3910,12 +4295,18 @@ def main():
             M._init_nets_cached.cache_clear()
             gc.collect()
             torch.cuda.empty_cache()
-        # the serving, serialize and whole-slide entry points (float32)
+        # the serving, serialize and whole-slide entry points (float32),
+        # the int8 server, the CLI's eval
         launches['serve'] = serve_checks(M, K, md, smi)
         M._init_nets_cached.cache_clear()
         gc.collect()
         torch.cuda.empty_cache()
+        launches['serve_int8'] = serve_int8_checks(M, K, md, smi)
         with tempfile.TemporaryDirectory() as root:
+            launches['eval'] = eval_checks(M, K, md, root)
+            M._init_nets_cached.cache_clear()
+            gc.collect()
+            torch.cuda.empty_cache()
             launches['serialize'] = serialize_checks(M, K, md, root)
             gc.collect()
             torch.cuda.empty_cache()
@@ -3958,7 +4349,9 @@ def main():
     # wsi-cells: {path: (trunk kind, {kernel: launches})}
     new_paths = {path: ('float32', launches[path]) for path in (
         'ext', 'sdg', 'cyclegan', 'cyclegan_btoa', 'seg_intermediate',
-        'serve', 'serialize', 'wsi', 'wsi_cells')}
+        'serve', 'serialize', 'wsi', 'wsi_cells', 'eval')}
+    for mode, v in launches['serve_int8'].items():
+        new_paths[f'serve_int8 {mode}'] = ('int8', v)
     for precision in ('float32', 'bfloat16'):
         for weights, v in launches[f'seg_only {precision}'].items():
             new_paths[f'seg_only {precision} {weights}'] = (precision, v)

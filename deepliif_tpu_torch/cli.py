@@ -1,5 +1,7 @@
 """Command-line interface of the PyTorch port: ``deepliif-tpu-torch train``,
-``test``, ``serialize``, ``serve``, ``test-wsi`` and ``wsi-cells``.
+``test``, ``serialize``, ``serve``, ``test-wsi``, ``wsi-cells``, ``eval``,
+``prepare-training-data``, ``prepare-testing-data``, ``register`` and
+``visualize``.
 
 Same options, output file names and scoring JSON as the commands of
 ``deepliif-tpu`` (deepliif_tpu/cli.py), plus ``--device`` (default cuda;
@@ -39,11 +41,13 @@ model at float32 on one device (``train_loop``) with the JAX command's
 options, names and defaults: the card unless ``--device cpu``, one
 ``--gpu-ids`` entry picks the card, background colors inferred from the
 train dir; the other families, bfloat16, spectral norm, orbax checkpoints
-and several cards raise NotImplementedError ("Training"), as do
-``trainlaunch``, ``eval``, ``prepare-training-data``,
-``prepare-testing-data``, ``register`` and ``visualize``
-(``compute-statistics``: "Stats"). click is imported when the command line
-is built, not when this module is imported.
+and several cards raise NotImplementedError ("Training"), as does
+``trainlaunch`` (``compute-statistics``: "Stats"). ``eval`` runs the A
+tile of each aligned row through the engine (``--device``, default cuda)
+and writes the images and an HTML gallery; ``prepare-training-data``,
+``prepare-testing-data``, ``register`` and ``visualize`` are the JAX
+package's host-only commands. click is imported when the command line is
+built, not when this module is imported.
 
     python -m deepliif_tpu_torch.cli train --dataroot data --name run \\
         --batch-size 2 --device cuda
@@ -56,6 +60,7 @@ is built, not when this module is imported.
 
 from __future__ import annotations
 
+import copy
 import glob
 import json
 import os
@@ -213,11 +218,192 @@ _IGNORED_TRAIN_FLAGS = ('display_server', 'display_port', 'display_env',
                         'update_html_freq', 'local_rank')
 
 # the JAX package's commands that the port does not run yet, by ROADMAP item
-_NOT_PORTED_COMMANDS = {
-    **{name: roadmap.TRAINING for name in (
-        'trainlaunch', 'eval', 'prepare-training-data',
-        'prepare-testing-data', 'register', 'visualize')},
-    'compute-statistics': roadmap.STATS}
+_NOT_PORTED_COMMANDS = {'trainlaunch': roadmap.TRAINING,
+                        'compute-statistics': roadmap.STATS}
+
+
+def ensure_exists(d):
+    os.makedirs(d, exist_ok=True)
+
+
+def run_eval(dataroot, model_dir, phase='test', output_dir=None,
+             num_test=50, seg_weights='', device='cuda', echo=print):
+    """``eval`` (deepliif_tpu/cli.py:436-486, the reference's legacy
+    test.py): the A tile of each of the first ``num_test`` aligned rows of
+    ``dataroot/phase`` through the session's ``run_tiles``; real_A and
+    fake_B_* images written by ``save_images`` (GS as fake_B_5), then an
+    index.html gallery. Returns the output dir."""
+    import numpy as np
+    from .config import get_opt
+    from .data.aligned import AlignedDataset
+    from .models import init_nets
+    from .utils.visualizer import save_images
+
+    opt = copy.copy(get_opt(model_dir, mode='test'))   # get_opt is cached
+    opt.dataroot = dataroot
+    opt.preprocess = 'none'
+    opt.no_flip = True
+    weights = ([float(x) for x in seg_weights.split(',')] if seg_weights
+               else None)
+    session = init_nets(model_dir, device=device)
+    output_dir = output_dir or os.path.join(model_dir, f'eval_{phase}')
+    ensure_exists(output_dir)
+
+    ds = AlignedDataset(opt, phase=phase)
+    n = min(num_test, len(ds))
+    for i in range(n):
+        item = ds[i]
+        a_u8 = ((item['A'] + 1) * 127.5).astype(np.uint8)[None]
+        res = session.run_tiles(a_u8, seg_weights=weights)
+        visuals = {'real_A': a_u8[0]}
+        for k, v in res.items():
+            visuals['fake_B_5' if k == 'GS' else f'fake_B_{k[1:]}'] = v[0]
+        save_images(output_dir, visuals, item['A_paths'])
+        echo(f'processed {os.path.basename(item["A_paths"])}')
+    files = sorted(os.listdir(output_dir))
+    rows = ''.join(f'<div style="display:inline-block;margin:4px;'
+                   f'text-align:center"><img src="{f}" width="200"/>'
+                   f'<br/>{f}</div>' for f in files if f.endswith('.png'))
+    with open(os.path.join(output_dir, 'index.html'), 'w') as f:
+        f.write(f'<html><body><h1>eval {phase}</h1>{rows}</body></html>')
+    echo(f'wrote {n} results to {output_dir}')
+    return output_dir
+
+
+def run_prepare_training_data(input_dir, output_dir, validation_ratio=0.2,
+                              seed=0, echo=print):
+    """``prepare-training-data`` (deepliif_tpu/cli.py:554-584): each IHC
+    image and its Hematoxylin, DAPI, Lap2, Marker and Seg files resized to
+    512^2 and side by side in one row, into train/ or val/ by a seeded
+    draw."""
+    import random
+
+    import numpy as np
+    from PIL import Image
+    rng = random.Random(seed)
+    train_dir = os.path.join(output_dir, 'train')
+    val_dir = os.path.join(output_dir, 'val')
+    ensure_exists(train_dir)
+    ensure_exists(val_dir)
+    stains = ['IHC', 'Hematoxylin', 'DAPI', 'Lap2', 'Marker', 'Seg']
+    n = 0
+    for img in sorted(os.listdir(input_dir)):
+        if 'IHC' not in img:
+            continue
+        tiles = []
+        for stain in stains:
+            p = os.path.join(input_dir, img.replace('IHC', stain))
+            tiles.append(np.asarray(
+                Image.open(p).convert('RGB').resize((512, 512), Image.BICUBIC)))
+        row = np.concatenate(tiles, axis=1)
+        save_dir = val_dir if rng.random() < validation_ratio else train_dir
+        Image.fromarray(row).save(os.path.join(save_dir, img))
+        n += 1
+    echo(f'wrote {n} training rows')
+
+
+def run_prepare_testing_data(input_dir, dataset_dir, echo=print):
+    """``prepare-testing-data`` (deepliif_tpu/cli.py:587-604): each IHC
+    image resized to 512^2 and repeated six times in one test row."""
+    import numpy as np
+    from PIL import Image
+    test_dir = os.path.join(dataset_dir, 'test')
+    ensure_exists(test_dir)
+    n = 0
+    for img in sorted(os.listdir(input_dir)):
+        if 'IHC' not in img:
+            continue
+        a = np.asarray(Image.open(os.path.join(input_dir, img))
+                       .convert('RGB').resize((512, 512), Image.BICUBIC))
+        Image.fromarray(np.concatenate([a] * 6, axis=1)).save(
+            os.path.join(test_dir, img))
+        n += 1
+    echo(f'wrote {n} test rows')
+
+
+def run_register(fixed, moving, output, translate=None, scale=1.0, rotate=0.0,
+                 echo=print):
+    """``register`` (deepliif_tpu/cli.py:709-743): the moving image
+    aligned onto the fixed one, by FFT phase correlation or by the manual
+    transform; echoes the transform as JSON and returns it."""
+    from PIL import Image
+    from .utils.registration import apply_affine, register_pair
+    fixed_img = Image.open(fixed).convert('RGB')
+    moving_img = Image.open(moving).convert('RGB')
+    if translate is None and scale == 1.0 and rotate == 0.0:
+        aligned, info = register_pair(fixed_img, moving_img)
+    else:
+        dx, dy = (0, 0)
+        if translate is not None:
+            dx, dy = (int(v) for v in translate.split(','))
+        aligned = apply_affine(moving_img, translate=(dx, dy), scale=scale,
+                               rotate_deg=rotate, output_size=fixed_img.size)
+        info = {'dx': dx, 'dy': dy, 'scale': scale, 'rotate_deg': rotate}
+    ensure_exists(os.path.dirname(os.path.abspath(output)))
+    aligned.save(output)
+    echo(json.dumps(info))
+    return info
+
+
+def run_visualize(pickle_dir, echo=print):
+    """``visualize`` (deepliif_tpu/cli.py:745-785): polls the training
+    loop's pickled snapshots every 3 s until interrupted; each new loss
+    record is appended to live_losses.json, each new image snapshot
+    replayed into a PNG and HTML gallery under web/."""
+    import pickle
+    import time
+    path_plot = os.path.join(pickle_dir, 'plot_current_losses.pickle')
+    path_disp = os.path.join(pickle_dir, 'display_current_results.pickle')
+    echo(f'watching {pickle_dir} (ctrl-c to stop)')
+    mtimes = {path_plot: 0, path_disp: 0}
+    history = []
+    while True:
+        try:
+            if os.path.exists(path_plot):
+                mtime = os.path.getmtime(path_plot)
+                if mtime > mtimes[path_plot]:
+                    mtimes[path_plot] = mtime
+                    with open(path_plot, 'rb') as f:
+                        rec = pickle.load(f)
+                    history.append(rec)
+                    out = os.path.join(pickle_dir, 'live_losses.json')
+                    with open(out, 'w') as f:
+                        json.dump(history, f)
+                    echo(f'update @ x={rec["x"]:.3f}: ' + ' '.join(
+                        f'{k}={v:.3f}' for k, v in rec['losses'].items()))
+            if os.path.exists(path_disp):
+                mtime = os.path.getmtime(path_disp)
+                if mtime > mtimes[path_disp]:
+                    mtimes[path_disp] = mtime
+                    with open(path_disp, 'rb') as f:
+                        disp = pickle.load(f)
+                    replay_display_snapshot(pickle_dir, disp)
+                    echo(f'image grid @ epoch {disp.get("epoch")}: '
+                         + ', '.join(disp.get('visuals', {})))
+            time.sleep(3)
+        except KeyboardInterrupt:
+            break
+
+
+def replay_display_snapshot(pickle_dir, disp):
+    """Write a display_current_results snapshot as PNGs + HTML gallery
+    (deepliif_tpu/cli.py:788-805)."""
+    import numpy as np
+    from PIL import Image
+    web = os.path.join(pickle_dir, 'web')
+    img_dir = os.path.join(web, 'images')
+    ensure_exists(img_dir)
+    epoch = disp.get('epoch', 0)
+    for label, arr in disp.get('visuals', {}).items():
+        Image.fromarray(np.asarray(arr)).save(
+            os.path.join(img_dir, f'epoch{epoch:03d}_{label}.png'))
+    files = sorted(os.listdir(img_dir), reverse=True)
+    rows = ''.join(
+        f'<div style="display:inline-block;margin:4px;text-align:center">'
+        f'<img src="images/{f}" width="256"/><br/>{f}</div>'
+        for f in files[:200])
+    with open(os.path.join(web, 'index.html'), 'w') as f:
+        f.write(f'<html><body><h1>replay</h1>{rows}</body></html>')
 
 
 def train_device(device, gpu_ids):
@@ -505,7 +691,82 @@ def make_cli():
                                       version=int(version), device=device)
         click.echo(f'{len(results["cells"])} cells -> {output_dir}')
 
+    _host_commands(cli, click)
     return cli
+
+
+def _host_commands(cli, click):
+    """``eval``, ``prepare-training-data``, ``prepare-testing-data``,
+    ``register`` and ``visualize``, with the JAX commands' options
+    (``eval`` also ``--device``)."""
+    @cli.command(name='eval')
+    @click.option('--dataroot', required=True,
+                  help='dataset root containing the phase subfolder of '
+                       'aligned rows')
+    @click.option('--model-dir', required=True)
+    @click.option('--phase', default='test')
+    @click.option('--output-dir', default=None,
+                  help='default: <model-dir>/eval_<phase>')
+    @click.option('--num-test', default=50, type=int,
+                  help='how many rows to process')
+    @click.option('--seg-weights', default='',
+                  help='comma-separated; default: training weights')
+    @click.option('--device', default='cuda',
+                  help='torch device to run on, e.g. cuda, cuda:1 or cpu')
+    def eval_dataset(dataroot, model_dir, phase, output_dir, num_test,
+                     seg_weights, device):
+        """Dataset-driven eval over aligned rows: runs the generator
+        ensemble on the A tile of each row and writes real_A / fake_B_*
+        images + an HTML gallery."""
+        run_eval(dataroot, model_dir, phase, output_dir, num_test,
+                 seg_weights, device, echo=click.echo)
+
+    @cli.command(name='prepare-training-data')
+    @click.option('--input-dir', required=True, help='path to input images')
+    @click.option('--output-dir', required=True, help='path to output images')
+    @click.option('--validation-ratio', default=0.2, type=float)
+    @click.option('--seed', default=0, type=int)
+    def prepare_training_data(input_dir, output_dir, validation_ratio, seed):
+        """Stitch paired stains (IHC/Hematoxylin/DAPI/Lap2/Marker/Seg) into
+        training rows and split train/val."""
+        run_prepare_training_data(input_dir, output_dir, validation_ratio,
+                                  seed, echo=click.echo)
+
+    @cli.command(name='prepare-testing-data')
+    @click.option('--input-dir', required=True, help='path to input images')
+    @click.option('--dataset-dir', required=True,
+                  help='path to output dataset directory')
+    def prepare_testing_data(input_dir, dataset_dir):
+        """Stitch IHC-only test rows."""
+        run_prepare_testing_data(input_dir, dataset_dir, echo=click.echo)
+
+    @cli.command()
+    @click.option('--fixed', required=True,
+                  help='reference image the moving image is aligned to (IHC)')
+    @click.option('--moving', required=True,
+                  help='image to align (mpIF); resampled onto the fixed frame')
+    @click.option('--output', required=True,
+                  help='path for the aligned image')
+    @click.option('--translate', default=None,
+                  help='manual dx,dy (skips auto estimation)')
+    @click.option('--scale', default=1.0, type=float,
+                  help='manual scale factor')
+    @click.option('--rotate', default=0.0, type=float,
+                  help='manual rotation, degrees')
+    def register(fixed, moving, output, translate, scale, rotate):
+        """Co-register an IHC/mpIF image pair; prints the applied
+        transform as JSON."""
+        run_register(fixed, moving, output, translate, scale, rotate,
+                     echo=click.echo)
+
+    @cli.command()
+    @click.option('--pickle-dir', required=True,
+                  help='directory where the pickled snapshots are stored')
+    @click.option('--display-env', default=None, help='ignored (no visdom)')
+    def visualize(pickle_dir, display_env):
+        """Poll pickled training snapshots and regenerate the loss history
+        (JSON) and the image gallery under <pickle-dir>/web/."""
+        run_visualize(pickle_dir, echo=click.echo)
 
 
 def _not_ported_command(cli, click, name, item):

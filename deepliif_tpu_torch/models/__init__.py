@@ -47,23 +47,39 @@ then the scales are dynamic.
 only) runs the translators through their fused stages, the counterpart of
 the JAX package's ``DEEPLIIF_FUSE_STAGES=1``.
 
+The engine (the JAX session's ``run_tiles``): a short batch runs in a
+power-of-two bucket (``batch_size``), and two batches are in flight at a
+time: batch i+1 is uploaded and launched before batch i's outputs are
+collected, and those outputs come to the host on a copy stream behind
+batch i's forward (``_Pipeline``). On CUDA a bucket below ``max_batch``
+is used only where a probe on random tiles shows its outputs bitwise
+equal to the same tiles' in a batch of ``max_batch`` (``probe_bucket``),
+each float32 cuDNN call whose bits at the bucket's batch differ from the
+full batch's, and the seg sum's BLAS call in bf16, run zero-padded to the
+full batch (``_BatchFloors``; bf16 convs run one sample at a time,
+``nets.layers._per_sample``), so a tile's outputs depend neither on the
+batch it rides in nor on its place there.
+
 The device is always explicit (``device='cuda'`` by default, never chosen
 by what is available). Not ported yet (ROADMAP.md): the TPU engine's mesh
 (mesh-sharded labeling included; ``DEEPLIIF_INFER_DEVICES`` above 1 raises
-NotImplementedError, "Serving") and async copy pipeline.
+NotImplementedError, "Serving").
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import copy
 import functools
 import os
+import time
 
 import numpy as np
 import torch
 
 from ..config import get_opt
-from ..nets import ResnetGenerator
+from ..nets import ResnetGenerator, layers as L
 from ..ops import quant
 from ..utils import checkpoints, luma_u8
 from ..utils.tiler import InferenceTiler
@@ -87,9 +103,11 @@ def _bucket(n, max_batch=16):
 # sweep (experiments/torch_batch_sweep.py, PERF.md) found tiles/s within
 # about 10 % from batch 8 to 64 at every precision, best at 16 for bf16 and
 # int8 and 2.5 % below the best for f32, and peak memory growing with the
-# batch. (The JAX package's 128 for bf16 is a TPU v5e figure.) On CUDA
-# every forward runs max_batch tiles (InferenceSession.batch_size).
+# batch. (The JAX package's 128 for bf16 is a TPU v5e figure.)
 DEFAULT_MAX_BATCH = 16
+
+# the batch axis of each output of InferenceSession.forward
+_BATCH_AXIS = {'mods': 1, 'segs': 1, 'seg': 0, 'marker': 0}
 
 
 def configure_device(device):
@@ -97,8 +115,9 @@ def configure_device(device):
     cuDNN would run f32 convs in TF32 (about 3 significant digits) by
     default, so TF32 is turned off for convs and matmuls; cuDNN picks
     deterministic algorithms and no autotuning, so outputs are byte-equal
-    run to run (and, with one batch shape per session, ``batch_size``,
-    independent of the batch)."""
+    run to run, and its algorithm (so its summation order) is a function
+    of the call's shape (``InferenceSession.batch_size`` probes each batch
+    shape)."""
     if device.type == 'cuda':
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -158,6 +177,9 @@ class InferenceSession:
         configure_device(self.device)
         self.d = _FAMILY_MODULES[self.family].def_from_opt(self.opt)
         self.max_batch = DEFAULT_MAX_BATCH if max_batch is None else max_batch
+        # {(tile shape, forward path): {bucket: probe}}, batch_size's probes,
+        # and per (tile shape, forward path) the probe's full batch
+        self.bucket_probes, self._probe_refs = {}, {}
         nets_ = self._load_nets(model_dir)
         self.act_scales = None
         if self.d.quant_int8:
@@ -206,6 +228,8 @@ class InferenceSession:
         self.act_scales = {k: (v.tolist() if hasattr(v, 'tolist') else v)
                            for k, v in scales.items()}
         dl.quantize_nets(self.nets, self.int8_scope, self.act_scales)
+        self.bucket_probes.clear()       # the nets changed: probe again
+        self._probe_refs.clear()
         if save:
             quant.save_act_scales(self.model_dir, self.act_scales, pct,
                                   len(tiles))
@@ -296,26 +320,83 @@ class InferenceSession:
                 return i
         return None
 
-    def batch_size(self, n):
-        """Tiles per forward for ``n`` waiting tiles (short batches are
-        padded). On CUDA always ``max_batch``: cuDNN picks its conv
-        algorithm, and so its summation order, by the shape of the call,
-        so one batch shape per session keeps a tile's outputs independent
-        of the batch it rides in (on one H100 this cost nothing at batch 16,
-        where running each conv on one sample cost up to 41 %; a lone tile
-        pays for a full batch: PERF.md). On the CPU the power-of-two
-        bucket (there ``nets.layers`` runs each conv on one sample)."""
-        if self.device.type == 'cuda':
-            return self.max_batch
-        return _bucket(n, self.max_batch)
+    # the devices whose buckets are probed: cuDNN picks a conv algorithm
+    # per call shape; on the CPU ``nets.layers`` runs each conv on one
+    # sample, so every bucket holds there
+    _PROBED_DEVICES = ('cuda',)
+
+    def batch_size(self, n, shape, path):
+        """Tiles per forward for ``n`` waiting tiles of ``shape`` (s, s, C)
+        on forward ``path`` (``forward``'s keywords; short batches are
+        padded): the JAX engine's power-of-two bucket, clamped to
+        ``max_batch``. On CUDA the smallest such bucket at or above it
+        that holds (``probe_bucket``), else ``max_batch``."""
+        b = _bucket(n, self.max_batch)
+        if self.device.type not in self._PROBED_DEVICES:
+            return b
+        while b < self.max_batch and not self.probe_bucket(shape, path,
+                                                           b)['holds']:
+            b *= 2
+        return min(b, self.max_batch)
+
+    def probe_bucket(self, shape, path, b):
+        """Whether bucket ``b`` (below ``max_batch``) gives a tile of
+        ``shape`` the bytes it gets in a batch of ``max_batch`` on forward
+        ``path``, probed once per session: ``max_batch`` seeded random
+        tiles run at once (once per shape and path), then their first b
+        and their last b in forwards of b, each float32 library call of
+        them run both as it is and zero-padded to ``max_batch``, the padded
+        result kept where the two differ (those calls, and every bf16
+        library call, run padded in that bucket from then on:
+        ``_BatchFloors``); the
+        bucket holds where every output (in the compute dtype, before the
+        uint8 cast) is bitwise that of the same tiles in the full batch,
+        at its first and at its last positions. Returns {'holds',
+        'differs' (the outputs that did not hold), 'padded' (the keys of
+        the padded calls, ``layers.cudnn_hook``), 'seconds',
+        'reference_seconds' (the full batch's forward)}, kept in
+        ``bucket_probes[(shape, path key)][b]``."""
+        key = (tuple(int(v) for v in shape), _path_key(path))
+        probes = self.bucket_probes.setdefault(key, {})
+        if b in probes:
+            return probes[b]
+        if key not in self._probe_refs:
+            t0 = time.perf_counter()
+            tiles = torch.from_numpy(np.random.default_rng(0).integers(
+                0, 256, (self.max_batch,) + key[0], dtype=np.uint8))
+            full = self.forward(tiles, raw=True, **path)
+            self._probe_refs[key] = (tiles, full, time.perf_counter() - t0)
+        tiles, full, ref_seconds = self._probe_refs[key]
+        t0 = time.perf_counter()
+        floors, differs = _BatchFloors(self.max_batch, check=True), set()
+        for start in (0, self.max_batch - b):
+            with L.cudnn_hook(floors):
+                part = self.forward(tiles[start:start + b], raw=True, **path)
+            differs |= {k for k, v in part.items() if not _bitwise_equal(
+                v, full[k].narrow(_BATCH_AXIS[k], start, b))}
+        probes[b] = {'holds': not differs, 'differs': sorted(differs),
+                     'padded': list(floors.keys),
+                     'seconds': time.perf_counter() - t0,
+                     'reference_seconds': ref_seconds}
+        return probes[b]
+
+    def _bucket_hook(self, shape, path, b):
+        """The ``layers.cudnn_hook`` of a forward of ``b`` tiles: the
+        bucket's padded cuDNN calls (None where there are none)."""
+        probes = self.bucket_probes.get((tuple(int(v) for v in shape),
+                                         _path_key(path)), {})
+        padded = probes.get(b, {}).get('padded')
+        return _BatchFloors(self.max_batch, padded) if padded else None
 
     def forward(self, tiles_u8, seg_weights=None, mod_only=False,
-                seg_only=False, return_intermediate=False, marker_index=None):
+                seg_only=False, return_intermediate=False, marker_index=None,
+                raw=False):
         """One batch (B, s, s, C) uint8 on any device -> dict of uint8
         outputs on the session's device: 'mods' (M, B, s, s, 3), 'seg',
         'segs' (the DeepLIIF intermediates, or DeepLIIFExt's seg per
         modality); with ``seg_only`` (DeepLIIF) 'seg' and 'marker' (the
-        modality ``marker_index``) alone."""
+        modality ``marker_index``) alone. ``raw``: the outputs in the
+        compute dtype, before the uint8 cast (``probe_bucket``)."""
         # normalized in float32, then cast to the compute dtype
         x = (tiles_u8.to(self.device).float() / 127.5 - 1.0).to(self.d.dtype)
         seg_gen = self.d.seg_gen and not mod_only
@@ -342,6 +423,8 @@ class InferenceSession:
                 res = {'mods': cg.inference_forward(
                     self.nets, x, self.d,
                     bto_a=getattr(self.opt, 'BtoA', False))}
+        if raw:
+            return res
         return {k: _quantize_u8(v) for k, v in res.items()}
 
     def run_tiles(self, tiles_u8, seg_weights=None, seg_only=False,
@@ -417,38 +500,204 @@ class InferenceSession:
                 and not self._dynamic_int8_active(th, tw)):
             # the first real tiles an uncalibrated int8 session sees
             self.calibrate_int8(tiles_u8[nonempty[:32]])
-        pos = 0
-        while pos < len(nonempty):
-            b = self.batch_size(len(nonempty) - pos)
-            chunk = tiles_u8[nonempty[pos:pos + b]]
-            nvalid = chunk.shape[0]
-            if nvalid < b:
-                chunk = np.concatenate([chunk, np.zeros(
-                    (b - nvalid,) + chunk.shape[1:], chunk.dtype)])
-            res = self.forward(torch.from_numpy(np.ascontiguousarray(chunk)),
-                               seg_weights, mod_only, seg_only=use_seg_only,
-                               return_intermediate=intermediate,
-                               marker_index=marker_idx)
-            idx = nonempty[pos:pos + nvalid]
-            if 'mods' in res:
-                mods = res['mods'].cpu().numpy()
+        path = dict(seg_weights=seg_weights, mod_only=mod_only,
+                    seg_only=use_seg_only, return_intermediate=intermediate,
+                    marker_index=marker_idx)
+        # the batches (tiles, bucket), every bucket probed before the first
+        # batch is launched
+        plan, left = [], len(nonempty)
+        while left:
+            b = self.batch_size(left, tiles_u8.shape[1:], path)
+            plan.append((min(b, left), b))
+            left -= plan[-1][0]
+
+        def collect(idx, host):
+            """Batch ``idx``'s outputs, on the host, into ``out``."""
+            nvalid = len(idx)
+            if 'mods' in host:
                 for i, mk in enumerate(mod_keys):
-                    out[mk][idx] = mods[i][:nvalid]
-            elif 'marker' in res:
-                out[mod_keys[marker_idx]][idx] = \
-                    res['marker'].cpu().numpy()[:nvalid]
-            if 'GS' in dev_out:
-                dev_out['GS'][torch.from_numpy(idx).to(self.device)] = \
-                    res['seg'][:nvalid]
-            elif 'seg' in res:
-                out['GS'][idx] = res['seg'].cpu().numpy()[:nvalid]
-            if 'segs' in res:
-                segs = res['segs'].cpu().numpy()
-                for i in range(segs.shape[0]):
+                    out[mk][idx] = host['mods'][i][:nvalid]
+            elif 'marker' in host:
+                out[mod_keys[marker_idx]][idx] = host['marker'][:nvalid]
+            if 'seg' in host:
+                out['GS'][idx] = host['seg'][:nvalid]
+            if 'segs' in host:
+                for i in range(host['segs'].shape[0]):
                     key = f'GS{i}' if deepliif else f'GS_{i + 1}'
-                    out[key][idx] = segs[i][:nvalid]
-            pos += nvalid
+                    out[key][idx] = host['segs'][i][:nvalid]
+
+        # two batches in flight (the JAX engine's pending deque): batch i+1
+        # is launched before batch i is collected
+        pipe = _Pipeline(self.device)
+        pending = collections.deque()
+        pos = 0
+        try:
+            for nvalid, b in plan:
+                idx = nonempty[pos:pos + nvalid]
+                x = pipe.upload(tiles_u8, idx, b)
+                with L.cudnn_hook(self._bucket_hook(tiles_u8.shape[1:], path,
+                                                    b)):
+                    res = self.forward(x, **path)
+                if 'GS' in dev_out:
+                    # kept on the device: scattered there, never copied
+                    dev_out['GS'][pipe.to_device(idx)] = \
+                        res.pop('seg')[:nvalid]
+                pending.append((idx, pipe.fetch(res)))
+                if len(pending) == 2:
+                    idx_i, fetched = pending.popleft()
+                    collect(idx_i, pipe.wait(fetched))
+                pos += nvalid
+            while pending:
+                idx_i, fetched = pending.popleft()
+                collect(idx_i, pipe.wait(fetched))
+        except BaseException:
+            pipe.settle(fetched for _, fetched in pending)
+            raise
         return (out, dev_out) if device_keys else out
+
+
+class _Pipeline:
+    """The copies of ``InferenceSession.run_tiles``'s batch pipeline. A
+    batch's tiles are gathered into a host buffer and uploaded from it;
+    its uint8 outputs are copied into host buffers on a copy stream that
+    waits on an event recorded after the batch's forward, and are read
+    after that copy's own event (``wait``). The host buffers (pinned on
+    CUDA) form a ring of two, one per batch in flight, grown to the
+    largest batch; a buffer is written again only after the batch that
+    last used it was collected, and a batch's device outputs are held
+    until its copy event has completed. On the CPU the outputs are on the
+    host already and every step is synchronous."""
+
+    def __init__(self, device):
+        self.device = device
+        self.cuda = device.type == 'cuda'
+        self.stream = torch.cuda.Stream(device) if self.cuda else None
+        self.ring = [{}, {}]
+        self.turn = 0
+
+    def _host(self, name, shape):
+        n = int(np.prod(shape))
+        slot = self.ring[self.turn]
+        if name not in slot or slot[name].numel() < n:
+            slot[name] = torch.empty(n, dtype=torch.uint8,
+                                     pin_memory=self.cuda)
+        return slot[name][:n].view(shape)
+
+    def upload(self, tiles_u8, idx, b):
+        """Tiles ``idx`` of ``tiles_u8``, zero-padded to ``b``, on the
+        device (a copy that is not waited for)."""
+        x = self._host('x', (b,) + tuple(tiles_u8.shape[1:]))
+        xn = x.numpy()
+        np.take(tiles_u8, idx, axis=0, out=xn[:len(idx)])
+        xn[len(idx):] = 0
+        return x.to(self.device, non_blocking=True)
+
+    def to_device(self, a):
+        """A small host array on the device without a host wait."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.cuda:
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    def fetch(self, res):
+        """Start copying ``res`` (a batch's outputs) to the host; the
+        handle for ``wait``. Ends the batch's turn in the ring."""
+        if not self.cuda:
+            return res, None, None
+        host = {k: self._host(k, tuple(v.shape)) for k, v in res.items()}
+        self.turn ^= 1
+        ready = torch.cuda.current_stream(self.device).record_event()
+        done = torch.cuda.Event()
+        with torch.cuda.stream(self.stream):
+            self.stream.wait_event(ready)
+            for k, v in res.items():
+                host[k].copy_(v, non_blocking=True)
+            done.record(self.stream)
+        return host, done, res
+
+    @staticmethod
+    def wait(fetched):
+        """A fetched batch's outputs as numpy arrays, once copied."""
+        host, done, _ = fetched
+        if done is not None:
+            done.synchronize()
+        return {k: v.numpy() for k, v in host.items()}
+
+    @staticmethod
+    def settle(fetched):
+        """Wait out the copies still in flight (after a failed batch)."""
+        for _, done, _ in fetched:
+            if done is not None:
+                with contextlib.suppress(Exception):
+                    done.synchronize()
+
+
+class _BatchFloors:
+    """The ``layers.cudnn_hook`` of a bucket: a library call (a float32
+    cuDNN conv, the seg sum's BLAS call) named by ``keys``, or in a
+    low-precision dtype, runs its input zero-padded to the ``full`` batch
+    (axis-0 inputs with their per-sample strides) and keeps its first
+    results. ``check`` (the bucket probe): every other call also runs both
+    ways, and where the bits differ its key is added and the padded result
+    kept. Low-precision calls are padded without a check: two summation
+    orders of a float32 accumulator often round to the same bf16 on one
+    input and not on the next, so a bitwise check on probe tiles cannot
+    clear them (bf16 convs run one sample at a time instead,
+    ``layers._per_sample``)."""
+
+    def __init__(self, full, keys=(), check=False):
+        self.full, self.keys, self.check = full, list(keys), check
+
+    def _padded(self, run, x, axis):
+        n = x.shape[axis]
+        if axis == 0:
+            span = 1 + sum((d - 1) * st for d, st in zip(x.shape[1:],
+                                                           x.stride()[1:]))
+            t = torch.empty_strided((self.full,) + tuple(x.shape[1:]),
+                                    (span,) + x.stride()[1:], dtype=x.dtype,
+                                    device=x.device)
+        else:
+            shape = list(x.shape)
+            shape[axis] = self.full
+            t = x.new_empty(shape)
+        t.narrow(axis, 0, n).copy_(x)
+        t.narrow(axis, n, self.full - n).zero_()
+        return run(t)[:n]
+
+    def __call__(self, run, x, key, axis=0):
+        if x.shape[axis] >= self.full:
+            return run(x)
+        if key in self.keys:
+            return self._padded(run, x, axis)
+        if x.dtype != torch.float32 and x.is_floating_point():
+            if self.check:
+                self.keys.append(key)
+            return self._padded(run, x, axis)
+        y = run(x)
+        if self.check:
+            padded = self._padded(run, x, axis)
+            if not _bitwise_equal(y, padded):
+                self.keys.append(key)
+                return padded
+        return y
+
+
+def _path_key(path):
+    """A hashable key of ``forward``'s keywords."""
+    return tuple(sorted((k, tuple(v) if isinstance(v, list) else v)
+                        for k, v in path.items()))
+
+
+def _bitwise_equal(a, b):
+    """Whether two tensors hold the same bits (NaNs included)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    a, b = a.contiguous(), b.contiguous()
+    if a.is_floating_point():
+        bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            a.element_size()]
+        a, b = a.view(bits), b.view(bits)
+    return torch.equal(a, b)
 
 
 def _quantize_u8(y):

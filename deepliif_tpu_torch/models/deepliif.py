@@ -50,6 +50,7 @@ NotImplementedError ("Training").
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch import nn
@@ -272,11 +273,23 @@ def calibrate_act_scales(nets_, x, d: DeepLIIFDef, min_ch=quant.MIN_CH,
     return cal.out
 
 
+@functools.lru_cache(maxsize=64)
+def _weights_on(w, device):
+    """The weights ``w`` (a tuple) as a float32 tensor on ``device``, made
+    once: a tensor made from host values on a CUDA device waits for the
+    device's stream."""
+    return torch.tensor(w, dtype=torch.float32, device=device)
+
+
 def _seg_sum(w, segs):
-    """The weighted seg sum over the branch axis, one tensordot: a branch
-    of weight 0 given as zeros leaves the sum's bits as they are."""
-    w = torch.as_tensor(w, dtype=torch.float32, device=segs.device)
-    return torch.tensordot(w.to(segs.dtype), segs, dims=1)
+    """The weighted seg sum over the branch axis, one tensordot (a BLAS
+    call, so through the engine's batch hook, ``layers.batch_call``): a
+    branch of weight 0 given as zeros leaves the sum's bits as they
+    are."""
+    w = _weights_on(tuple(float(v) for v in w), segs.device).to(segs.dtype)
+    return L.batch_call(lambda t: torch.tensordot(w, t, dims=1), segs,
+                        ('tensordot', len(w), tuple(segs.shape[2:]),
+                         segs.dtype), axis=1)
 
 
 def _seg_input(y):

@@ -16,12 +16,14 @@ as the JAX package does.
 Batch invariance (a tile's outputs do not depend on the batch it rides
 in, the JAX package's contract): on CUDA the norm statistics go through the
 fixed-order kernel ``csrc/plane_stats.cu`` (``plane_mean_var``; torch's
-CUDA mean splits its sum by the shape of the whole tensor), and the engine
-gives every forward one batch shape
-(``models.InferenceSession.batch_size``), so cuDNN, which picks its
-algorithm by the shape of the call, keeps one. On the CPU every conv and
-conv-transpose runs one sample at a time (``_per_sample``): oneDNN also
-picks by shape.
+CUDA mean splits its sum by the shape of the whole tensor); cuDNN picks
+its algorithm by the shape of the call, so the engine runs a short batch
+in a smaller bucket only where its probe holds it bitwise against the
+full batch, each float32 cuDNN call whose bits would differ zero-padded
+to the full batch (``cudnn_hook``, ``models.InferenceSession.probe_bucket``).
+On the CPU, and in bf16 on CUDA, every conv and conv-transpose runs one
+sample at a time (``_per_sample``): oneDNN also picks by shape, and a
+cuDNN bf16 conv of 16 samples computed its last four otherwise.
 
 Norms (``norm_layer`` / ``apply_norm``): 'batch' (per-sample statistics,
 ``batch_stat_norm``), 'instance' (``instance_norm``, the same statistics
@@ -60,6 +62,8 @@ handed down explicitly.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import dataclasses
 import functools
@@ -142,16 +146,60 @@ def cast_function(casts, q, spectral=False):
         q[id(p)] if id(p) in q else casts.get(id(p), p))
 
 
+# the engine's hook around each batched library call of a bucket's
+# forward (``cudnn_hook``)
+_CUDNN_HOOK = contextvars.ContextVar('cudnn_hook', default=None)
+
+
+@contextlib.contextmanager
+def cudnn_hook(hook):
+    """Route every conv and conv-transpose of the float route, and every
+    ``batch_call``, through ``hook(run, x, key, axis)`` in the block (this
+    thread): ``run(t)`` computes the call on an input ``t`` of any batch
+    (along ``axis`` of the input, axis 0 of the output), ``key`` names the
+    call by everything but its batch (kind, per-sample shape and strides,
+    dtype, weight shape, stride and padding). ``None``: no hook."""
+    token = _CUDNN_HOOK.set(hook)
+    try:
+        yield
+    finally:
+        _CUDNN_HOOK.reset(token)
+
+
+def batch_call(run, x, key, axis=0):
+    """``run(x)``, through the engine's ``cudnn_hook`` where one is set: a
+    library call whose result for a sample may depend on the batch (its
+    batch on ``axis`` of x, on axis 0 of the result)."""
+    hook = _CUDNN_HOOK.get()
+    return run(x) if hook is None else hook(run, x, key, axis)
+
+
+def _aligned(x):
+    """x, or a copy of it where its data does not start 16-byte aligned
+    (cuDNN also picks its algorithm by the alignment of the data: a bf16
+    sample of the padded 3-channel head input starts 8 bytes off for odd
+    tiles)."""
+    return x if x.device.type == 'cpu' or x.data_ptr() % 16 == 0 else \
+        x.clone()
+
+
 def _per_sample(fn, x, *args):
-    """``fn(x, *args)``, on the CPU one sample at a time: every oneDNN
-    call then has the shape of one tile, so a tile's result does not
-    depend on the batch (oneDNN picks its algorithm by the shape of the
-    whole call). On CUDA one call: the engine keeps the batch shape fixed
-    instead, which costs nothing at batch 16 where cuDNN at batch 1 is
-    up to 5x slower."""
-    if x.device.type != 'cpu' or x.shape[0] == 1:
-        return fn(x, *args)
-    return torch.cat([fn(x[i:i + 1], *args) for i in range(x.shape[0])])
+    """``fn(x, *args)``. On the CPU, and in bf16 on CUDA, one sample at a
+    time, each 16-byte aligned: every call then has the shape of one tile,
+    so a tile's result does not depend on the batch (oneDNN and cuDNN pick
+    their algorithm by the shape of the whole call, and on the H100 a
+    cuDNN bf16 conv of a batch of 16 gave its last four samples other bits
+    than the same samples alone, ``chip_smoke.py`` phase ``pipeline``).
+    On CUDA in float32 one call, through the engine's ``cudnn_hook`` where
+    one is set (``models._BatchFloors``)."""
+    if x.device.type == 'cpu' or x.dtype != torch.float32:
+        if x.shape[0] == 1:
+            return fn(_aligned(x), *args)
+        return torch.cat([fn(_aligned(x[i:i + 1]), *args)
+                          for i in range(x.shape[0])])
+    key = (fn.__name__, tuple(x.shape[1:]), x.stride()[1:], x.dtype,
+           tuple(args[0].shape), args[2:])
+    return batch_call(lambda t: fn(t, *args), x, key)
 
 
 def _nhwc(x):

@@ -7,16 +7,15 @@ relu5_1; loss weights [1/32, 1/16, 1/8, 1/4, 1].
 
 Weights: the converted ``.npz`` that the JAX package reads (``conv{i}_w``
 HWIO, ``conv{i}_b``; the path from ``DEEPLIIF_VGG19_WEIGHTS`` or an
-argument), else a fixed-seed He (kaiming) initialization drawn from a
-``torch.Generator`` seeded 19. The JAX package draws its fallback from
-``jax.random.PRNGKey(19)``, which cannot be made without JAX, so without
-the npz the two packages compute the perceptual loss with different
-networks of the same distribution (a documented deviation); with the same
-npz they compute the same loss.
+argument), else the JAX package's fixed-seed He (kaiming) draw: from
+``jax.random.PRNGKey(19)``, a split per conv, std sqrt(2 / fan_in) over
+the HWIO shape, zero biases, drawn in numpy by ``utils.jax_random``
+(the same network as the JAX package's, to a few float32 ulps).
 """
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -24,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import jax_random
 from ..utils.checkpoints import weight_from_hwio
 from . import layers as L
 
@@ -37,6 +37,25 @@ SLICES = [
 ]
 LOSS_WEIGHTS = [1.0 / 32, 1.0 / 16, 1.0 / 8, 1.0 / 4, 1.0]
 SEED = 19
+
+
+@functools.lru_cache(maxsize=1)
+def default_kernels():
+    """The JAX package's default draw (``deepliif_tpu/nets/vgg.py`` init
+    without weights): HWIO float32 kernels in slice order, drawn once per
+    process."""
+    key, out = jax_random.PRNGKey(SEED), []
+    for sl in SLICES:
+        for item in sl:
+            if item == 'pool':
+                continue
+            cin, cout = item
+            key, sub = jax_random.split(key)
+            std = np.float32((2.0 / (9 * cin)) ** 0.5)
+            w = std * jax_random.normal(sub, (3, 3, cin, cout))
+            w.setflags(write=False)
+            out.append(w)
+    return tuple(out)
 
 
 class VGG19Features(nn.Module):
@@ -60,11 +79,9 @@ class VGG19Features(nn.Module):
                         conv.bias.copy_(torch.from_numpy(
                             np.asarray(data[f'conv{i}_b'], np.float32)))
             else:
-                gen = torch.Generator().manual_seed(SEED)
-                for conv in self.convs:
-                    hwio = tuple(conv.weight.permute(2, 3, 1, 0).shape)
+                for conv, w in zip(self.convs, default_kernels()):
                     conv.weight.copy_(weight_from_hwio(
-                        L.init_kernel(hwio, 'kaiming', 0.02, gen), 'conv'))
+                        torch.from_numpy(w.copy()), 'conv'))
                     conv.bias.zero_()
         self.requires_grad_(False)
 

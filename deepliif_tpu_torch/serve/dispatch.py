@@ -16,8 +16,9 @@ On a CUDA session every device call runs inside
 ``torch.cuda.device(session.device)``: the hand kernels launch on
 ``torch.cuda.current_stream()``, and the CUDA runtime's current device is
 per thread. A coalesced request gets the bytes it would get alone, because
-a CUDA session runs every forward at one batch shape
-(``InferenceSession.batch_size``) and a CPU session runs each conv on one
+a CUDA session runs a short batch in a smaller bucket only where its probe
+shows the bucket's outputs bitwise equal to a full batch's
+(``InferenceSession.batch_size``), and a CPU session runs each conv on one
 sample.
 """
 

@@ -18,10 +18,15 @@
      repair);
    - ``per_sample``: power-of-two buckets, ``plane_mean_var``, every cuDNN
      call on one sample (16-byte aligned: cuDNN also picks by alignment);
-   - ``one_batch_shape``: the port as it is (``plane_mean_var``, every bucket
-     padded to ``max_batch`` tiles, so cuDNN sees one shape). Its per-op
-     check runs the tile alone as the engine does: first in a batch of 16
-     otherwise zero.
+   - ``one_batch_shape``: ``plane_mean_var``, every bucket padded to
+     ``max_batch`` tiles, so cuDNN sees one shape, one cuDNN call per conv
+     (the port before its probed buckets and per-sample bf16 convs). Its
+     per-op check runs the tile alone so: first in a batch of 16
+     otherwise zero;
+   - ``probed``: the port as it is (``plane_mean_var``, power-of-two
+     buckets where ``InferenceSession.probe_bucket`` holds them, each
+     float32 cuDNN call that would differ padded to ``max_batch``, bf16
+     convs one sample at a time).
 
     python3 experiments/torch_batch_invariance.py [--paths float32,bfloat16,int8,fused]
         [--before]     # the per-op report also for the 'before' ops
@@ -165,13 +170,19 @@ def candidate(name, M, L):
     """The port as it is (``one_batch_shape``), or patched into one of the
     other candidates."""
     saved = L._per_sample, L.plane_mean_var, M.InferenceSession.batch_size
-    if name != 'one_batch_shape':
+    if name == 'one_batch_shape':
+        M.InferenceSession.batch_size = lambda self, n, *a: self.max_batch
+    elif name != 'probed':
         M.InferenceSession.batch_size = \
-            lambda self, n: M._bucket(n, self.max_batch)
+            lambda self, n, *a: M._bucket(n, self.max_batch)
     if name == 'before':
         L.plane_mean_var = L.plane_mean_var_reference
     if name == 'per_sample':
         L._per_sample = per_sample
+    if name in ('before', 'one_batch_shape'):
+        # one cuDNN call per conv at any dtype (the port before its
+        # per-sample bf16 convs)
+        L._per_sample = lambda fn, x, *args: fn(x, *args)
     try:
         yield
     finally:
@@ -277,7 +288,8 @@ def main():
                               'output_equal': bool(torch.equal(
                                   fusion[TILE_IDX], alone[0]))}), flush=True)
 
-            for cand in ('before', 'per_sample', 'one_batch_shape'):
+            for cand in ('before', 'per_sample', 'one_batch_shape',
+                         'probed'):
                 with candidate(cand, M, L):
                     full = sess.run_tiles(tiles)
                     one = sess.run_tiles(tiles[TILE_IDX:TILE_IDX + 1])

@@ -300,7 +300,8 @@ def cuda():
 def test_cuda_family_launches_and_determinism(cuda, dirs, family):
     """On the card: the translators' trunk on the float32 trunk kernel
     (6 blocks x 2 convs per translator), every norm on the statistics
-    kernel with no input copied, outputs byte-equal run to run and for a
+    kernel with no input copied, in one batch forward (after the call
+    that probed its bucket), outputs byte-equal run to run and for a
     tile alone."""
     from deepliif_tpu_torch.nets import layers as L
     from deepliif_tpu_torch.ops import fused_resblock as FR
@@ -308,6 +309,7 @@ def test_cuda_family_launches_and_determinism(cuda, dirs, family):
     c = 6 if family == 'sdg' else 3
     tiles = np.random.default_rng(9).integers(0, 255, (3, 64, 64, c),
                                               np.uint8)
+    sess.run_tiles(tiles)         # the bucket's probe runs once, here
     t0, p0 = FR.conv3x3_stats.launches, L.plane_mean_var.launches
     r0 = L.plane_mean_var.relayouts
     out = sess.run_tiles(tiles)

@@ -9,7 +9,10 @@ quantifier and native helper) and the device quantifier on the CPU
 server and runs ``serialize``, ``test-wsi`` and ``wsi-cells`` through the
 CLI, trains a tiny DeepLIIF model one step through the CLI's ``train``
 (the losses, discriminators, VGG, optimizers, loader, visualizer and
-background modules of training), and finds no ``jax``, ``jaxlib`` or
+background modules of training; the default VGG19 drawn by
+``utils.jax_random``), runs ``eval``, ``prepare-training-data``,
+``prepare-testing-data``, ``register`` and ``visualize`` through the CLI,
+traces a call with ``utils.profiling``, and finds no ``jax``, ``jaxlib`` or
 ``deepliif_tpu`` / ``deepliif_tpu.*`` module loaded."""
 
 import json
@@ -147,6 +150,34 @@ run(['train', '--dataroot', os.path.dirname(rows), '--checkpoints-dir',
      '--n-epochs-decay', '0', '--device', 'cpu'], standalone_mode=False)
 assert os.path.exists(os.path.join(md, 'ckpt', 'experiment_name',
                                    'latest_optim.npz'))
+import pickle, time
+from deepliif_tpu_torch.utils import (augmentation, jax_random, profiling,
+                                      registration)
+run(['eval', '--dataroot', os.path.dirname(rows), '--model-dir', md,
+     '--phase', 'train', '--output-dir', os.path.join(md, 'eval'),
+     '--device', 'cpu'], standalone_mode=False)
+assert 'index.html' in os.listdir(os.path.join(md, 'eval'))
+stains = os.path.join(md, 'stains')
+os.makedirs(stains)
+for stain in ('IHC', 'Hematoxylin', 'DAPI', 'Lap2', 'Marker', 'Seg'):
+    Image.fromarray(tiles[0]).save(os.path.join(stains, f'a_{stain}.png'))
+run(['prepare-training-data', '--input-dir', stains, '--output-dir',
+     os.path.join(md, 'prep')], standalone_mode=False)
+run(['prepare-testing-data', '--input-dir', stains, '--dataset-dir',
+     os.path.join(md, 'prep')], standalone_mode=False)
+run(['register', '--fixed', os.path.join(stains, 'a_IHC.png'), '--moving',
+     os.path.join(stains, 'a_DAPI.png'), '--output',
+     os.path.join(md, 'aligned.png')], standalone_mode=False)
+with open(os.path.join(md, 'display_current_results.pickle'), 'wb') as f:
+    pickle.dump({'epoch': 1, 'visuals': {'real_A': tiles[0]}}, f)
+def interrupt(seconds):
+    raise KeyboardInterrupt
+time.sleep = interrupt
+run(['visualize', '--pickle-dir', md], standalone_mode=False)
+assert os.path.exists(os.path.join(md, 'web', 'index.html'))
+with profiling.trace(cuda=False) as tr:
+    models.InferenceSession(md, device='cpu').run_tiles(tiles)
+assert tr.window is not None
 print(json.dumps(sorted(m for m in sys.modules
                         if m in ('jax', 'deepliif_tpu')
                         or m.startswith(('jax.', 'jaxlib', 'deepliif_tpu.')))))

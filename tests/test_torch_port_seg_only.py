@@ -247,6 +247,7 @@ def test_cuda_seg_only_byte_equal_and_fewer_launches(cuda, model_dir):
     sess = M.InferenceSession(model_dir, device='cuda')
     tiles = _tiles()
     full = sess.run_tiles(tiles)
+    sess.run_tiles(tiles, seg_only=True)   # the bucket's probe runs here
     counts = []
     for _ in range(2):
         t0, p0 = FR.conv3x3_stats.launches, L.plane_mean_var.launches

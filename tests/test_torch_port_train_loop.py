@@ -326,6 +326,15 @@ def test_what_training_does_not_run_raises(tmp_path, extra):
                                      'prepare-testing-data', 'register',
                                      'visualize', 'compute-statistics'])
 def test_commands_not_ported_raise(command):
+    """The commands still to port raise NotImplementedError naming their
+    ROADMAP item; the host commands ported since are real click commands
+    (an unknown option is a usage error)."""
+    import click
+    if command not in cli._NOT_PORTED_COMMANDS:
+        with pytest.raises(click.NoSuchOption):
+            cli.make_cli().main([command, '--anything', 'x'],
+                                standalone_mode=False)
+        return
     item = roadmap.STATS if command == 'compute-statistics' \
         else roadmap.TRAINING
     with pytest.raises(NotImplementedError, match=f'"{item}"'):

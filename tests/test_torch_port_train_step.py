@@ -20,7 +20,9 @@ difference of the outputs (~1e-6) flips it at a few feature positions and
 moves single gradient elements by percent. So the G gradients are held
 with that upstream gradient taken from JAX's forward (the port's nets
 then backpropagate it and every other term themselves), and the upstream
-gradient is held on its own at identical inputs. The JAX step is
+gradient is held on its own at identical inputs, in float64 in both
+packages (with the default VGG19, JAX's own draw, float32 flips deep
+feature positions at these inputs in either package). The JAX step is
 compiled once for the file."""
 
 import numpy as np
