@@ -53,19 +53,19 @@ every ``conv_s8`` call of an int8 forward, the 1x1 gate convs among them,
 bit-equal to its plain version). Then the serving, serialize and
 whole-slide entry points on the float32 flagship dir: the REST server
 (``serve.make_server`` on 127.0.0.1, any free port, ``max_batch`` 18) with
-8 concurrent 1024^2 /api/infer requests queued together behind the
+2 concurrent 1024^2 /api/infer requests queued together behind the
 dispatcher's device lock, at least one device call coalescing requests,
 each response byte-equal to the request sent alone and to ``inference``
 plus the host quantifier on the session directly, /api/batch/infer, a
 /api/postprocess and a 400 (``serve_checks``); ``serialize`` of a
 reference-layout flagship dir on the card, its parity gate and the npz
 against ``params_to_jax`` (``serialize_checks``); ``test-wsi`` and
-``wsi-cells`` through the CLI on a 3000 x 2200 pyramidal TIFF at AppMag
+``wsi-cells`` through the CLI on a 1600 x 1200 pyramidal TIFF at AppMag
 40 in four regions, the outputs byte-equal run to run and to the
 per-region stitch, the scoring and the cells the per-region sums
 (``wsi_checks``); the same server at ``--precision int8``, dynamic and
 static, its launches of #2 and ``conv_s8`` per forward
-(``serve_int8_checks``); the CLI's ``eval`` over four aligned rows, each
+(``serve_int8_checks``); the CLI's ``eval`` over one aligned row, each
 written image byte-equal to ``run_tiles`` of the row's A tile
 (``eval_checks``). Each of these paths reads its kernel launches. Last,
 training at float32: the statistics kernel under autograd
@@ -73,9 +73,18 @@ training at float32: the statistics kernel under autograd
 plain version (``train_stats_checks``), one step of a narrow flagship
 layout on the card against the same step on the CPU (``train_step_vs_cpu``:
 every loss term and gradient), and the full-width flagship through the
-CLI's ``train`` (batch 2, 512^2, 4 steps, one ``latest`` save; s/step,
+CLI's ``train`` (batch 2, 512^2, 3 steps, one ``latest`` save; s/step,
 peak memory, statistics launches a step, the max |Δparam| of two identical
-runs) with its checkpoint served back through ``test`` (``train_checks``).
+runs) with its checkpoint served back through ``test`` (``train_checks``);
+then the other families' training: one step each of DeepLIIFExt, SDG,
+CycleGAN (both steps, the host image pools between them) and DeepLIIFKD
+(its teacher's trunk on the float32 trunk kernel) at ngf 16 on the card
+against the same step on the CPU (``train_families_vs_cpu``: every loss
+term and gradient), each at full width through the CLI's ``train``
+(``train_ext``, ``train_sdg``, ``train_cyclegan``, ``train_kd``: 3 steps,
+one ``latest`` save; statistics and trunk launches a step, 72 trunk
+launches a step for DeepLIIFKD's teacher, none in the others), and the
+Ext checkpoint served through ``test`` (``train_ext_checkpoint_served``).
 
     python3 chip_smoke.py            # needs one CUDA card; exits 0 on success
 
@@ -1577,7 +1586,7 @@ def pipeline_checks(session, tiles, path, **kw):
                 idle_share=tr.idle_share(), batches=sizes)
 
 
-def throughput(session, batch, iters=3, **kw):
+def throughput(session, batch, iters=1, **kw):
     session.run_tiles(batch, **kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3086,22 +3095,22 @@ def att_unet_checks(M, K, root, dl, img):
     return out
 
 
-# the serving, serialize and whole-slide phases: 8 concurrent /api/infer
+# the serving, serialize and whole-slide phases: 2 concurrent /api/infer
 # requests of 1024^2 (9 tiles of 512^2 each); a device call coalesces
 # requests only while their tiles fit max_batch, and on CUDA every call
 # runs max_batch tiles, so the server runs at 18, the least batch that two
 # requests share (the default 16 never coalesces them; at 32 a lone
 # request took 3.7 s, median of 8, on one NVIDIA H100 80GB HBM3 at
 # 700.00 W)
-SERVE_REQUESTS, SERVE_SIZE, SERVE_MAX_BATCH = 8, 2 * TILE, 18
+SERVE_REQUESTS, SERVE_SIZE, SERVE_MAX_BATCH = 2, 2 * TILE, 18
 # the aligned rows of phase 'eval'
-EVAL_ROWS = 4
+EVAL_ROWS = 1
 # the server's resolution query for a tile size (serve.RESOLUTION_TILE_SIZE)
 RESOLUTION = {512: '40x', 256: '20x', 128: '10x'}
-# the slide: about 3000 x 2200 px at AppMag 40 (tile size 512 from the
-# metadata), in regions of 1536 (2 x 2 regions, three of them ragged)
-WSI_SIZE, WSI_REGION = (2200, 3000), 1536
-WSI_DESC = ('Aperio Image Library v12.0.15\n3000x2200 [0,0 3000x2200] '
+# the slide: 1600 x 1200 px at AppMag 40 (tile size 512 from the
+# metadata), in regions of 1024 (2 x 2 regions, three of them ragged)
+WSI_SIZE, WSI_REGION = (1200, 1600), 1024
+WSI_DESC = ('Aperio Image Library v12.0.15\n1600x1200 [0,0 1600x1200] '
             '(256x256) RGB|AppMag = 40|MPP = 0.25')
 
 
@@ -3745,7 +3754,7 @@ TRAIN_GRAD_CPU_FACTOR = 2
 # a replayed ReLU branch may differ from the CPU's own only where |x| is
 # within this share of that call's max |x| of 0 (rounding, not a fault)
 TRAIN_BRANCH_TOL = 1e-4
-TRAIN_ROWS, TRAIN_STEPS, TRAIN_REPRO_STEPS = 8, 4, 2
+TRAIN_ROWS, TRAIN_STEPS, TRAIN_REPRO_STEPS = 6, 3, 1
 # statistics calls a flagship step: the forward's norms (4 translators of
 # 23 with the trunk unfused, 5 unet_512 of 15), 4 in each of the 18
 # discriminator calls of the D loss and the 9 of the G loss; the backward
@@ -3949,11 +3958,11 @@ def train_step_vs_cpu(dl, vgg):
                 * w_feat.to(dev, dt)).sum(), mods)
             if side == 'card':
                 card.update(mods=mods.detach().cpu(), up=up.cpu())
-            dl._set_grads(state.g_params, loss + (
+            dl.set_grads(state.g_params, loss + (
                 g_out['mods'] * card['up'].to(dev, dt)).sum())
             g_grads = named_grads(state)
             d_loss, _ = dl.d_loss_fn(state.nets, g_out, batch, d)
-            dl._set_grads(state.d_params, d_loss)
+            dl.set_grads(state.d_params, d_loss)
         if side != 'card':
             flips[side] = dict(positions=branches.flips,
                                max_abs_x_rel=branches.flip_rel)
@@ -4222,6 +4231,436 @@ def train_checks(M, K, dl, root):
     return res
 
 
+# training of the other families (float32): one step of each at reduced
+# width on the card against the CPU, then each through the CLI's train at
+# full width. Reduced: ngf = ndf = 16, 128^2, batch 2, no dropout, two
+# modalities (one for CycleGAN); the DeepLIIFKD teacher at ngf 32, so
+# that its trunk (4 x 32 = 128 channels) runs the float32 trunk kernel
+FAMILY_STEP_CASES = {
+    'ext': ('DeepLIIFExt', dict(
+        modalities_no=2, net_g=('resnet_9blocks',) * 2,
+        net_gs=('unet_128',) * 2, loss_g_weights=(0.5, 0.5),
+        loss_d_weights=(0.5, 0.5))),
+    'sdg': ('SDG', dict(modalities_no=2, input_no=2,
+                        net_g=('resnet_9blocks',) * 2,
+                        loss_g_weights=(0.5, 0.5),
+                        loss_d_weights=(0.5, 0.5))),
+    'cyclegan': ('CycleGAN', dict(modalities_no=1,
+                                  net_g=('resnet_9blocks',))),
+    'kd': ('DeepLIIFKD', dict(
+        modalities_no=2, net_g=('resnet_9blocks',) * 2,
+        net_gs=('unet_128',) * 3, seg_weights=(0.4, 0.3, 0.3),
+        loss_g_weights=(1 / 3,) * 3, loss_d_weights=(1 / 3,) * 3))}
+FAMILY_STEP_WIDTH, KD_TEACHER_NGF = 16, 32
+# full width through the CLI: (model, modalities, extra options)
+FAMILY_TRAIN_CASES = (
+    ('ext', 'DeepLIIFExt', 4, ['--net-gs', FLAGSHIP_CFG['net_gs']]),
+    ('sdg', 'SDG', 4, ['--input-no', '2']),
+    ('cyclegan', 'CycleGAN', 1, []),
+    ('kd', 'DeepLIIFKD', 4, ['--net-gs', FLAGSHIP_CFG['net_gs']]))
+FAMILY_TRAIN_STEPS = 3
+# statistics calls a training step, from the nets: a translator's forward
+# in train mode 23 norms (head, 2 down, the trunk's 18, 2 up), a unet_512's
+# 15, a discriminator call (n_layers 4) 4; the backward launches none. Ext:
+# 4 translators, 4 seg nets, D and DS 4 x 2 calls in the D loss and 4 in
+# the G loss each; SDG: 4 translators, D 4 x 2 + 4; CycleGAN: 4 passes of
+# a translator, DA and DB 2 calls each in the D step and 1 in the G step;
+# DeepLIIFKD: the flagship step plus the teacher's inference forward
+# (PLANE_PER_FORWARD[False]: its trunk on the kernel)
+TRANSLATOR_TRAIN_NORMS, D_NORMS = 5 + 18, 4
+FAMILY_PLANE_PER_STEP = {
+    'ext': 4 * TRANSLATOR_TRAIN_NORMS + 4 * PLANE_PER_UNET
+    + 2 * (4 * 2 + 4) * D_NORMS,
+    'sdg': 4 * TRANSLATOR_TRAIN_NORMS + (4 * 2 + 4) * D_NORMS,
+    'cyclegan': 4 * TRANSLATOR_TRAIN_NORMS + 2 * (2 + 1) * D_NORMS,
+    'kd': PLANE_PER_TRAIN_STEP + PLANE_PER_FORWARD[False]}
+# trunk kernel launches a step: the KD teacher's 4 translators
+FAMILY_TRUNK_PER_STEP = {'ext': 0, 'sdg': 0, 'cyclegan': 0,
+                         'kd': LAUNCHES_PER_FORWARD}
+# the Ext checkpoint served: 4 translators' trunks, 4 x 5 + 4 x 15 norms
+EXT_PLANE_PER_FORWARD = 4 * PLANE_PER_TRANSLATOR + 4 * PLANE_PER_UNET
+
+
+def family_step_batch(name, d, size, batch, seed):
+    """A family's training batch in [-1, 1] (numpy NHWC)."""
+    rng = np.random.default_rng(seed)
+    m = d.modalities_no
+    shape = (batch, size, size)
+    out = {'A': rng.uniform(-1, 1, shape + (
+        3 * getattr(d, 'input_no', 1) if name == 'sdg' else 3,)),
+        'B_mods': rng.uniform(-1, 1, (m + (name == 'sdg'),) + shape + (3,))}
+    if name == 'ext':
+        out['B_segs'] = rng.uniform(-1, 1, (m,) + shape + (3,))
+    if name == 'kd':
+        out['B_seg'] = rng.uniform(-1, 1, shape + (3,))
+    return out
+
+
+def family_step_parts(name, fam, dl, d, zvgg, teacher):
+    """(forward(nets, batch), vgg_pairs(g_out, batch) -> [(output, real,
+    weights)], g_loss(nets, batch, g_out) with the zero VGG ``zvgg``,
+    d_loss(nets, g_out, batch)) of family ``name``."""
+    m = d.modalities_no
+
+    def w(v):
+        return torch.tensor(v, dtype=torch.float32)
+    if name == 'cyclegan':
+        return (lambda nets, b: fam.train_forward(nets, *fam.real_pair(b, d),
+                                                  d),
+                lambda o, b: [(o['fake_bs'], fam.real_pair(b, d)[1],
+                               w(d.loss_g_weights)),
+                              (o['fake_as'], fam.real_pair(b, d)[0],
+                               w(d.loss_g_weights))],
+                lambda nets, b, o: fam.g_loss_fn(nets, *fam.real_pair(b, d),
+                                                 d, zvgg, outs=o)[0],
+                lambda nets, o, b: fam.d_loss_fn(
+                    nets, o['fake_bs'], o['fake_as'], *fam.real_pair(b, d),
+                    d)[0])
+    if name == 'kd':
+        return (lambda nets, b: fam.student_forward_with_branches(
+                    nets, b['A'], d),
+                lambda o, b: [(o['mods'], b['B_mods'], d.lambda_feat
+                               * w(d.loss_g_weights[:m]))],
+                lambda nets, b, o: fam.g_loss_fn(nets, b, d, zvgg, teacher,
+                                                 g_out=o)[0],
+                lambda nets, o, b: dl.d_loss_fn(nets, o, b, d)[0])
+    pairs = (lambda o, b: []) if name == 'ext' else (
+        lambda o, b: [(o['mods'], b['B_mods'][:m],
+                       d.lambda_feat * w(d.loss_g_weights))])
+    g_loss = (lambda nets, b, o: fam.g_loss_fn(nets, b, d, g_out=o)[0]) \
+        if name == 'ext' else \
+        (lambda nets, b, o: fam.g_loss_fn(nets, b, d, zvgg, g_out=o)[0])
+    return (lambda nets, b: fam.train_forward(nets, b['A'], d), pairs,
+            g_loss, lambda nets, o, b: fam.d_loss_fn(nets, o, b, d)[0])
+
+
+def zero_vgg(vgg, dev):
+    """A VGG19Features of zero weights: its perceptual term is 0 with a
+    zero gradient (|0 - 0|)."""
+    net = vgg.VGG19Features().to(dev)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.zero_()
+    return net
+
+
+def train_families_vs_cpu(K, dl, vgg):
+    """Phase 'train_families_vs_cpu': one step of each family
+    (FAMILY_STEP_CASES, ngf = ndf = FAMILY_STEP_WIDTH, TRAIN_STEP_SIZE^2,
+    TRAIN_BATCH, no dropout) on the card against the same step on the CPU
+    in float32, the same weights (drawn on the CPU from one seed) and
+    batch. Gradients at the initial weights, the CPU replaying the card's
+    ReLU branches (``SharedBranches``) and the perceptual term's gradient
+    w.r.t. the generators' outputs the card's (the G loss with a zero VGG
+    plus <outputs, the card's upstream gradient>): every G and D gradient
+    tensor within TRAIN_GRAD_TOL of its max |g|. The step: every loss term
+    within TRAIN_LOSS_TOL relative, the CPU's G loss against the card's
+    updated discriminators (copied in after the CPU's D update; CycleGAN's
+    G step runs first, against the initial ones); CycleGAN both steps with
+    the host pools between them. The DeepLIIFKD teacher (ngf
+    KD_TEACHER_NGF) runs the float32 trunk kernel on the card: its
+    launches are counted, none in the other families."""
+    import dataclasses
+    from deepliif_tpu_torch import models, train_loop
+    from deepliif_tpu_torch.config import Options, TRAIN_DEFAULTS
+    from deepliif_tpu_torch.nets import layers as L
+    opt = Options(d_params=dict(TRAIN_DEFAULTS))
+    branches = SharedBranches(L)
+    results = {}
+    for name, (model, kw) in FAMILY_STEP_CASES.items():
+        t_case = time.perf_counter()
+        fam = models.family_module(model)
+        d = dataclasses.replace(
+            fam.def_from_opt(Options(d_params=dict(
+                TRAIN_DEFAULTS, modalities_no=kw['modalities_no']))),
+            ngf=FAMILY_STEP_WIDTH, ndf=FAMILY_STEP_WIDTH, use_dropout=False,
+            **kw)
+        arrays = family_step_batch(name, d, TRAIN_STEP_SIZE, TRAIN_BATCH,
+                                   SEED + 60)
+        teacher_cpu = None
+        if name == 'kd':
+            td = dataclasses.replace(d, ngf=KD_TEACHER_NGF)
+            teacher_cpu = (dl.init_nets(td, torch.Generator().manual_seed(
+                SEED + 7), with_discriminators=False).eval()
+                .requires_grad_(False), td)
+        card, side_res, flips = {}, {}, {}
+        for side, dev in (('card', 'cuda'), ('cpu', 'cpu')):
+            vnet, zvgg = vgg.VGG19Features().to(dev), zero_vgg(vgg, dev)
+            teacher = None if teacher_cpu is None else (
+                copy.deepcopy(teacher_cpu[0]).to(dev), teacher_cpu[1])
+            fwd, pairs, g_loss, d_loss = family_step_parts(
+                name, fam, dl, d, zvgg, teacher)
+            batch = {k: torch.tensor(v, dtype=torch.float32, device=dev)
+                     for k, v in arrays.items()}
+            state = fam.create_train_state(d, opt, 1, SEED, dev)
+            branches.flips, branches.flip_rel = 0, 0.0
+            with branches.on(record=side == 'card'):
+                g_out = fwd(state.nets, batch)
+                pr = pairs(g_out, batch)
+                src = [(o if side == 'card' else c.to(dev)).detach()
+                       .requires_grad_(True) for (o, _, _), c in zip(
+                           pr, card.get('outs', [None] * len(pr)))]
+                if pr:
+                    ups = torch.autograd.grad(sum(
+                        (vgg.vgg_loss(vnet, s.movedim(-1, -3),
+                                      r.movedim(-1, -3)) * wt.to(dev)).sum()
+                        for s, (_, r, wt) in zip(src, pr)), src)
+                    if side == 'card':
+                        card['outs'] = [s.detach().cpu() for s in src]
+                        card['ups'] = [u.cpu() for u in ups]
+                loss = g_loss(state.nets, batch, g_out) + sum(
+                    (o * u.to(dev)).sum() for (o, _, _), u in zip(
+                        pr, card.get('ups', [])))
+                dl.set_grads(state.g_params, loss)
+                dl.set_grads(state.d_params, d_loss(state.nets, g_out,
+                                                    batch))
+            if side == 'cpu':
+                flips = dict(positions=branches.flips,
+                             max_abs_x_rel=branches.flip_rel)
+            grads = named_grads(state)
+            del state, g_out, loss
+            # the step, from fresh weights
+            state = fam.create_train_state(d, opt, 1, SEED, dev)
+            if model == 'CycleGAN':
+                step = train_loop.cyclegan_step(fam, d, vnet, opt, SEED)
+            elif model == 'DeepLIIFKD':
+                step = fam.make_train_step(d, vnet, teacher)
+            else:
+                step = fam.make_train_step(d, vnet)
+            if side == 'cpu' and model != 'CycleGAN':
+                own_update = state.d_opt.step
+
+                def card_update(update=own_update, params=state.d_params):
+                    update()
+                    with torch.no_grad():
+                        for p, q in zip(params, card['d']):
+                            p.copy_(q)
+                state.d_opt.step = card_update
+            if side == 'card':
+                torch.cuda.synchronize()
+                reset_counts(K)
+            t0 = time.perf_counter()
+            _, metrics, _ = step(state, batch)
+            if side == 'card':
+                torch.cuda.synchronize()
+                counts = launch_counts(K)
+            card['d'] = [p.detach().cpu() for p in state.d_params]
+            side_res[side] = dict(
+                seconds=time.perf_counter() - t0, grads=grads,
+                metrics={k: v.detach().cpu() for k, v in metrics.items()})
+            del state, step, batch, vnet, zvgg, teacher
+        gc.collect()
+        torch.cuda.empty_cache()
+        gpu, cpu = side_res['card'], side_res['cpu']
+        loss_rel = {k: ((gpu['metrics'][k].double() - v.double()).abs()
+                        .max() / max(v.abs().max().item(), 1e-30)).item()
+                    for k, v in cpu['metrics'].items()}
+        grad_rel = {k: ((gpu['grads'][k].double() - v.double()).abs().max()
+                        / max(v.abs().max().item(), 1e-30)).item()
+                    for k, v in cpu['grads'].items()}
+        worst = max(grad_rel, key=grad_rel.get)
+        past = {k: v for k, v in grad_rel.items() if v > TRAIN_GRAD_TOL}
+        res = dict(family=name, model=model, config={
+            k: str(v) for k, v in kw.items()}, ngf=FAMILY_STEP_WIDTH,
+            size=TRAIN_STEP_SIZE, batch=TRAIN_BATCH,
+            teacher_ngf=KD_TEACHER_NGF if name == 'kd' else None,
+            cuda_step_seconds=gpu['seconds'], cpu_step_seconds=cpu['seconds'],
+            loss_rel_err=loss_rel, max_loss_rel_err=max(loss_rel.values()),
+            grad_tensors=len(grad_rel), worst_grad=(worst, grad_rel[worst]),
+            tensors_past_limit=past, branch_flips_replayed=flips,
+            trunk_launches=counts['float32'],
+            plane_stats_launches=counts['plane_stats'],
+            seconds=time.perf_counter() - t_case)
+        phase('train_families_vs_cpu', **res)
+        check(sorted(gpu['grads']) == sorted(cpu['grads']),
+              f'train_families_vs_cpu {name}: gradient sets differ')
+        check(max(loss_rel.values()) <= TRAIN_LOSS_TOL,
+              f'train_families_vs_cpu {name}: loss terms {loss_rel}')
+        check(not past, f'train_families_vs_cpu {name}: gradient tensors '
+                        f'past {TRAIN_GRAD_TOL} max|g|: {past}')
+        check(flips['max_abs_x_rel'] <= TRAIN_BRANCH_TOL,
+              f'train_families_vs_cpu {name}: a ReLU input takes the other '
+              f'branch than the card at {flips}')
+        # the teacher's translators, 18 trunk convs each
+        want = kw['modalities_no'] * TRUNK_PER_NET if name == 'kd' else 0
+        check(counts['float32'] == want,
+              f'train_families_vs_cpu {name}: {counts["float32"]} trunk '
+              f'launches in the step, want {want}')
+        results[name] = {k: res[k] for k in (
+            'max_loss_rel_err', 'worst_grad', 'trunk_launches',
+            'cuda_step_seconds')}
+    return results
+
+
+def family_train_rows(dataroot, name, n, seed):
+    """``n`` training rows (or, for CycleGAN, trainA / trainB1 images) of
+    TILE^2 tiles from IHC-like content: modalities as channel mixes of the
+    input, segs black with the dark nuclei red or blue."""
+    from PIL import Image
+    train = os.path.join(dataroot, 'train')
+    for i in range(n):
+        a = ihc_like_image(TILE, seed + i)
+        f = a.astype(np.float32)
+        mods = [np.clip(f[..., perm] * gain, 0, 255).astype(np.uint8)
+                for perm, gain in (((2, 1, 0), 1.0), ((1, 1, 1), 0.9),
+                                   ((0, 2, 1), 1.1), ((1, 0, 2), 1.0),
+                                   ((2, 0, 1), 0.8))]
+        dark = f.mean(-1) < 160
+        seg = np.zeros_like(a)
+        seg[dark & (f[..., 2] > f[..., 0])] = (0, 0, 255)
+        seg[dark & (f[..., 2] <= f[..., 0])] = (255, 0, 0)
+        if name == 'cyclegan':
+            for sub, img in (('trainA', a), ('trainB1', mods[0])):
+                os.makedirs(os.path.join(dataroot, sub), exist_ok=True)
+                Image.fromarray(img).save(os.path.join(dataroot, sub,
+                                                       f'{i}.png'))
+            continue
+        if name == 'ext':           # A | B1..B4 | BS1..BS4
+            tiles = [a] + mods[:4] + [np.roll(seg, k * 7, 1)
+                                      for k in range(4)]
+        elif name == 'sdg':         # A1 A2 | B1..B5
+            tiles = [a, mods[4]] + mods[:4] + [seg]
+        else:                       # A | B1..B4 | B_seg
+            tiles = [a] + mods[:4] + [seg]
+        os.makedirs(train, exist_ok=True)
+        Image.fromarray(np.concatenate(tiles, axis=1)).save(
+            os.path.join(train, f'row{i}.png'))
+
+
+def family_train_checks(M, K, dl, root, teacher):
+    """Phases 'train_ext', 'train_sdg', 'train_cyclegan', 'train_kd': each
+    family at full width (ngf = ndf = 64, resnet_9blocks; Ext 4 modalities
+    with unet_512 seg nets, SDG 4 modalities on 2 inputs, CycleGAN 1,
+    DeepLIIFKD the flagship student distilled from ``teacher``, the
+    random-weight flagship dir of the inference phases) through the CLI's
+    ``train`` on synthetic rows at
+    TILE^2, batch TRAIN_BATCH, FAMILY_TRAIN_STEPS steps and one ``latest``
+    save: every loss finite, the statistics launches a step
+    FAMILY_PLANE_PER_STEP, the trunk kernel's FAMILY_TRUNK_PER_STEP (the
+    KD teacher's 72, none elsewhere); s/step (median of steps 2..), peak
+    memory, the save's seconds. Then phase 'train_ext_checkpoint_served':
+    the Ext checkpoint through ``test`` at float32 on one TILE^2 tile, 72
+    trunk and EXT_PLANE_PER_FORWARD statistics launches a forward, the
+    outputs finite."""
+    from PIL import Image as PILImage
+    from deepliif_tpu_torch import cli, train_loop
+    out = {}
+    make_step, save_state = train_loop.make_step, train_loop._save_state
+    for name, model, m, extra in FAMILY_TRAIN_CASES:
+        dataroot = os.path.join(root, f'data_{name}')
+        family_train_rows(dataroot, name, FAMILY_TRAIN_STEPS * TRAIN_BATCH,
+                          SEED + 70)
+        steps, saves = [], []
+
+        def timed_make_step(*a, **kw):
+            step = make_step(*a, **kw)
+
+            def run(state, batch, rng=None):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = step(state, batch, rng)
+                torch.cuda.synchronize()
+                steps.append((time.perf_counter() - t0,
+                              {k: v.cpu().tolist()
+                               for k, v in res[1].items()}))
+                return res
+            return run
+
+        def timed_save(*a, **kw):
+            t0 = time.perf_counter()
+            save_state(*a, **kw)
+            saves.append(time.perf_counter() - t0)
+
+        args = ['train', '--dataroot', dataroot, '--checkpoints-dir',
+                os.path.join(root, 'ckpt'), '--name', name, '--model', model,
+                '--modalities-no', str(m), '--batch-size', str(TRAIN_BATCH),
+                '--n-epochs', '1', '--n-epochs-decay', '0', '--seed',
+                str(SEED), '--print-freq', str(TRAIN_BATCH), '--load-size',
+                str(TILE), '--crop-size', str(TILE), '--ngf',
+                str(FLAGSHIP_CFG['ngf']), '--ndf', str(FLAGSHIP_CFG['ngf']),
+                '--net-g', FLAGSHIP_CFG['netG'], '--device', 'cuda'] + extra
+        if model == 'DeepLIIFKD':
+            args += ['--model-dir-teacher', teacher]
+        train_loop.make_step, train_loop._save_state = (timed_make_step,
+                                                        timed_save)
+        try:
+            reset_counts(K)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            cli.make_cli().main(args, standalone_mode=False)
+            seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            counts = launch_counts(K)
+        finally:
+            train_loop.make_step, train_loop._save_state = (make_step,
+                                                            save_state)
+        M._init_nets_cached.cache_clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        md = os.path.join(root, 'ckpt', name)
+        per_step = [t for t, _ in steps]
+        n = max(len(steps), 1)
+        finite = all(np.isfinite(np.asarray(v, np.float64)).all()
+                     for _, mt in steps for v in mt.values())
+        res = dict(model=model, modalities=m, steps=len(steps),
+                   seconds_per_step=per_step,
+                   median_s_per_step=float(np.median(per_step[1:])),
+                   peak_mem_gib=peak / 2 ** 30, save_seconds=saves,
+                   seconds_total=seconds, kernel_launches=counts,
+                   plane_stats_per_step=counts['plane_stats'] / n,
+                   trunk_per_step=counts['float32'] / n,
+                   files=sorted(os.listdir(md)),
+                   losses=[mt for _, mt in steps])
+        phase(f'train_{name}', **res)
+        check(len(steps) == FAMILY_TRAIN_STEPS,
+              f'train_{name}: {len(steps)} steps')
+        check(finite, f'train_{name}: a loss is not finite')
+        check(len(saves) == 1 and os.path.exists(
+            os.path.join(md, 'latest_optim.npz')), f'train_{name}: saves '
+                                                   f'{saves}')
+        check(counts['plane_stats'] == FAMILY_PLANE_PER_STEP[name] * n
+              and counts['float32'] == FAMILY_TRUNK_PER_STEP[name] * n,
+              f'train_{name}: launches {counts}, want '
+              f'{FAMILY_PLANE_PER_STEP[name]} statistics and '
+              f'{FAMILY_TRUNK_PER_STEP[name]} trunk launches a step')
+        out[name] = {k: res[k] for k in (
+            'median_s_per_step', 'peak_mem_gib', 'save_seconds',
+            'plane_stats_per_step', 'trunk_per_step')}
+
+    # the Ext checkpoint served through `test`
+    imgs, outd = os.path.join(root, 'imgs'), os.path.join(root, 'out')
+    os.makedirs(imgs)
+    PILImage.fromarray(ihc_like_image(TILE, SEED + 91)).save(
+        os.path.join(imgs, 'tile.png'))
+    reset_counts(K)
+    t0 = time.perf_counter()
+    with session_forwards(M) as calls:
+        cli.run_test(imgs, outd, TILE, os.path.join(root, 'ckpt', 'ext'),
+                     device='cuda', echo=lambda *_: None)
+    torch.cuda.synchronize()
+    served = time.perf_counter() - t0
+    counts, n = launch_counts(K), len(calls)
+    pngs = sorted(f for f in os.listdir(outd) if f.endswith('.png'))
+    means = {f: float(np.asarray(PILImage.open(os.path.join(outd, f)),
+                                 np.float64).mean()) for f in pngs}
+    phase('train_ext_checkpoint_served', seconds=served, outputs=means,
+          forwards=calls, kernel_launches=counts)
+    check(sum(not raw for _, raw in calls) == 1
+          and counts['float32'] == n * LAUNCHES_PER_FORWARD
+          and counts['plane_stats'] == n * EXT_PLANE_PER_FORWARD,
+          f'train_ext_checkpoint_served: launches {counts} for {calls}')
+    check(len(pngs) >= 8 and all(np.isfinite(v) for v in means.values()),
+          f'train_ext_checkpoint_served: outputs {pngs}')
+    M._init_nets_cached.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out['ext_served'] = dict(seconds=served, forwards=n,
+                             trunk_per_forward=counts['float32'] / max(n, 1),
+                             plane_stats_per_forward=counts['plane_stats']
+                             / max(n, 1))
+    return out
+
+
 def main():
     check(torch.cuda.is_available(), 'torch.cuda.is_available() is false: '
           'chip_smoke.py needs a CUDA card')
@@ -4316,27 +4755,33 @@ def main():
             gc.collect()
             torch.cuda.empty_cache()
 
-    # the other model families and the attention U-Net, at full width
-    with tempfile.TemporaryDirectory() as root:
-        for name, model, m, input_no, seg_nets, extra in FAMILY_CASES:
-            launches[name] = family_checks(M, K, root, name, model, m,
-                                           input_no, seg_nets, extra)
-            M._init_nets_cached.cache_clear()
-            gc.collect()
-            torch.cuda.empty_cache()
-        launches['att_unet'] = att_unet_checks(M, K, root, dl, img)
-    M._init_nets_cached.cache_clear()
-    gc.collect()
-    torch.cuda.empty_cache()
+        # the other model families and the attention U-Net, at full width
+        with tempfile.TemporaryDirectory() as root:
+            for name, model, m, input_no, seg_nets, extra in FAMILY_CASES:
+                launches[name] = family_checks(M, K, root, name, model, m,
+                                               input_no, seg_nets, extra)
+                M._init_nets_cached.cache_clear()
+                gc.collect()
+                torch.cuda.empty_cache()
+            launches['att_unet'] = att_unet_checks(M, K, root, dl, img)
+        M._init_nets_cached.cache_clear()
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    # training at float32: the statistics under autograd, one step against
-    # the CPU, the flagship through the CLI's train and its checkpoint
-    # served back
-    from deepliif_tpu_torch.nets import vgg
-    train_stats = train_stats_checks(L, rnd)
-    train_step = train_step_vs_cpu(dl, vgg)
-    with tempfile.TemporaryDirectory() as root:
-        train = train_checks(M, K, dl, root)
+        # training at float32: the statistics under autograd, one step
+        # against the CPU, the flagship through the CLI's train and its
+        # checkpoint served back
+        from deepliif_tpu_torch.nets import vgg
+        train_stats = train_stats_checks(L, rnd)
+        train_step = train_step_vs_cpu(dl, vgg)
+        with tempfile.TemporaryDirectory() as root:
+            train = train_checks(M, K, dl, root)
+        # the other families' training: one step each against the CPU,
+        # then each through the CLI at full width (the flagship dir as the
+        # DeepLIIFKD teacher), the Ext checkpoint served back
+        train_families = train_families_vs_cpu(K, dl, vgg)
+        with tempfile.TemporaryDirectory() as root:
+            families = family_train_checks(M, K, dl, root, md)
 
     loaded = sorted(m for m in sys.modules if m == 'jax' or m == 'deepliif_tpu'
                     or m.startswith(('jax.', 'jaxlib', 'deepliif_tpu.')))
@@ -4357,6 +4802,14 @@ def main():
             new_paths[f'seg_only {precision} {weights}'] = (precision, v)
     for precision, v in launches['att_unet'].items():
         new_paths[f'att_unet {precision}'] = (precision, v)
+    # training: launches per step (the KD teacher's trunk) and per forward
+    # of the Ext checkpoint served
+    new_paths['train_kd (per step)'] = ('float32', {
+        'trunk': families['kd']['trunk_per_step'],
+        'plane_stats': families['kd']['plane_stats_per_step']})
+    new_paths['train_ext_checkpoint_served'] = ('float32', {
+        'trunk': families['ext_served']['trunk_per_forward'],
+        'plane_stats': families['ext_served']['plane_stats_per_forward']})
 
     def by_path(kind):
         """Launches per batch forward of the new paths that run ``kind``:
@@ -4434,6 +4887,9 @@ def main():
             'step': {k: train[k] for k in ('median_s_per_step',
                                            'peak_mem_gib')},
             'step_vs_cpu': train_step,
+            'families': {name: families[name] for name in (
+                'ext', 'sdg', 'cyclegan', 'kd')},
+            'families_step_vs_cpu': train_families,
             'forward_backward': [
                 {k: v[k] for k in ('shape', 'layout', 'kernel_ms',
                                    'plain_ms', 'bound_ms', 'dx_rel_err')}
@@ -4441,7 +4897,8 @@ def main():
         'per': f'one norm (one call, x read once) of ({BATCH}, 64, {TILE}, '
                f'{TILE}) bf16; float32 beside it, and the largest float32 '
                'up-norm in NCHW memory; launches per batch forward, and per '
-               'flagship training step (batch 2, 512^2)'})
+               'training step of the flagship and of each family (batch 2, '
+               '512^2)'})
     big = QUANT_CANVASES[-1]
     lab = [label[(*big, conn)] for conn in (4, 8)]
     report.append({

@@ -36,12 +36,13 @@ with ``--device``, ``--precision``, ``--int8-scope`` and ``--fuse-stages``
 as on ``test``. ``test-wsi`` and ``wsi-cells`` run whole slides region by
 region (``utils.wsi``): TIFF-family slides through the tiled TIFF reader,
 other images through PIL; the other slide formats of the JAX package raise
-NotImplementedError (ROADMAP.md, "WSI"). ``train`` trains the DeepLIIF
-model at float32 on one device (``train_loop``) with the JAX command's
-options, names and defaults: the card unless ``--device cpu``, one
-``--gpu-ids`` entry picks the card, background colors inferred from the
-train dir; the other families, bfloat16, spectral norm, orbax checkpoints
-and several cards raise NotImplementedError ("Training"), as does
+NotImplementedError (ROADMAP.md, "WSI"). ``train`` trains a model of any
+family (DeepLIIF, DeepLIIFExt, SDG, CycleGAN, DeepLIIFKD) at float32 on
+one device (``train_loop``) with the JAX command's options, names and
+defaults: the card unless ``--device cpu``, one ``--gpu-ids`` entry picks
+the card, background colors inferred from the train dir; bfloat16,
+spectral norm, the attention U-Net, orbax checkpoints and several cards
+raise NotImplementedError ("Training"), as does
 ``trainlaunch`` (``compute-statistics``: "Stats"). ``eval`` runs the A
 tile of each aligned row through the engine (``--device``, default cuda)
 and writes the images and an HTML gallery; ``prepare-training-data``,
@@ -786,7 +787,7 @@ def _train_command(cli, click):
         ('--name', dict(default='experiment_name', help='name of the experiment, where to store samples and models')),
         ('--checkpoints-dir', dict(default='./checkpoints', help='models are saved here')),
         ('--model', dict(default='DeepLIIF', type=click.Choice(['DeepLIIF', 'DeepLIIFExt', 'SDG', 'CycleGAN', 'DeepLIIFKD']),
-                         help='DeepLIIF trains; the other families raise NotImplementedError')),
+                         help='the model family to train (DeepLIIFKD needs --model-dir-teacher)')),
         ('--modalities-no', dict(default=4, type=int, help='number of targets')),
         ('--input-no', dict(default=1, type=int, help='number of input modalities (SDG multi-input)')),
         ('--seg-no', dict(default=1, type=int, help='number of seg tiles per row')),
@@ -847,7 +848,7 @@ def _train_command(cli, click):
         ('--modalities-names', dict(default=None, help='comma-separated modality names')),
         ('--num-threads', dict(default=2, type=int, help='loader prefetch depth')),
         ('--serial-batches', dict(is_flag=True)),
-        ('--dataset-mode', dict(default=None, help='aligned (unaligned, single: other families)')),
+        ('--dataset-mode', dict(default=None, help='aligned (paired rows) | unaligned (CycleGAN: trainA, trainB1..) | single (one-sided images); default unaligned for CycleGAN, else aligned')),
         ('--direction', dict(default='AtoB', help='CycleGAN direction')),
         ('--debug', dict(is_flag=True, help='cap each epoch at --debug-data-size iterations')),
         ('--debug-data-size', dict(default=10, type=int)),
@@ -870,7 +871,7 @@ def _train_command(cli, click):
     ]
 
     def train(**kwargs):
-        """Train a DeepLIIF model at float32 on one device."""
+        """Train a model of any family at float32 on one device."""
         run_train(kwargs, echo=click.echo)
 
     for flag, kw in reversed(options):

@@ -16,17 +16,23 @@ import threading
 
 import numpy as np
 
-from .. import roadmap
-from .aligned import AlignedDataset
+from .aligned import AlignedDataset, SingleDataset, UnalignedDataset
 from .transforms import apply_transform, get_params  # noqa: F401
 
 
 def create_dataset(opt, phase='train'):
-    mode = getattr(opt, 'dataset_mode', 'aligned') or 'aligned'
-    if mode != 'aligned':
-        raise roadmap.not_ported(f'the {mode} dataset', roadmap.TRAINING)
+    """The loader of ``opt.dataset_mode``: 'single' (``SingleDataset``),
+    'unaligned' or any mode of a CycleGAN model (``UnalignedDataset``),
+    else 'aligned' (``AlignedDataset``), as the JAX package picks it."""
+    mode = getattr(opt, 'dataset_mode', 'aligned')
+    if mode == 'single':
+        ds = SingleDataset(opt, phase)
+    elif getattr(opt, 'model', '') == 'CycleGAN' or mode == 'unaligned':
+        ds = UnalignedDataset(opt, phase)
+    else:
+        ds = AlignedDataset(opt, phase)
     return Loader(
-        AlignedDataset(opt, phase),
+        ds,
         batch_size=getattr(opt, 'batch_size', 1),
         shuffle=(phase == 'train') and not getattr(opt, 'serial_batches', False),
         seed=getattr(opt, 'seed', None),

@@ -83,12 +83,22 @@ from ..nets import ResnetGenerator, layers as L
 from ..ops import quant
 from ..utils import checkpoints, luma_u8
 from ..utils.tiler import InferenceTiler
-from . import cyclegan as cg, deepliif as dl, deepliif_ext as ext, sdg
+from . import (cyclegan as cg, deepliif as dl, deepliif_ext as ext,
+               deepliif_kd as kd, sdg)
 
 # the model option -> the family (the JAX session's switch) and its module
 _FAMILIES = {'DeepLIIF': 'deepliif', 'DeepLIIFKD': 'deepliif',
              'DeepLIIFExt': 'ext', 'SDG': 'sdg', 'CycleGAN': 'cyclegan'}
 _FAMILY_MODULES = {'deepliif': dl, 'ext': ext, 'sdg': sdg, 'cyclegan': cg}
+
+
+def family_module(model):
+    """The module that trains ``model`` (``def_from_opt``,
+    ``create_train_state``, its steps and losses): its family's, but
+    ``models.deepliif_kd`` for DeepLIIFKD, whose student serves as a
+    DeepLIIF model."""
+    return kd if model == 'DeepLIIFKD' else _FAMILY_MODULES[
+        _FAMILIES.get(model, 'deepliif')]
 
 
 def _bucket(n, max_batch=16):

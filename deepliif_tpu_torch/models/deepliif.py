@@ -43,7 +43,9 @@ against the updated discriminators, the G update. The forward is run
 once and serves both losses (the JAX step recomputes it with the same
 rng; without running statistics that is the same function). Fakes and
 reals go through a discriminator in separate calls, each with its own
-batch statistics. Other families, bfloat16, int8 and spectral norm raise
+batch statistics. ``TrainState``, ``make_train_state``, ``set_grads`` and
+``detached`` serve the other families' training too (the JAX families
+share ``dl.TrainState``). bfloat16, int8 and spectral norm raise
 NotImplementedError ("Training").
 """
 
@@ -257,8 +259,7 @@ def calibrate_act_scales(nets_, x, d: DeepLIIFDef, min_ch=quant.MIN_CH,
     percentile; per tensor without ``per_channel``). Returns {'G/...':
     range, 'GS/...': ...}; pass the same ``out`` across batches to
     max-merge."""
-    if nets_.training:
-        raise roadmap.not_ported('training (call .eval())', roadmap.TRAINING)
+    require_eval(nets_)
     cal = L.ActCalibration(quantizable_convs(nets_, min_ch), out,
                            per_channel=per_channel, pct=pct)
     xc = x.to(d.dtype).permute(0, 3, 1, 2)
@@ -271,6 +272,14 @@ def calibrate_act_scales(nets_, x, d: DeepLIIFDef, min_ch=quant.MIN_CH,
             for prefix, gs, xi in zip(nets_.prefixes['GS'], nets_.GS, seg_in):
                 gs.calibrate(xi, cal.at(prefix))
     return cal.out
+
+
+def require_eval(nets_):
+    """The inference forwards take nets in eval mode; a train-mode forward
+    is the family's ``train_forward``."""
+    if nets_.training:
+        raise ValueError('an inference forward needs the nets in eval mode '
+                         '(call .eval()); training runs train_forward')
 
 
 @functools.lru_cache(maxsize=64)
@@ -306,8 +315,7 @@ def generator_forward(nets_, x, d: DeepLIIFDef, *, seg_weights=None,
     seg (B, H, W, C) or None), in the compute dtype ``d.dtype`` (x is cast
     to it). ``seg_gen=False`` skips the seg branches; ``branches`` also
     returns the seg nets' outputs (M + 1, B, H, W, C)."""
-    if nets_.training:
-        raise roadmap.not_ported('training (call .eval())', roadmap.TRAINING)
+    require_eval(nets_)
     seg_gen = d.seg_gen if seg_gen is None else seg_gen
     xc = x.to(d.dtype).permute(0, 3, 1, 2)   # NCHW view, channels_last memory
     mods = [g(xc) for g in nets_.G]
@@ -339,8 +347,7 @@ def seg_only_forward(nets_, x, d: DeepLIIFDef, seg_weights=None,
     legacy weights (0.5, 0, 0, 0, 0.5) that is 1 translator and 2 seg nets
     of 4 + 5. The pruned branches enter the weighted sum as zeros, so the
     seg has the full forward's bits."""
-    if nets_.training:
-        raise roadmap.not_ported('training (call .eval())', roadmap.TRAINING)
+    require_eval(nets_)
     w = tuple(float(v) for v in (d.seg_weights if seg_weights is None
                                  else seg_weights))
     needed = [i for i in range(d.modalities_no) if w[i + 1] != 0]
@@ -403,34 +410,38 @@ def init_nets(d: DeepLIIFDef, generator=None, with_discriminators=True):
     return nets_
 
 
-def _param_dtype(nets_):
+def param_dtype(nets_):
     """The nets' parameter dtype: float32 in training (float64 where a
     test or check makes a float64 reference on the CPU)."""
     return next(nets_.parameters()).dtype
 
 
-def _nchw(t):
+def nchw(t):
     """(..., H, W, C) -> (..., C, H, W), a view."""
     return t.movedim(-1, -3)
 
 
-def train_forward(nets_, x, d: DeepLIIFDef, rng=None):
+def train_forward(nets_, x, d: DeepLIIFDef, rng=None, branches=False):
     """The train-mode ensemble forward under autograd: x (B, H, W, C) ->
     {'mods': (M, B, H, W, C), 'seg': (B, H, W, C)} (no 'seg' without seg
-    generators), in the nets' parameter dtype; dropout masks drawn from ``rng`` (a
-    ``torch.Generator`` on x's device), net after net. The seg nets take
-    the translators' outputs with their gradient."""
-    xc = _nchw(x.to(_param_dtype(nets_)))
+    generators; with ``branches`` also 'segs', each seg net's output (M +
+    1, B, H, W, C)), in the nets' parameter dtype; dropout masks drawn
+    from ``rng`` (a ``torch.Generator`` on x's device), net after net. The
+    seg nets take the translators' outputs with their gradient."""
+    xc = nchw(x.to(param_dtype(nets_)))
     mods = [g(xc, rng=rng) for g in nets_.G]
-    out = {'mods': torch.stack([_nchw_to_nhwc(y) for y in mods])}
+    out = {'mods': torch.stack([nhwc(y) for y in mods])}
     if d.seg_gen:
         segs = torch.stack([gs(xi, rng=rng) for gs, xi in
                             zip(nets_.GS, [xc] + mods)])
-        out['seg'] = _nchw_to_nhwc(_seg_sum(d.seg_weights, segs))
+        out['seg'] = nhwc(_seg_sum(d.seg_weights, segs))
+        if branches:
+            out['segs'] = segs.permute(0, 1, 3, 4, 2)
     return out
 
 
-def _nchw_to_nhwc(y):
+def nhwc(y):
+    """(B, C, H, W) -> (B, H, W, C), a view."""
     return y.permute(0, 2, 3, 1)
 
 
@@ -449,7 +460,7 @@ def _d_pred_seg(ds, x, real_mods, seg, d: DeepLIIFDef):
         _d_preds(ds, conds, [seg] * len(conds))))
 
 
-def _weights(w, like):
+def weights_like(w, like):
     return torch.as_tensor(w, dtype=torch.float32, device=like.device)
 
 
@@ -457,12 +468,12 @@ def d_loss_fn(nets_, g_out, batch, d: DeepLIIFDef):
     """The discriminator loss on detached fakes: (loss, terms). ``batch``:
     {'A': (B, H, W, C), 'B_mods': (M, B, H, W, C), 'B_seg': (B, H, W, C)}
     tensors; ``g_out`` as ``train_forward`` returns it."""
-    dt = _param_dtype(nets_)
-    x = _nchw(batch['A'].to(dt))
-    real = [_nchw(t.to(dt)) for t in batch['B_mods']]
-    fake = [_nchw(t).detach() for t in g_out['mods']]
+    dt = param_dtype(nets_)
+    x = nchw(batch['A'].to(dt))
+    real = [nchw(t.to(dt)) for t in batch['B_mods']]
+    fake = [nchw(t).detach() for t in g_out['mods']]
     m = d.modalities_no
-    w_d = _weights(d.loss_d_weights, x)
+    w_d = weights_like(d.loss_d_weights, x)
     lf = torch.stack([losses.gan_loss(p, False, d.gan_mode)
                       for p in _d_preds(nets_.D, [x] * m, fake)])
     lr = torch.stack([losses.gan_loss(p, True, d.gan_mode)
@@ -470,8 +481,8 @@ def d_loss_fn(nets_, g_out, batch, d: DeepLIIFDef):
     loss = ((lf + lr) * 0.5 * w_d[:m]).sum()
     terms = {'D_fake': lf, 'D_real': lr}
     if d.seg_gen:
-        fake_seg = _nchw(g_out['seg']).detach()
-        real_seg = _nchw(batch['B_seg'].to(dt))
+        fake_seg = nchw(g_out['seg']).detach()
+        real_seg = nchw(batch['B_seg'].to(dt))
         lfs = losses.gan_loss(_d_pred_seg(nets_.DS, x, real, fake_seg, d),
                               False, d.gan_mode_s)
         lrs = losses.gan_loss(_d_pred_seg(nets_.DS, x, real, real_seg, d),
@@ -486,26 +497,26 @@ def g_loss_fn(nets_, batch, d: DeepLIIFDef, vgg_net, rng=None, g_out=None):
     (terms, g_out)); runs ``train_forward`` unless ``g_out`` (its result)
     is given. The VGG terms of the M modalities run as one batch of M B
     images."""
-    dt = _param_dtype(nets_)
-    x = _nchw(batch['A'].to(dt))
+    dt = param_dtype(nets_)
+    x = nchw(batch['A'].to(dt))
     if g_out is None:
         g_out = train_forward(nets_, batch['A'], d, rng)
     real_nhwc = batch['B_mods'].to(dt)
-    real = [_nchw(t) for t in real_nhwc]
-    mods = [_nchw(t) for t in g_out['mods']]
+    real = [nchw(t) for t in real_nhwc]
+    mods = [nchw(t) for t in g_out['mods']]
     m = d.modalities_no
-    w_g = _weights(d.loss_g_weights, x)
+    w_g = weights_like(d.loss_g_weights, x)
     l_gan = torch.stack([losses.gan_loss(p, True, d.gan_mode)
                          for p in _d_preds(nets_.D, [x] * m, mods)])
     l_l1 = torch.stack([losses.smooth_l1(a, b) for a, b in zip(mods, real)]
                        ) * d.lambda_l1
-    l_vgg = vgg.vgg_loss(vgg_net, _nchw(g_out['mods']),
-                         _nchw(real_nhwc)) * d.lambda_feat
+    l_vgg = vgg.vgg_loss(vgg_net, nchw(g_out['mods']),
+                         nchw(real_nhwc)) * d.lambda_feat
     loss = ((l_gan + l_l1 + l_vgg) * w_g[:m]).sum()
     terms = {'G_GAN': l_gan, 'G_L1': l_l1, 'G_VGG': l_vgg}
     if d.seg_gen:
-        seg = _nchw(g_out['seg'])
-        real_seg = _nchw(batch['B_seg'].to(dt))
+        seg = nchw(g_out['seg'])
+        real_seg = nchw(batch['B_seg'].to(dt))
         l_gan_s = losses.gan_loss(_d_pred_seg(nets_.DS, x, real, seg, d),
                                   True, d.gan_mode_s)
         l_l1_s = losses.smooth_l1(seg, real_seg) * d.lambda_l1
@@ -514,33 +525,43 @@ def g_loss_fn(nets_, batch, d: DeepLIIFDef, vgg_net, rng=None, g_out=None):
     return loss, (terms, g_out)
 
 
+def is_discriminator_group(name):
+    """A net group of the discriminators (D, DS, DA, DB) rather than of the
+    generators (G, GS, GA, GB): the JAX package's d_params / g_params."""
+    return name.startswith('D')
+
+
 class TrainState:
-    """The nets (generators and discriminators, in train mode), their two
-    optimizers (``nets.optim.OptaxOptimizer``) and the step count."""
+    """The nets (generators and discriminators, in train mode; any module
+    with ``named_groups()``: ``DeepLIIFNets`` or a family's
+    ``family.ModelNets``), their two optimizers
+    (``nets.optim.OptaxOptimizer``) and the step count."""
 
     def __init__(self, nets_, g_opt, d_opt, step=0):
         self.nets, self.g_opt, self.d_opt, self.step = nets_, g_opt, d_opt, step
 
-    def group_params(self, names):
-        return [p for name, group in self.nets.named_groups()
-                if name in names for p in group.parameters()]
+    def groups(self, discriminators):
+        """[(name, nets)] of the discriminator or generator groups that
+        hold nets."""
+        return [(name, group) for name, group in self.nets.named_groups()
+                if is_discriminator_group(name) == discriminators
+                and len(group)]
 
     @property
     def g_params(self):
-        return self.group_params(('G', 'GS'))
+        return [p for _, g in self.groups(False) for p in g.parameters()]
 
     @property
     def d_params(self):
-        return self.group_params(('D', 'DS'))
+        return [p for _, g in self.groups(True) for p in g.parameters()]
 
 
-def create_train_state(d: DeepLIIFDef, opt, steps_per_epoch=1, seed=0,
-                       device='cpu'):
-    """Nets drawn from a generator seeded ``seed`` (on the CPU, so every
-    device gets the same weights), moved to ``device`` in train mode, and
-    the G and D optimizers (``opt.optimizer`` at ``opt.lr_g`` /
-    ``opt.lr_d`` with ``opt.lr_policy``'s schedule)."""
-    nets_ = init_nets(d, torch.Generator().manual_seed(seed))
+def make_train_state(nets_, opt, steps_per_epoch=1, device='cpu'):
+    """``nets_`` (with discriminators) moved to ``device`` in train mode, and
+    the G and D optimizers over the generator and discriminator groups
+    (``opt.optimizer`` at ``opt.lr_g`` / ``opt.lr_d`` with
+    ``opt.lr_policy``'s schedule), the JAX families' shared
+    ``create_train_state``."""
     nets_ = nets_.to(device).train()
     state = TrainState(nets_, None, None)
     state.g_opt = nets.make_optimizer(opt, state.g_params,
@@ -552,7 +573,16 @@ def create_train_state(d: DeepLIIFDef, opt, steps_per_epoch=1, seed=0,
     return state
 
 
-def _set_grads(params, loss):
+def create_train_state(d: DeepLIIFDef, opt, steps_per_epoch=1, seed=0,
+                       device='cpu'):
+    """Nets drawn from a generator seeded ``seed`` (on the CPU, so every
+    device gets the same weights), moved to ``device`` in train mode, and
+    their optimizers (``make_train_state``)."""
+    return make_train_state(init_nets(d, torch.Generator().manual_seed(seed)),
+                            opt, steps_per_epoch, device)
+
+
+def set_grads(params, loss):
     """p.grad = d loss / d p for every p (zeros where p does not reach the
     loss, as JAX's grad gives)."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
@@ -560,45 +590,80 @@ def _set_grads(params, loss):
         p.grad = torch.zeros_like(p) if g is None else g
 
 
-def _detached(metrics):
+def detached(metrics):
     return {k: v.detach() for k, v in metrics.items()}
 
 
-def make_train_step(d: DeepLIIFDef, vgg_net):
+def alternating_step(forward, d_loss, g_loss, out_keys=None):
     """The alternating update (reference optimize_parameters,
-    DeepLIIF_model.py:431-467): forward -> D gradients on detached fakes
-    -> D update -> G gradients against the updated discriminators -> G
-    update. Returns step(state, batch, rng) -> (state, metrics, g_out);
-    the gradients stay in each parameter's ``.grad``."""
+    DeepLIIF_model.py:431-467), for any family whose losses share one
+    forward: ``forward(nets, batch, rng)`` -> g_out, D gradients of
+    ``d_loss(nets, g_out, batch)`` -> (loss, terms) on detached fakes, the
+    D update, G gradients of ``g_loss(nets, batch, g_out)`` -> (loss,
+    terms) against the updated discriminators, the G update. Returns
+    step(state, batch, rng) -> (state, metrics, g_out (its ``out_keys``,
+    default all), detached); the gradients stay in each parameter's
+    ``.grad``."""
 
     def step(state, batch, rng=None):
-        g_out = train_forward(state.nets, batch['A'], d, rng)
-        d_loss, d_terms = d_loss_fn(state.nets, g_out, batch, d)
-        _set_grads(state.d_params, d_loss)
+        g_out = forward(state.nets, batch, rng)
+        loss_d, d_terms = d_loss(state.nets, g_out, batch)
+        set_grads(state.d_params, loss_d)
         state.d_opt.step()
-        g_loss, (g_terms, _) = g_loss_fn(state.nets, batch, d, vgg_net,
-                                         g_out=g_out)
-        _set_grads(state.g_params, g_loss)
+        loss_g, g_terms = g_loss(state.nets, batch, g_out)
+        set_grads(state.g_params, loss_g)
         state.g_opt.step()
         state.step += 1
-        metrics = _detached({'loss_G': g_loss, 'loss_D': d_loss, **g_terms,
-                             **d_terms})
-        return state, metrics, _detached(g_out)
+        metrics = detached({'loss_G': loss_g, 'loss_D': loss_d, **g_terms,
+                            **d_terms})
+        return state, metrics, detached(
+            {k: g_out[k] for k in (out_keys or g_out)})
 
     return step
 
 
-def make_eval_losses(d: DeepLIIFDef, vgg_net):
+def alternating_eval(forward, d_loss, g_loss):
     """Validation losses without updates (reference calculate_losses,
-    DeepLIIF_model.py:469-507): the train-mode forward and both losses,
-    without gradients."""
+    DeepLIIF_model.py:469-507, family-generic): the train-mode forward and
+    both losses of ``alternating_step``'s functions, without gradients."""
 
     def eval_losses(state, batch, rng=None):
         with torch.no_grad():
-            g_out = train_forward(state.nets, batch['A'], d, rng)
-            d_loss, d_terms = d_loss_fn(state.nets, g_out, batch, d)
-            g_loss, (g_terms, _) = g_loss_fn(state.nets, batch, d, vgg_net,
-                                             g_out=g_out)
-        return {'loss_G': g_loss, 'loss_D': d_loss, **g_terms, **d_terms}
+            g_out = forward(state.nets, batch, rng)
+            loss_d, d_terms = d_loss(state.nets, g_out, batch)
+            loss_g, g_terms = g_loss(state.nets, batch, g_out)
+        return {'loss_G': loss_g, 'loss_D': loss_d, **g_terms, **d_terms}
 
     return eval_losses
+
+
+def alternating_parts(forward_fn, d_loss_fn_, g_loss_fn_, d, **extra):
+    """(forward, d_loss, g_loss) of ``alternating_step`` from a family's
+    ``forward_fn(nets, x, d, rng)``, ``d_loss_fn_(nets, g_out, batch, d)``
+    and ``g_loss_fn_(nets, batch, d, **extra, g_out=...)`` -> (loss,
+    (terms, g_out)); ``extra`` holds what the G loss needs beyond the
+    batch (``vgg_net``, DeepLIIFKD's ``teacher``)."""
+    def forward(nets_, batch, rng):
+        return forward_fn(nets_, batch['A'], d, rng)
+
+    def d_loss(nets_, g_out, batch):
+        return d_loss_fn_(nets_, g_out, batch, d)
+
+    def g_loss(nets_, batch, g_out):
+        loss, (terms, _) = g_loss_fn_(nets_, batch, d, g_out=g_out, **extra)
+        return loss, terms
+    return forward, d_loss, g_loss
+
+
+def make_train_step(d: DeepLIIFDef, vgg_net):
+    """step(state, batch, rng) -> (state, metrics, g_out): forward -> D
+    gradients on detached fakes -> D update -> G gradients against the
+    updated discriminators -> G update (``alternating_step``)."""
+    return alternating_step(*alternating_parts(
+        train_forward, d_loss_fn, g_loss_fn, d, vgg_net=vgg_net))
+
+
+def make_eval_losses(d: DeepLIIFDef, vgg_net):
+    """Validation losses without updates (``alternating_eval``)."""
+    return alternating_eval(*alternating_parts(
+        train_forward, d_loss_fn, g_loss_fn, d, vgg_net=vgg_net))

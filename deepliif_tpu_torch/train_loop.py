@@ -1,4 +1,4 @@
-"""Training loop of the DeepLIIF model at float32 on one device, the port
+"""Training loop of every model family at float32 on one device, the port
 of deepliif_tpu/train_loop.py.
 
 Mirrors the reference epoch loop (reference cli.py:194-570) as the JAX
@@ -13,10 +13,16 @@ RMSE against val/metrics.json through the port's host quantifier) and
 
 The device is explicit (``opt.device``, default cuda): on a CUDA device
 TF32 is turned off first (``models.configure_device``), since cuDNN would
-otherwise train the float32 convs in TF32. One step is
-``models.deepliif.make_train_step``. What this loop does not run raises
-NotImplementedError (ROADMAP.md, "Training"): the other families,
-bfloat16, spectral norm, orbax checkpoints.
+otherwise train the float32 convs in TF32. One loop for every family, as
+in the JAX package: DeepLIIF, DeepLIIFKD, DeepLIIFExt and SDG run their
+family's ``make_train_step`` (DeepLIIFKD with its frozen teacher, loaded
+once from ``--model-dir-teacher``); CycleGAN's step (``cyclegan_step``)
+runs its G step, queries the host image pools (seeded seed + i and seed
++ 100 + i) and runs its D step. --with-val computes every family's
+validation losses, and the cell-count RMSE for DeepLIIF and DeepLIIFKD.
+What this loop does not run raises NotImplementedError (ROADMAP.md,
+"Training"): bfloat16, spectral norm, the attention U-Net's train mode,
+orbax checkpoints (and, in ``cli.train_device``, several cards).
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ import torch
 from . import roadmap
 from .config import save_options
 from .data import create_dataset
-from .models import configure_device, deepliif as dl
+from .models import configure_device, deepliif as dl, family_module
 from .nets import make_lr_schedule, vgg
 from .utils import checkpoints
 from .utils.visualizer import Visualizer
@@ -86,9 +92,6 @@ class PlateauController:
 def check_trainable(opt):
     """Raise NotImplementedError ("Training") for what this loop does not
     run, ValueError for an unknown precision."""
-    model = getattr(opt, 'model', 'DeepLIIF')
-    if model != 'DeepLIIF':
-        raise roadmap.not_ported(f'training of {model}', roadmap.TRAINING)
     precision = getattr(opt, 'precision', 'float32') or 'float32'
     if precision != 'float32':
         if precision not in ('bfloat16', 'int8'):
@@ -138,19 +141,66 @@ def _cell_count_rmse(model_outputs, gt_metrics, tile_size, model):
             for k, v in diffs.items()}
 
 
+def cyclegan_step(cg, d, vgg_net, opt, seed):
+    """CycleGAN's step for the loop: step(state, batch, rng) -> (state,
+    metrics, {'mods': fake_bs}): the G step, each modality's fakes through
+    its host image pool (fake B through pools_b[i], seeded seed + 100 + i;
+    fake A through pools_a[i], seed + i), the D step on the pooled fakes."""
+    g_step, d_step = cg.make_train_steps(d, vgg_net)
+    pool_size = getattr(opt, 'pool_size', 50)
+    m = d.modalities_no
+    pools_a = [cg.ImagePool(pool_size, seed + i) for i in range(m)]
+    pools_b = [cg.ImagePool(pool_size, seed + 100 + i) for i in range(m)]
+
+    def pooled(pools, fakes):
+        return torch.stack([torch.from_numpy(np.asarray(pool.query(
+            f.cpu().numpy()))) for pool, f in zip(pools, fakes)]).to(
+                fakes.device)
+
+    def step(state, batch, rng=None):
+        real_as, real_bs = cg.real_pair(batch, d)
+        state, gm, outs = g_step(state, real_as, real_bs, rng)
+        state, dm = d_step(state, pooled(pools_b, outs['fake_bs']),
+                           pooled(pools_a, outs['fake_as']), real_as,
+                           real_bs)
+        return state, {**gm, **dm}, {'mods': outs['fake_bs']}
+
+    return step
+
+
+def make_step(model, fam, d, vgg_net, opt, seed, teacher=None):
+    """The loop's step(state, batch, rng) -> (state, metrics, g_out) of
+    ``model``'s family."""
+    if model == 'CycleGAN':
+        return cyclegan_step(fam, d, vgg_net, opt, seed)
+    return fam.make_train_step(d, vgg_net, **(
+        {} if teacher is None else {'teacher': teacher}))
+
+
 def _scalar(v):
     return float(v) if v.dim() == 0 else float(v.float().mean())
 
 
 def train_model(opt):
-    """Run the whole training; returns (the final
+    """Run the whole training of ``opt.model``; returns (the final
     ``models.deepliif.TrainState``, the last step's metrics)."""
     check_trainable(opt)
     device = torch.device(getattr(opt, 'device', None) or 'cuda')
     configure_device(device)
-    d = dl.def_from_opt(opt)
-    check_weights(opt.model, d.modalities_no, list(d.seg_weights),
-                  list(d.loss_g_weights), list(d.loss_d_weights))
+    model = getattr(opt, 'model', 'DeepLIIF')
+    fam = family_module(model)
+    d = fam.def_from_opt(opt)
+    m = d.modalities_no
+    if model == 'DeepLIIFExt':
+        check_weights(model, m, [1 / m] * m, list(d.loss_g_weights),
+                      list(d.loss_d_weights))
+    elif model not in ('CycleGAN', 'SDG'):
+        check_weights(model, m, list(d.seg_weights), list(d.loss_g_weights),
+                      list(d.loss_d_weights))
+    teacher_dir = getattr(opt, 'model_dir_teacher', None)
+    if model == 'DeepLIIFKD' and not teacher_dir:
+        raise ValueError('DeepLIIFKD trains against a teacher: pass '
+                         '--model-dir-teacher')
 
     dataset = create_dataset(opt, phase='train')
     batch = getattr(opt, 'batch_size', 1)
@@ -161,7 +211,9 @@ def train_model(opt):
 
     seed = getattr(opt, 'seed', None) or 0
     vgg_net = vgg.VGG19Features().to(device)
-    state = dl.create_train_state(d, opt, steps_per_epoch, seed, device)
+    teacher = (fam.load_teacher(teacher_dir, device)
+               if model == 'DeepLIIFKD' else None)
+    state = fam.create_train_state(d, opt, steps_per_epoch, seed, device)
 
     if getattr(opt, 'verbose', False):
         for name, group in state.nets.named_groups():
@@ -187,8 +239,10 @@ def train_model(opt):
         if str(epoch).isdigit():
             epoch_base = int(epoch)
 
-    step_fn = dl.make_train_step(d, vgg_net)
-    eval_fn = (dl.make_eval_losses(d, vgg_net)
+    step_fn = make_step(model, fam, d, vgg_net, opt, seed, teacher)
+    # --with-val: every family's losses; the KD student's are DeepLIIF's
+    eval_fam = dl if model in ('DeepLIIF', 'DeepLIIFKD') else fam
+    eval_fn = (eval_fam.make_eval_losses(d, vgg_net)
                if getattr(opt, 'with_val', False) else None)
     visualizer = Visualizer(opt)
     rng = torch.Generator(device).manual_seed(seed + 1)
@@ -252,6 +306,10 @@ def train_model(opt):
                     vis[f'fake_B_{i+1}'] = mods[i][0]
                 if 'seg' in g_out:
                     vis['fake_B_S'] = g_out['seg'].cpu().numpy()[0]
+                if 'segs' in g_out:
+                    segs = g_out['segs'].cpu().numpy()
+                    for i in range(segs.shape[0]):
+                        vis[f'fake_BS_{i+1}'] = segs[i][0]
                 visualizer.display_current_results(vis, epoch, True)
 
             if total_iters % save_latest_freq == 0:
@@ -336,8 +394,11 @@ def _run_validation(opt, d, state, eval_fn, visualizer, epoch, rng, device):
     outputs = {}
     gt_path = os.path.join(opt.dataroot, 'val', 'metrics.json')
     # seg outputs feed only the cell-count RMSE vs metrics.json, so the
-    # inference forward runs only where that ground truth exists
-    want_outputs = os.path.exists(gt_path)
+    # inference forward runs only where that ground truth exists, and for
+    # the families with a seg and counts (DeepLIIF, DeepLIIFKD)
+    want_outputs = (os.path.exists(gt_path)
+                    and getattr(opt, 'model', 'DeepLIIF')
+                    in ('DeepLIIF', 'DeepLIIFKD'))
     for data in dataset_val:
         batch = batch_to_device(data, device)
         m = eval_fn(state, batch, rng)

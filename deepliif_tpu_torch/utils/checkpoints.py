@@ -10,7 +10,9 @@ state dicts (``{epoch}_net_{name}.pth`` or TorchScript ``{name}.pt``) that
 load into the modules as they are.
 
 ``save_networks`` writes the native layout from the modules (the port's
-``serialize`` and ``train``), the counterpart of
+``serialize`` and ``train``; every group of every family, discriminators
+included: G / GS / D / DS of DeepLIIF, DeepLIIFKD and DeepLIIFExt, G / D
+of SDG, GA / GB / DA / DB of CycleGAN), the counterpart of
 deepliif_tpu.utils.checkpoints ``save_networks``; ``load_networks`` reads
 it back (``--continue-train``). ``save_optim`` / ``load_optim`` write and
 read a training run's ``{epoch}_optim.npz`` in the JAX package's layout
@@ -65,10 +67,11 @@ def weight_from_hwio(w, kind):
 
 def weight_to_hwio(w, kind):
     """The inverse of ``weight_from_hwio``: a torch conv (OIHW) or
-    conv-transpose (IOHW) weight -> the JAX HWIO layout."""
+    conv-transpose (IOHW) weight -> the JAX HWIO layout, on the last four
+    dims (leading dims, such as a net axis, stay in front)."""
     if kind == 'conv':
-        return w.permute(2, 3, 1, 0)
-    return w.flip(2, 3).permute(2, 3, 0, 1)
+        return w.movedim((-2, -1, -3, -4), (-4, -3, -2, -1))
+    return w.flip(-2, -1).movedim((-2, -1, -4, -3), (-4, -3, -2, -1))
 
 
 def params_from_jax(net, tree):
@@ -98,11 +101,14 @@ def params_from_jax(net, tree):
 
 def params_to_jax(net, state_dict=None):
     """State dict of ``net`` (default: its own) -> JAX param tree of numpy
-    float32 arrays, as deepliif_tpu.utils.torch_import builds it."""
+    float32 arrays, as deepliif_tpu.utils.torch_import builds it. The
+    tensors of ``state_dict`` may carry leading dims (a group's net axis,
+    ``group_flat``); the relayout runs on their device, then one copy to
+    the host per leaf."""
     sd = net.state_dict() if state_dict is None else state_dict
 
     def arr(key):
-        return sd[key].detach().cpu().numpy()
+        return sd[key].detach().contiguous().cpu().numpy()
 
     tree = {}
     for path, prefix, kind in net.jax_layout():
@@ -111,8 +117,8 @@ def params_to_jax(net, state_dict=None):
                     'bias': arr(f'{prefix}.bias')} \
                 if f'{prefix}.weight' in sd else {}
         else:
-            w = weight_to_hwio(sd[f'{prefix}.weight'].detach().cpu(), kind)
-            node = {'w': np.ascontiguousarray(w.numpy())}
+            w = weight_to_hwio(sd[f'{prefix}.weight'].detach(), kind)
+            node = {'w': w.contiguous().cpu().numpy()}
             if f'{prefix}.bias' in sd:
                 node['b'] = arr(f'{prefix}.bias')
             if f'{prefix}.spectral_u' in sd:
@@ -176,17 +182,20 @@ def group_trees(flat, n_nets):
 def group_flat(nets, state_dicts=None):
     """The npz dict of one net group (a list of modules), in the layout
     ``group_trees`` reads and the JAX package writes: each leaf stacked
-    along a leading net axis when the nets share one architecture (every
-    key and shape equal; one net is a group of one), else each net's keys
-    under '0/', '1/', ... ``state_dicts`` (one per net, default the nets'
-    own) may hold other tensors of the parameters' shapes, such as an
-    optimizer's moments."""
-    flats = [flatten_tree(params_to_jax(net, sd)) for net, sd in
-             zip(nets, state_dicts or [None] * len(nets))]
-    layout = {k: v.shape for k, v in flats[0].items()}
-    if all({k: v.shape for k, v in f.items()} == layout for f in flats[1:]):
-        return {k: np.stack([f[k] for f in flats]) for k in flats[0]}
-    return {f'{i}/{k}': v for i, f in enumerate(flats) for k, v in f.items()}
+    along a leading net axis when the nets share one architecture (one
+    layout, every tensor's shape equal; one net is a group of one), else
+    each net's keys under '0/', '1/', ... ``state_dicts`` (one per net,
+    default the nets' own) may hold other tensors of the parameters'
+    shapes, such as an optimizer's moments."""
+    sds = state_dicts or [net.state_dict() for net in nets]
+    shapes = [{k: v.shape for k, v in sd.items()} for sd in sds]
+    layout = nets[0].jax_layout()
+    if all(net.jax_layout() == layout and s == shapes[0]
+           for net, s in zip(nets[1:], shapes[1:])):
+        return flatten_tree(params_to_jax(nets[0], {
+            k: torch.stack([sd[k].detach() for sd in sds]) for k in sds[0]}))
+    return {f'{i}/{k}': v for i, (net, sd) in enumerate(zip(nets, sds))
+            for k, v in flatten_tree(params_to_jax(net, sd)).items()}
 
 
 def save_npz(path, flat):
@@ -206,7 +215,8 @@ def save_npz(path, flat):
 
 def save_networks(save_dir, nets, epoch='latest'):
     """Write each non-empty group of ``nets`` (``named_groups()``: G / GS,
-    G / GS of DeepLIIFExt, G of SDG, GA / GB of CycleGAN) as
+    G / GS of DeepLIIFExt, G of SDG, GA / GB of CycleGAN, and in training
+    their discriminators) as
     ``{epoch}_net_{group}.npz`` in the JAX key layout; a numbered epoch
     also refreshes ``latest_net_{group}.npz``."""
     os.makedirs(save_dir, exist_ok=True)
@@ -265,17 +275,17 @@ def _optim_flat(optimizer, groups, plateau):
 
 def save_optim(path, state, plateau=False):
     """Write ``state``'s optimizer states and step (a
-    ``models.deepliif.TrainState``) to ``path`` atomically, in the JAX
-    package's ``{epoch}_optim.npz`` layout (``plateau``: the
-    inject_hyperparams state of the plateau policy, its learning rate
-    included)."""
+    ``models.deepliif.TrainState`` of any family) to ``path`` atomically,
+    in the JAX package's ``{epoch}_optim.npz`` layout: 'g' over the
+    generator groups (G / GS, or GA / GB), 'd' over the discriminators (D /
+    DS, or DA / DB) (``plateau``: the inject_hyperparams state of the
+    plateau policy, its learning rate included)."""
     flat = {'step': np.asarray(state.step, np.int32)}
-    for key, optimizer, names in (('g', state.g_opt, ('G', 'GS')),
-                                  ('d', state.d_opt, ('D', 'DS'))):
-        groups = [(n, g) for n, g in state.nets.named_groups()
-                  if n in names and len(g)]
+    for key, optimizer, disc in (('g', state.g_opt, False),
+                                 ('d', state.d_opt, True)):
         flat.update({f'{key}/{k}': v for k, v in
-                     _optim_flat(optimizer, groups, plateau).items()})
+                     _optim_flat(optimizer, state.groups(disc),
+                                 plateau).items()})
     save_npz(path, flat)
 
 
@@ -287,8 +297,8 @@ def load_optim(path, state, plateau=False):
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
     state.step = int(flat['step'])
-    for key, optimizer, names in (('g', state.g_opt, ('G', 'GS')),
-                                  ('d', state.d_opt, ('D', 'DS'))):
+    for key, optimizer, disc in (('g', state.g_opt, False),
+                                 ('d', state.d_opt, True)):
         counts, inner = _optim_prefixes(optimizer.kind, plateau)
         optimizer.count = int(flat[f'{key}/{counts[0]}'])
         if plateau:
@@ -296,9 +306,7 @@ def load_optim(path, state, plateau=False):
             for group in optimizer.param_groups:
                 group['lr'] = lr
         for m in MOMENTS[optimizer.kind]:
-            for name, nets in state.nets.named_groups():
-                if name not in names or not len(nets):
-                    continue
+            for name, nets in state.groups(disc):
                 pre = f'{key}/{inner}.{m}/{name}/'
                 sub = {k[len(pre):]: v for k, v in flat.items()
                        if k.startswith(pre)}

@@ -90,7 +90,7 @@ def main():
                     batch['B_mods'].movedim(-1, -3))
                     * w_feat.to(dev, dt)).sum(), mods)
                 up = up.cpu()
-            dl._set_grads(state.g_params, loss + (
+            dl.set_grads(state.g_params, loss + (
                 g_out['mods'] * up.to(dev, dt)).sum())
             return ({k: v.double() for k, v in smoke.named_grads(state).items()
                      if k.startswith('G')}, inputs, up)

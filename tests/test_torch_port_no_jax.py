@@ -10,7 +10,9 @@ server and runs ``serialize``, ``test-wsi`` and ``wsi-cells`` through the
 CLI, trains a tiny DeepLIIF model one step through the CLI's ``train``
 (the losses, discriminators, VGG, optimizers, loader, visualizer and
 background modules of training; the default VGG19 drawn by
-``utils.jax_random``), runs ``eval``, ``prepare-training-data``,
+``utils.jax_random``), then a tiny DeepLIIFExt, SDG, CycleGAN (its host
+image pools and the unaligned loader) and DeepLIIFKD (the DeepLIIF run as
+its teacher) one step each, runs ``eval``, ``prepare-training-data``,
 ``prepare-testing-data``, ``register`` and ``visualize`` through the CLI,
 traces a call with ``utils.profiling``, and finds no ``jax``, ``jaxlib`` or
 ``deepliif_tpu`` / ``deepliif_tpu.*`` module loaded."""
@@ -150,6 +152,28 @@ run(['train', '--dataroot', os.path.dirname(rows), '--checkpoints-dir',
      '--n-epochs-decay', '0', '--device', 'cpu'], standalone_mode=False)
 assert os.path.exists(os.path.join(md, 'ckpt', 'experiment_name',
                                    'latest_optim.npz'))
+# the other families, one step each (Ext rows A | B1 | BS1, SDG A | B1 |
+# B2, KD A | B1 | B_seg: the same 3-tile rows); the DeepLIIF run above is
+# the KD teacher
+cg_root = os.path.join(md, 'unaligned')
+for sub in ('trainA', 'trainB1'):
+    os.makedirs(os.path.join(cg_root, sub))
+    Image.fromarray(tiles[0]).save(os.path.join(cg_root, sub, 'a.png'))
+for model, root, extra in (
+        ('DeepLIIFExt', os.path.dirname(rows), []),
+        ('SDG', os.path.dirname(rows), []),
+        ('CycleGAN', cg_root, ['--pool-size', '2']),
+        ('DeepLIIFKD', os.path.dirname(rows), [
+            '--model-dir-teacher', os.path.join(md, 'ckpt',
+                                                'experiment_name')])):
+    run(['train', '--dataroot', root, '--checkpoints-dir',
+         os.path.join(md, 'ckpt'), '--name', model, '--model', model,
+         '--modalities-no', '1', '--net-g', 'resnet_2blocks', '--net-gs',
+         'unet_32', '--ngf', '8', '--ndf', '8', '--load-size', '64',
+         '--crop-size', '64', '--n-epochs', '1', '--n-epochs-decay', '0',
+         '--device', 'cpu'] + extra, standalone_mode=False)
+    with np.load(os.path.join(md, 'ckpt', model, 'latest_optim.npz')) as f:
+        assert int(f['step']) == 1, model
 import pickle, time
 from deepliif_tpu_torch.utils import (augmentation, jax_random, profiling,
                                       registration)

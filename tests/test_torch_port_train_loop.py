@@ -6,7 +6,8 @@ RMSE), the loader's batches equal to the JAX ``create_dataset``'s for one
 seed, the nets' ``latest_net_*.npz`` read by the JAX ``load_networks``,
 ``{epoch}_optim.npz`` crossing both ways, the CLI's options those of the
 JAX ``train`` plus ``--device``, and what raises NotImplementedError
-("Training")."""
+("Training"): bfloat16, spectral norm, the attention U-Net and orbax
+checkpoints in any family, and several cards."""
 
 import json
 import os
@@ -311,7 +312,8 @@ def test_train_device_and_gpu_ids():
 
 
 @pytest.mark.parametrize('extra', [
-    ['--model', 'CycleGAN'], ['--model', 'DeepLIIFExt'],
+    ['--model', 'CycleGAN', '--norm', 'spectral'],
+    ['--model', 'DeepLIIFExt', '--precision', 'bfloat16'],
     ['--precision', 'bfloat16'], ['--norm', 'spectral'],
     ['--checkpoint-format', 'orbax'], ['--gpu-ids', '0,1'],
     ['--net-gs', 'unet_512_attention']])

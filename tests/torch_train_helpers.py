@@ -4,10 +4,15 @@ port's weights, VGG and optimizer state into the JAX package's trees. No
 JAX random draw is made: the first ``jax.random`` call of a process costs
 about 13 s on this CPU."""
 
+import contextlib
 import dataclasses
+import json
+import os
 
 import numpy as np
+import pytest
 import torch
+from PIL import Image
 
 import jax
 import jax.numpy as jnp
@@ -221,11 +226,7 @@ def check_grads(out):
     default VGG19 (JAX's own draw) float32 rounding flips deep feature
     positions at these inputs in either package (the port's float32 lies
     1 % of max from its float64, JAX's 0.55 %)."""
-    for got, want in ((out['port_d_grads'], out['jax_grads'][0]),
-                      (out['port_grads_same_d'], out['jax_grads'][1])):
-        assert sorted(got) == sorted(want)
-        for k in want:
-            assert rel(got[k], want[k]) <= 1e-3, k
+    check_grad_tensors(out)
     mods, _, arrays = out['vgg_upstream']
     d = dl.DeepLIIFDef(**out['kw'])
     x = torch.from_numpy(mods).double().requires_grad_(True)
@@ -248,6 +249,16 @@ def check_grads(out):
     assert rel(x.grad.numpy(), want) <= 1e-3
 
 
+def check_grad_tensors(out):
+    """D gradients at the same parameters and G gradients against the same
+    discriminators: every tensor within 1e-3 of its max |g|."""
+    for got, want in ((out['port_d_grads'], out['jax_grads'][0]),
+                      (out['port_grads_same_d'], out['jax_grads'][1])):
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert rel(got[k], want[k]) <= 1e-3, k
+
+
 def check_params_after_one_step(out):
     """Within 1e-6 on >= 99.9 % of all parameter elements, within 2 lr
     everywhere (Adam's first update is lr sign(g)); every tensor moved."""
@@ -262,3 +273,221 @@ def check_params_after_one_step(out):
     assert (diffs <= 1e-6).mean() >= 0.999, (diffs > 1e-6).mean()
     assert diffs.max() <= 2 * LR * (1 + 1e-3)
     assert min(moved) > 0
+
+
+# ---------------------------------------------------------------------------
+# the other families (tests/test_torch_port_train_{ext,sdg,cyclegan,kd}.py)
+# ---------------------------------------------------------------------------
+
+def group_names(state, discriminators):
+    return tuple(n for n, _ in state.groups(discriminators))
+
+
+def jax_state(state, opt):
+    """The JAX package's TrainState with the port's weights, and its
+    optimizers (at LR, one step an epoch)."""
+    gp = jax_params(state.nets, group_names(state, False))
+    dp = jax_params(state.nets, group_names(state, True))
+    g_tx, d_tx = jnets.make_optimizer(opt, LR, 1), jnets.make_optimizer(
+        opt, LR, 1)
+    return jdl.TrainState(gp, dp, g_tx.init(gp), d_tx.init(dp),
+                          jnp.zeros((), jnp.int32)), g_tx, d_tx
+
+
+def record(out, jstate, jm, state, metrics):
+    """Append a step's metrics and parameters of each package to ``out``."""
+    out['jax'].append(dict(metrics={k: np.asarray(v) for k, v in jm.items()},
+                           g=flat(jstate.g_params), d=flat(jstate.d_params)))
+    out['port'].append(dict(
+        metrics={k: v.numpy() for k, v in metrics.items()},
+        g=flat(jax_params(state.nets, group_names(state, False))),
+        d=flat(jax_params(state.nets, group_names(state, True)))))
+
+
+def jax_vgg_term(x, vp, real, w):
+    """The JAX package's weighted perceptual terms, sum_i w_i
+    vgg_loss(x_i, real_i) over the leading axis; every input an argument,
+    so that a jit of it folds no constant VGG computation."""
+    return (jax.vmap(lambda a, b: jvgg.vgg_loss(vp, a, b))(x, real)
+            * w).sum()
+
+
+def zero_vgg():
+    """A VGG19Features of zero weights: its perceptual term is 0 with a
+    zero gradient (|0 - 0|), so a loss built with it lacks that term."""
+    net = vgg_t.VGG19Features()
+    with torch.no_grad():
+        for p in net.parameters():
+            p.zero_()
+    return net
+
+
+def load_flat_groups(nets_, flat_params):
+    """Load JAX-layout flat parameters ('D/conv0/w', ...) into the port's
+    groups of those names."""
+    for name, group in nets_.named_groups():
+        sub = {k[len(name) + 1:]: v for k, v in flat_params.items()
+               if k.startswith(name + '/')}
+        if not sub:
+            continue
+        for net, tree in zip(group, ck.group_trees(sub, len(group))):
+            net.load_state_dict(ck.params_from_jax(net, tree))
+
+
+def port_g_grads(make_state, d_flat, loss_fn):
+    """The port's G gradients of ``loss_fn(state)`` on a fresh state (the
+    initial weights) whose discriminators hold ``d_flat`` (JAX's), in the
+    JAX package's flat layout."""
+    state = make_state()
+    load_flat_groups(state.nets, d_flat)
+    params = state.g_params
+    for p, g in zip(params, torch.autograd.grad(loss_fn(state), params,
+                                                allow_unused=True)):
+        p.grad = torch.zeros_like(p) if g is None else g
+    return grads_jax_layout(state.nets, group_names(state, False))
+
+
+def share_jax_state(ckpt_dir, jstate, state):
+    """Write JAX's state through the JAX package's checkpoint files and
+    read it into the port's ``state``: (parameters equal, step, G count)."""
+    jck.save_networks(ckpt_dir, {**jstate.g_params, **jstate.d_params})
+    jck.save_pytree(f'{ckpt_dir}/latest_optim.npz',
+                    {'g': jstate.g_opt_state, 'd': jstate.d_opt_state,
+                     'step': jstate.step})
+    ck.load_networks(ckpt_dir, state.nets)
+    ck.load_optim(f'{ckpt_dir}/latest_optim.npz', state)
+    want = flat(jstate.g_params)
+    equal = all(np.array_equal(a, want[k]) for k, a in flat(jax_params(
+        state.nets, group_names(state, False))).items())
+    return equal, state.step, state.g_opt.count
+
+
+def check_second_step(out):
+    """Step 2 from JAX's state after step 1 (read through the JAX
+    package's files): parameters within 2.12 lr (at update 2, with b1 0.5
+    and b2 0.999, |mu^ / sqrt(nu^)| <= 1.055)."""
+    equal, step, count = out['shared_after_1']
+    assert equal and step == 1 and count == 1
+    diffs = np.concatenate([np.abs(out['port'][1][part][k]
+                                   - out['jax'][1][part][k]).ravel()
+                            for part in ('g', 'd')
+                            for k in out['jax'][1][part]])
+    assert diffs.max() <= 2.12 * LR
+
+
+_MASKS = {}
+
+
+def _mask(nhwc):
+    if nhwc not in _MASKS:
+        seed = int(np.prod(nhwc)) % (2 ** 31)
+        _MASKS[nhwc] = np.random.default_rng(seed).random(nhwc) < 0.5
+    return _MASKS[nhwc]
+
+
+@contextlib.contextmanager
+def shared_dropout():
+    """Both packages' ``layers.dropout`` replaced by one numpy mask per
+    activation shape (keep p 0.5, kept values x 2): dropout masks cannot
+    match across the packages' random generators. Yields {'jax': calls,
+    'port': calls}."""
+    from deepliif_tpu.nets import layers as jL
+    from deepliif_tpu_torch.nets import layers as tL
+    calls = {'jax': 0, 'port': 0}
+
+    def jax_dropout(x, rng, rate=0.5, train=False):
+        if not train or rng is None:
+            return x
+        calls['jax'] += 1
+        return jnp.where(_mask(tuple(x.shape)), x / (1.0 - rate),
+                         jnp.zeros_like(x))
+
+    def port_dropout(x, rng, rate=0.5, train=False):
+        if not train:
+            return x
+        calls['port'] += 1
+        b, c, h, w = x.shape
+        keep = torch.from_numpy(np.moveaxis(_mask((b, h, w, c)), -1, 1).copy())
+        return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jL, 'dropout', jax_dropout)
+    mp.setattr(tL, 'dropout', port_dropout)
+    try:
+        yield calls
+    finally:
+        mp.undo()
+
+
+def write_rows(d, n_tiles, count=2, size=64, seed=0):
+    """``count`` rows of ``n_tiles`` random tiles (PNG)."""
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for i in range(count):
+        row = rng.integers(0, 255, (size, size * n_tiles, 3), np.uint8)
+        Image.fromarray(row).save(os.path.join(d, f'r{i}.png'))
+
+
+CLI_ARGS = ['--net-g', 'resnet_2blocks', '--net-gs', 'unet_32', '--ngf',
+            '8', '--ndf', '8', '--load-size', '64', '--crop-size', '64',
+            '--scale-size', '64', '--seed', '0', '--device', 'cpu',
+            '--n-epochs', '1', '--n-epochs-decay', '0', '--num-threads',
+            '1']
+
+
+def port_train(dataroot, ckpt, name, *extra):
+    """The port's ``train`` through its CLI; returns the run's dir."""
+    from deepliif_tpu_torch import cli
+    cli.make_cli().main(['train', '--dataroot', str(dataroot),
+                         '--checkpoints-dir', str(ckpt), '--name', name]
+                        + CLI_ARGS + list(extra), standalone_mode=False)
+    return os.path.join(str(ckpt), name)
+
+
+def jax_resume_and_rewrite(run_dir, out_dir, state, opt):
+    """What the JAX package's --continue-train reads of a run dir
+    (deepliif_tpu/train_loop.py: ``load_networks`` of every group,
+    ``load_pytree`` of ``latest_optim.npz`` into its optax states), into
+    trees shaped as the port's ``state`` (a TrainState of the run's
+    configuration), then written back by the JAX package's writers into
+    ``out_dir``, with the run's config. Returns the trees read."""
+    import shutil
+    gp = jax_params(state.nets, group_names(state, False))
+    dp = jax_params(state.nets, group_names(state, True))
+    tx = jnets.make_optimizer(opt, LR, 1)
+    nets_ = jck.load_networks(run_dir, {**gp, **dp})
+    optim = jck.load_pytree(os.path.join(run_dir, 'latest_optim.npz'),
+                            {'g': tx.init(gp), 'd': tx.init(dp),
+                             'step': jnp.zeros((), jnp.int32)})
+    os.makedirs(out_dir)
+    for f in ('config.json', 'train_opt.txt'):
+        shutil.copy(os.path.join(run_dir, f), out_dir)
+    jck.save_networks(out_dir, nets_)
+    jck.save_pytree(os.path.join(out_dir, 'latest_optim.npz'), optim)
+    return nets_, optim
+
+
+def serve_through_test(run_dir, out_dir, width=64, seed=1):
+    """The port's ``test`` command (--device cpu, 64 px tiles) on one
+    random image of 64 x ``width`` px with ``run_dir`` as the model dir;
+    returns the names of the files it wrote."""
+    from deepliif_tpu_torch import cli
+    inp = os.path.join(str(out_dir), 'in')
+    os.makedirs(inp)
+    Image.fromarray(np.random.default_rng(seed).integers(
+        0, 255, (64, width, 3), np.uint8)).save(os.path.join(inp, 'img.png'))
+    out = os.path.join(str(out_dir), 'out')
+    cli.make_cli().main(['test', '--input-dir', inp, '--output-dir', out,
+                         '--tile-size', '64', '--model-dir', str(run_dir),
+                         '--device', 'cpu'], standalone_mode=False)
+    return sorted(os.listdir(out))
+
+
+def optim_step(run_dir):
+    with np.load(os.path.join(run_dir, 'latest_optim.npz')) as data:
+        return int(data['step'])
+
+
+def val_losses(run_dir):
+    with open(os.path.join(run_dir, 'metrics_log.json')) as f:
+        return json.load(f)['val'][-1]['losses']
