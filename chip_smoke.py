@@ -60,7 +60,7 @@ plus the host quantifier on the session directly, /api/batch/infer, a
 /api/postprocess and a 400 (``serve_checks``); ``serialize`` of a
 reference-layout flagship dir on the card, its parity gate and the npz
 against ``params_to_jax`` (``serialize_checks``); ``test-wsi`` and
-``wsi-cells`` through the CLI on a 1600 x 1200 pyramidal TIFF at AppMag
+``wsi-cells`` through the CLI on a 1000 x 800 pyramidal TIFF at AppMag
 40 in four regions, the outputs byte-equal run to run and to the
 per-region stitch, the scoring and the cells the per-region sums
 (``wsi_checks``); the same server at ``--precision int8``, dynamic and
@@ -84,9 +84,26 @@ term and gradient), each at full width through the CLI's ``train``
 (``train_ext``, ``train_sdg``, ``train_cyclegan``, ``train_kd``: 3 steps,
 one ``latest`` save; statistics and trunk launches a step, 72 trunk
 launches a step for DeepLIIFKD's teacher, none in the others), and the
-Ext checkpoint served through ``test`` (``train_ext_checkpoint_served``).
+Ext checkpoint served through ``test`` (``train_ext_checkpoint_served``);
+then bfloat16, spectral norm and the attention U-Net in training
+(``variant_training_phases``): a bfloat16 step of the narrow flagship layout
+on the card against the CPU's float32 step under an accuracy bound, with
+a faulty control that must fail it, and one DeepLIIFKD step whose
+bfloat16 teacher launches the bfloat16 trunk kernel
+(``train_bf16_vs_cpu``); the flagship and DeepLIIFKD with spectral norm
+(every spectral_u after the step too) and the flagship and DeepLIIFExt
+with attention seg nets against the CPU (``train_spectral_vs_cpu``,
+``train_attention_vs_cpu``, the latter against a float64 CPU run); the
+full-width flagship through the CLI's ``train`` at bfloat16, with
+spectral norm, with attention seg nets, and DeepLIIFKD with all three
+against a bfloat16 teacher (3 steps, one save; statistics and trunk
+launches a step exact); the bfloat16 checkpoint served at float32 and
+the spectral one with its vectors; two identical bfloat16 runs bitwise
+equal (``train_reproducibility``, held).
 
     python3 chip_smoke.py            # needs one CUDA card; exits 0 on success
+    python3 chip_smoke.py training-only   # bf16, spectral and attention
+                                          # training phases alone
 
 Prints one line per phase, then the kernel report as a JSON line, the card's
 name and power limit, and as the last line
@@ -3107,10 +3124,10 @@ SERVE_REQUESTS, SERVE_SIZE, SERVE_MAX_BATCH = 2, 2 * TILE, 18
 EVAL_ROWS = 1
 # the server's resolution query for a tile size (serve.RESOLUTION_TILE_SIZE)
 RESOLUTION = {512: '40x', 256: '20x', 128: '10x'}
-# the slide: 1600 x 1200 px at AppMag 40 (tile size 512 from the
-# metadata), in regions of 1024 (2 x 2 regions, three of them ragged)
-WSI_SIZE, WSI_REGION = (1200, 1600), 1024
-WSI_DESC = ('Aperio Image Library v12.0.15\n1600x1200 [0,0 1600x1200] '
+# the slide: 1000 x 800 px at AppMag 40 (tile size 512 from the
+# metadata), in regions of 512 (2 x 2 regions, three of them ragged)
+WSI_SIZE, WSI_REGION = (800, 1000), 512
+WSI_DESC = ('Aperio Image Library v12.0.15\n1000x800 [0,0 1000x800] '
             '(256x256) RGB|AppMag = 40|MPP = 0.25')
 
 
@@ -3762,6 +3779,46 @@ TRAIN_ROWS, TRAIN_STEPS, TRAIN_REPRO_STEPS = 6, 3, 1
 PLANE_PER_TRAIN_STEP = 4 * 23 + 5 * 15 + (18 + 9) * 4
 
 
+def train_repro(root, args, precision):
+    """Phase 'train_reproducibility': two identical TRAIN_REPRO_STEPS-step
+    runs from one seed through the train command's own argument parsing
+    (``args`` after the command, at ``precision``; saves skipped), without
+    flips, which the loader draws from Python's global random state
+    (unseeded, as in the JAX package). Their max |Δparam| is printed; at
+    bfloat16 it must be 0 (bitwise equal runs), at float32 it is printed
+    only. Returns it."""
+    from deepliif_tpu_torch import cli, train_loop
+    repro = list(args) + [
+        '--no-flip', '--debug', '--debug-data-size',
+        str(TRAIN_REPRO_STEPS * TRAIN_BATCH), '--print-freq', str(10 ** 6),
+        '--checkpoints-dir', os.path.join(root, f'repro_{precision}'),
+        '--precision', precision]
+    save_state = train_loop._save_state
+    train_loop._save_state = lambda *a, **kw: None
+    try:
+        params = []
+        for _ in range(2):
+            kwargs = cli.make_cli().commands['train'].make_context(
+                'train', list(repro)).params
+            state, _ = cli.run_train(kwargs, echo=lambda *_: None)
+            params.append([p.detach().cpu() for _, g in
+                           state.nets.named_groups() for p in g.parameters()])
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        train_loop._save_state = save_state
+    delta = max((a - b).abs().max().item() for a, b in zip(*params))
+    phase('train_reproducibility', steps=TRAIN_REPRO_STEPS,
+          precision=precision, max_abs_param_delta=delta,
+          bitwise_equal=delta == 0.0,
+          held=precision == 'bfloat16')
+    if precision == 'bfloat16':
+        check(delta == 0.0, f'train_reproducibility: two identical bfloat16 '
+                            f'runs differ by {delta}')
+    return delta
+
+
 def train_stats_checks(L, rnd):
     """``plane_mean_var_train`` (the statistics kernel under autograd) on
     the card, forward and backward, against autograd of
@@ -4106,9 +4163,8 @@ def train_checks(M, K, dl, root):
     ``latest`` save; every step's loss terms finite, PLANE_PER_TRAIN_STEP
     statistics launches a step and no trunk kernel; s/step (median of
     steps 2..), peak memory, the save's seconds. Then two identical
-    TRAIN_REPRO_STEPS-step runs from one seed (saves skipped): their max
-    |Δparam| is printed, not held (cuDNN's weight gradients need not be
-    bitwise reproducible). Then the checkpoint served back through ``test``
+    TRAIN_REPRO_STEPS-step runs from one seed (``train_repro``: printed,
+    not held at float32). Then the checkpoint served back through ``test``
     at float32 on one 512^2 tile: 72 trunk and 95 statistics launches, the
     outputs finite."""
     from PIL import Image as PILImage
@@ -4175,32 +4231,7 @@ def train_checks(M, K, dl, root):
           f'train: launches {counts}, want {PLANE_PER_TRAIN_STEP} '
           f'statistics a step and no trunk kernel')
 
-    # two identical runs from one seed, through the train command's own
-    # argument parsing; without flips, which the loader draws from Python's
-    # global random state (unseeded, as in the JAX package)
-    repro = [a for a in args if a not in ('train',)] + [
-        '--no-flip', '--debug', '--debug-data-size', str(TRAIN_REPRO_STEPS * TRAIN_BATCH),
-        '--print-freq', str(10 ** 6), '--checkpoints-dir',
-        os.path.join(root, 'repro')]
-    train_loop._save_state = lambda *a, **kw: None
-    try:
-        params = []
-        for _ in range(2):
-            kwargs = cli.make_cli().commands['train'].make_context(
-                'train', list(repro)).params
-            state, _ = cli.run_train(kwargs, echo=lambda *_: None)
-            params.append([p.detach().cpu() for _, g in
-                           state.nets.named_groups() for p in g.parameters()])
-            del state
-            gc.collect()
-            torch.cuda.empty_cache()
-    finally:
-        train_loop._save_state = save_state
-    delta = max((a - b).abs().max().item() for a, b in zip(*params))
-    phase('train_reproducibility', steps=TRAIN_REPRO_STEPS,
-          max_abs_param_delta=delta, bitwise_equal=delta == 0.0)
-    del params
-
+    delta = train_repro(root, [a for a in args if a != 'train'], 'float32')
     # the checkpoint served through `test`
     imgs, out = os.path.join(root, 'imgs'), os.path.join(root, 'out')
     os.makedirs(imgs)
@@ -4281,30 +4312,31 @@ FAMILY_TRUNK_PER_STEP = {'ext': 0, 'sdg': 0, 'cyclegan': 0,
 EXT_PLANE_PER_FORWARD = 4 * PLANE_PER_TRANSLATOR + 4 * PLANE_PER_UNET
 
 
-def family_step_batch(name, d, size, batch, seed):
-    """A family's training batch in [-1, 1] (numpy NHWC)."""
+def family_step_batch(model, d, size, batch, seed):
+    """A training batch of family ``model`` in [-1, 1] (numpy NHWC)."""
     rng = np.random.default_rng(seed)
     m = d.modalities_no
     shape = (batch, size, size)
+    sdg = model == 'SDG'
     out = {'A': rng.uniform(-1, 1, shape + (
-        3 * getattr(d, 'input_no', 1) if name == 'sdg' else 3,)),
-        'B_mods': rng.uniform(-1, 1, (m + (name == 'sdg'),) + shape + (3,))}
-    if name == 'ext':
+        3 * getattr(d, 'input_no', 1) if sdg else 3,)),
+        'B_mods': rng.uniform(-1, 1, (m + sdg,) + shape + (3,))}
+    if model == 'DeepLIIFExt':
         out['B_segs'] = rng.uniform(-1, 1, (m,) + shape + (3,))
-    if name == 'kd':
+    if model in ('DeepLIIF', 'DeepLIIFKD'):
         out['B_seg'] = rng.uniform(-1, 1, shape + (3,))
     return out
 
 
-def family_step_parts(name, fam, dl, d, zvgg, teacher):
+def family_step_parts(model, fam, dl, d, zvgg, teacher):
     """(forward(nets, batch), vgg_pairs(g_out, batch) -> [(output, real,
     weights)], g_loss(nets, batch, g_out) with the zero VGG ``zvgg``,
-    d_loss(nets, g_out, batch)) of family ``name``."""
+    d_loss(nets, g_out, batch)) of family ``model``."""
     m = d.modalities_no
 
     def w(v):
         return torch.tensor(v, dtype=torch.float32)
-    if name == 'cyclegan':
+    if model == 'CycleGAN':
         return (lambda nets, b: fam.train_forward(nets, *fam.real_pair(b, d),
                                                   d),
                 lambda o, b: [(o['fake_bs'], fam.real_pair(b, d)[1],
@@ -4316,7 +4348,7 @@ def family_step_parts(name, fam, dl, d, zvgg, teacher):
                 lambda nets, o, b: fam.d_loss_fn(
                     nets, o['fake_bs'], o['fake_as'], *fam.real_pair(b, d),
                     d)[0])
-    if name == 'kd':
+    if model == 'DeepLIIFKD':
         return (lambda nets, b: fam.student_forward_with_branches(
                     nets, b['A'], d),
                 lambda o, b: [(o['mods'], b['B_mods'], d.lambda_feat
@@ -4324,11 +4356,12 @@ def family_step_parts(name, fam, dl, d, zvgg, teacher):
                 lambda nets, b, o: fam.g_loss_fn(nets, b, d, zvgg, teacher,
                                                  g_out=o)[0],
                 lambda nets, o, b: dl.d_loss_fn(nets, o, b, d)[0])
-    pairs = (lambda o, b: []) if name == 'ext' else (
+    ext = model == 'DeepLIIFExt'
+    pairs = (lambda o, b: []) if ext else (
         lambda o, b: [(o['mods'], b['B_mods'][:m],
-                       d.lambda_feat * w(d.loss_g_weights))])
+                       d.lambda_feat * w(d.loss_g_weights[:m]))])
     g_loss = (lambda nets, b, o: fam.g_loss_fn(nets, b, d, g_out=o)[0]) \
-        if name == 'ext' else \
+        if ext else \
         (lambda nets, b, o: fam.g_loss_fn(nets, b, d, zvgg, g_out=o)[0])
     return (lambda nets, b: fam.train_forward(nets, b['A'], d), pairs,
             g_loss, lambda nets, o, b: fam.d_loss_fn(nets, o, b, d)[0])
@@ -4348,18 +4381,58 @@ def train_families_vs_cpu(K, dl, vgg):
     """Phase 'train_families_vs_cpu': one step of each family
     (FAMILY_STEP_CASES, ngf = ndf = FAMILY_STEP_WIDTH, TRAIN_STEP_SIZE^2,
     TRAIN_BATCH, no dropout) on the card against the same step on the CPU
+    in float32 (``steps_vs_cpu``)."""
+    return steps_vs_cpu(K, dl, vgg, FAMILY_STEP_CASES, TRAIN_STEP_SIZE,
+                        'train_families_vs_cpu')
+
+
+def grad_scale(key, grads):
+    """The scale a gradient tensor is held against: its max |g|, or, for
+    the bias of an attention U-Net conv that feeds a train-mode batch norm
+    (the middle encoder levels, the gates' three convs), whose gradient is
+    0 up to rounding, its conv weight's."""
+    mod = key.rsplit('.', 3)
+    att = (key.endswith('.0.bias') and (
+        mod[-3] in ('W_g', 'W_x', 'psi')
+        or mod[-3] == 'conv' and mod[-4].split('.')[-1] in {
+            f'Conv{i}' for i in range(2, 8)}))
+    g = grads[key[:-len('bias')] + 'weight'] if att else grads[key]
+    return max(g.abs().max().item(), 1e-30)
+
+
+def spectral_us(nets_):
+    return {f'{group}.{i}.{k}': b.detach().cpu()
+            for group, nets in nets_.named_groups()
+            for i, net in enumerate(nets)
+            for k, b in net.named_buffers() if k.endswith('spectral_u')}
+
+
+def steps_vs_cpu(K, dl, vgg, cases, size, name_of_phase, float64=False):
+    """One step of each case ({name: (model, DeepLIIFDef fields)}, ngf =
+    ndf = FAMILY_STEP_WIDTH, size^2, TRAIN_BATCH, no dropout) on the card
+    against the same step on the CPU
     in float32, the same weights (drawn on the CPU from one seed) and
     batch. Gradients at the initial weights, the CPU replaying the card's
     ReLU branches (``SharedBranches``) and the perceptual term's gradient
     w.r.t. the generators' outputs the card's (the G loss with a zero VGG
     plus <outputs, the card's upstream gradient>): every G and D gradient
-    tensor within TRAIN_GRAD_TOL of its max |g|. The step: every loss term
-    within TRAIN_LOSS_TOL relative, the CPU's G loss against the card's
-    updated discriminators (copied in after the CPU's D update; CycleGAN's
-    G step runs first, against the initial ones); CycleGAN both steps with
-    the host pools between them. The DeepLIIFKD teacher (ngf
-    KD_TEACHER_NGF) runs the float32 trunk kernel on the card: its
-    launches are counted, none in the other families."""
+    tensor within TRAIN_GRAD_TOL of its max |g| (``grad_scale``). The
+    step: every loss term within TRAIN_LOSS_TOL relative, the CPU's G loss
+    against the card's updated discriminators (copied in after the CPU's D
+    update; CycleGAN's G step runs first, against the initial ones);
+    CycleGAN both steps with the host pools between them. With spectral
+    norm the CPU's generators take the card's updated weights too, and
+    every ``spectral_u`` after the step (refreshed from those weights, or
+    kept, in DeepLIIFKD) within TRAIN_U_TOL relative of the card's. The
+    DeepLIIFKD teacher (ngf KD_TEACHER_NGF, batch norm) runs the float32
+    trunk kernel on the card: its launches are counted, none in the other
+    families. ``float64``: the gradients are held against a float64 CPU
+    run instead (replaying the card's branches too): the card within
+    TRAIN_GRAD_TOL of max |g| plus TRAIN_GRAD_CPU_FACTOR times the CPU
+    float32 run's own distance from it (the attention U-Net's batch norm
+    over the two values of its 1x1 innermost level at 256^2 amplifies
+    rounding: in the CPU tests both packages' float32 gradients lie up to
+    9 % of max |g| from float64)."""
     import dataclasses
     from deepliif_tpu_torch import models, train_loop
     from deepliif_tpu_torch.config import Options, TRAIN_DEFAULTS
@@ -4367,7 +4440,7 @@ def train_families_vs_cpu(K, dl, vgg):
     opt = Options(d_params=dict(TRAIN_DEFAULTS))
     branches = SharedBranches(L)
     results = {}
-    for name, (model, kw) in FAMILY_STEP_CASES.items():
+    for name, (model, kw) in cases.items():
         t_case = time.perf_counter()
         fam = models.family_module(model)
         d = dataclasses.replace(
@@ -4375,41 +4448,47 @@ def train_families_vs_cpu(K, dl, vgg):
                 TRAIN_DEFAULTS, modalities_no=kw['modalities_no']))),
             ngf=FAMILY_STEP_WIDTH, ndf=FAMILY_STEP_WIDTH, use_dropout=False,
             **kw)
-        arrays = family_step_batch(name, d, TRAIN_STEP_SIZE, TRAIN_BATCH,
-                                   SEED + 60)
+        arrays = family_step_batch(model, d, size, TRAIN_BATCH, SEED + 60)
         teacher_cpu = None
-        if name == 'kd':
-            td = dataclasses.replace(d, ngf=KD_TEACHER_NGF)
+        spectral = d.norm == 'spectral'
+        if model == 'DeepLIIFKD':
+            td = dataclasses.replace(d, ngf=KD_TEACHER_NGF, norm='batch')
             teacher_cpu = (dl.init_nets(td, torch.Generator().manual_seed(
                 SEED + 7), with_discriminators=False).eval()
                 .requires_grad_(False), td)
         card, side_res, flips = {}, {}, {}
-        for side, dev in (('card', 'cuda'), ('cpu', 'cpu')):
-            vnet, zvgg = vgg.VGG19Features().to(dev), zero_vgg(vgg, dev)
+        sides = (('card', 'cuda', torch.float32), ('cpu', 'cpu',
+                                                    torch.float32))
+        for side, dev, dt in sides + ((('float64', 'cpu', torch.float64),)
+                                      if float64 else ()):
+            vnet = vgg.VGG19Features().to(dev, dt)
+            zvgg = zero_vgg(vgg, dev).to(dt)
             teacher = None if teacher_cpu is None else (
                 copy.deepcopy(teacher_cpu[0]).to(dev), teacher_cpu[1])
             fwd, pairs, g_loss, d_loss = family_step_parts(
-                name, fam, dl, d, zvgg, teacher)
-            batch = {k: torch.tensor(v, dtype=torch.float32, device=dev)
+                model, fam, dl, d, zvgg, teacher)
+            batch = {k: torch.tensor(v, dtype=dt, device=dev)
                      for k, v in arrays.items()}
             state = fam.create_train_state(d, opt, 1, SEED, dev)
+            state.nets.to(dt)
             branches.flips, branches.flip_rel = 0, 0.0
             with branches.on(record=side == 'card'):
                 g_out = fwd(state.nets, batch)
                 pr = pairs(g_out, batch)
-                src = [(o if side == 'card' else c.to(dev)).detach()
+                src = [(o if side == 'card' else c.to(dev, dt)).detach()
                        .requires_grad_(True) for (o, _, _), c in zip(
                            pr, card.get('outs', [None] * len(pr)))]
                 if pr:
                     ups = torch.autograd.grad(sum(
                         (vgg.vgg_loss(vnet, s.movedim(-1, -3),
-                                      r.movedim(-1, -3)) * wt.to(dev)).sum()
+                                      r.movedim(-1, -3))
+                         * wt.to(dev, dt)).sum()
                         for s, (_, r, wt) in zip(src, pr)), src)
                     if side == 'card':
                         card['outs'] = [s.detach().cpu() for s in src]
                         card['ups'] = [u.cpu() for u in ups]
                 loss = g_loss(state.nets, batch, g_out) + sum(
-                    (o * u.to(dev)).sum() for (o, _, _), u in zip(
+                    (o * u.to(dev, dt)).sum() for (o, _, _), u in zip(
                         pr, card.get('ups', [])))
                 dl.set_grads(state.g_params, loss)
                 dl.set_grads(state.d_params, d_loss(state.nets, g_out,
@@ -4419,6 +4498,9 @@ def train_families_vs_cpu(K, dl, vgg):
                              max_abs_x_rel=branches.flip_rel)
             grads = named_grads(state)
             del state, g_out, loss
+            if side == 'float64':
+                side_res[side] = dict(grads=grads)
+                continue
             # the step, from fresh weights
             state = fam.create_train_state(d, opt, 1, SEED, dev)
             if model == 'CycleGAN':
@@ -4428,14 +4510,19 @@ def train_families_vs_cpu(K, dl, vgg):
             else:
                 step = fam.make_train_step(d, vnet)
             if side == 'cpu' and model != 'CycleGAN':
-                own_update = state.d_opt.step
+                for opt_, params, key in (
+                        (state.d_opt, state.d_params, 'd'),
+                        (state.g_opt, state.g_params, 'g')):
+                    if key == 'g' and not spectral:
+                        continue
 
-                def card_update(update=own_update, params=state.d_params):
-                    update()
-                    with torch.no_grad():
-                        for p, q in zip(params, card['d']):
-                            p.copy_(q)
-                state.d_opt.step = card_update
+                    def card_update(update=opt_.step, params=params,
+                                    key=key):
+                        update()
+                        with torch.no_grad():
+                            for p, q in zip(params, card[key]):
+                                p.copy_(q)
+                    opt_.step = card_update
             if side == 'card':
                 torch.cuda.synchronize()
                 reset_counts(K)
@@ -4445,8 +4532,10 @@ def train_families_vs_cpu(K, dl, vgg):
                 torch.cuda.synchronize()
                 counts = launch_counts(K)
             card['d'] = [p.detach().cpu() for p in state.d_params]
+            card['g'] = [p.detach().cpu() for p in state.g_params]
             side_res[side] = dict(
                 seconds=time.perf_counter() - t0, grads=grads,
+                us=spectral_us(state.nets),
                 metrics={k: v.detach().cpu() for k, v in metrics.items()})
             del state, step, batch, vnet, zvgg, teacher
         gc.collect()
@@ -4456,14 +4545,32 @@ def train_families_vs_cpu(K, dl, vgg):
                         .max() / max(v.abs().max().item(), 1e-30)).item()
                     for k, v in cpu['metrics'].items()}
         grad_rel = {k: ((gpu['grads'][k].double() - v.double()).abs().max()
-                        / max(v.abs().max().item(), 1e-30)).item()
+                        / grad_scale(k, cpu['grads'])).item()
                     for k, v in cpu['grads'].items()}
         worst = max(grad_rel, key=grad_rel.get)
         past = {k: v for k, v in grad_rel.items() if v > TRAIN_GRAD_TOL}
+        if float64:
+            # against float64: TRAIN_GRAD_TOL plus the CPU float32 run's
+            # own distance, TRAIN_GRAD_CPU_FACTOR times
+            ref = side_res['float64']['grads']
+            grad_rel = {}
+            for k, want in ref.items():
+                scale = grad_scale(k, ref)
+                e_card = (gpu['grads'][k].double() - want).abs().max().item()
+                e_cpu = (cpu['grads'][k].double() - want).abs().max().item()
+                grad_rel[k] = e_card / (TRAIN_GRAD_TOL * scale
+                                        + TRAIN_GRAD_CPU_FACTOR * e_cpu)
+            worst = max(grad_rel, key=grad_rel.get)
+            past = {k: v for k, v in grad_rel.items() if v > 1}
+        u_rel = {k: ((gpu['us'][k].double() - v.double()).abs().max()
+                     / max(v.abs().max().item(), 1e-30)).item()
+                 for k, v in cpu['us'].items()}
         res = dict(family=name, model=model, config={
             k: str(v) for k, v in kw.items()}, ngf=FAMILY_STEP_WIDTH,
-            size=TRAIN_STEP_SIZE, batch=TRAIN_BATCH,
-            teacher_ngf=KD_TEACHER_NGF if name == 'kd' else None,
+            size=size, batch=TRAIN_BATCH,
+            teacher_ngf=KD_TEACHER_NGF if model == 'DeepLIIFKD' else None,
+            spectral_u=len(u_rel),
+            max_u_rel_err=max(u_rel.values()) if u_rel else None,
             cuda_step_seconds=gpu['seconds'], cpu_step_seconds=cpu['seconds'],
             loss_rel_err=loss_rel, max_loss_rel_err=max(loss_rel.values()),
             grad_tensors=len(grad_rel), worst_grad=(worst, grad_rel[worst]),
@@ -4471,24 +4578,28 @@ def train_families_vs_cpu(K, dl, vgg):
             trunk_launches=counts['float32'],
             plane_stats_launches=counts['plane_stats'],
             seconds=time.perf_counter() - t_case)
-        phase('train_families_vs_cpu', **res)
+        phase(name_of_phase, **res)
         check(sorted(gpu['grads']) == sorted(cpu['grads']),
-              f'train_families_vs_cpu {name}: gradient sets differ')
+              f'{name_of_phase} {name}: gradient sets differ')
         check(max(loss_rel.values()) <= TRAIN_LOSS_TOL,
-              f'train_families_vs_cpu {name}: loss terms {loss_rel}')
-        check(not past, f'train_families_vs_cpu {name}: gradient tensors '
+              f'{name_of_phase} {name}: loss terms {loss_rel}')
+        check(not past, f'{name_of_phase} {name}: gradient tensors '
                         f'past {TRAIN_GRAD_TOL} max|g|: {past}')
         check(flips['max_abs_x_rel'] <= TRAIN_BRANCH_TOL,
-              f'train_families_vs_cpu {name}: a ReLU input takes the other '
+              f'{name_of_phase} {name}: a ReLU input takes the other '
               f'branch than the card at {flips}')
+        check(bool(u_rel) == spectral and all(
+            v <= TRAIN_U_TOL for v in u_rel.values()),
+            f'{name_of_phase} {name}: spectral_u after the step {u_rel}')
         # the teacher's translators, 18 trunk convs each
-        want = kw['modalities_no'] * TRUNK_PER_NET if name == 'kd' else 0
+        want = kw['modalities_no'] * TRUNK_PER_NET if \
+            model == 'DeepLIIFKD' else 0
         check(counts['float32'] == want,
-              f'train_families_vs_cpu {name}: {counts["float32"]} trunk '
+              f'{name_of_phase} {name}: {counts["float32"]} trunk '
               f'launches in the step, want {want}')
         results[name] = {k: res[k] for k in (
             'max_loss_rel_err', 'worst_grad', 'trunk_launches',
-            'cuda_step_seconds')}
+            'cuda_step_seconds', 'max_u_rel_err')}
     return results
 
 
@@ -4527,6 +4638,85 @@ def family_train_rows(dataroot, name, n, seed):
             os.path.join(train, f'row{i}.png'))
 
 
+def cli_train(M, K, root, name, args, kinds=('float32',)):
+    """One full-width run of the CLI's ``train`` (``args`` after the
+    command) with each step timed and each save: (res, the run's dir).
+    res: steps, seconds per step (median of steps 2..), peak memory, the
+    saves' seconds, the kernel launches (statistics and the trunk of each
+    precision in ``kinds``, per step), the losses, and whether they are all
+    finite."""
+    from deepliif_tpu_torch import cli, train_loop
+    steps, saves = [], []
+    make_step, save_state = train_loop.make_step, train_loop._save_state
+
+    def timed_make_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(state, batch, rng=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = step(state, batch, rng)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0,
+                          {k: v.cpu().tolist() for k, v in res[1].items()}))
+            return res
+        return run
+
+    def timed_save(*a, **kw):
+        t0 = time.perf_counter()
+        save_state(*a, **kw)
+        saves.append(time.perf_counter() - t0)
+
+    train_loop.make_step, train_loop._save_state = timed_make_step, timed_save
+    try:
+        reset_counts(K)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cli.make_cli().main(['train', '--checkpoints-dir',
+                             os.path.join(root, 'ckpt'), '--name', name]
+                            + list(args), standalone_mode=False)
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        counts = launch_counts(K)
+    finally:
+        train_loop.make_step, train_loop._save_state = make_step, save_state
+    M._init_nets_cached.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    md = os.path.join(root, 'ckpt', name)
+    per_step = [t for t, _ in steps]
+    n = max(len(steps), 1)
+    res = dict(steps=len(steps), seconds_per_step=per_step,
+               median_s_per_step=float(np.median(per_step[1:])),
+               peak_mem_gib=peak / 2 ** 30, save_seconds=saves,
+               seconds_total=seconds, kernel_launches=counts,
+               plane_stats_per_step=counts['plane_stats'] / n,
+               plane_relayouts=counts['plane_relayouts'],
+               files=sorted(os.listdir(md)),
+               finite=all(np.isfinite(np.asarray(v, np.float64)).all()
+                          for _, mt in steps for v in mt.values()),
+               losses=[mt for _, mt in steps])
+    for kind in kinds:
+        res[f'trunk_{kind}_per_step'] = counts[kind] / n
+    return res, md
+
+
+def check_cli_train(res, md, name, n_steps, plane_per_step, trunk):
+    """A ``cli_train`` run took ``n_steps`` steps with finite losses and
+    one ``latest`` save, ``plane_per_step`` statistics launches a step and
+    ``trunk`` ({precision: trunk launches a step})."""
+    check(res['steps'] == n_steps, f'{name}: {res["steps"]} steps')
+    check(res['finite'], f'{name}: a loss is not finite')
+    check(len(res['save_seconds']) == 1 and os.path.exists(
+        os.path.join(md, 'latest_optim.npz')), f'{name}: saves '
+                                               f'{res["save_seconds"]}')
+    counts = res['kernel_launches']
+    check(counts['plane_stats'] == plane_per_step * n_steps
+          and all(counts[k] == v * n_steps for k, v in trunk.items()),
+          f'{name}: launches {counts}, want {plane_per_step} statistics and '
+          f'{trunk} trunk launches a step')
+
+
 def family_train_checks(M, K, dl, root, teacher):
     """Phases 'train_ext', 'train_sdg', 'train_cyclegan', 'train_kd': each
     family at full width (ngf = ndf = 64, resnet_9blocks; Ext 4 modalities
@@ -4535,44 +4725,21 @@ def family_train_checks(M, K, dl, root, teacher):
     random-weight flagship dir of the inference phases) through the CLI's
     ``train`` on synthetic rows at
     TILE^2, batch TRAIN_BATCH, FAMILY_TRAIN_STEPS steps and one ``latest``
-    save: every loss finite, the statistics launches a step
-    FAMILY_PLANE_PER_STEP, the trunk kernel's FAMILY_TRUNK_PER_STEP (the
-    KD teacher's 72, none elsewhere); s/step (median of steps 2..), peak
-    memory, the save's seconds. Then phase 'train_ext_checkpoint_served':
-    the Ext checkpoint through ``test`` at float32 on one TILE^2 tile, 72
-    trunk and EXT_PLANE_PER_FORWARD statistics launches a forward, the
-    outputs finite."""
+    save (``cli_train``): every loss finite, the statistics launches a
+    step FAMILY_PLANE_PER_STEP, the trunk kernel's FAMILY_TRUNK_PER_STEP
+    (the KD teacher's 72, none elsewhere); s/step (median of steps 2..),
+    peak memory, the save's seconds. Then phase
+    'train_ext_checkpoint_served': the Ext checkpoint through ``test`` at
+    float32 on one TILE^2 tile, 72 trunk and EXT_PLANE_PER_FORWARD
+    statistics launches a forward, the outputs finite."""
     from PIL import Image as PILImage
-    from deepliif_tpu_torch import cli, train_loop
+    from deepliif_tpu_torch import cli
     out = {}
-    make_step, save_state = train_loop.make_step, train_loop._save_state
     for name, model, m, extra in FAMILY_TRAIN_CASES:
         dataroot = os.path.join(root, f'data_{name}')
         family_train_rows(dataroot, name, FAMILY_TRAIN_STEPS * TRAIN_BATCH,
                           SEED + 70)
-        steps, saves = [], []
-
-        def timed_make_step(*a, **kw):
-            step = make_step(*a, **kw)
-
-            def run(state, batch, rng=None):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                res = step(state, batch, rng)
-                torch.cuda.synchronize()
-                steps.append((time.perf_counter() - t0,
-                              {k: v.cpu().tolist()
-                               for k, v in res[1].items()}))
-                return res
-            return run
-
-        def timed_save(*a, **kw):
-            t0 = time.perf_counter()
-            save_state(*a, **kw)
-            saves.append(time.perf_counter() - t0)
-
-        args = ['train', '--dataroot', dataroot, '--checkpoints-dir',
-                os.path.join(root, 'ckpt'), '--name', name, '--model', model,
+        args = ['--dataroot', dataroot, '--model', model,
                 '--modalities-no', str(m), '--batch-size', str(TRAIN_BATCH),
                 '--n-epochs', '1', '--n-epochs-decay', '0', '--seed',
                 str(SEED), '--print-freq', str(TRAIN_BATCH), '--load-size',
@@ -4581,48 +4748,13 @@ def family_train_checks(M, K, dl, root, teacher):
                 '--net-g', FLAGSHIP_CFG['netG'], '--device', 'cuda'] + extra
         if model == 'DeepLIIFKD':
             args += ['--model-dir-teacher', teacher]
-        train_loop.make_step, train_loop._save_state = (timed_make_step,
-                                                        timed_save)
-        try:
-            reset_counts(K)
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            cli.make_cli().main(args, standalone_mode=False)
-            seconds = time.perf_counter() - t0
-            peak = torch.cuda.max_memory_allocated()
-            counts = launch_counts(K)
-        finally:
-            train_loop.make_step, train_loop._save_state = (make_step,
-                                                            save_state)
-        M._init_nets_cached.cache_clear()
-        gc.collect()
-        torch.cuda.empty_cache()
-        md = os.path.join(root, 'ckpt', name)
-        per_step = [t for t, _ in steps]
-        n = max(len(steps), 1)
-        finite = all(np.isfinite(np.asarray(v, np.float64)).all()
-                     for _, mt in steps for v in mt.values())
-        res = dict(model=model, modalities=m, steps=len(steps),
-                   seconds_per_step=per_step,
-                   median_s_per_step=float(np.median(per_step[1:])),
-                   peak_mem_gib=peak / 2 ** 30, save_seconds=saves,
-                   seconds_total=seconds, kernel_launches=counts,
-                   plane_stats_per_step=counts['plane_stats'] / n,
-                   trunk_per_step=counts['float32'] / n,
-                   files=sorted(os.listdir(md)),
-                   losses=[mt for _, mt in steps])
+        res, md = cli_train(M, K, root, name, args)
+        res.update(model=model, modalities=m,
+                   trunk_per_step=res['trunk_float32_per_step'])
         phase(f'train_{name}', **res)
-        check(len(steps) == FAMILY_TRAIN_STEPS,
-              f'train_{name}: {len(steps)} steps')
-        check(finite, f'train_{name}: a loss is not finite')
-        check(len(saves) == 1 and os.path.exists(
-            os.path.join(md, 'latest_optim.npz')), f'train_{name}: saves '
-                                                   f'{saves}')
-        check(counts['plane_stats'] == FAMILY_PLANE_PER_STEP[name] * n
-              and counts['float32'] == FAMILY_TRUNK_PER_STEP[name] * n,
-              f'train_{name}: launches {counts}, want '
-              f'{FAMILY_PLANE_PER_STEP[name]} statistics and '
-              f'{FAMILY_TRUNK_PER_STEP[name]} trunk launches a step')
+        check_cli_train(res, md, f'train_{name}', FAMILY_TRAIN_STEPS,
+                        FAMILY_PLANE_PER_STEP[name],
+                        {'float32': FAMILY_TRUNK_PER_STEP[name]})
         out[name] = {k: res[k] for k in (
             'median_s_per_step', 'peak_mem_gib', 'save_seconds',
             'plane_stats_per_step', 'trunk_per_step')}
@@ -4661,6 +4793,338 @@ def family_train_checks(M, K, dl, root, teacher):
     return out
 
 
+# bfloat16, spectral norm and the attention U-Net in training.
+# train_bf16_vs_cpu: the flagship step layout (TRAIN_STEP_CFG) at bfloat16
+# on the card against float32 on the CPU, held by an accuracy bound: for
+# every gradient tensor (D at the initial weights, G against the initial
+# discriminators) the card's relative L2 distance from the CPU float32
+# gradient at most TRAIN_BF16_FACTOR times the CPU bfloat16 run's own; for
+# every loss term the same, plus one bfloat16 rounding of the term
+# (TRAIN_BF16_LOSS_ROUNDING of it: a loss term is one number, and the CPU
+# run's distance can be near 0 by chance). The factor was set from the
+# CPU tests (tests/test_torch_port_train_bf16.py: the port's bfloat16
+# against JAX's at most 1.35 times JAX's distance, the faulty control up to
+# 19 times); the faulty control here, every train-mode batch norm at
+# TRAIN_FAULT_EPS in place of 1e-5, must exceed it
+TRAIN_BF16_FACTOR = 3.0
+TRAIN_BF16_LOSS_ROUNDING = 2.0 ** -8
+TRAIN_FAULT_EPS = 1e-3
+# every spectral_u of the card after a step within this of the CPU's
+# (relative; the CPU refreshes from the card's updated weights)
+TRAIN_U_TOL = 1e-5
+# one step against the CPU in float32 (``steps_vs_cpu``): spectral norm in
+# the flagship and in DeepLIIFKD (the layout of FAMILY_STEP_CASES' kd, its
+# teacher of batch norm); the attention U-Net as the seg nets of the
+# flagship and of DeepLIIFExt, one modality each, at 256^2 (the
+# attention U-Net's 8 levels need a multiple of 256)
+SPECTRAL_STEP_CASES = {
+    'deepliif': ('DeepLIIF', dict(FAMILY_STEP_CASES['kd'][1],
+                                  norm='spectral')),
+    'kd': ('DeepLIIFKD', dict(FAMILY_STEP_CASES['kd'][1], norm='spectral'))}
+ATT_STEP_CASES = {
+    'deepliif': ('DeepLIIF', dict(
+        modalities_no=1, net_g=('resnet_9blocks',),
+        net_gs=('unet_512_attention',) * 2, seg_weights=(0.5, 0.5),
+        loss_g_weights=(0.5, 0.5), loss_d_weights=(0.5, 0.5))),
+    'ext': ('DeepLIIFExt', dict(
+        modalities_no=1, net_g=('resnet_9blocks',),
+        net_gs=('unet_512_attention',), loss_g_weights=(1.0,),
+        loss_d_weights=(1.0,)))}
+ATT_STEP_SIZE = 256
+# full width through the CLI (the flagship, 512^2, batch 2): statistics
+# launches a step. bfloat16: the float32 step's (its norms alike);
+# spectral norm: none (no norm layers); the attention U-Net as the seg
+# nets: 4 translators of 23, 5 attention U-Nets of 34, the
+# discriminators' 27 calls of 4. DeepLIIFKD with a bfloat16 student of
+# spectral norm and attention seg nets against the bfloat16 teacher: the
+# student's attention U-Nets twice (the D loss's forward, normalized, and
+# the G loss's on the raw weights), the teacher's inference forward, whose
+# 4 translators run the bfloat16 trunk kernel
+VARIANT_TRAIN_STEPS = 3
+PLANE_PER_ATT_TRAIN_STEP = (4 * TRANSLATOR_TRAIN_NORMS
+                            + 5 * PLANE_PER_ATT_UNET + (18 + 9) * D_NORMS)
+VARIANT_TRAIN_CASES = (
+    ('bf16', ['--precision', 'bfloat16'], PLANE_PER_TRAIN_STEP, {}),
+    ('spectral', ['--norm', 'spectral'], 0, {}),
+    ('attention', ['--net-gs', 'unet_512_attention'],
+     PLANE_PER_ATT_TRAIN_STEP, {}),
+    ('kd_variants', ['--model', 'DeepLIIFKD', '--precision', 'bfloat16',
+                     '--norm', 'spectral', '--net-gs', 'unet_512_attention'],
+     2 * 5 * PLANE_PER_ATT_UNET + PLANE_PER_FORWARD[False],
+     {'bfloat16': LAUNCHES_PER_FORWARD}))
+
+
+def bf16_grads(dl, vgg, d, dev, arrays, eps=None):
+    """One flagship-layout forward of ``d`` on ``dev`` from the seeded
+    weights: (loss terms, gradients) of the D loss at the initial weights
+    and of the G loss against the initial discriminators; ``eps``: every
+    train-mode batch norm at that epsilon (the faulty control)."""
+    from deepliif_tpu_torch.nets import layers as L
+    nets_ = dl.init_nets(d, torch.Generator().manual_seed(SEED)).to(
+        dev).train()
+    vnet = vgg.VGG19Features().to(dev)
+    batch = {k: torch.tensor(v, dtype=torch.float32, device=dev)
+             for k, v in arrays.items()}
+    groups = dict(nets_.named_groups())
+    bn = L.train_batch_norm
+    if eps is not None:
+        L.train_batch_norm = lambda x, sc, bi, _=None: bn(x, sc, bi, eps)
+    try:
+        with L.batched():   # the step's convs: one call each on CUDA
+            g_out = dl.train_forward(nets_, batch['A'], d)
+            loss_d, d_terms = dl.d_loss_fn(nets_, g_out, batch, d)
+            dl.set_grads([p for k in ('D', 'DS') for p in
+                          groups[k].parameters()], loss_d)
+            loss_g, (g_terms, _) = dl.g_loss_fn(nets_, batch, d, vnet,
+                                                g_out=g_out)
+            dl.set_grads([p for k in ('G', 'GS') for p in
+                          groups[k].parameters()], loss_g)
+    finally:
+        L.train_batch_norm = bn
+    terms = {k: v.detach().double().cpu() for k, v in {
+        **d_terms, **g_terms, 'loss_D': loss_d, 'loss_G': loss_g}.items()}
+    return terms, {k: v.double() for k, v in named_grads(
+        dl.TrainState(nets_, None, None)).items()}
+
+
+def bf16_bound_ratios(side, cpu_bf16, ref):
+    """{name: the side's distance from the float32 reference over the
+    bound's scale}: relative L2 for gradients; for loss terms |Δ| over
+    TRAIN_BF16_FACTOR x the CPU bfloat16 run's |Δ| + one bfloat16 rounding
+    (scaled back by TRAIN_BF16_FACTOR, so that every ratio compares with
+    the factor)."""
+    def l2(a, b):
+        return ((a - b).pow(2).sum() / max(b.pow(2).sum().item(), 1e-60)
+                ).sqrt().item()
+    out = {k: l2(side[1][k], v) / max(l2(cpu_bf16[1][k], v), 1e-30)
+           for k, v in ref[1].items()}
+    for k, v in ref[0].items():
+        err = (side[0][k] - v).abs().max().item()
+        own = (cpu_bf16[0][k] - v).abs().max().item()
+        scale = own + TRAIN_BF16_LOSS_ROUNDING * v.abs().max().item() \
+            / TRAIN_BF16_FACTOR
+        out[f'loss {k}'] = err / max(scale, 1e-30)
+    return out
+
+
+def train_bf16_vs_cpu(K, dl, vgg, kd):
+    """Phase 'train_bf16_vs_cpu': the flagship step layout (TRAIN_STEP_CFG,
+    TRAIN_STEP_SIZE^2, batch TRAIN_BATCH, no dropout) at bfloat16 on the
+    card against the float32 CPU run of the same weights and batch, held by
+    the accuracy bound (TRAIN_BF16_FACTOR x the CPU bfloat16 run's distance
+    from float32, ``bf16_bound_ratios``): the card passes, the faulty
+    control (eps TRAIN_FAULT_EPS) on the card fails. Then one DeepLIIFKD
+    step of a bfloat16 student against a bfloat16 teacher (ngf
+    KD_TEACHER_NGF, batch norm; FAMILY_STEP_CASES' kd layout at
+    FAMILY_STEP_WIDTH) on the card: its teacher's 2 translators launch the
+    bfloat16 trunk kernel 36 times, the float32 one never, the losses
+    finite."""
+    import dataclasses
+    from deepliif_tpu_torch.config import Options, TRAIN_DEFAULTS
+    t0 = time.perf_counter()
+    d32 = dl.DeepLIIFDef(**TRAIN_STEP_CFG)
+    d16 = dataclasses.replace(d32, dtype=torch.bfloat16)
+    arrays = train_batch_arrays(TRAIN_STEP_SIZE, TRAIN_BATCH,
+                                d32.modalities_no, SEED)
+    ref = bf16_grads(dl, vgg, d32, 'cpu', arrays)
+    cpu16 = bf16_grads(dl, vgg, d16, 'cpu', arrays)
+    t_card = time.perf_counter()
+    card = bf16_grads(dl, vgg, d16, 'cuda', arrays)
+    torch.cuda.synchronize()
+    card_seconds = time.perf_counter() - t_card
+    fault = bf16_grads(dl, vgg, d16, 'cuda', arrays, TRAIN_FAULT_EPS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sound = bf16_bound_ratios(card, cpu16, ref)
+    faulty = bf16_bound_ratios(fault, cpu16, ref)
+
+    def worst(r):
+        k = max(r, key=r.get)
+        return k, r[k]
+    grad_ratios = sorted(v for k, v in sound.items()
+                         if not k.startswith('loss'))
+    res = dict(config={k: str(v) for k, v in TRAIN_STEP_CFG.items()},
+               size=TRAIN_STEP_SIZE, batch=TRAIN_BATCH,
+               factor=TRAIN_BF16_FACTOR, tensors=len(ref[1]),
+               loss_terms=len(ref[0]), worst_sound=worst(sound),
+               median_sound_grad_ratio=grad_ratios[len(grad_ratios) // 2],
+               worst_faulty=worst(faulty), fault_eps=TRAIN_FAULT_EPS,
+               losses_card={k: v.tolist() for k, v in card[0].items()},
+               losses_cpu_float32={k: v.tolist() for k, v in ref[0].items()},
+               card_forward_backward_seconds=card_seconds)
+    del ref, cpu16, card, fault
+
+    # one DeepLIIFKD step against a bfloat16 teacher
+    kd_kw = FAMILY_STEP_CASES['kd'][1]
+    d = dataclasses.replace(
+        dl.DeepLIIFDef(**kd_kw), ngf=FAMILY_STEP_WIDTH, ndf=FAMILY_STEP_WIDTH,
+        use_dropout=False, dtype=torch.bfloat16)
+    td = dataclasses.replace(d, ngf=KD_TEACHER_NGF, norm='batch')
+    teacher = (dl.init_nets(td, torch.Generator().manual_seed(SEED + 7),
+                            with_discriminators=False).eval()
+               .requires_grad_(False).to('cuda'), td)
+    state = kd.create_train_state(
+        d, Options(d_params=dict(TRAIN_DEFAULTS)), 1, SEED, 'cuda')
+    batch = {k: torch.tensor(v, dtype=torch.float32, device='cuda')
+             for k, v in family_step_batch('DeepLIIFKD', d, TRAIN_STEP_SIZE,
+                                           TRAIN_BATCH, SEED + 60).items()}
+    step = kd.make_train_step(d, vgg.VGG19Features().to('cuda'), teacher)
+    torch.cuda.synchronize()
+    reset_counts(K)
+    _, metrics, _ = step(state, batch)
+    torch.cuda.synchronize()
+    counts = launch_counts(K)
+    kd_finite = all(torch.isfinite(v).all().item() for v in metrics.values())
+    want = d.modalities_no * TRUNK_PER_NET
+    del state, step, teacher, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    res.update(kd_teacher_trunk_bf16=counts['bfloat16'],
+               kd_teacher_trunk_f32=counts['float32'],
+               kd_plane_stats=counts['plane_stats'],
+               seconds=time.perf_counter() - t0)
+    phase('train_bf16_vs_cpu', **res)
+    check(res['worst_sound'][1] <= TRAIN_BF16_FACTOR,
+          f'train_bf16_vs_cpu: the card\'s bfloat16 step past the accuracy '
+          f'bound at {res["worst_sound"]}')
+    check(res['worst_faulty'][1] > TRAIN_BF16_FACTOR,
+          f'train_bf16_vs_cpu: the faulty control passed the accuracy bound '
+          f'({res["worst_faulty"]})')
+    check(kd_finite and counts['bfloat16'] == want
+          and counts['float32'] == 0,
+          f'train_bf16_vs_cpu: the KD step with a bfloat16 teacher launched '
+          f'{counts}, want {want} bfloat16 trunk launches')
+    return {k: res[k] for k in ('worst_sound', 'median_sound_grad_ratio',
+                                'worst_faulty', 'kd_teacher_trunk_bf16')}
+
+
+def variant_training_phases(M, K, dl, vgg, md):
+    """The phases of bfloat16, spectral norm and the attention U-Net in
+    training, ``md`` the flagship dir (the DeepLIIFKD teacher)."""
+    from deepliif_tpu_torch.models import deepliif_kd as kd
+    out = {'bf16_vs_cpu': train_bf16_vs_cpu(K, dl, vgg, kd),
+           'spectral_vs_cpu': steps_vs_cpu(
+               K, dl, vgg, SPECTRAL_STEP_CASES, TRAIN_STEP_SIZE,
+               'train_spectral_vs_cpu'),
+           'attention_vs_cpu': steps_vs_cpu(
+               K, dl, vgg, ATT_STEP_CASES, ATT_STEP_SIZE,
+               'train_attention_vs_cpu', float64=True)}
+    with tempfile.TemporaryDirectory() as root:
+        out.update(variant_train_checks(M, K, dl, root, md))
+    return out
+
+
+def variant_train_checks(M, K, dl, root, teacher):
+    """Phases 'train_bf16', 'train_spectral', 'train_attention' and
+    'train_kd_variants' (VARIANT_TRAIN_CASES): the full-width flagship
+    (ngf = ndf = 64, 512^2, batch TRAIN_BATCH) through the CLI's ``train``
+    at bfloat16, with spectral norm, with attention U-Net seg nets, and
+    DeepLIIFKD with all three against ``teacher`` at bfloat16 (a copy of
+    the flagship dir whose config says bfloat16): VARIANT_TRAIN_STEPS
+    steps and one ``latest`` save each (``cli_train``), every loss finite,
+    the statistics launches a step exact, the trunk kernels' (the KD
+    teacher's 72 bfloat16 launches a step, none elsewhere); s/step, peak
+    memory, the save's seconds. Then 'train_bf16_checkpoint_served' (the
+    bfloat16 run through ``test`` at float32, ``max_batch`` 1, so no
+    bucket probe: 72 float32 trunk and 95 statistics launches a forward,
+    outputs finite), 'train_spectral_checkpoint_served' (the spectral run
+    through ``test``: its session's convs hold the run's spectral_u; no
+    norm, so no statistics or trunk launch; outputs finite)
+    and the bfloat16 'train_reproducibility' (held bitwise)."""
+    import shutil
+    from PIL import Image as PILImage
+    from deepliif_tpu_torch import cli
+    dataroot = os.path.join(root, 'data')
+    train_rows(dataroot, VARIANT_TRAIN_STEPS * TRAIN_BATCH, SEED + 80)
+    teacher16 = os.path.join(root, 'teacher_bf16')
+    shutil.copytree(teacher, teacher16)
+    with open(os.path.join(teacher16, 'config.json')) as f:
+        cfg = json.load(f)
+    with open(os.path.join(teacher16, 'config.json'), 'w') as f:
+        json.dump(dict(cfg, precision='bfloat16'), f)
+    base = ['--dataroot', dataroot, '--batch-size', str(TRAIN_BATCH),
+            '--n-epochs', '1', '--n-epochs-decay', '0', '--seed', str(SEED),
+            '--print-freq', str(TRAIN_BATCH), '--device', 'cuda']
+    out, dirs = {}, {}
+    for name, extra, plane, trunk in VARIANT_TRAIN_CASES:
+        args = base + extra
+        if name == 'kd_variants':
+            args += ['--model-dir-teacher', teacher16]
+        res, dirs[name] = cli_train(M, K, root, name, args,
+                                    ('float32', 'bfloat16'))
+        res.update(options=extra)
+        phase(f'train_{name}', **res)
+        check_cli_train(res, dirs[name], f'train_{name}', VARIANT_TRAIN_STEPS,
+                        plane, {'float32': 0, 'bfloat16': 0, **trunk})
+        out[name] = {k: res[k] for k in (
+            'median_s_per_step', 'peak_mem_gib', 'save_seconds',
+            'plane_stats_per_step', 'trunk_bfloat16_per_step')}
+
+    imgs = os.path.join(root, 'imgs')
+    os.makedirs(imgs)
+    PILImage.fromarray(ihc_like_image(TILE, SEED + 92)).save(
+        os.path.join(imgs, 'tile.png'))
+    for name, precision, trunk, plane in (
+            ('bf16', 'float32', LAUNCHES_PER_FORWARD,
+             PLANE_PER_FORWARD[False]),
+            ('spectral', None, 0, 0)):
+        outd = os.path.join(root, f'out_{name}')
+        reset_counts(K)
+        t0 = time.perf_counter()
+        sessions, run = [], M.InferenceSession.forward
+
+        def forward(self, *a, **kw):
+            sessions.append(self)
+            return run(self, *a, **kw)
+        M.InferenceSession.forward = forward
+        try:
+            with session_forwards(M) as calls:
+                cli.run_test(imgs, outd, TILE, dirs[name], max_batch=1,
+                             precision=precision, device='cuda',
+                             echo=lambda *_: None)
+        finally:
+            M.InferenceSession.forward = run
+        torch.cuda.synchronize()
+        served = time.perf_counter() - t0
+        counts, n = launch_counts(K), len(calls)
+        pngs = sorted(f for f in os.listdir(outd) if f.endswith('.png'))
+        means = {f: float(np.asarray(PILImage.open(os.path.join(outd, f)),
+                                     np.float64).mean()) for f in pngs}
+        info = {}
+        if name == 'spectral':
+            # the serving session's convs hold the run's power-iteration
+            # vectors
+            us = {f'{g}.{i}.{k}': b.cpu() for g, nets in
+                  sessions[-1].nets.named_groups()
+                  for i, net in enumerate(nets)
+                  for k, b in net.named_buffers()
+                  if k.endswith('spectral_u')}
+            with np.load(os.path.join(dirs[name], 'latest_net_G.npz')) as z:
+                saved = z['head_conv/u'][0]
+            info = dict(spectral_u=len(us), head_u_equal=bool(np.array_equal(
+                us['G.0.model.1.spectral_u'].numpy(), saved)))
+        del sessions
+        phase(f'train_{name}_checkpoint_served', seconds=served,
+              precision=precision or 'the dir\'s', outputs=means,
+              forwards=calls, kernel_launches=counts, **info)
+        check(sum(not raw for _, raw in calls) == 1
+              and counts['float32'] == n * trunk
+              and counts['plane_stats'] == n * plane,
+              f'train_{name}_checkpoint_served: launches {counts} for '
+              f'{calls}')
+        check(len(pngs) >= 5 and all(np.isfinite(v) for v in means.values()),
+              f'train_{name}_checkpoint_served: outputs {pngs}')
+        if info:
+            check(info['spectral_u'] > 0 and info['head_u_equal'],
+                  f'train_spectral_checkpoint_served: {info}')
+        out[f'{name}_served'] = dict(seconds=served, forwards=n)
+        M._init_nets_cached.cache_clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    out['repro_bf16_delta'] = train_repro(root, base, 'bfloat16')
+    return out
+
+
 def main():
     check(torch.cuda.is_available(), 'torch.cuda.is_available() is false: '
           'chip_smoke.py needs a CUDA card')
@@ -4685,6 +5149,15 @@ def main():
                       **C._LIBS})
     phase('build', seconds=time.perf_counter() - t0, parallel=True,
           nvcc_seconds=cuda_build.build_seconds)
+    K = (FR, FS, L, LB, C)
+    if 'training-only' in sys.argv[1:]:
+        # a rehearsal of the bf16, spectral and attention training phases
+        # alone: no result line
+        from deepliif_tpu_torch.nets import vgg
+        with tempfile.TemporaryDirectory() as md:
+            write_flagship_model_dir(md, dl)
+            variant_training_phases(M, K, dl, vgg, md)
+        return
 
     rnd = Rand(SEED)
     err = {'float32': kernel_checks_f32(FR, rnd),
@@ -4707,7 +5180,6 @@ def main():
 
     launches, tput, images = {}, {}, {}
     img = Image.fromarray(ihc_like_image(2 * TILE, SEED))
-    K = (FR, FS, L, LB, C)
     with tempfile.TemporaryDirectory() as md:
         write_flagship_model_dir(md, dl)
         for precision, fused in (('float32', False), ('bfloat16', False),
@@ -4782,6 +5254,12 @@ def main():
         train_families = train_families_vs_cpu(K, dl, vgg)
         with tempfile.TemporaryDirectory() as root:
             families = family_train_checks(M, K, dl, root, md)
+        # bfloat16, spectral norm and the attention U-Net in training: one
+        # step each against the CPU, then each through the CLI at full
+        # width (and DeepLIIFKD with all three, against the flagship dir
+        # at bfloat16), two checkpoints served back, bfloat16 runs bitwise
+        # reproducible
+        variants = variant_training_phases(M, K, dl, vgg, md)
 
     loaded = sorted(m for m in sys.modules if m == 'jax' or m == 'deepliif_tpu'
                     or m.startswith(('jax.', 'jaxlib', 'deepliif_tpu.')))
@@ -4807,6 +5285,13 @@ def main():
     new_paths['train_kd (per step)'] = ('float32', {
         'trunk': families['kd']['trunk_per_step'],
         'plane_stats': families['kd']['plane_stats_per_step']})
+    new_paths['train_kd_variants (per step)'] = ('bfloat16', {
+        'trunk': variants['kd_variants']['trunk_bfloat16_per_step'],
+        'plane_stats': variants['kd_variants']['plane_stats_per_step']})
+    for name in ('bf16', 'spectral', 'attention'):
+        new_paths[f'train_{name} (per step)'] = ('float32', {
+            'trunk': 0, 'plane_stats': variants[name][
+                'plane_stats_per_step']})
     new_paths['train_ext_checkpoint_served'] = ('float32', {
         'trunk': families['ext_served']['trunk_per_forward'],
         'plane_stats': families['ext_served']['plane_stats_per_forward']})
@@ -4890,6 +5375,7 @@ def main():
             'families': {name: families[name] for name in (
                 'ext', 'sdg', 'cyclegan', 'kd')},
             'families_step_vs_cpu': train_families,
+            'bf16_spectral_attention': variants,
             'forward_backward': [
                 {k: v[k] for k in ('shape', 'layout', 'kernel_ms',
                                    'plain_ms', 'bound_ms', 'dx_rel_err')}

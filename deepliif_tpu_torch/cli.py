@@ -37,12 +37,13 @@ as on ``test``. ``test-wsi`` and ``wsi-cells`` run whole slides region by
 region (``utils.wsi``): TIFF-family slides through the tiled TIFF reader,
 other images through PIL; the other slide formats of the JAX package raise
 NotImplementedError (ROADMAP.md, "WSI"). ``train`` trains a model of any
-family (DeepLIIF, DeepLIIFExt, SDG, CycleGAN, DeepLIIFKD) at float32 on
-one device (``train_loop``) with the JAX command's options, names and
-defaults: the card unless ``--device cpu``, one ``--gpu-ids`` entry picks
-the card, background colors inferred from the train dir; bfloat16,
-spectral norm, the attention U-Net, orbax checkpoints and several cards
-raise NotImplementedError ("Training"), as does
+family (DeepLIIF, DeepLIIFExt, SDG, CycleGAN, DeepLIIFKD) on one device
+(``train_loop``) with the JAX command's options, names and defaults
+(``--precision bfloat16``, ``--norm spectral`` and the attention U-Net
+included): the card unless ``--device cpu``, one ``--gpu-ids`` entry
+picks the card, background colors inferred from the train dir; orbax
+checkpoints and several cards raise NotImplementedError ("Training"), as
+does
 ``trainlaunch`` (``compute-statistics``: "Stats"). ``eval`` runs the A
 tile of each aligned row through the engine (``--device``, default cuda)
 and writes the images and an HTML gallery; ``prepare-training-data``,
@@ -797,7 +798,7 @@ def _train_command(cli, click):
         ('--net-d', dict(default='n_layers', help='discriminator architecture')),
         ('--ngf', dict(default=64, type=int)),
         ('--ndf', dict(default=64, type=int)),
-        ('--norm', dict(default='batch', help='batch | instance | none (spectral raises)')),
+        ('--norm', dict(default='batch', help='batch | instance | none | spectral')),
         ('--no-dropout', dict(is_flag=True)),
         ('--padding', dict(default='zero', help='reflect | replicate | zero')),
         ('--upsample', dict(default='convtranspose', help='convtranspose | resize_conv | pixel_shuffle')),
@@ -832,7 +833,7 @@ def _train_command(cli, click):
         ('--save-epoch-freq', dict(default=100, type=int)),
         ('--max-dataset-size', dict(default=None, type=int)),
         ('--precision', dict(default='float32', type=click.Choice(['float32', 'bfloat16']),
-                             help='float32 trains; bfloat16 raises NotImplementedError')),
+                             help='compute dtype (DeepLIIF, DeepLIIFKD; the other families train in float32)')),
         ('--remote', dict(default=False, type=bool, help='pickle plot snapshots for `visualize`')),
         ('--remote-transfer-cmd', dict(default=None, help='module.function invoked with each saved checkpoint path')),
         ('--model-dir-teacher', dict(default=None, help='teacher model dir (DeepLIIFKD)')),
@@ -871,7 +872,7 @@ def _train_command(cli, click):
     ]
 
     def train(**kwargs):
-        """Train a model of any family at float32 on one device."""
+        """Train a model of any family on one device."""
         run_train(kwargs, echo=click.echo)
 
     for flag, kw in reversed(options):

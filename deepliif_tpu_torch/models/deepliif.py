@@ -32,9 +32,11 @@ their float route the normalized ones, as in the JAX package, which
 quantizes its params at load and normalizes in the forward
 (``layers.cast_function``).
 
-Training (float32; the JAX package's training half, :478-680):
-``init_nets`` draws every net with discriminators from a
-``torch.Generator``, ``d_loss_fn`` / ``g_loss_fn`` are the losses of
+Training (float32 or bfloat16, any norm; the JAX package's training
+half, :156-195 and :478-680): ``init_nets`` draws every net with
+discriminators from a ``torch.Generator`` (with spectral norm then every
+conv's ``spectral_u``, the JAX ``add_spectral_u``), ``d_loss_fn`` /
+``g_loss_fn`` are the losses of
 backward_D / backward_G (GAN (modalities ``gan_mode``, seg ``gan_mode_s``)
 + SmoothL1 * lambda_L1 + VGG * lambda_feat on the modalities, GAN +
 SmoothL1 on the seg), and ``make_train_step`` runs them in the JAX order:
@@ -43,10 +45,19 @@ against the updated discriminators, the G update. The forward is run
 once and serves both losses (the JAX step recomputes it with the same
 rng; without running statistics that is the same function). Fakes and
 reals go through a discriminator in separate calls, each with its own
-batch statistics. ``TrainState``, ``make_train_state``, ``set_grads`` and
-``detached`` serve the other families' training too (the JAX families
-share ``dl.TrainState``). bfloat16, int8 and spectral norm raise
-NotImplementedError ("Training").
+batch statistics. At bfloat16 every net, the discriminators included,
+runs in bfloat16 with float32 parameters, statistics and losses (the JAX
+``d.dtype``; the losses take the outputs with JAX's promotions: a float32
+real beside a bfloat16 fake makes the discriminator's input float32
+before its cast, the perceptual term runs the output's VGG features in
+bfloat16 and the real's in float32). With spectral norm every conv's
+weight is divided by its spectral norm in each forward
+(``layers.train_cast``, the JAX ``_maybe_spectral``), and the step
+refreshes every ``spectral_u`` after both updates (``make_train_step``).
+``TrainState``, ``make_train_state``, ``set_grads`` and ``detached`` serve
+the other families' training too (the JAX families share
+``dl.TrainState``). int8 and the fused stages raise NotImplementedError
+("Training").
 """
 
 from __future__ import annotations
@@ -199,6 +210,10 @@ class DeepLIIFNets(nn.Module):
             self.DS = nn.ModuleList(
                 _d_net(d) for _ in range(d.modalities_no + 1 if d.seg_gen
                                          else 0))
+            for net in list(self.D) + list(self.DS):
+                net.compute_dtype = d.dtype
+                if d.norm == 'spectral':
+                    L.add_spectral_buffers(net)
 
     def named_groups(self):
         groups = [('G', self.G), ('GS', self.GS)]
@@ -392,21 +407,37 @@ def inference_forward(nets_, x, d: DeepLIIFDef, seg_weights=None,
 # training (deepliif_tpu/models/deepliif.py :478-680)
 # ---------------------------------------------------------------------------
 
+def unset(make):
+    """The modules ``make()`` builds, on the CPU with their tensors
+    allocated but not set: built on the meta device, so torch's default
+    init of every conv (443 M parameters in the full-width flagship with
+    its discriminators) is skipped, for a caller that draws every
+    parameter and buffer itself (``init_nets``)."""
+    with torch.device('meta'):
+        nets_ = make()
+    return nets_.to_empty(device='cpu')
+
+
 def init_nets(d: DeepLIIFDef, generator=None, with_discriminators=True):
     """Every net of ``d`` (the discriminators with
     ``with_discriminators``), on the CPU, initialized by ``d.init_type`` /
-    ``d.init_gain`` from ``generator`` (``layers.init_net``), the
-    counterpart of the JAX ``init_params``."""
-    if d.dtype != torch.float32 or d.quant_int8 or d.fuse_stages:
-        raise roadmap.not_ported('training at bfloat16, int8 or with the '
-                                 'fused stages', roadmap.TRAINING)
-    if d.norm == 'spectral':
-        raise roadmap.not_ported('training with spectral norm',
-                                 roadmap.TRAINING)
-    nets_ = DeepLIIFNets(d, with_discriminators)
-    for _, group in nets_.named_groups():
+    ``d.init_gain`` from ``generator`` (``layers.init_net``), then, with
+    spectral norm, every conv's ``spectral_u`` from N(0, 1), group after
+    group (``layers.draw_spectral_u``): the counterpart of the JAX
+    ``init_params``, whose ``add_spectral_u`` draws u for the G, GS, D and
+    DS groups."""
+    if d.quant_int8 or d.fuse_stages:
+        raise roadmap.not_ported('training at int8 or with the fused '
+                                 'stages', roadmap.TRAINING)
+    nets_ = unset(lambda: DeepLIIFNets(d, with_discriminators))
+    groups = [g for _, g in nets_.named_groups()]
+    for group in groups:
         for net in group:
             L.init_net(net, d.init_type, d.init_gain, generator)
+    if d.norm == 'spectral':
+        for group in groups:
+            for net in group:
+                L.draw_spectral_u(net, generator)
     return nets_
 
 
@@ -414,6 +445,7 @@ def param_dtype(nets_):
     """The nets' parameter dtype: float32 in training (float64 where a
     test or check makes a float64 reference on the CPU)."""
     return next(nets_.parameters()).dtype
+
 
 
 def nchw(t):
@@ -425,10 +457,11 @@ def train_forward(nets_, x, d: DeepLIIFDef, rng=None, branches=False):
     """The train-mode ensemble forward under autograd: x (B, H, W, C) ->
     {'mods': (M, B, H, W, C), 'seg': (B, H, W, C)} (no 'seg' without seg
     generators; with ``branches`` also 'segs', each seg net's output (M +
-    1, B, H, W, C)), in the nets' parameter dtype; dropout masks drawn
+    1, B, H, W, C)), in the nets' train dtype (``layers.train_dtype``:
+    ``d.dtype`` at bfloat16, else the parameters'); dropout masks drawn
     from ``rng`` (a ``torch.Generator`` on x's device), net after net. The
     seg nets take the translators' outputs with their gradient."""
-    xc = nchw(x.to(param_dtype(nets_)))
+    xc = nchw(x.to(L.train_dtype(nets_.G[0])))
     mods = [g(xc, rng=rng) for g in nets_.G]
     out = {'mods': torch.stack([nhwc(y) for y in mods])}
     if d.seg_gen:
@@ -600,19 +633,20 @@ def alternating_step(forward, d_loss, g_loss, out_keys=None):
     forward: ``forward(nets, batch, rng)`` -> g_out, D gradients of
     ``d_loss(nets, g_out, batch)`` -> (loss, terms) on detached fakes, the
     D update, G gradients of ``g_loss(nets, batch, g_out)`` -> (loss,
-    terms) against the updated discriminators, the G update. Returns
-    step(state, batch, rng) -> (state, metrics, g_out (its ``out_keys``,
-    default all), detached); the gradients stay in each parameter's
-    ``.grad``."""
+    terms) against the updated discriminators, the G update, its CUDA
+    convs one call each (``layers.batched``). Returns step(state, batch,
+    rng) -> (state, metrics, g_out (its ``out_keys``, default all),
+    detached); the gradients stay in each parameter's ``.grad``."""
 
     def step(state, batch, rng=None):
-        g_out = forward(state.nets, batch, rng)
-        loss_d, d_terms = d_loss(state.nets, g_out, batch)
-        set_grads(state.d_params, loss_d)
-        state.d_opt.step()
-        loss_g, g_terms = g_loss(state.nets, batch, g_out)
-        set_grads(state.g_params, loss_g)
-        state.g_opt.step()
+        with L.batched():
+            g_out = forward(state.nets, batch, rng)
+            loss_d, d_terms = d_loss(state.nets, g_out, batch)
+            set_grads(state.d_params, loss_d)
+            state.d_opt.step()
+            loss_g, g_terms = g_loss(state.nets, batch, g_out)
+            set_grads(state.g_params, loss_g)
+            state.g_opt.step()
         state.step += 1
         metrics = detached({'loss_G': loss_g, 'loss_D': loss_d, **g_terms,
                             **d_terms})
@@ -628,7 +662,7 @@ def alternating_eval(forward, d_loss, g_loss):
     both losses of ``alternating_step``'s functions, without gradients."""
 
     def eval_losses(state, batch, rng=None):
-        with torch.no_grad():
+        with torch.no_grad(), L.batched():
             g_out = forward(state.nets, batch, rng)
             loss_d, d_terms = d_loss(state.nets, g_out, batch)
             loss_g, g_terms = g_loss(state.nets, batch, g_out)
@@ -655,12 +689,31 @@ def alternating_parts(forward_fn, d_loss_fn_, g_loss_fn_, d, **extra):
     return forward, d_loss, g_loss
 
 
+def refresh_spectral(nets_):
+    """Every ``spectral_u`` of every net refreshed from the current
+    weights (``layers.refresh_spectral_u``)."""
+    for _, group in nets_.named_groups():
+        for net in group:
+            L.refresh_spectral_u(net)
+
+
 def make_train_step(d: DeepLIIFDef, vgg_net):
     """step(state, batch, rng) -> (state, metrics, g_out): forward -> D
     gradients on detached fakes -> D update -> G gradients against the
-    updated discriminators -> G update (``alternating_step``)."""
-    return alternating_step(*alternating_parts(
+    updated discriminators -> G update (``alternating_step``); with
+    spectral norm then every ``spectral_u`` refreshed from the updated
+    weights, as the JAX DeepLIIF step keeps them (the other families' JAX
+    steps do not refresh)."""
+    step = alternating_step(*alternating_parts(
         train_forward, d_loss_fn, g_loss_fn, d, vgg_net=vgg_net))
+    if d.norm != 'spectral':
+        return step
+
+    def spectral_step(state, batch, rng=None):
+        out = step(state, batch, rng)
+        refresh_spectral(state.nets)
+        return out
+    return spectral_step
 
 
 def make_eval_losses(d: DeepLIIFDef, vgg_net):

@@ -14,13 +14,23 @@ over the M modalities, the M + 1 seg branches and the aggregated seg, x
 criteria are vanilla (modalities) and lsgan (seg) whatever gan_mode
 says, and the seg term is weighted by loss_G_weights[m - 1] (the
 flagship's G loss uses [m]).
+
+The student trains at its own ``precision`` (bfloat16 as the flagship
+does) and norm; the teacher runs at the precision of its own dir (the
+JAX ``get_opt(model_dir_teacher, mode='test')``), so a bfloat16 teacher
+runs the bfloat16 trunk kernel. With spectral norm the JAX step is kept
+as it is: the D loss takes the fakes of the spectrally normalized
+student, the G loss runs the student again on its raw weights (the JAX
+``student_forward_with_branches`` normalizes nothing; the dropout masks
+are the first forward's, ``raw_g_loss``), the discriminators are
+normalized in both, and no ``spectral_u`` is refreshed.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..nets import losses, vgg
+from ..nets import layers as L, losses, vgg
 from . import deepliif as dl
 from .deepliif import nchw
 
@@ -53,10 +63,20 @@ def load_teacher(model_dir_teacher, device='cpu'):
 
 def teacher_forward(teacher_nets, x, teacher_def):
     """The frozen teacher's (mods (M, B, H, W, C), seg (B, H, W, C), segs
-    (M + 1, B, H, W, C)) on x (B, H, W, C), without gradients, as float32."""
+    (M + 1, B, H, W, C)) on x (B, H, W, C), without gradients, as float32.
+    A spectrally normalized teacher's segs are its seg nets on the raw
+    weights, as the JAX ``teacher_forward`` recomputes them (its mods and
+    seg normalized)."""
     with torch.no_grad():
         mods, seg, segs = dl.generator_forward(teacher_nets, x, teacher_def,
                                                seg_gen=True, branches=True)
+        if teacher_def.norm == 'spectral':
+            xc = x.to(teacher_def.dtype).permute(0, 3, 1, 2)
+            with L.raw_weights():
+                segs = torch.stack([
+                    gs(xi).permute(0, 2, 3, 1) for gs, xi in zip(
+                        teacher_nets.GS, [xc] + [dl._seg_input(
+                            y.permute(0, 3, 1, 2)) for y in mods])])
     return mods.float(), seg.float(), segs.float()
 
 
@@ -69,12 +89,15 @@ def g_loss_fn(nets_, batch, d: dl.DeepLIIFDef, vgg_net, teacher, rng=None,
               g_out=None, kd_factor=10.0):
     """The student's generator loss against the current discriminators and
     the teacher ``teacher`` ((nets, def)): (loss, (terms, g_out)); runs
-    ``student_forward_with_branches`` unless ``g_out`` (its result) is
+    ``student_forward_with_branches`` on the raw weights (no spectral
+    normalization, as the JAX G loss) unless ``g_out`` (its result) is
     given."""
     dt = dl.param_dtype(nets_)
     x = nchw(batch['A'].to(dt))
     if g_out is None:
-        g_out = student_forward_with_branches(nets_, batch['A'], d, rng)
+        # the JAX G loss runs its student on the raw weights
+        with L.raw_weights():
+            g_out = student_forward_with_branches(nets_, batch['A'], d, rng)
     t_mods, t_seg, t_segs = teacher_forward(teacher[0], batch['A'],
                                             teacher[1])
     m = d.modalities_no
@@ -121,7 +144,32 @@ def make_train_step(d: dl.DeepLIIFDef, vgg_net, teacher):
     the student's forward (with its seg branches) -> the DeepLIIF D loss
     on detached fakes -> D update -> the KD G loss against the updated
     discriminators and the teacher -> G update
-    (``deepliif.alternating_step``)."""
-    return dl.alternating_step(*dl.alternating_parts(
+    (``deepliif.alternating_step``); with spectral norm the G loss runs
+    the student again on its raw weights (``raw_g_loss``)."""
+    forward, d_loss, g_loss = dl.alternating_parts(
         student_forward_with_branches, dl.d_loss_fn, g_loss_fn, d,
-        vgg_net=vgg_net, teacher=teacher), ('mods', 'seg'))
+        vgg_net=vgg_net, teacher=teacher)
+    if d.norm == 'spectral':
+        forward, g_loss = raw_g_loss(forward, d, vgg_net, teacher)
+    return dl.alternating_step(forward, d_loss, g_loss, ('mods', 'seg'))
+
+
+def raw_g_loss(forward, d, vgg_net, teacher):
+    """(forward, g_loss) of ``alternating_step`` where the G loss runs its
+    own student forward on the raw weights (``g_loss_fn`` without
+    ``g_out``), the JAX DeepLIIFKD step with spectral norm: the forward
+    keeps its generator's state, and the G loss starts the generator from
+    it again, so both draw the same dropout masks."""
+    start = {}
+
+    def fwd(nets_, batch, rng):
+        start.update(rng=rng, state=None if rng is None else rng.get_state())
+        return forward(nets_, batch, rng)
+
+    def g_loss(nets_, batch, g_out):
+        rng = start['rng']
+        if rng is not None:
+            rng.set_state(start['state'])
+        loss, (terms, _) = g_loss_fn(nets_, batch, d, vgg_net, teacher, rng)
+        return loss, terms
+    return fwd, g_loss

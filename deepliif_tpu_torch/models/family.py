@@ -8,7 +8,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .. import nets, roadmap
+from .. import nets
 from ..nets import layers as L
 from . import deepliif as dl
 
@@ -53,11 +53,11 @@ class ModelNets(nn.Module):
 def init_nets(nets_, d, generator=None):
     """Draw every net of ``nets_`` in place by ``d.init_type`` /
     ``d.init_gain`` from ``generator`` (``layers.init_net``), group after
-    group, net after net; training runs float32 without spectral norm, as
-    the flagship's ``init_nets`` requires."""
-    if d.dtype != torch.float32 or d.norm == 'spectral':
-        raise roadmap.not_ported('training at bfloat16 or with spectral norm',
-                                 roadmap.TRAINING)
+    group, net after net. As in the JAX package, these families train in
+    float32 at any ``precision`` (their definitions take no compute dtype)
+    and, under ``norm='spectral'``, with nets of no norm layer and no conv
+    bias and no ``spectral_u`` (their JAX ``def_from_opt`` applies no
+    spectral normalization)."""
     for _, group in nets_.named_groups():
         for net in group:
             L.init_net(net, d.init_type, d.init_gain, generator)
@@ -70,7 +70,7 @@ def create_train_state(make_nets, d, opt, steps_per_epoch=1, seed=0,
     generator seeded ``seed`` (the same weights on every device), moved to
     ``device`` in train mode, with its optimizers
     (``deepliif.make_train_state``)."""
-    nets_ = init_nets(make_nets(d, with_discriminators=True), d,
-                      torch.Generator().manual_seed(seed))
+    nets_ = init_nets(dl.unset(lambda: make_nets(
+        d, with_discriminators=True)), d, torch.Generator().manual_seed(seed))
     return dl.make_train_state(nets_, opt, steps_per_epoch, device)
 

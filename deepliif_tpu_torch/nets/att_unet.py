@@ -1,4 +1,4 @@
-"""Attention U-Net (8 levels, ``unet_512_attention``) for inference.
+"""Attention U-Net (8 levels, ``unet_512_attention``).
 
 Port of deepliif_tpu/nets/att_unet.py with the reference module layout
 (reference att_unet.py AttU_Net): ``Conv1``..``Conv8`` hold ``conv`` (a
@@ -21,6 +21,12 @@ min_ch gate admits takes the int8 route of ``layers`` (the ``conv_s8``
 kernel), the 1x1 attention convs with their bias among them; the
 outermost convs (3 channels) and the psi convs (one channel) stay float.
 ``calibrate`` replays the float net and records each conv's input.
+
+Train mode (``net.train()``, the JAX ``apply(train=True)``): every norm,
+the three of each attention gate included, takes batch statistics over
+(B, H, W) in float32 under autograd (``layers.train_batch_norm``); no
+dropout; the weights cast to the compute dtype (and spectrally
+normalized) under autograd by ``layers.train_cast``.
 """
 
 from __future__ import annotations
@@ -28,8 +34,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .. import roadmap
 from . import layers as L
+from .resnet import check_trainable
 
 ENC_CH = (64, 128, 256, 512, 512, 512, 512, 512)
 # per up level: (conv-transpose in, out) and the attention gate's F_int
@@ -126,8 +132,8 @@ class AttUnetGenerator(nn.Module):
                       for p in (m.weight, m.bias) if p is not None]
             casts = self._casts.get({id(p): p for p in params},
                                     self.compute_dtype)
-        spectral = any('spectral_u' in m._buffers
-                       for m, _ in L.conv_modules(self))
+        spectral = L.spectral_on() and any('spectral_u' in m._buffers
+                                           for m, _ in L.conv_modules(self))
         if spectral:
             casts = {**casts, **self._spectral.get(self, self.compute_dtype)}
         q = {}
@@ -138,38 +144,47 @@ class AttUnetGenerator(nn.Module):
         return L.cast_function(casts, q, spectral)
 
     @staticmethod
-    def _conv_norm(x, seq, cast, calib, name):
-        """1x1 conv with bias, then the per-sample batch norm."""
+    def _conv_norm(x, seq, cast, calib, name, train):
+        """1x1 conv with bias, then the batch norm (per sample, or with
+        ``train`` over the batch)."""
         L.record(calib, name, x)
         x = L.conv2d(x, cast(seq[0].weight), cast(seq[0].bias))
-        return L.batch_stat_norm(x, seq[1].weight, seq[1].bias)
+        return L.apply_norm(x, 'batch', seq[1], train)
 
-    def _attention(self, lvl, g, x, cast, calib):
+    def _attention(self, lvl, g, x, cast, calib, train):
         att = getattr(self, f'Att{lvl}')
-        psi = L.relu(self._conv_norm(g, att.W_g, cast, calib, f'att{lvl}_wg')
+        psi = L.relu(self._conv_norm(g, att.W_g, cast, calib, f'att{lvl}_wg',
+                                     train)
                      + self._conv_norm(x, att.W_x, cast, calib,
-                                       f'att{lvl}_wx'))
-        psi = self._conv_norm(psi, att.psi, cast, calib, f'att{lvl}_psi')
+                                       f'att{lvl}_wx', train))
+        psi = self._conv_norm(psi, att.psi, cast, calib, f'att{lvl}_psi',
+                              train)
         # the JAX package's sigmoid, 1 / (1 + exp(-psi)), in x's dtype
         psi = 1.0 / (1.0 + torch.exp(-psi))
         return x * psi
 
-    def forward(self, x):
+    def forward(self, x, rng=None):
         """(B, C_in, H, W) in any float dtype, H and W multiples of 256 ->
-        output in the compute dtype."""
+        output in the compute dtype; in train mode in
+        ``layers.train_dtype`` under autograd (``rng`` unused: the net has
+        no dropout)."""
         if self.training:
-            raise roadmap.not_ported('training', roadmap.TRAINING)
-        return self.run(x)
+            check_trainable(self)
+            dt = L.train_dtype(self)
+            return self.run(x.to(dt), L.train_cast(self, dt), train=True)
+        return self.run(x.to(self.compute_dtype))
 
     def calibrate(self, x, calib):
         """The float forward of ``x`` (float weights in the compute dtype),
         recording each conv's input through ``calib`` (a
         ``layers.ActCalibration`` view) under its JAX name."""
-        return self.run(x, self._cast(int8=False), calib)
+        return self.run(x.to(self.compute_dtype), self._cast(int8=False),
+                        calib)
 
-    def run(self, x, cast=None, calib=None):
+    def run(self, x, cast=None, calib=None, train=False):
+        """The net on ``x``, already in the dtype it computes in."""
         cast = cast or self._cast()
-        h = x.to(self.compute_dtype)
+        h = x
         enc = []
         for i in range(8):
             seq = getattr(self, f'Conv{i + 1}').conv
@@ -180,17 +195,17 @@ class AttUnetGenerator(nn.Module):
             elif i == 7:
                 h = L.relu(h)
             else:
-                h = L.leaky_relu(L.batch_stat_norm(h, seq[1].weight,
-                                                   seq[1].bias), 0.2)
+                h = L.leaky_relu(L.apply_norm(h, 'batch', seq[1], train),
+                                 0.2)
             enc.append(h)
         d = enc[7]
         for lvl, skip in zip(UP_CH, range(6, -1, -1)):
             seq = getattr(self, f'Up{lvl}').up
             L.record(calib, f'up{lvl}', d)
             d = L.conv_transpose2d(d, cast(seq[0].weight), None, 2, 1, 0)
-            d = L.relu(L.batch_stat_norm(d, seq[1].weight, seq[1].bias))
-            d = torch.cat([self._attention(lvl, d, enc[skip], cast, calib),
-                           d], 1)
+            d = L.relu(L.apply_norm(d, 'batch', seq[1], train))
+            d = torch.cat([self._attention(lvl, d, enc[skip], cast, calib,
+                                           train), d], 1)
         seq = self.Up1.up
         L.record(calib, 'up1', d)
         d = L.conv_transpose2d(d, cast(seq[0].weight), cast(seq[0].bias), 2,

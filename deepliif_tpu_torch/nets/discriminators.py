@@ -9,11 +9,16 @@ n_layers_D=4 and the conditional input concat(input, output), 6 channels.
 
 A discriminator's norm always takes batch statistics over the batch under
 autograd (the JAX ``apply_norm`` default ``train=True``), in the losses of
-an evaluation too. Float32 only.
+an evaluation too. A discriminator runs in its ``compute_dtype`` (the
+JAX ``define_d(dtype=d.dtype)``: bfloat16 in a DeepLIIF step at
+bfloat16), its input cast to it, the weights cast (and spectrally
+normalized where a conv has a ``spectral_u``) under autograd by
+``layers.train_cast``; float32 statistics.
 """
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from . import layers as L
@@ -34,6 +39,7 @@ class NLayerDiscriminator(nn.Module):
                     L.norm_layer(norm, ndf * nf_mult), nn.LeakyReLU(0.2, True)]
         seq.append(nn.Conv2d(ndf * nf_mult, 1, 4, 1, 1))
         self.model = nn.Sequential(*seq)
+        self.compute_dtype = torch.float32
 
     def jax_layout(self):
         """(JAX param path, torch module prefix, kind), as
@@ -62,14 +68,17 @@ class NLayerDiscriminator(nn.Module):
                 f'empty for this input size; use a larger image (>= '
                 f'{2 ** self.n_layers} * 4) or fewer layers')
         m = self.model
-        x = L.leaky_relu(L.conv2d(x, m[0].weight, m[0].bias, 2, 1), 0.2)
+        dt = L.train_dtype(self)
+        cast, x = L.train_cast(self, dt), x.to(dt)
+        x = L.leaky_relu(L.conv2d(x, cast(m[0].weight), cast(m[0].bias), 2,
+                                  1), 0.2)
         for n in range(1, self.n_layers + 1):
             i = 2 + 3 * (n - 1)
-            x = L.conv2d(x, m[i].weight, m[i].bias,
+            x = L.conv2d(x, cast(m[i].weight), cast(m[i].bias),
                          2 if n < self.n_layers else 1, 1)
             x = L.leaky_relu(L.apply_norm(x, self.norm, m[i + 1], True), 0.2)
         last = m[2 + 3 * self.n_layers]
-        return L.conv2d(x, last.weight, last.bias, 1, 1)
+        return L.conv2d(x, cast(last.weight), cast(last.bias), 1, 1)
 
 
 class PixelDiscriminator(nn.Module):
@@ -81,6 +90,7 @@ class PixelDiscriminator(nn.Module):
             nn.Conv2d(input_nc, ndf, 1), nn.LeakyReLU(0.2, True),
             nn.Conv2d(ndf, ndf * 2, 1, bias=bias), L.norm_layer(norm, ndf * 2),
             nn.LeakyReLU(0.2, True), nn.Conv2d(ndf * 2, 1, 1, bias=bias))
+        self.compute_dtype = torch.float32
 
     def jax_layout(self):
         return [(('conv0',), 'net.0', 'conv'), (('conv1',), 'net.2', 'conv'),
@@ -88,7 +98,9 @@ class PixelDiscriminator(nn.Module):
 
     def forward(self, x):
         n = self.net
-        x = L.leaky_relu(L.conv2d(x, n[0].weight, n[0].bias), 0.2)
-        x = L.conv2d(x, n[2].weight, n[2].bias)
+        dt = L.train_dtype(self)
+        cast, x = L.train_cast(self, dt), x.to(dt)
+        x = L.leaky_relu(L.conv2d(x, cast(n[0].weight), cast(n[0].bias)), 0.2)
+        x = L.conv2d(x, cast(n[2].weight), cast(n[2].bias))
         x = L.leaky_relu(L.apply_norm(x, self.norm, n[3], True), 0.2)
-        return L.conv2d(x, n[5].weight, n[5].bias)
+        return L.conv2d(x, cast(n[5].weight), cast(n[5].bias))

@@ -1,7 +1,7 @@
 """Functional layer primitives, NCHW (PyTorch's layout).
 
-Port of deepliif_tpu/nets/layers.py (spectral norm's training half, the
-int8 calibration helpers and the TPU lowering tricks aside). The
+Port of deepliif_tpu/nets/layers.py (the int8 calibration helpers and
+the TPU lowering tricks aside). The
 nets of this package keep the reference torch layout (NCHW activations,
 OIHW conv and IOHW conv-transpose weights) so reference state dicts load as
 they are; deepliif_tpu.utils.torch_import converts between the two layouts
@@ -23,7 +23,9 @@ full batch, each float32 cuDNN call whose bits would differ zero-padded
 to the full batch (``cudnn_hook``, ``models.InferenceSession.probe_bucket``).
 On the CPU, and in bf16 on CUDA, every conv and conv-transpose runs one
 sample at a time (``_per_sample``): oneDNN also picks by shape, and a
-cuDNN bf16 conv of 16 samples computed its last four otherwise.
+cuDNN bf16 conv of 16 samples computed its last four otherwise. A
+training step, which needs no batch invariance, runs its CUDA convs as
+one call (``batched``).
 
 Norms (``norm_layer`` / ``apply_norm``): 'batch' (per-sample statistics,
 ``batch_stat_norm``), 'instance' (``instance_norm``, the same statistics
@@ -38,16 +40,23 @@ conv-transpose.
 lowering tricks for a tiny output-channel count; their counterpart here is
 the plain conv.
 
-Training (float32; the nets' train mode): ``init_net`` draws every conv
-and norm parameter of a net as the JAX initializers do (normal, xavier,
-kaiming, orthogonal; norm scale N(1, gain), bias 0) from an explicit
-``torch.Generator``; ``dropout`` draws its mask from a generator on the
-device; the norms take their statistics through ``plane_mean_var_train``,
-an autograd Function whose forward is the statistics kernel (its plain
-version on the CPU) and whose backward is one elementwise pass; batch norm
-couples the samples (``train_batch_norm``: statistics over (B, H, W), the
-JAX ``batch_stat_norm(per_sample=False)``), built from the per-sample
-statistics of one call.
+Training (the nets' train mode, float32 or bfloat16): ``init_net`` draws
+every conv and norm parameter of a net as the JAX initializers do
+(normal, xavier, kaiming, orthogonal; norm scale N(1, gain), bias 0) from
+an explicit ``torch.Generator``; ``train_cast`` gives each conv its weight
+and bias in the compute dtype under autograd (``train_dtype``; the
+gradient reaches the float32 parameter through the cast), a weight with a
+``spectral_u`` divided by its spectral norm first (``spectral_weight``:
+the power iteration without gradient, sigma with it, as the JAX
+``_sn_single`` under ``jax.grad``; ``draw_spectral_u`` and
+``refresh_spectral_u`` draw and refresh u); ``dropout`` draws its mask
+from a generator on the device; the norms take their statistics in
+float32 through ``plane_mean_var_train``, an autograd Function whose
+forward is the statistics kernel (float32 or bfloat16 input; its plain
+version on the CPU) and whose backward is one elementwise pass; batch
+norm couples the samples (``train_batch_norm``: statistics over (B, H,
+W), the JAX ``batch_stat_norm(per_sample=False)``), built from the
+per-sample statistics of one call.
 
 int8: a conv given an ``ops.quant.Int8Conv`` in place of its weight takes
 the JAX package's int8 route (layers.py conv2d, conv_transpose2d): the
@@ -183,16 +192,36 @@ def _aligned(x):
         x.clone()
 
 
+# a training step's bf16 convs on CUDA run as one call (``batched``)
+_BATCHED = contextvars.ContextVar('batched', default=False)
+
+
+@contextlib.contextmanager
+def batched():
+    """In the block (this thread), a bf16 conv on CUDA runs as one call:
+    a training step needs no batch invariance (its batch norm couples the
+    samples anyway), and a full-width bf16 flagship step ran faster with
+    one call per conv than one sample at a time, both bitwise
+    reproducible (``experiments/torch_train_bf16_convs.py``; PERF.md)."""
+    token = _BATCHED.set(True)
+    try:
+        yield
+    finally:
+        _BATCHED.reset(token)
+
+
 def _per_sample(fn, x, *args):
-    """``fn(x, *args)``. On the CPU, and in bf16 on CUDA, one sample at a
-    time, each 16-byte aligned: every call then has the shape of one tile,
-    so a tile's result does not depend on the batch (oneDNN and cuDNN pick
-    their algorithm by the shape of the whole call, and on the H100 a
-    cuDNN bf16 conv of a batch of 16 gave its last four samples other bits
-    than the same samples alone, ``chip_smoke.py`` phase ``pipeline``).
-    On CUDA in float32 one call, through the engine's ``cudnn_hook`` where
-    one is set (``models._BatchFloors``)."""
-    if x.device.type == 'cpu' or x.dtype != torch.float32:
+    """``fn(x, *args)``. On the CPU, and in bf16 on CUDA outside
+    ``batched``, one sample at a time, each 16-byte aligned: every call
+    then has the shape of one tile, so a tile's result does not depend on
+    the batch (oneDNN and cuDNN pick their algorithm by the shape of the
+    whole call, and on the H100 a cuDNN bf16 conv of a batch of 16 gave
+    its last four samples other bits than the same samples alone,
+    ``chip_smoke.py`` phase ``pipeline``). Otherwise one call, through
+    the engine's ``cudnn_hook`` where one is set
+    (``models._BatchFloors``)."""
+    if x.device.type == 'cpu' or (x.dtype != torch.float32
+                                  and not _BATCHED.get()):
         if x.shape[0] == 1:
             return fn(_aligned(x), *args)
         return torch.cat([fn(_aligned(x[i:i + 1]), *args)
@@ -636,14 +665,118 @@ def spectral_sigma(w_hwio, u, n_iter=SPECTRAL_ITERS):
     from ``u`` on the (KH KW C_in, C_out) matrix of the HWIO kernel, in
     float32; returns sigma = u' M v."""
     mat = w_hwio.reshape(-1, w_hwio.shape[-1]).float()
-    u = u.float()
+    u, v = _power_iteration(mat, u.float(), n_iter)
+    return u @ (mat @ v)
+
+
+def _power_iteration(mat, u, n_iter):
+    """(u', v') after ``n_iter`` steps from ``u`` on ``mat`` (the JAX
+    ``_sn_single`` loop)."""
     v = None
     for _ in range(n_iter):
         v = mat.T @ u
         v = v / (torch.linalg.norm(v) + 1e-12)
         u = mat @ v
         u = u / (torch.linalg.norm(u) + 1e-12)
-    return u @ (mat @ v)
+    return u, v
+
+
+def _spectral_matrix(m, kind):
+    """The (KH KW C_in, C_out) matrix of a conv module's HWIO kernel, in
+    float32 (float64 for a float64 weight)."""
+    w = weight_to_hwio(m.weight, kind)
+    return w.reshape(-1, w.shape[-1]).to(
+        torch.promote_types(w.dtype, torch.float32))
+
+
+def spectral_weight(m, kind, n_iter=SPECTRAL_ITERS):
+    """The conv module ``m``'s weight divided by its spectral norm, under
+    autograd (train mode; the JAX ``_sn_single`` under ``jax.grad``): the
+    power iteration from ``m.spectral_u`` runs without gradient (JAX's
+    stop_gradient on u' and v'), sigma = u' M v' keeps M's, so the gradient
+    flows through w / sigma(w). ``spectral_u`` is not changed
+    (``refresh_spectral_u`` does that once a step)."""
+    mat = _spectral_matrix(m, kind)
+    with torch.no_grad():
+        u, v = _power_iteration(mat, m.spectral_u.to(mat.dtype), n_iter)
+    return m.weight / (u @ (mat @ v)).to(m.weight.dtype)
+
+
+def draw_spectral_u(net, generator=None):
+    """Draw every ``spectral_u`` of ``net`` from N(0, 1) (float32, on the
+    CPU; the JAX ``add_spectral_u`` at init)."""
+    with torch.no_grad():
+        for m, _ in conv_modules(net):
+            if 'spectral_u' in m._buffers:
+                m.spectral_u.copy_(torch.randn(m.spectral_u.shape,
+                                               generator=generator))
+
+
+def refresh_spectral_u(net, n_iter=SPECTRAL_ITERS):
+    """u <- ``n_iter`` power-iteration steps from u on the current weight,
+    for every conv of ``net`` with a ``spectral_u``: the refreshed vectors
+    of the JAX ``spectral_normalize_tree``, which its DeepLIIF step keeps
+    once a step after both updates."""
+    with torch.no_grad():
+        for m, kind in conv_modules(net):
+            if 'spectral_u' in m._buffers:
+                mat = _spectral_matrix(m, kind)
+                u, _ = _power_iteration(mat, m.spectral_u.to(mat.dtype),
+                                        n_iter)
+                m.spectral_u.copy_(u)
+
+
+# convs take their weights as they are, spectral_u or not
+# (``raw_weights``)
+_RAW_WEIGHTS = contextvars.ContextVar('raw_weights', default=False)
+
+
+@contextlib.contextmanager
+def raw_weights():
+    """In the block (this thread), convs skip the spectral normalization
+    (``spectral_on`` is False): the JAX DeepLIIFKD G loss runs its student,
+    and its teacher its seg branches, on the raw weights
+    (``models.deepliif_kd``)."""
+    token = _RAW_WEIGHTS.set(True)
+    try:
+        yield
+    finally:
+        _RAW_WEIGHTS.reset(token)
+
+
+def spectral_on():
+    """Convs with a ``spectral_u`` normalize their weights (False inside
+    ``raw_weights``)."""
+    return not _RAW_WEIGHTS.get()
+
+
+def train_dtype(net):
+    """The dtype a net computes in train mode: its ``compute_dtype`` where
+    that is bfloat16, else its parameters' (float32; float64 for a
+    reference on the CPU)."""
+    if net.compute_dtype != torch.float32:
+        return net.compute_dtype
+    return next(net.parameters()).dtype
+
+
+def train_cast(net, dtype):
+    """Function param -> what its conv takes in train mode, under autograd
+    (the JAX ``w.astype(x.dtype)`` under ``jax.grad``): each conv weight
+    spectrally normalized where its module has a ``spectral_u``
+    (``spectral_weight``, unless ``raw_weights``), then, like each conv
+    bias, cast to ``dtype``; the gradient reaches the float32 parameter
+    through the cast. Made anew each call: the weights change every
+    step."""
+    casts = {}
+    spectral = spectral_on()
+    for m, kind in conv_modules(net):
+        w = m.weight
+        if spectral and 'spectral_u' in m._buffers:
+            w = spectral_weight(m, kind)
+        casts[id(m.weight)] = w.to(dtype)
+        if m.bias is not None:
+            casts[id(m.bias)] = m.bias.to(dtype)
+    return lambda p: None if p is None else casts.get(id(p), p)
 
 
 class SpectralCache:

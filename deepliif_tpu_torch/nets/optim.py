@@ -65,6 +65,13 @@ def make_lr_schedule(opt, steps_per_epoch=1):
     raise NotImplementedError(f'lr policy [{policy}] not implemented')
 
 
+def initial_moment(p, name):
+    """The moment ``name`` of a tensor like ``p`` at optax's initial value
+    (the adagrad accumulator ADAGRAD_INIT, every other 0)."""
+    return torch.full_like(p, ADAGRAD_INIT if name == 'sum_of_squares'
+                           else 0.0, memory_format=torch.preserve_format)
+
+
 class OptaxOptimizer(torch.optim.Optimizer):
     """One of optax's adam, adamw, sgd, rmsprop, adagrad (``kind``) at
     base learning rate ``lr`` (each param group's 'lr'; the plateau
@@ -84,9 +91,7 @@ class OptaxOptimizer(torch.optim.Optimizer):
         value on first use)."""
         st = self.state[p]
         if name not in st:
-            st[name] = torch.full_like(
-                p, ADAGRAD_INIT if name == 'sum_of_squares' else 0.0,
-                memory_format=torch.preserve_format)
+            st[name] = initial_moment(p, name)
         return st[name]
 
     @torch.no_grad()

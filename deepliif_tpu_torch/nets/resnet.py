@@ -47,12 +47,16 @@ package's ``_fused_ok`` admits the trunk: batch norm with reflect or zero
 padding; every other trunk runs ``trunk_unfused`` (cuDNN and the
 statistics kernel).
 
-Train mode (``net.train()``, float32; the JAX ``apply(train=True)``): the
-trunk runs ``trunk_unfused`` (the trunk kernel has no backward, and the
-JAX package trains on XLA convs too), every norm takes batch statistics
-through the statistics kernel under autograd (``layers.apply_norm(...,
-train=True)``), and each resblock drops out after its first ReLU when the
-net has dropout, its mask drawn from the generator ``forward`` is given.
+Train mode (``net.train()``, the JAX ``apply(train=True)``) runs in the
+compute dtype (bfloat16 or float32; ``layers.train_dtype``) with the
+float32 parameters cast under autograd, each conv weight divided by its
+spectral norm where the conv has a ``spectral_u`` (``layers.train_cast``):
+the trunk runs ``trunk_unfused`` (the trunk kernel has no backward, and
+the JAX package trains on XLA convs too), every norm takes batch
+statistics in float32 through the statistics kernel under autograd
+(``layers.apply_norm(..., train=True)``), and each resblock drops out
+after its first ReLU when the net has dropout, its mask drawn from the
+generator ``forward`` is given.
 """
 
 from __future__ import annotations
@@ -103,15 +107,12 @@ def fused_stages_gate(dtype, int8=False, trunk_c=None, hw=None,
 
 def check_trainable(net):
     """Raise NotImplementedError ("Training") for a net that train mode does
-    not run: a compute dtype other than float32, int8, spectral norm or the
-    fused translator stages."""
-    if net.compute_dtype != torch.float32 or getattr(net, 'int8', None) \
-            or getattr(net, 'fuse_stages', False):
-        raise roadmap.not_ported(f'training at {net.compute_dtype}, int8 or '
-                                 'with the fused stages', roadmap.TRAINING)
-    if net.norm == 'spectral':
-        raise roadmap.not_ported('training with spectral norm',
-                                 roadmap.TRAINING)
+    not run: int8 or the fused translator stages (the JAX train step never
+    reaches them: its fused gate and the int8 trunk are inference only).
+    bfloat16 and spectral norm train."""
+    if getattr(net, 'int8', None) or getattr(net, 'fuse_stages', False):
+        raise roadmap.not_ported('training at int8 or with the fused '
+                                 'stages', roadmap.TRAINING)
 
 
 class ResnetBlock(nn.Module):
@@ -327,14 +328,15 @@ class ResnetGenerator(nn.Module):
             if trunk or not int8:
                 casts = {**casts, **self._trunk_casts.get(
                     self._cast_params(True), self.compute_dtype)}
-        if self.norm == 'spectral':
+        spectral = self.norm == 'spectral' and L.spectral_on()
+        if spectral:
             casts = {**casts, **self._spectral.get(self, self.compute_dtype)}
         q = {}
         if int8 and self.int8:
             q = self._int8_convs.get(
                 [c for c in self.conv_layout() if c[0] in self.int8],
                 self.int8, self.compute_dtype)
-        return L.cast_function(casts, q, self.norm == 'spectral')
+        return L.cast_function(casts, q, spectral)
 
     # -- inference ----------------------------------------------------------
 
@@ -527,16 +529,17 @@ class ResnetGenerator(nn.Module):
 
     def forward(self, x, rng=None):
         """(B, C_in, H, W) in any float dtype -> output in the compute
-        dtype; in train mode in the parameters' dtype (float32; float64
-        for a reference on the CPU) under autograd, dropout masks drawn
-        from ``rng`` (a ``torch.Generator`` on x's device)."""
+        dtype; in train mode in ``layers.train_dtype`` (bfloat16, float32,
+        or float64 for a reference on the CPU) under autograd, the weights
+        cast (and spectrally normalized) by ``layers.train_cast``, dropout
+        masks drawn from ``rng`` (a ``torch.Generator`` on x's device)."""
         if self.training:
             check_trainable(self)
-            h = self.head(x.to(self.model[1].weight.dtype),
-                          self._cast(int8=False, trunk=True))
-            h = self.trunk_unfused(h.permute(0, 3, 1, 2), self._cast(
-                int8=False, trunk=True), rng=rng)
-            return self.tail(h.permute(0, 2, 3, 1))
+            dt = L.train_dtype(self)
+            cast = L.train_cast(self, dt)
+            h = self.head(x.to(dt), cast)
+            h = self.trunk_unfused(h.permute(0, 3, 1, 2), cast, rng=rng)
+            return self.tail(h.permute(0, 2, 3, 1), cast)
         x = x.to(self.compute_dtype)
         if self.fuse_stages:
             return self.fused_stages(x)

@@ -21,11 +21,12 @@ these convs pad inside).
 Norms: those of ``layers.norm_layer``; with instance norm every conv
 carries a bias (the reference rule), the outermost up conv always does.
 
-Train mode (``net.train()``, float32; the JAX ``apply(train=True)``):
-every norm takes batch statistics under autograd (``layers.apply_norm(...,
-train=True)``), and the intermediate ngf*8 blocks drop out after their up
-norm when the net has dropout, the masks drawn from the generator
-``forward`` is given.
+Train mode (``net.train()``, the JAX ``apply(train=True)``): in the
+compute dtype, the weights cast (and spectrally normalized) under
+autograd by ``layers.train_cast``; every norm takes batch statistics in
+float32 under autograd (``layers.apply_norm(..., train=True)``), and the
+intermediate ngf*8 blocks drop out after their up norm when the net has
+dropout, the masks drawn from the generator ``forward`` is given.
 """
 
 from __future__ import annotations
@@ -180,24 +181,25 @@ class UnetGenerator(nn.Module):
                       for p in (mod.weight, mod.bias) if p is not None]
             casts = self._casts.get({id(p): p for p in params},
                                     self.compute_dtype)
-        if self.norm == 'spectral':
+        spectral = self.norm == 'spectral' and L.spectral_on()
+        if spectral:
             casts = {**casts, **self._spectral.get(self, self.compute_dtype)}
         q = {}
         if int8 and self.int8:
             q = self._int8_convs.get(
                 [c for c in self.conv_layout() if c[0] in self.int8],
                 self.int8, self.compute_dtype)
-        return L.cast_function(casts, q, self.norm == 'spectral')
+        return L.cast_function(casts, q, spectral)
 
     def forward(self, x, rng=None):
         """(B, C_in, H, W) in any float dtype -> output in the compute
-        dtype; in train mode in the parameters' dtype (float32; float64
-        for a reference on the CPU) under autograd, dropout masks drawn
-        from ``rng`` (a ``torch.Generator`` on x's device)."""
+        dtype; in train mode in ``layers.train_dtype`` under autograd, the
+        weights from ``layers.train_cast``, dropout masks drawn from
+        ``rng`` (a ``torch.Generator`` on x's device)."""
         if self.training:
             check_trainable(self)
-            return self.model.run(x.to(next(self.parameters()).dtype),
-                                  self._cast(int8=False), rng=rng)
+            dt = L.train_dtype(self)
+            return self.model.run(x.to(dt), L.train_cast(self, dt), rng=rng)
         return self.model.run(x.to(self.compute_dtype), self._cast())
 
     def calibrate(self, x, calib):

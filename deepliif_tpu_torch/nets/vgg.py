@@ -84,11 +84,17 @@ class VGG19Features(nn.Module):
                         torch.from_numpy(w.copy()), 'conv'))
                     conv.bias.zero_()
         self.requires_grad_(False)
+        self._casts = L.CastCache()
 
     def features(self, x):
         """x (N, 3, H, W) in [-1, 1] (network outputs, fed without ImageNet
         renormalization, as the reference does) -> the 5 slice
-        activations."""
+        activations, in x's dtype: the frozen weights are cast to it (a
+        bfloat16 generator output runs the VGG in bfloat16, as the JAX
+        ``conv2d`` casts its weights to the input's dtype)."""
+        params = {id(p): p for p in self.parameters()}
+        cast = (self._casts.get(params, x.dtype) if
+                x.dtype != self.convs[0].weight.dtype else {})
         outs, ci, h = [], 0, x
         for sl in SLICES:
             for item in sl:
@@ -96,7 +102,9 @@ class VGG19Features(nn.Module):
                     h = F.max_pool2d(h, 2, 2)
                 else:
                     conv = self.convs[ci]
-                    h = L.relu(L.conv2d(h, conv.weight, conv.bias, 1, 1))
+                    h = L.relu(L.conv2d(
+                        h, cast.get(id(conv.weight), conv.weight),
+                        cast.get(id(conv.bias), conv.bias), 1, 1))
                     ci += 1
             outs.append(h)
         return outs
@@ -106,7 +114,9 @@ def vgg_loss(net, x, y):
     """Weighted L1 between the feature slices of x and y (reference
     networks.py:731-743), y's features without gradient. x, y: (N, 3, H,
     W), or (G, N, 3, H, W) for G losses at once (one pass of the G N
-    images), returned as (G,)."""
+    images), returned as (G,). Each runs in its own dtype (a bfloat16
+    output's features in bfloat16, a float32 real's in float32), the L1 in
+    float32, as JAX promotes |a - b|."""
     groups = x.shape[0] if x.dim() == 5 else None
     flat = (lambda t: t.reshape(-1, *t.shape[2:])) if groups else \
         (lambda t: t)

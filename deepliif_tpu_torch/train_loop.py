@@ -1,5 +1,8 @@
-"""Training loop of every model family at float32 on one device, the port
-of deepliif_tpu/train_loop.py.
+"""Training loop of every model family on one device, the port of
+deepliif_tpu/train_loop.py: at float32 or bfloat16 (DeepLIIF and
+DeepLIIFKD; the other families train in float32 at either, as in the JAX
+package), with any norm, spectral included, and any generator, the
+attention U-Net included.
 
 Mirrors the reference epoch loop (reference cli.py:194-570) as the JAX
 package does: per-iteration loss printing at print_freq, image grids at
@@ -21,8 +24,8 @@ runs its G step, queries the host image pools (seeded seed + i and seed
 + 100 + i) and runs its D step. --with-val computes every family's
 validation losses, and the cell-count RMSE for DeepLIIF and DeepLIIFKD.
 What this loop does not run raises NotImplementedError (ROADMAP.md,
-"Training"): bfloat16, spectral norm, the attention U-Net's train mode,
-orbax checkpoints (and, in ``cli.train_device``, several cards).
+"Training"): orbax checkpoints (and, in ``cli.train_device``, several
+cards; ``trainlaunch`` in ``cli``).
 """
 
 from __future__ import annotations
@@ -91,23 +94,15 @@ class PlateauController:
 
 def check_trainable(opt):
     """Raise NotImplementedError ("Training") for what this loop does not
-    run, ValueError for an unknown precision."""
+    run (orbax checkpoints), ValueError for a precision the JAX command
+    does not train (its choices are float32 and bfloat16)."""
     precision = getattr(opt, 'precision', 'float32') or 'float32'
-    if precision != 'float32':
-        if precision not in ('bfloat16', 'int8'):
-            raise ValueError(f'unknown precision [{precision}]')
-        raise roadmap.not_ported(f'training at {precision}', roadmap.TRAINING)
-    if getattr(opt, 'norm', 'batch') == 'spectral':
-        raise roadmap.not_ported('training with spectral norm',
-                                 roadmap.TRAINING)
+    if precision not in ('float32', 'bfloat16'):
+        raise ValueError(f'training runs at float32 or bfloat16, got '
+                         f'[{precision}]')
     if getattr(opt, 'checkpoint_format', 'npz') != 'npz':
         raise roadmap.not_ported(f'--checkpoint-format '
                                  f'{opt.checkpoint_format}', roadmap.TRAINING)
-    for arch in (getattr(opt, 'net_gs', 'unet_512'),
-                 getattr(opt, 'netG', getattr(opt, 'net_g', ''))):
-        if arch == 'unet_512_attention':
-            raise roadmap.not_ported('training the attention U-Net',
-                                     roadmap.TRAINING)
 
 
 def batch_to_device(data, device):

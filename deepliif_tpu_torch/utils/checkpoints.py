@@ -20,6 +20,11 @@ read a training run's ``{epoch}_optim.npz`` in the JAX package's layout
 such as 'g/0/.count', 'g/0/.mu/G/head_conv/w', 'g/1/.count'), so a run
 resumes in either package.
 
+A spectrally normalized run's ``u`` vectors are leaves of the JAX param
+tree, so its optax state holds a moment of each: the port writes them at
+their initial value (``nets.optim.initial_moment``; the gradient of u is
+0) and reads past them.
+
 ``params_from_jax`` / ``params_to_jax`` map one net's JAX param tree (numpy
 arrays, NHWC/HWIO layouts) to and from the module's state dict; they are
 the inverse of deepliif_tpu.utils.torch_import's conv_from_torch,
@@ -258,7 +263,7 @@ def _optim_prefixes(kind, plateau):
 
 
 def _optim_flat(optimizer, groups, plateau):
-    from ..nets.optim import MOMENTS
+    from ..nets.optim import MOMENTS, initial_moment
     counts, inner = _optim_prefixes(optimizer.kind, plateau)
     flat = {c: np.asarray(optimizer.count, np.int32) for c in counts}
     if plateau:
@@ -266,8 +271,13 @@ def _optim_flat(optimizer, groups, plateau):
             optimizer.param_groups[0]['lr'], np.float32)
     for m in MOMENTS[optimizer.kind]:
         for name, nets in groups:
-            sds = [{k: optimizer.moment(p, m)
-                    for k, p in net.named_parameters()} for net in nets]
+            # a spectral_u is a leaf of the JAX param tree with a zero
+            # gradient, so optax keeps a moment of it at its initial value
+            sds = [{**{k: optimizer.moment(p, m)
+                       for k, p in net.named_parameters()},
+                    **{k: initial_moment(b, m) for k, b in
+                       net.named_buffers() if k.endswith('.spectral_u')}}
+                   for net in nets]
             for k, v in group_flat(nets, sds).items():
                 flat[f'{inner}.{m}/{name}/{k}'] = v
     return flat

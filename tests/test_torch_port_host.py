@@ -227,9 +227,17 @@ def test_roadmap_items_follow_queue_order():
     assert [h for h in order if h in roadmap.ITEMS] == list(roadmap.ITEMS)
 
 
-def _bf16(net):
-    """A net in train mode at bfloat16, which training does not run."""
-    net.compute_dtype = torch.bfloat16
+def _fused(net):
+    """A net in train mode with the fused translator stages, which
+    training does not run (nor does the JAX train step)."""
+    net.fuse_stages = True
+    return net
+
+
+def _int8(net):
+    """A net in train mode with a quantized conv, which training does not
+    run."""
+    net.set_int8({'downconv': None})
     return net
 
 
@@ -245,14 +253,13 @@ def test_not_ported_messages_name_roadmap_headings(tmp_path, monkeypatch):
     errors = []
     for call in (
             lambda: cli.int8_options({'DEEPLIIF_INT8_DYN': '0'}, 'int8'),
-            lambda: _bf16(nets.ResnetGenerator(3, 3, 8, n_blocks=2))(
+            lambda: _fused(nets.ResnetGenerator(3, 3, 8, n_blocks=2))(
                 torch.zeros(1, 3, 16, 16)),
-            lambda: nets.define_g(3, 3, 8, 'unet_32', norm='spectral')(
+            lambda: _int8(nets.define_g(3, 3, 8, 'unet_32'))(
                 torch.zeros(1, 3, 32, 32)),
             lambda: cli.make_cli().main(['trainlaunch'],
                                         standalone_mode=False),
-            lambda: nets.define_g(3, 3, 8, 'unet_512_attention')(
-                torch.zeros(1, 3, 256, 256)),
+            lambda: cli.train_device('cuda', '0,1'),
             lambda: wsi.WSIReader(str(tmp_path / 'slide.czi')),
             lambda: M.InferenceSession(str(tmp_path), device='cpu')):
         with monkeypatch.context() as mp:

@@ -12,7 +12,9 @@ CLI, trains a tiny DeepLIIF model one step through the CLI's ``train``
 background modules of training; the default VGG19 drawn by
 ``utils.jax_random``), then a tiny DeepLIIFExt, SDG, CycleGAN (its host
 image pools and the unaligned loader) and DeepLIIFKD (the DeepLIIF run as
-its teacher) one step each, runs ``eval``, ``prepare-training-data``,
+its teacher) one step each, one step each at bfloat16, with spectral
+norm and with attention U-Net seg nets, runs ``eval``,
+``prepare-training-data``,
 ``prepare-testing-data``, ``register`` and ``visualize`` through the CLI,
 traces a call with ``utils.profiling``, and finds no ``jax``, ``jaxlib`` or
 ``deepliif_tpu`` / ``deepliif_tpu.*`` module loaded."""
@@ -174,6 +176,25 @@ for model, root, extra in (
          '--device', 'cpu'] + extra, standalone_mode=False)
     with np.load(os.path.join(md, 'ckpt', model, 'latest_optim.npz')) as f:
         assert int(f['step']) == 1, model
+# bfloat16, spectral norm and the attention U-Net seg nets (256^2 rows),
+# one step each
+att_rows = os.path.join(md, 'rows256', 'train')
+os.makedirs(att_rows)
+Image.fromarray(np.tile(np.kron(tiles[0], np.ones((4, 4, 1), np.uint8)),
+                        (1, 3, 1))).save(os.path.join(att_rows, 'r.png'))
+for name, root, size, extra in (
+        ('bf16', os.path.dirname(rows), 64, ['--precision', 'bfloat16']),
+        ('spectral', os.path.dirname(rows), 64, ['--norm', 'spectral']),
+        ('attention', os.path.dirname(att_rows), 256,
+         ['--net-gs', 'unet_512_attention'])):
+    run(['train', '--dataroot', root, '--checkpoints-dir',
+         os.path.join(md, 'ckpt'), '--name', name, '--modalities-no', '1',
+         '--net-g', 'resnet_2blocks', '--net-gs', 'unet_32', '--ngf', '8',
+         '--ndf', '8', '--load-size', str(size), '--crop-size', str(size),
+         '--n-epochs', '1', '--n-epochs-decay', '0', '--device', 'cpu']
+        + extra, standalone_mode=False)
+    with np.load(os.path.join(md, 'ckpt', name, 'latest_optim.npz')) as f:
+        assert int(f['step']) == 1, name
 import pickle, time
 from deepliif_tpu_torch.utils import (augmentation, jax_random, profiling,
                                       registration)

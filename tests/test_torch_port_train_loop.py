@@ -6,8 +6,9 @@ RMSE), the loader's batches equal to the JAX ``create_dataset``'s for one
 seed, the nets' ``latest_net_*.npz`` read by the JAX ``load_networks``,
 ``{epoch}_optim.npz`` crossing both ways, the CLI's options those of the
 JAX ``train`` plus ``--device``, and what raises NotImplementedError
-("Training"): bfloat16, spectral norm, the attention U-Net and orbax
-checkpoints in any family, and several cards."""
+("Training"): orbax checkpoints in any family and several cards (int8 is
+no training precision); the options that raised before (bfloat16,
+spectral norm, the attention U-Net) train one step."""
 
 import json
 import os
@@ -51,15 +52,16 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _rows(d, count=4, m=2, seed=0):
-    """Rows A | B1..Bm | B_seg of SIZE tiles; the seg tile black with a few
-    red and blue blobs (empty 32 px tiles for the background colors)."""
+def _rows(d, count=4, m=2, seed=0, size=SIZE):
+    """Rows A | B1..Bm | B_seg of ``size`` tiles; the seg tile black with a
+    few red and blue blobs (empty 32 px tiles for the background
+    colors)."""
     os.makedirs(d, exist_ok=True)
     rng = np.random.default_rng(seed)
     for i in range(count):
-        tiles = [rng.integers(0, 255, (SIZE, SIZE, 3), np.uint8)
+        tiles = [rng.integers(0, 255, (size, size, 3), np.uint8)
                  for _ in range(m + 1)]
-        seg = np.zeros((SIZE, SIZE, 3), np.uint8)
+        seg = np.zeros((size, size, 3), np.uint8)
         seg[4:12, 4:12] = (255, 0, 0)
         seg[40:48, 8:16] = (0, 0, 255)
         Image.fromarray(np.concatenate(tiles + [seg], axis=1)).save(
@@ -312,15 +314,58 @@ def test_train_device_and_gpu_ids():
 
 
 @pytest.mark.parametrize('extra', [
-    ['--model', 'CycleGAN', '--norm', 'spectral'],
-    ['--model', 'DeepLIIFExt', '--precision', 'bfloat16'],
-    ['--precision', 'bfloat16'], ['--norm', 'spectral'],
     ['--checkpoint-format', 'orbax'], ['--gpu-ids', '0,1'],
-    ['--net-gs', 'unet_512_attention']])
+    ['--model', 'CycleGAN', '--checkpoint-format', 'orbax'],
+    ['--model', 'DeepLIIFExt', '--gpu-ids', '0,1'],
+    ['--precision', 'bfloat16', '--checkpoint-format', 'orbax']])
 def test_what_training_does_not_run_raises(tmp_path, extra):
     _rows(str(tmp_path / 'data' / 'train'), count=1)
     with pytest.raises(NotImplementedError, match=r'ROADMAP\.md, "Training"'):
         _train(tmp_path, *extra)
+
+
+def test_training_refuses_int8(tmp_path):
+    """The JAX command trains at float32 or bfloat16 only: click refuses
+    ``--precision int8``, and the loop raises ValueError for it."""
+    _rows(str(tmp_path / 'data' / 'train'), count=1)
+    with pytest.raises(click.BadParameter):
+        _train(tmp_path, '--precision', 'int8')
+    with pytest.raises(ValueError, match='float32 or bfloat16'):
+        train_loop.check_trainable(types.SimpleNamespace(precision='int8'))
+
+
+def _unaligned(root, size):
+    rng = np.random.default_rng(3)
+    for sub in ('trainA', 'trainB1', 'trainB2'):
+        os.makedirs(os.path.join(root, sub))
+        Image.fromarray(rng.integers(0, 255, (size, size, 3), np.uint8)
+                        ).save(os.path.join(root, sub, 'a.png'))
+
+
+@pytest.mark.parametrize('extra', [
+    ['--model', 'CycleGAN', '--norm', 'spectral'],
+    ['--model', 'DeepLIIFExt', '--precision', 'bfloat16'],
+    ['--precision', 'bfloat16'], ['--norm', 'spectral'],
+    ['--net-gs', 'unet_512_attention', '--modalities-no', '1']])
+def test_what_used_to_raise_now_trains(tmp_path, extra):
+    """The options that raised NotImplementedError ("Training") before
+    this slice train: one step through the CLI writes the nets and the
+    optimizer state (the attention U-Net at 256^2, its smallest size)."""
+    size = 256 if 'unet_512_attention' in extra else SIZE
+    data = str(tmp_path / 'data')
+    if 'CycleGAN' in extra:
+        _unaligned(data, size)
+    else:
+        m = 1 if '--modalities-no' in extra else 2
+        _rows(os.path.join(data, 'train'), count=1,
+              m=3 if 'DeepLIIFExt' in extra else m, size=size)
+    run = _train(tmp_path, '--n-epochs', '1', '--n-epochs-decay', '0',
+                 '--load-size', str(size), '--crop-size', str(size),
+                 '--scale-size', str(size), *extra)
+    with np.load(run / 'latest_optim.npz') as f:
+        assert int(f['step']) == 1
+    assert (run / 'latest_net_G.npz').exists() or \
+        (run / 'latest_net_GA.npz').exists()
 
 
 @pytest.mark.parametrize('command', ['trainlaunch', 'eval',

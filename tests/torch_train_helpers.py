@@ -98,7 +98,7 @@ def grads_jax_layout(nets_, names):
 LR = 2e-4
 
 
-def step_case(kw, ckpt_dir=None):
+def step_case(kw, ckpt_dir=None, size=SIZE):
     """Step 1 of the model ``kw`` (DeepLIIFDef fields) in each package from
     the same state, with JAX's gradients of its losses (jitted): D at the
     initial parameters, G against JAX's updated discriminators, and the
@@ -123,7 +123,8 @@ def step_case(kw, ckpt_dir=None):
                             jnp.zeros((), jnp.int32))
     jstep = jdl.make_train_step(jd, g_tx, d_tx, vp)
     step = dl.make_train_step(d, vnet)
-    out = {'kw': kw, 'params0': (flat(gp), flat(dp)), 'port': [], 'jax': []}
+    out = {'kw': kw, 'params0': (flat(gp), flat(dp)), 'port': [], 'jax': [],
+           'jstep': jstep}
 
     def record(jstate, jm, state, metrics):
         out['jax'].append(dict(metrics={k: np.asarray(v) for k, v in
@@ -135,7 +136,7 @@ def step_case(kw, ckpt_dir=None):
             g=flat(jax_params(state.nets, ('G', 'GS'))),
             d=flat(jax_params(state.nets, ('D', 'DS')))))
 
-    arrays = batch_arrays(1, m)
+    arrays = batch_arrays(1, m, size)
     jb = jax_batch(arrays)
     jstate, jm, _ = jstep(jstate, jb, jax.random.PRNGKey(0))
     state, metrics, _ = step(state, torch_batch(arrays))
@@ -156,6 +157,10 @@ def step_case(kw, ckpt_dir=None):
         * w_feat).sum()))(mods)
     out['jax_grads'] = (flat(dgrads), flat(ggrads))
     out['vgg_upstream'] = (np.asarray(mods), np.asarray(up), arrays)
+    # the trees of the G gradients: the initial generators, JAX's
+    # discriminators after step 1
+    out['g_grad_at'] = jax.tree_util.tree_map(jnp.copy,
+                                              (gp, jstate.d_params))
     out['port_grads_same_d'] = _g_grads_at(
         d, vnet, out['jax'][0]['d'], arrays, np.asarray(up))
     if ckpt_dir is None:
@@ -171,18 +176,19 @@ def step_case(kw, ckpt_dir=None):
         all(np.array_equal(a, out['jax'][0]['g'][k]) for k, a in
             flat(jax_params(state.nets, ('G', 'GS'))).items()),
         state.step, state.g_opt.count)
-    arrays = batch_arrays(2, m)
+    arrays = batch_arrays(2, m, size)
     jstate, jm, _ = jstep(jstate, jax_batch(arrays), jax.random.PRNGKey(1))
     state, metrics, _ = step(state, torch_batch(arrays))
     record(jstate, jm, state, metrics)
     return out
 
 
-def _g_grads_at(d, vnet, d_flat, arrays, vgg_up):
+def _g_grads_at(d, vnet, d_flat, arrays, vgg_up, dtype=torch.float32):
     """The port's G gradients of step 1's G loss against JAX's updated
     discriminators, with the perceptual term's gradient w.r.t. the
     generators' outputs ``vgg_up`` given (JAX's): the loss without the
-    perceptual term plus <outputs, vgg_up>."""
+    perceptual term plus <outputs, vgg_up>; in ``dtype`` (float64: the
+    nets, VGG and batch in float64 on the CPU)."""
     nets_ = dl.init_nets(d, torch.Generator().manual_seed(0)).train()
     # the generators of step 1: the initial draw, as in create_train_state
     for name, group in nets_.named_groups():
@@ -191,10 +197,12 @@ def _g_grads_at(d, vnet, d_flat, arrays, vgg_up):
                    if k.startswith(name + '/')}
             for net, tree in zip(group, ck.group_trees(sub, len(group))):
                 net.load_state_dict(ck.params_from_jax(net, tree))
-    loss, (_, g_out) = dl.g_loss_fn(nets_, torch_batch(arrays),
+    nets_.to(dtype)
+    batch = {k: v.to(dtype) for k, v in torch_batch(arrays).items()}
+    loss, (_, g_out) = dl.g_loss_fn(nets_, batch,
                                     dataclasses.replace(d, lambda_feat=0.0),
                                     vnet)
-    loss = loss + (g_out['mods'] * torch.from_numpy(vgg_up)).sum()
+    loss = loss + (g_out['mods'] * torch.from_numpy(vgg_up).to(dtype)).sum()
     params = [p for n, g in nets_.named_groups() if n in ('G', 'GS')
               for p in g.parameters()]
     for p, g in zip(params, torch.autograd.grad(loss, params)):
@@ -362,16 +370,43 @@ def share_jax_state(ckpt_dir, jstate, state):
     return equal, state.step, state.g_opt.count
 
 
+def no_u(flat):
+    return {k: v for k, v in flat.items() if not k.endswith('/u')}
+
+
+def only_u(flat):
+    return {k: v for k, v in flat.items() if k.endswith('/u')}
+
+
+def check_refresh(before, after, kw):
+    """JAX's u after a step (``after``: its flat parameters, of a DeepLIIF
+    model of ``kw``) against the port's refresh (3 power iterations) from
+    the u of ``before`` on the step's updated weights, within 1e-5
+    relative; every u moved."""
+    nets_ = dl.init_nets(dl.DeepLIIFDef(**kw),
+                         torch.Generator().manual_seed(0))
+    load_flat_groups(nets_, {k: before[k] if k.endswith('/u') else v
+                               for k, v in after.items()})
+    dl.refresh_spectral(nets_)
+    got = flat(jax_params(nets_, ('G', 'GS', 'D', 'DS')))
+    us = only_u(after)
+    assert us and len(us) == len(only_u(got))
+    for k, want in us.items():
+        assert rel(got[k], want) <= 1e-5, k
+        assert np.abs(want - before[k]).max() > 0, k
+
+
 def check_second_step(out):
     """Step 2 from JAX's state after step 1 (read through the JAX
     package's files): parameters within 2.12 lr (at update 2, with b1 0.5
-    and b2 0.999, |mu^ / sqrt(nu^)| <= 1.055)."""
+    and b2 0.999, |mu^ / sqrt(nu^)| <= 1.055); a spectral norm's u is no
+    parameter of the optimizer (``check_refresh``)."""
     equal, step, count = out['shared_after_1']
     assert equal and step == 1 and count == 1
     diffs = np.concatenate([np.abs(out['port'][1][part][k]
                                    - out['jax'][1][part][k]).ravel()
                             for part in ('g', 'd')
-                            for k in out['jax'][1][part]])
+                            for k in no_u(out['jax'][1][part])])
     assert diffs.max() <= 2.12 * LR
 
 
