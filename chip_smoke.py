@@ -73,15 +73,15 @@ training at float32: the statistics kernel under autograd
 plain version (``train_stats_checks``), one step of a narrow flagship
 layout on the card against the same step on the CPU (``train_step_vs_cpu``:
 every loss term and gradient), and the full-width flagship through the
-CLI's ``train`` (batch 2, 512^2, 3 steps, one ``latest`` save; s/step,
-peak memory, statistics launches a step, the max |Δparam| of two identical
-runs) with its checkpoint served back through ``test`` (``train_checks``);
+CLI's ``train`` (batch 2, 512^2, 2 steps, one ``latest`` save; s/step,
+peak memory, statistics launches a step) with its checkpoint served back
+through ``test`` (``train_checks``);
 then the other families' training: one step each of DeepLIIFExt, SDG,
 CycleGAN (both steps, the host image pools between them) and DeepLIIFKD
 (its teacher's trunk on the float32 trunk kernel) at ngf 16 on the card
 against the same step on the CPU (``train_families_vs_cpu``: every loss
 term and gradient), each at full width through the CLI's ``train``
-(``train_ext``, ``train_sdg``, ``train_cyclegan``, ``train_kd``: 3 steps,
+(``train_ext``, ``train_sdg``, ``train_cyclegan``, ``train_kd``: 2 steps,
 one ``latest`` save; statistics and trunk launches a step, 72 trunk
 launches a step for DeepLIIFKD's teacher, none in the others), and the
 Ext checkpoint served through ``test`` (``train_ext_checkpoint_served``);
@@ -96,14 +96,24 @@ with attention seg nets against the CPU (``train_spectral_vs_cpu``,
 ``train_attention_vs_cpu``, the latter against a float64 CPU run); the
 full-width flagship through the CLI's ``train`` at bfloat16, with
 spectral norm, with attention seg nets, and DeepLIIFKD with all three
-against a bfloat16 teacher (3 steps, one save; statistics and trunk
+against a bfloat16 teacher (2 steps, one save; statistics and trunk
 launches a step exact); the bfloat16 checkpoint served at float32 and
 the spectral one with its vectors; two identical bfloat16 runs bitwise
-equal (``train_reproducibility``, held).
+equal (``train_reproducibility``, held). Those phases take one card
+(``DEEPLIIF_INFER_DEVICES=1``, training on cuda:0). Last, several cards
+(two replicas and two ranks share cuda:0 on a machine with one):
+``multi_card_infer`` (the flagship's f32 and int8 all static sessions on
+min(cards, 4) replicas byte-equal to one card, the kernels' launches n x
+a shard's, tiles/s), ``data_parallel_train`` (the full-width flagship in
+two ranks against one process's step on the global batch: bitwise equal
+ranks and runs, losses, gradients within their rounding sensitivity;
+CycleGAN; on one card an NCCL group of one) and ``trainlaunch`` (two
+processes under a torchrun environment, the checkpoint served).
 
     python3 chip_smoke.py            # needs one CUDA card; exits 0 on success
     python3 chip_smoke.py training-only   # bf16, spectral and attention
                                           # training phases alone
+    python3 chip_smoke.py multi-card-only   # the several-card phases alone
 
 Prints one line per phase, then the kernel report as a JSON line, the card's
 name and power limit, and as the last line
@@ -118,6 +128,7 @@ import copy
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -911,15 +922,29 @@ def kernel_timing(FR, rnd):
               library_call='F.conv2d on the padded input (cuDNN, TF32 off)')
     xb = x32.to(torch.bfloat16)
     wq, ws = rnd.int8_weights(c)
-    runs, ms = in_turns({
-        'plain': lambda: FR.conv3x3_stats_int8_reference(
-            xb, wq, ws, dynamic=True, **aff),
-        'kernel': lambda: FR.conv3x3_stats_int8(xb, wq, ws, dynamic=True,
-                                                **aff)},
-        {'plain': 2, 'kernel': 5})
+    # the library call, as conv_s8's: torch._int_mm on the im2col'd
+    # quantized operands of the static call (its scales 1: the affine and
+    # ReLU applied, rounded, clipped), the int32 sums alone
+    xq = torch.relu(xb.float() * sc[:, None, None, :]
+                    + bi[:, None, None, :]).round().clamp(-127, 127)
+    cols = F.unfold(xq.to(torch.float16).permute(0, 3, 1, 2), 3, padding=1)
+    a = cols.transpose(1, 2).reshape(-1, cols.shape[1]).to(
+        torch.int8).contiguous()
+    del xq, cols
+    library, library_error = int_mm_call(
+        a, wq.permute(2, 0, 1, 3).reshape(-1, c).contiguous())
+    fns = {'plain': lambda: FR.conv3x3_stats_int8_reference(
+               xb, wq, ws, dynamic=True, **aff),
+           'kernel': lambda: FR.conv3x3_stats_int8(xb, wq, ws, dynamic=True,
+                                                   **aff)}
+    if library is not None:
+        fns['library'] = library
+    runs, ms = in_turns(fns, {'plain': 2, 'kernel': 5, 'library': 5})
+    ms.setdefault('library', None)
     ms_static = cuda_ms(lambda: FR.conv3x3_stats_int8(
         xb, wq, ws, torch.ones(c, device=xb.device), **aff), 5)
-    out['int8'] = dict(ms, library=None, static=ms_static)
+    out['int8'] = dict(ms, static=ms_static)
+    del a, library, fns
     b_ms, _ = bound('int8', TIMING_SHAPE, 2, 1)
     phase('kernel_timing', kernel='conv3x3_stats_int8', mode='dynamic',
           shape=list(TIMING_SHAPE), runs_ms=runs,
@@ -928,8 +953,26 @@ def kernel_timing(FR, rnd):
           bound_share=b_ms / ms['kernel'],
           what='the whole call: max pass (dynamic), quantize pass, weight '
                'pack, conv, stats reduction',
-          library_call='none: no single PyTorch call computes an int8 conv')
+          library_error=library_error,
+          library_call='torch._int_mm on the im2col\'d quantized operands '
+                       '(the int32 sums alone: no quantize, no epilogue, '
+                       'no statistics; F.unfold not counted)')
     return out
+
+
+def int_mm_call(a, b):
+    """(a call of torch._int_mm(a, b), None), with B row-major or else
+    column-major (the one the installed PyTorch takes), or (None, its
+    error)."""
+    error = None
+    for bb in (b, b.t().contiguous().t()):
+        try:
+            torch._int_mm(a, bb)
+        except RuntimeError as e:
+            error = str(e)[:200]
+            continue
+        return (lambda: torch._int_mm(a, bb)), None
+    return None, error
 
 
 def stage_bound(kernel, shape, cout):
@@ -1317,9 +1360,10 @@ def plane_checks_up_norms(L, rnd):
 
 
 def write_model_dir(md, nets_, cfg, seed=SEED):
-    """The groups of ``nets_`` (``named_groups``) in the native npz layout,
-    weights at the reference init (conv ~ N(0, 0.02), norm scale ~ N(1,
-    0.02), biases 0) drawn from a numpy seed, and ``cfg`` as config.json."""
+    """The groups of ``nets_`` (``named_groups``; only their shapes are
+    read) in the native npz layout, weights at the reference init (conv ~
+    N(0, 0.02), norm scale ~ N(1, 0.02), biases 0) drawn from a numpy
+    seed, and ``cfg`` as config.json."""
     from deepliif_tpu_torch.utils import checkpoints as ck
     os.makedirs(md, exist_ok=True)
     rng = np.random.default_rng(seed)
@@ -1354,7 +1398,7 @@ def write_flagship_model_dir(md, dl, net_gs='unet_512'):
     layout, weights at the reference init drawn from a numpy seed."""
     d = dl.DeepLIIFDef(net_g=(FLAGSHIP_CFG['netG'],) * 4,
                        net_gs=(net_gs,) * 5, ngf=FLAGSHIP_CFG['ngf'])
-    write_model_dir(md, dl.DeepLIIFNets(d), dict(
+    write_model_dir(md, dl.unset(lambda: dl.DeepLIIFNets(d)), dict(
         FLAGSHIP_CFG, net_gs=net_gs, seg_weights=list(d.seg_weights)))
 
 
@@ -1549,8 +1593,8 @@ def pipeline_checks(session, tiles, path, **kw):
     hard); one call traced with ``utils.profiling``: the host's waits on
     the device inside each forward (none allowed) and in each window from
     one batch's launch to the next (PIPE_SYNCS_*), and the share of the
-    call the device was idle; the call's wall ms beside the separate
-    calls' sum."""
+    call the device was idle; the traced call's wall ms (the tracer's cost
+    included) beside the separate calls' sum."""
     from deepliif_tpu_torch.utils import profiling as P
     # warm already: ``batch_invariance_checks`` probed the buckets and
     # allocated the host buffers of a batch of BATCH
@@ -1560,18 +1604,14 @@ def pipeline_checks(session, tiles, path, **kw):
                 for i in range(0, len(tiles), BATCH)]
     torch.cuda.synchronize()
     separate_ms = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    got = run_u8(session, tiles, **kw)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
     with batches_run(session) as sizes, P.trace() as tr:
-        traced = session.run_tiles(tiles, **kw)
-    if isinstance(traced, tuple):
-        traced = {**traced[0], **{k: v.cpu().numpy()
-                                  for k, v in traced[1].items()}}
+        got = session.run_tiles(tiles, **kw)
+    if isinstance(got, tuple):
+        got = {**got[0], **{k: v.cpu().numpy() for k, v in got[1].items()}}
+    # the traced call's wall (the tracer's own cost included)
+    wall_ms = (tr.window[1] - tr.window[0]) / 1e3
     equal = {k: bool(np.array_equal(got[k], np.concatenate(
-        [s_[k] for s_ in separate])) and np.array_equal(got[k], traced[k]))
-        for k in got}
+        [s_[k] for s_ in separate]))) for k in got}
     spans = tr.spans(FORWARD_RANGE)
     check(spans and tr.device_events(), f'{path}: the pipeline trace saw no '
                                         'forward or no device activity')
@@ -1584,9 +1624,8 @@ def pipeline_checks(session, tiles, path, **kw):
     syncs_ok = (not any(in_forward) and all(
         sum(w.values()) <= a for w, a in zip(per_window, allowed)))
     phase('pipeline', path=path, tiles=len(tiles),
-          empty=len(PIPE_EMPTY), batches=sizes, wall_ms=wall_ms,
+          empty=len(PIPE_EMPTY), batches=sizes, traced_wall_ms=wall_ms,
           separate_calls_ms=separate_ms,
-          traced_wall_ms=(tr.window[1] - tr.window[0]) / 1e3,
           device_busy_ms=tr.busy_ms(), idle_share=tr.idle_share(),
           idle_share_from_first_launch=tr.idle_share(starts[0],
                                                      tr.window[1]),
@@ -1604,7 +1643,7 @@ def pipeline_checks(session, tiles, path, **kw):
 
 
 def throughput(session, batch, iters=1, **kw):
-    session.run_tiles(batch, **kw)
+    """tiles/s of ``batch`` through a session that ran it already (warm)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2449,16 +2488,9 @@ def timed_conv_s8(C, F, x, qc, kind, shape, cout, k, op):
     b = qc.w_q.permute(2, 0, 1, 3).reshape(-1, cout).contiguous()
     fns = {'plain': lambda: plain(x, qc), 'kernel': lambda: run(x, qc),
            'cudnn_bf16': lambda: F.conv2d(xb, wb, None, 2, 1)}
-    library_error = None
-    for bb in (b, b.t().contiguous().t()):      # row-, then column-major B
-        try:
-            torch._int_mm(a, bb)
-        except RuntimeError as e:
-            library_error = str(e)[:200]
-            continue
-        fns['library'] = lambda bb=bb: torch._int_mm(a, bb)
-        library_error = None
-        break
+    library, library_error = int_mm_call(a, b)
+    if library is not None:
+        fns['library'] = library
     runs, ms = in_turns(fns, {'plain': 1, 'kernel': 5, 'library': 5,
                               'cudnn_bf16': 5})
     ms.setdefault('library', None)
@@ -2914,7 +2946,8 @@ def family_checks(M, K, root, name, model, m, input_no, seg_nets, extra):
     per-seg scoring (DeepLIIFExt), tiles/s and peak memory. The sessions
     compute in float32 at any precision (the JAX family definitions)."""
     from PIL import Image
-    from deepliif_tpu_torch.models import cyclegan, deepliif_ext, sdg
+    from deepliif_tpu_torch.models import (cyclegan, deepliif as dl,
+                                           deepliif_ext, sdg)
     FR, L = K[0], K[2]
     md = os.path.join(root, name)
     arch = {k: FLAGSHIP_CFG[k] for k in ('netG', 'ngf')}
@@ -2925,12 +2958,16 @@ def family_checks(M, K, root, name, model, m, input_no, seg_nets, extra):
     nets_kw = dict(modalities_no=m, ngf=arch['ngf'],
                    net_g=(arch['netG'],) * m)
     if model == 'CycleGAN':
-        nets_ = cyclegan.make_nets(cyclegan.CycleGANDef(**nets_kw))
+        def make():
+            return cyclegan.make_nets(cyclegan.CycleGANDef(**nets_kw))
     elif model == 'SDG':
-        nets_ = sdg.make_nets(sdg.SDGDef(input_no=input_no, **nets_kw))
+        def make():
+            return sdg.make_nets(sdg.SDGDef(input_no=input_no, **nets_kw))
     else:
-        nets_ = deepliif_ext.make_nets(deepliif_ext.DeepLIIFExtDef(
-            net_gs=(extra['net_gs'],) * m, **nets_kw))
+        def make():
+            return deepliif_ext.make_nets(deepliif_ext.DeepLIIFExtDef(
+                net_gs=(extra['net_gs'],) * m, **nets_kw))
+    nets_ = dl.unset(make)
     write_model_dir(md, nets_, cfg, seed=SEED + len(name))
     del nets_
     images_in = [Image.fromarray(ihc_like_image(2 * TILE, SEED + i))
@@ -3771,7 +3808,7 @@ TRAIN_GRAD_CPU_FACTOR = 2
 # a replayed ReLU branch may differ from the CPU's own only where |x| is
 # within this share of that call's max |x| of 0 (rounding, not a fault)
 TRAIN_BRANCH_TOL = 1e-4
-TRAIN_ROWS, TRAIN_STEPS, TRAIN_REPRO_STEPS = 6, 3, 1
+TRAIN_ROWS, TRAIN_STEPS, TRAIN_REPRO_STEPS = 4, 2, 1
 # statistics calls a flagship step: the forward's norms (4 translators of
 # 23 with the trunk unfused, 5 unet_512 of 15), 4 in each of the 18
 # discriminator calls of the D loss and the 9 of the G loss; the backward
@@ -4162,9 +4199,11 @@ def train_checks(M, K, dl, root):
     CLI's ``train`` on TRAIN_ROWS synthetic rows: TRAIN_STEPS steps, one
     ``latest`` save; every step's loss terms finite, PLANE_PER_TRAIN_STEP
     statistics launches a step and no trunk kernel; s/step (median of
-    steps 2..), peak memory, the save's seconds. Then two identical
-    TRAIN_REPRO_STEPS-step runs from one seed (``train_repro``: printed,
-    not held at float32). Then the checkpoint served back through ``test``
+    steps 2..), peak memory, the save's seconds. (Two float32 runs from
+    one seed are held bitwise equal by ``data_parallel_train``: its two
+    runs, and its NCCL group of one against the one-process step; two
+    bfloat16 runs through the CLI by ``train_repro``.) Then the checkpoint
+    served back through ``test``
     at float32 on one 512^2 tile: 72 trunk and 95 statistics launches, the
     outputs finite."""
     from PIL import Image as PILImage
@@ -4196,7 +4235,7 @@ def train_checks(M, K, dl, root):
     args = ['train', '--dataroot', dataroot, '--checkpoints-dir', ckpt,
             '--name', 'flagship', '--batch-size', str(TRAIN_BATCH),
             '--n-epochs', '1', '--n-epochs-decay', '0', '--seed', str(SEED),
-            '--print-freq', str(TRAIN_BATCH), '--device', 'cuda']
+            '--print-freq', str(TRAIN_BATCH), '--device', 'cuda:0']
     dl.make_train_step, train_loop._save_state = timed_make_step, timed_save
     try:
         reset_counts(K)
@@ -4231,7 +4270,6 @@ def train_checks(M, K, dl, root):
           f'train: launches {counts}, want {PLANE_PER_TRAIN_STEP} '
           f'statistics a step and no trunk kernel')
 
-    delta = train_repro(root, [a for a in args if a != 'train'], 'float32')
     # the checkpoint served through `test`
     imgs, out = os.path.join(root, 'imgs'), os.path.join(root, 'out')
     os.makedirs(imgs)
@@ -4258,7 +4296,7 @@ def train_checks(M, K, dl, root):
     M._init_nets_cached.cache_clear()
     gc.collect()
     torch.cuda.empty_cache()
-    res.update(repro_delta=delta, served_seconds=served)
+    res.update(served_seconds=served)
     return res
 
 
@@ -4289,7 +4327,7 @@ FAMILY_TRAIN_CASES = (
     ('sdg', 'SDG', 4, ['--input-no', '2']),
     ('cyclegan', 'CycleGAN', 1, []),
     ('kd', 'DeepLIIFKD', 4, ['--net-gs', FLAGSHIP_CFG['net_gs']]))
-FAMILY_TRAIN_STEPS = 3
+FAMILY_TRAIN_STEPS = 2
 # statistics calls a training step, from the nets: a translator's forward
 # in train mode 23 norms (head, 2 down, the trunk's 18, 2 up), a unet_512's
 # 15, a discriminator call (n_layers 4) 4; the backward launches none. Ext:
@@ -4745,7 +4783,7 @@ def family_train_checks(M, K, dl, root, teacher):
                 str(SEED), '--print-freq', str(TRAIN_BATCH), '--load-size',
                 str(TILE), '--crop-size', str(TILE), '--ngf',
                 str(FLAGSHIP_CFG['ngf']), '--ndf', str(FLAGSHIP_CFG['ngf']),
-                '--net-g', FLAGSHIP_CFG['netG'], '--device', 'cuda'] + extra
+                '--net-g', FLAGSHIP_CFG['netG'], '--device', 'cuda:0'] + extra
         if model == 'DeepLIIFKD':
             args += ['--model-dir-teacher', teacher]
         res, md = cli_train(M, K, root, name, args)
@@ -4840,7 +4878,7 @@ ATT_STEP_SIZE = 256
 # student's attention U-Nets twice (the D loss's forward, normalized, and
 # the G loss's on the raw weights), the teacher's inference forward, whose
 # 4 translators run the bfloat16 trunk kernel
-VARIANT_TRAIN_STEPS = 3
+VARIANT_TRAIN_STEPS = 2
 PLANE_PER_ATT_TRAIN_STEP = (4 * TRANSLATOR_TRAIN_NORMS
                             + 5 * PLANE_PER_ATT_UNET + (18 + 9) * D_NORMS)
 VARIANT_TRAIN_CASES = (
@@ -5044,7 +5082,7 @@ def variant_train_checks(M, K, dl, root, teacher):
         json.dump(dict(cfg, precision='bfloat16'), f)
     base = ['--dataroot', dataroot, '--batch-size', str(TRAIN_BATCH),
             '--n-epochs', '1', '--n-epochs-decay', '0', '--seed', str(SEED),
-            '--print-freq', str(TRAIN_BATCH), '--device', 'cuda']
+            '--print-freq', str(TRAIN_BATCH), '--device', 'cuda:0']
     out, dirs = {}, {}
     for name, extra, plane, trunk in VARIANT_TRAIN_CASES:
         args = base + extra
@@ -5125,9 +5163,595 @@ def variant_train_checks(M, K, dl, root, teacher):
     return out
 
 
+# several cards (PR 19). Inference: min(cards, 4) replicas of the flagship
+# session, or two on cuda:0 where the machine has one card; 16 and 13
+# crops (13: a bucket of 16 cut into per-card shards, one padded). Data
+# parallelism: DP_RANKS ranks of the full-width flagship (512^2, DP_BATCH
+# samples each, DP_STEPS steps; NCCL on two cards, else gloo with both on
+# cuda:0), against one process's steps on the global batch in rank 0
+MULTI_TILES = (16, 13)
+DP_RANKS, DP_BATCH, DP_STEPS = 2, 2, 2
+DP_CFG = {}                        # the flagship: DeepLIIFDef's defaults
+# a data-parallel step's loss terms within this relative distance of the
+# one-process step's; each gradient tensor within DP_GRAD_TOL of its max
+# |g| plus twice that tensor's own rounding sensitivity from the
+# one-process step whose library calls run on the ranks' shards
+# (``shard_calls``): the sensitivity is the distance between that step and
+# the plain one-process step, which differ only in cuDNN's per-call batch
+# (cuDNN picks its algorithm by the batch of a call), and reaches percent
+# of max |g| in the seg nets, whose unet_512 normalizes its 1x1 innermost
+# level over the global batch's four values
+DP_LOSS_TOL, DP_GRAD_TOL = 1e-4, 1e-3
+# the reduced CycleGAN of the data-parallel phase, at DP_CYCLEGAN_SIZE^2
+DP_CYCLEGAN = dict(modalities_no=1, net_g=('resnet_9blocks',), ngf=32,
+                   ndf=32)
+DP_CYCLEGAN_SIZE = 256
+# trainlaunch: TL_ROWS rows at TL_SIZE^2, ngf TL_NGF (a trunk of 4 x 32 =
+# 128 channels: the served checkpoint runs the float32 trunk kernel), a
+# batch of TL_BATCH a node
+TL_ROWS, TL_SIZE, TL_NGF, TL_BATCH = 4, TILE, 32, 2
+
+
+def multi_devices():
+    """The replicas' (or ranks') cards: the first min(cards, 4), or cuda:0
+    twice on a machine with one card."""
+    n = min(torch.cuda.device_count(), 4)
+    return [f'cuda:{i}' for i in range(n)] if n > 1 else ['cuda:0'] * 2
+
+
+def _u8_outputs(out):
+    """run_tiles' result as {key: numpy uint8} (device-kept keys too)."""
+    if isinstance(out, tuple):
+        host, dev = out
+        return {**host, **{k: v.cpu().numpy() for k, v in dev.items()}}
+    return out
+
+
+def multi_card_infer(M, K, md, img, smi):
+    """Phase 'multi_card_infer': the flagship at float32 and int8 scope
+    'all' static, one session on cuda:0 and one of ``multi_devices()``
+    replicas (``InferenceSession(devices=...)``): 16 crops (full, seg-only
+    and the device-kept GS) and 13 (full), every output byte-equal; each
+    full call (its buckets probed before) launches n forwards of bucket /
+    n tiles, one per replica, and n x the per-forward counts of #1 (or #2),
+    ``plane_stats`` and ``conv_s8``; tiles/s of 16 crops on one card and
+    of 16 n on the replicas. The int8 sessions calibrate once: the first
+    writes act_scales.json (deleted after), the replicas read it."""
+    devices = multi_devices()
+    n = len(devices)
+    sets = {t: crops(img, t, SEED + 200 + t) for t in MULTI_TILES}
+    big = crops(img, BATCH * n, SEED + 220)
+    cases = [(16, 'full', {}), (16, 'seg_only', {'seg_only': True}),
+             (16, 'device_keys', {'device_keys': ('GS',)}), (13, 'full', {})]
+    # the one-card reference of the device-kept GS: the full call's
+    # (one forward path; only where GS is kept differs)
+    ref_case = {c: c for _, c, _ in cases}
+    ref_case['device_keys'] = 'full'
+    res = {'devices': devices, 'nvidia_smi': smi}
+    full_path = dict(seg_weights=None, mod_only=False, seg_only=False,
+                     return_intermediate=False, marker_index=None)
+    for path, kw, trunk, s8 in (
+            ('float32', {}, 'float32', 0),
+            ('int8 all static', dict(precision='int8', int8_scope='all'),
+             'int8', S8_PER_FORWARD['static'])):
+        one = M.InferenceSession(md, devices=['cuda:0'], **kw)
+        one.build_kernels()
+        want = {(t, c): _u8_outputs(one.run_tiles(sets[t], **ckw))
+                for t, c, ckw in cases if ref_case[c] == c}
+        many = M.InferenceSession(md, devices=devices, **kw)
+        many.build_kernels()
+        check(many.n_devices == n and many.max_batch == BATCH * n
+              and len({str(next(r.parameters()).device)
+                       for r in many.replicas}) == len(set(devices)),
+              f'multi_card_infer {path}: devices {many.devices}')
+        # the buckets probed first, so that a full call's launches are its
+        # forwards' alone
+        for t in MULTI_TILES:
+            for path_kw in (full_path, dict(
+                    full_path, seg_only=True,
+                    marker_index=many._marker_index())):
+                many.batch_size(t, sets[t].shape[1:], path_kw)
+        equal, counts = {}, {}
+        for t, c, ckw in cases:
+            calls, run = [], many.forward
+
+            def spy(tiles, **k):
+                calls.append((int(tiles.shape[0]), k.get('replica', 0)))
+                return run(tiles, **k)
+            many.forward = spy
+            reset_counts(K)
+            try:
+                got = _u8_outputs(many.run_tiles(sets[t], **ckw))
+                torch.cuda.synchronize()
+            finally:
+                del many.forward
+            ref = want[(t, ref_case[c])]
+            equal[f'{t} {c}'] = set(got) == set(ref) and all(
+                np.array_equal(got[k], ref[k]) for k in ref)
+            if c != 'full':
+                continue
+            counts[t] = launch_counts(K)
+            want_counts = expected_counts(trunk, False, n, s8=s8)
+            k = many.batch_size(t, sets[t].shape[1:], full_path) // n
+            check(sorted(calls) == [(k, i) for i in range(n)]
+                  and all(counts[t][k_] == v for k_, v in want_counts.items()
+                          if k_ != 'label_components'),
+                  f'multi_card_infer {path}: {t} tiles ran {calls}, '
+                  f'launches {counts[t]}, want {want_counts}')
+        check(all(equal.values()), f'multi_card_infer {path}: outputs '
+                                   f'differ from one card: {equal}')
+        tput = {}
+        for name, session, x in (('1 card', one, big[:BATCH]),
+                                 (f'{n} replicas', many, big)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            session.run_tiles(x)
+            torch.cuda.synchronize()
+            tput[name] = len(x) / (time.perf_counter() - t0)
+        res[path] = dict(byte_equal=equal, launches_per_call=counts[16],
+                         tiles_per_s=tput)
+        phase('multi_card_infer', path=path, devices=devices,
+              replicas=n, byte_equal=equal, launches_16=counts[16],
+              launches_13=counts[13], tiles_per_s=tput, nvidia_smi=smi,
+              probes={str(k): sorted(v) for k, v in
+                      many.bucket_probes.items()})
+        del one, many
+        gc.collect()
+        torch.cuda.empty_cache()
+    act = os.path.join(md, 'act_scales.json')
+    check(os.path.exists(act), 'multi_card_infer: no act_scales.json')
+    os.remove(act)
+    return res
+
+
+def param_checksums(nets_):
+    """{name: (sum, sum of squares) of the parameter's 32-bit words}: equal
+    bits give equal checksums (read back in one copy)."""
+    names, sums = [], []
+    for k, p in nets_.named_parameters():
+        v = p.detach().contiguous().view(torch.int32).to(torch.int64)
+        names.append(k)
+        sums.append(torch.stack([v.sum(), (v * v).sum()]))
+    return {k: tuple(v) for k, v in zip(names, torch.stack(sums).tolist())}
+
+
+def _plane_launches():
+    from deepliif_tpu_torch.nets import layers as L
+    return L.plane_mean_var.launches
+
+
+def shard_calls(world):
+    """A ``layers.cudnn_hook`` that runs each batched library call (every
+    conv of training, its backward with it) as ``world`` calls on the
+    contiguous shards of its batch, as the ranks of a data-parallel step
+    run them."""
+    def hook(run, x, key, axis=0):
+        n = x.shape[axis] // world
+        return torch.cat([run(x.narrow(axis, i * n, n))
+                          for i in range(world)])
+    return hook
+
+
+def dp_steps(make_state, make_step, arrays, dev, dp, keep=False):
+    """``len(arrays)`` steps from ``make_state()`` (``arrays`` the global
+    batches; under ``dp`` this rank's shard of each): per step the metrics
+    (global means), seconds and ``plane_stats`` launches and the params'
+    checksums; the first step's gradients ({name: tensor}, on the host
+    with ``keep``) and fakes ('mods' and 'seg' on the host); peak GiB."""
+    from deepliif_tpu_torch import parallel
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = make_state()
+    step = make_step()
+    rng = torch.Generator(dev).manual_seed(SEED + 1)
+    out = {'metrics': [], 'seconds': [], 'plane_stats': [], 'checksums': []}
+    with parallel.data_parallel(dp):
+        for i, a in enumerate(arrays):
+            if dp is not None:
+                a = parallel.shard_batch(a, dp.rank, dp.world)
+            batch = {k: torch.tensor(v, dtype=torch.float32, device=dev)
+                     for k, v in a.items()}
+            torch.cuda.synchronize(dev)
+            launches, t0 = _plane_launches(), time.perf_counter()
+            state, metrics, g_out = step(state, batch, rng)
+            metrics = parallel.mean_over_ranks(metrics)
+            torch.cuda.synchronize(dev)
+            out['seconds'].append(time.perf_counter() - t0)
+            out['plane_stats'].append(_plane_launches() - launches)
+            out['metrics'].append({k: v.cpu().numpy()
+                                   for k, v in metrics.items()})
+            out['checksums'].append(param_checksums(state.nets))
+            if i == 0:
+                out['grads'] = {k: (p.grad.detach().cpu() if keep
+                                    else p.grad.detach())
+                                for k, p in state.nets.named_parameters()
+                                if p.grad is not None}
+                out['fakes'] = {k: v.cpu() for k, v in g_out.items()}
+    out['peak_gib'] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    return out
+
+
+def grad_distance(got, ref, noise=None):
+    """max over tensors of |Δg| / max |g_ref| (zero-gradient tensors held
+    by their max |Δ|), and the tensors above DP_GRAD_TOL plus twice their
+    ``noise`` ({name: a distance of the same scale}, default 0)."""
+    worst, over = 0.0, []
+    for k, g in got.items():
+        r = ref[k].to(g.device)
+        scale = r.abs().max().item()
+        scale = scale if scale > 0 else 1.0
+        d = (g - r).abs().max().item() / scale
+        worst = max(worst, d)
+        tol = DP_GRAD_TOL + 2 * (noise or {}).get(k, 0.0)
+        if d > tol:
+            over.append((k, d, tol))
+    return worst, over
+
+
+def grad_noise(a, b):
+    """{name: max |a - b| / max |b|} of two gradient sets (host tensors)."""
+    out = {}
+    for k, r in b.items():
+        scale = r.abs().max().item()
+        out[k] = (a[k] - r).abs().max().item() / (scale if scale > 0
+                                                  else 1.0)
+    return out
+
+
+def loss_distance(got, ref):
+    return max(float(np.max(np.abs(np.asarray(got[k], np.float64)
+                                   - np.asarray(ref[k], np.float64))
+                            / np.maximum(np.abs(np.asarray(ref[k],
+                                                           np.float64)),
+                                         1e-12))) for k in ref)
+
+
+def dp_rank(rank, devices, backend, init_methods, out_dir):
+    """A rank of phase 'data_parallel_train' (spawned): the flagship at
+    full width, DP_STEPS data-parallel steps twice from one seed, and one
+    CycleGAN step; rank 0 first runs the one-process steps on the global
+    batch and, where both ranks share one card, one step in a process
+    group of one over NCCL. Writes its results to out_dir/rank{rank}.pt."""
+    import torch.distributed as dist
+    from deepliif_tpu_torch import models as M, parallel, train_loop
+    from deepliif_tpu_torch.config import Options, TRAIN_DEFAULTS
+    from deepliif_tpu_torch.models import cyclegan as cg, deepliif as dl
+    from deepliif_tpu_torch.nets import vgg
+    dev = torch.device(devices[rank])
+    torch.cuda.set_device(dev)
+    M.configure_device(dev)
+    world = len(devices)
+    parallel.init_process_group(dev, rank, world, init_methods[0], backend)
+    dp = parallel.DataParallel(rank, world)
+    opt = Options(d_params=dict(TRAIN_DEFAULTS))
+    d = dl.DeepLIIFDef(**DP_CFG)
+    vnet = vgg.VGG19Features().to(dev)
+    arrays = [train_batch_arrays(TILE, DP_BATCH * world, d.modalities_no,
+                                 SEED + 400 + i) for i in range(DP_STEPS)]
+
+    # the initial nets, drawn once (create_train_state's draw); each run
+    # starts from a copy of them
+    nets0 = dl.init_nets(d, torch.Generator().manual_seed(SEED))
+
+    def state():
+        return dl.make_train_state(copy.deepcopy(nets0), opt, 1, dev)
+
+    def step():
+        return dl.make_train_step(d, vnet)
+    res = {}
+    if rank == 0:
+        res['one'] = dp_steps(state, step, arrays[:1], dev, None, keep=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        from deepliif_tpu_torch.nets import layers as L
+        with L.cudnn_hook(shard_calls(world)):
+            res['one_sharded'] = dp_steps(state, step, arrays[:1], dev, None,
+                                          keep=True)
+        noise = grad_noise(res['one_sharded']['grads'],
+                           res['one']['grads'])
+        res['one_sharded']['grad_distance_plain'] = max(noise.values())
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    for run in range(2):                   # the second run: its first step
+        r = dp_steps(state, step, arrays[:len(arrays) - run], dev, dp)
+        if rank == 0:
+            grads = r.pop('grads')
+            r['grad_distance'] = grad_distance(
+                grads, res['one_sharded']['grads'], noise)
+            r['grad_distance_plain'] = grad_distance(grads,
+                                                     res['one']['grads'])[0]
+            del grads
+            for ref in ('one', 'one_sharded'):
+                mods, seg = (res[ref]['fakes']['mods'],
+                             res[ref]['fakes']['seg'])
+                r[f'fakes_equal_{ref}'] = (
+                    torch.equal(r['fakes']['mods'], mods[:, :DP_BATCH])
+                    and torch.equal(r['fakes']['seg'], seg[:DP_BATCH]))
+        else:
+            del r['grads']
+        del r['fakes']
+        res[f'run{run}'] = r
+        gc.collect()
+        torch.cuda.empty_cache()
+    # CycleGAN at reduced width, one step
+    cd = cg.CycleGANDef(**DP_CYCLEGAN)
+    c_arrays = [train_batch_arrays(DP_CYCLEGAN_SIZE, DP_BATCH * world,
+                                   cd.modalities_no, SEED + 450)]
+    c_arrays[0].pop('B_seg')
+
+    def c_state():
+        return cg.create_train_state(cd, opt, 1, SEED, dev)
+
+    def c_step():
+        return train_loop.cyclegan_step(cg, cd, vnet, opt, SEED)
+    dist.barrier()
+    if rank == 0:
+        res['cyclegan_one'] = dp_steps(c_state, c_step, c_arrays, dev, None,
+                                       keep=True)
+    dist.barrier()
+    r = dp_steps(c_state, c_step, c_arrays, dev, dp)
+    if rank == 0:
+        r['grad_distance'] = grad_distance(r.pop('grads'),
+                                           res['cyclegan_one']['grads'])
+    else:
+        del r['grads']
+    del r['fakes']
+    res['cyclegan'] = r
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank == 0:
+        for k in ('one', 'one_sharded', 'cyclegan_one'):
+            res[k].pop('grads')
+            res[k].pop('fakes')
+        if backend == 'gloo':
+            # a process group of one over NCCL: its collectives run (the
+            # data-parallel context forced on), and the step is the
+            # one-process step bit for bit
+            parallel.init_process_group(dev, 0, 1, init_methods[1], 'nccl')
+            dp_context = parallel.data_parallel
+
+            @contextlib.contextmanager
+            def world_of_one(dp_):
+                token = parallel._DP.set(dp_)
+                try:
+                    yield
+                finally:
+                    parallel._DP.reset(token)
+            parallel.data_parallel = world_of_one
+            try:
+                r = dp_steps(state, step, arrays[:1], dev,
+                             parallel.DataParallel(0, 1))
+            finally:
+                parallel.data_parallel = dp_context
+                dist.destroy_process_group()
+            res['nccl_world_1'] = dict(
+                checksums_equal=r['checksums'][0] == res['one'][
+                    'checksums'][0],
+                metrics=r['metrics'][0])
+    res['jax_modules'] = sorted(
+        m for m in sys.modules if m in ('jax', 'deepliif_tpu')
+        or m.startswith(('jax.', 'jaxlib', 'deepliif_tpu.')))
+    torch.save(res, os.path.join(out_dir, f'rank{rank}.pt'))
+
+
+def data_parallel_train(smi):
+    """Phase 'data_parallel_train': ``dp_rank`` in DP_RANKS spawned ranks
+    (one per card on a machine with two, else both on cuda:0 over gloo).
+    Held: the ranks' parameters bitwise equal after DP_STEPS steps, and two
+    runs bitwise equal; the first step's loss terms within DP_LOSS_TOL of
+    the one-process step on the global batch; rank 0's fakes bitwise equal
+    to the one-process step's with its library calls on the shards
+    (``shard_calls``), and each gradient tensor within DP_GRAD_TOL of its
+    max |g| plus twice the tensor's distance between that step and the
+    plain one-process step; PLANE_PER_TRAIN_STEP statistics launches
+    a step on each rank; the CycleGAN step likewise; on one card, the
+    NCCL group of one equal to the one-process step bit for bit; no jax
+    module in a rank. Printed: s/step and peak GiB per rank."""
+    from deepliif_tpu_torch import parallel
+    import torch.multiprocessing as mp
+    devices = multi_devices()[:DP_RANKS]
+    backend = 'nccl' if len(set(devices)) == len(devices) else 'gloo'
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        mp.start_processes(dp_rank, args=(
+            devices, backend, [f'tcp://localhost:{parallel.free_port()}'
+                               for _ in range(2)], out_dir),
+            nprocs=len(devices), join=True, start_method='spawn')
+        ranks = [torch.load(os.path.join(out_dir, f'rank{r}.pt'),
+                            weights_only=False) for r in range(len(devices))]
+    seconds = time.perf_counter() - t0
+    r0, one = ranks[0], ranks[0]['one']
+    runs = [[r[f'run{i}'] for i in range(2)] for r in ranks]
+    res = dict(
+        devices=devices, backend=backend, seconds=seconds, nvidia_smi=smi,
+        ranks_equal=all(run[i]['checksums'] == runs[0][i]['checksums']
+                        for run in runs for i in range(2)),
+        runs_equal=all(run[0]['checksums'][:len(run[1]['checksums'])]
+                       == run[1]['checksums'] for run in runs),
+        loss_distance=loss_distance(runs[0][0]['metrics'][0],
+                                    one['metrics'][0]),
+        loss_distance_sharded=loss_distance(
+            runs[0][0]['metrics'][0], r0['one_sharded']['metrics'][0]),
+        grad_distance=runs[0][0]['grad_distance'][0],
+        grads_over_tol=runs[0][0]['grad_distance'][1][:10],
+        grad_distance_from_plain_one_process=runs[0][0][
+            'grad_distance_plain'],
+        sharded_calls_vs_plain_one_process=r0['one_sharded'][
+            'grad_distance_plain'],
+        fakes_equal_sharded=runs[0][0]['fakes_equal_one_sharded'],
+        fakes_equal_plain=runs[0][0]['fakes_equal_one'],
+        s_per_step={f'rank {i}': run[0]['seconds'] for i, run in
+                    enumerate(runs)},
+        one_process_s_per_step=one['seconds'],
+        peak_gib={f'rank {i}': run[0]['peak_gib'] for i, run in
+                  enumerate(runs)},
+        one_process_peak_gib=one['peak_gib'],
+        plane_stats_per_step={f'rank {i}': run[0]['plane_stats'] for i, run
+                              in enumerate(runs)},
+        cyclegan=dict(
+            loss_distance=loss_distance(r0['cyclegan']['metrics'][0],
+                                        r0['cyclegan_one']['metrics'][0]),
+            grad_distance=r0['cyclegan']['grad_distance'][0],
+            ranks_equal=all(r['cyclegan']['checksums'] == r0['cyclegan'][
+                'checksums'] for r in ranks),
+            s_per_step=r0['cyclegan']['seconds'],
+            peak_gib=r0['cyclegan']['peak_gib']),
+        nccl_world_1=r0.get('nccl_world_1'),
+        jax_modules=[r['jax_modules'] for r in ranks])
+    phase('data_parallel_train', **res)
+    check(not any(res['jax_modules']), 'data_parallel_train: a rank loaded '
+                                       'jax')
+    check(res['ranks_equal'], 'data_parallel_train: the ranks\' parameters '
+                              'differ')
+    check(res['runs_equal'], 'data_parallel_train: two runs differ')
+    check(res['loss_distance'] <= DP_LOSS_TOL,
+          f'data_parallel_train: losses {res["loss_distance"]} from one '
+          'process')
+    check(res['fakes_equal_sharded'], 'data_parallel_train: a rank\'s '
+          'fakes differ from the one-process step with sharded calls')
+    check(not res['grads_over_tol'],
+          f'data_parallel_train: gradients past DP_GRAD_TOL plus twice '
+          f'their one-process rounding sensitivity: {res["grads_over_tol"]}')
+    check(all(v == [PLANE_PER_TRAIN_STEP] * DP_STEPS
+              for v in res['plane_stats_per_step'].values()),
+          f'data_parallel_train: statistics launches '
+          f'{res["plane_stats_per_step"]}')
+    cgr = res['cyclegan']
+    check(cgr['ranks_equal'] and cgr['loss_distance'] <= DP_LOSS_TOL
+          and cgr['grad_distance'] <= DP_GRAD_TOL,
+          f'data_parallel_train: CycleGAN {cgr}')
+    if backend == 'gloo':
+        check(res['nccl_world_1'] and res['nccl_world_1']['checksums_equal'],
+              'data_parallel_train: the NCCL group of one differs from one '
+              'process')
+    return res
+
+
+def trainlaunch_start(root):
+    """Start ``python -m deepliif_tpu_torch.cli trainlaunch`` in DP_RANKS
+    processes with a torchrun environment (one node; --gpu-ids 0,1 on two
+    cards, else 0,0: gloo on cuda:0), the flagship at ngf TL_NGF on
+    TL_ROWS rows at TL_SIZE^2, one epoch; ``trainlaunch_checks`` waits for
+    them. Returns (the processes, the devices, the start time)."""
+    from deepliif_tpu_torch import parallel
+    devices = multi_devices()[:DP_RANKS]
+    # one card: its number twice (two ranks on it, over gloo)
+    on = (['--gpu-ids', ','.join(d.split(':')[1] for d in devices)]
+          if devices[0].startswith('cuda') else ['--device', devices[0]])
+    dataroot, ckpt = os.path.join(root, 'tl_data'), os.path.join(root, 'tl')
+    train_rows(dataroot, TL_ROWS, SEED + 300)
+    args = [sys.executable, '-m', 'deepliif_tpu_torch.cli', 'trainlaunch',
+            '--dataroot', dataroot, '--name', 'tl', '--checkpoints-dir',
+            ckpt, '--ngf', str(TL_NGF), '--ndf', str(TL_NGF), '--load-size',
+            str(TL_SIZE), '--crop-size', str(TL_SIZE), '--scale-size',
+            str(TL_SIZE), '--batch-size', str(TL_BATCH), '--n-epochs', '1',
+            '--n-epochs-decay', '0', '--seed', str(SEED), '--print-freq',
+            str(TL_BATCH)] + on
+    port = parallel.free_port()
+    procs = []
+    for rank in range(len(devices)):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(len(devices)),
+                   LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(len(devices)),
+                   MASTER_ADDR='localhost', MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            args, env=env, text=True, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE,
+            cwd=os.path.dirname(os.path.abspath(__file__))))
+    return procs, devices, time.perf_counter()
+
+
+def stop(procs):
+    """Kill what is left of ``procs``."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def trainlaunch_checks(M, K, root, smi, launched):
+    """Phase 'trainlaunch': the processes of ``trainlaunch_start``
+    (``launched``) end with code 0, both joined the group, the run was
+    data parallel, the losses finite, the checkpoint at step TL_ROWS /
+    TL_BATCH; then it is served back through ``test`` on one tile: 72
+    trunk and 95 statistics launches a forward, outputs finite."""
+    from PIL import Image as PILImage
+    from deepliif_tpu_torch import cli
+    procs, devices, t0 = launched
+    outs = []
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        stop(procs)
+    seconds = time.perf_counter() - t0
+    for p, (out, err) in zip(procs, outs):
+        check(p.returncode == 0, f'trainlaunch: a rank failed:\n{err[-3000:]}')
+    md = os.path.join(root, 'tl', 'tl')
+    with open(os.path.join(md, 'loss_log.txt')) as f:
+        losses = [float(v) for v in re.findall(r'loss_G: ([-\d.e]+)',
+                                                f.read())]
+    with np.load(os.path.join(md, 'latest_optim.npz')) as f:
+        steps = int(f['step'])
+    joined = all(f'process group: rank {r} of {len(devices)}' in out
+                 for r, (out, _) in enumerate(outs))
+    dp_line = 'data-parallel over' in outs[0][0]
+    imgs, out_dir = os.path.join(root, 'tl_imgs'), os.path.join(root,
+                                                               'tl_out')
+    os.makedirs(imgs)
+    PILImage.fromarray(ihc_like_image(TL_SIZE, SEED + 310)).save(
+        os.path.join(imgs, 'tile.png'))
+    reset_counts(K)
+    with session_forwards(M) as calls:
+        cli.run_test(imgs, out_dir, TL_SIZE, md, device='cuda',
+                     echo=lambda *_: None)
+    torch.cuda.synchronize()
+    counts, n = launch_counts(K), len(calls)
+    pngs = sorted(f for f in os.listdir(out_dir) if f.endswith('.png'))
+    means = {f: float(np.asarray(PILImage.open(os.path.join(out_dir, f)),
+                                 np.float64).mean()) for f in pngs}
+    res = dict(devices=devices, seconds=seconds, steps=steps, losses=losses,
+               joined=joined, data_parallel=dp_line, served_forwards=calls,
+               served_launches=counts, served_outputs=means, nvidia_smi=smi,
+               note='ran beside data_parallel_train')
+    phase('trainlaunch', **res)
+    check(joined and dp_line, f'trainlaunch: group or data-parallel line '
+                              f'missing: {[o for o, _ in outs]}')
+    check(steps == TL_ROWS // TL_BATCH and losses
+          and np.isfinite(losses).all(),
+          f'trainlaunch: steps {steps}, losses {losses}')
+    check(counts['float32'] == n * LAUNCHES_PER_FORWARD
+          and counts['plane_stats'] == n * PLANE_PER_FORWARD[False]
+          and len(pngs) >= 5 and all(np.isfinite(v) for v in means.values()),
+          f'trainlaunch: served checkpoint launches {counts} for {calls}, '
+          f'outputs {pngs}')
+    M._init_nets_cached.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def multi_card_training(M, K, smi):
+    """The training phases on several cards: ``trainlaunch``'s processes
+    run beside ``data_parallel_train`` (their small flagship and the
+    ranks share the card, so the ranks' s/step is read under that load);
+    returns both phases' results."""
+    with tempfile.TemporaryDirectory() as root:
+        launched = trainlaunch_start(root)
+        try:
+            dp_train = data_parallel_train(smi)
+            launch = trainlaunch_checks(M, K, root, smi, launched)
+        finally:
+            stop(launched[0])
+    return dp_train, launch
+
 def main():
     check(torch.cuda.is_available(), 'torch.cuda.is_available() is false: '
           'chip_smoke.py needs a CUDA card')
+    # the sessions that entry points make take one card (their launch
+    # counts and times mean what they meant on one); the phases
+    # multi_card_infer, data_parallel_train and trainlaunch name their cards
+    os.environ['DEEPLIIF_INFER_DEVICES'] = '1'
     smi = nvidia_smi()
     phase('device', nvidia_smi=smi, torch=torch.__version__,
           cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
@@ -5150,6 +5774,15 @@ def main():
     phase('build', seconds=time.perf_counter() - t0, parallel=True,
           nvcc_seconds=cuda_build.build_seconds)
     K = (FR, FS, L, LB, C)
+    if 'multi-card-only' in sys.argv[1:]:
+        # a rehearsal of the phases on several cards (or two replicas /
+        # ranks on one) alone: no result line
+        img = Image.fromarray(ihc_like_image(2 * TILE, SEED))
+        with tempfile.TemporaryDirectory() as md:
+            write_flagship_model_dir(md, dl)
+            multi_card_infer(M, K, md, img, smi)
+            multi_card_training(M, K, smi)
+        return
     if 'training-only' in sys.argv[1:]:
         # a rehearsal of the bf16, spectral and attention training phases
         # alone: no result line
@@ -5206,6 +5839,9 @@ def main():
             M._init_nets_cached.cache_clear()
             gc.collect()
             torch.cuda.empty_cache()
+        # the flagship on several cards (two replicas on one where the
+        # machine has one), f32 and int8 all static
+        multi = multi_card_infer(M, K, md, img, smi)
         # the serving, serialize and whole-slide entry points (float32),
         # the int8 server, the CLI's eval
         launches['serve'] = serve_checks(M, K, md, smi)
@@ -5260,6 +5896,10 @@ def main():
         # at bfloat16), two checkpoints served back, bfloat16 runs bitwise
         # reproducible
         variants = variant_training_phases(M, K, dl, vgg, md)
+        # data parallelism: the flagship's steps in two ranks against one
+        # process, CycleGAN's, then trainlaunch under a torchrun
+        # environment with its checkpoint served back
+        dp_train, launch = multi_card_training(M, K, smi)
 
     loaded = sorted(m for m in sys.modules if m == 'jax' or m == 'deepliif_tpu'
                     or m.startswith(('jax.', 'jaxlib', 'deepliif_tpu.')))
@@ -5292,6 +5932,16 @@ def main():
         new_paths[f'train_{name} (per step)'] = ('float32', {
             'trunk': 0, 'plane_stats': variants[name][
                 'plane_stats_per_step']})
+    for path, trunk_kind in (('float32', 'float32'),
+                             ('int8 all static', 'int8')):
+        c = multi[path]['launches_per_call']
+        new_paths[f'multi_card_infer {path} ({len(multi["devices"])} '
+                  f'replicas, one run_tiles of 16)'] = (trunk_kind, {
+                      'trunk': c[trunk_kind], 'plane_stats': c['plane_stats'],
+                      'conv_s8': c['conv_s8']})
+    new_paths['trainlaunch_checkpoint_served'] = ('float32', {
+        'trunk': launch['served_launches']['float32'],
+        'plane_stats': launch['served_launches']['plane_stats']})
     new_paths['train_ext_checkpoint_served'] = ('float32', {
         'trunk': families['ext_served']['trunk_per_forward'],
         'plane_stats': families['ext_served']['plane_stats_per_forward']})
@@ -5311,7 +5961,10 @@ def main():
              {'design': 'split TF32 (3 TF32 products per multiply-add)'}),
             ('conv3x3_stats', 'bfloat16', ':158', 2, 2, {}),
             ('conv3x3_stats_int8', 'int8', ':348', 2, 1,
-             {'mode': 'dynamic', 'static_ms': ms['int8']['static']})):
+             {'mode': 'dynamic', 'static_ms': ms['int8']['static'],
+              'library_call': 'torch._int_mm on the im2col\'d quantized '
+                              'operands (int32 sums only; no quantize; '
+                              'F.unfold not counted)'})):
         bound_ms, bound_by = bound(kind, TIMING_SHAPE, elem, wb)
         report.append({
             'name': f'{name} ({kind})' if name == 'conv3x3_stats' else name,
@@ -5376,6 +6029,12 @@ def main():
                 'ext', 'sdg', 'cyclegan', 'kd')},
             'families_step_vs_cpu': train_families,
             'bf16_spectral_attention': variants,
+            'data_parallel': {k: dp_train[k] for k in (
+                'devices', 'backend', 'ranks_equal', 'runs_equal',
+                'loss_distance', 'grad_distance', 's_per_step', 'peak_gib',
+                'plane_stats_per_step', 'cyclegan')},
+            'trainlaunch': {k: launch[k] for k in ('devices', 'steps',
+                                                   'seconds')},
             'forward_backward': [
                 {k: v[k] for k in ('shape', 'layout', 'kernel_ms',
                                    'plain_ms', 'bound_ms', 'dx_rel_err')}

@@ -37,16 +37,21 @@ as on ``test``. ``test-wsi`` and ``wsi-cells`` run whole slides region by
 region (``utils.wsi``): TIFF-family slides through the tiled TIFF reader,
 other images through PIL; the other slide formats of the JAX package raise
 NotImplementedError (ROADMAP.md, "WSI"). ``train`` trains a model of any
-family (DeepLIIF, DeepLIIFExt, SDG, CycleGAN, DeepLIIFKD) on one device
-(``train_loop``) with the JAX command's options, names and defaults
-(``--precision bfloat16``, ``--norm spectral`` and the attention U-Net
-included): the card unless ``--device cpu``, one ``--gpu-ids`` entry
-picks the card, background colors inferred from the train dir; orbax
-checkpoints and several cards raise NotImplementedError ("Training"), as
-does
-``trainlaunch`` (``compute-statistics``: "Stats"). ``eval`` runs the A
-tile of each aligned row through the engine (``--device``, default cuda)
-and writes the images and an HTML gallery; ``prepare-training-data``,
+family (DeepLIIF, DeepLIIFExt, SDG, CycleGAN, DeepLIIFKD) (``train_loop``)
+with the JAX command's options, names and defaults (``--precision
+bfloat16``, ``--norm spectral`` and the attention U-Net included): on
+every visible card unless ``--device cpu`` or ``--gpu-ids`` picks them,
+one spawned rank per card, data parallel where the batch divides by their
+count; background colors inferred from the train dir; orbax checkpoints
+raise NotImplementedError ("Training"). ``trainlaunch`` runs ``train`` in
+each process of a torchrun launch (several nodes), as the JAX command
+runs it under ``jax.distributed``; ``compute-statistics`` raises
+NotImplementedError ("Stats"). The sessions of ``test``, ``serve``,
+``test-wsi`` and ``wsi-cells`` take every visible card for ``--device
+cuda`` (one replica each; ``DEEPLIIF_INFER_DEVICES=N`` takes N). ``eval``
+runs the A tile of each aligned row through the engine (``--device``,
+default cuda) and writes the images and an HTML gallery;
+``prepare-training-data``,
 ``prepare-testing-data``, ``register`` and ``visualize`` are the JAX
 package's host-only commands. click is imported when the command line is
 built, not when this module is imported.
@@ -220,8 +225,7 @@ _IGNORED_TRAIN_FLAGS = ('display_server', 'display_port', 'display_env',
                         'update_html_freq', 'local_rank')
 
 # the JAX package's commands that the port does not run yet, by ROADMAP item
-_NOT_PORTED_COMMANDS = {'trainlaunch': roadmap.TRAINING,
-                        'compute-statistics': roadmap.STATS}
+_NOT_PORTED_COMMANDS = {'compute-statistics': roadmap.STATS}
 
 
 def ensure_exists(d):
@@ -409,10 +413,11 @@ def replay_display_snapshot(pickle_dir, disp):
 
 
 def train_device(device, gpu_ids):
-    """The torch device of ``train``: ``device`` (default cuda), where one
-    ``--gpu-ids`` entry N makes it cuda:N. Several ids raise
-    NotImplementedError ("Training"), anything else (a negative or
-    non-integer id, ids beside a CPU device) ValueError."""
+    """The torch device(s) of ``train``, comma-separated: ``device``
+    (default cuda: every visible card, ``train_devices``), where
+    ``--gpu-ids`` N[,M...] makes it cuda:N[,cuda:M...]. Anything else (a
+    negative or non-integer id, ids beside a CPU device) raises
+    ValueError."""
     device = device or 'cuda'
     if gpu_ids is None or str(gpu_ids).strip() == '':
         return device
@@ -420,13 +425,20 @@ def train_device(device, gpu_ids):
     if not all(i.isdigit() for i in ids):
         raise ValueError(f'--gpu-ids takes card numbers, got {gpu_ids!r} '
                          '(train on the CPU with --device cpu)')
-    if len(ids) > 1:
-        raise roadmap.not_ported(f'training on {len(ids)} cards (--gpu-ids '
-                                 f'{gpu_ids})', roadmap.TRAINING)
     if not device.startswith('cuda'):
         raise ValueError(f'--gpu-ids {gpu_ids} picks a card, but --device is '
                          f'{device}')
-    return f'cuda:{ids[0]}'
+    return ','.join(f'cuda:{i}' for i in ids)
+
+
+def train_devices(device):
+    """The devices of ``train_device``'s string: each named one, and for a
+    bare 'cuda' every visible card (the JAX command's ``jax.devices()``)."""
+    from . import parallel
+    names = device.split(',')
+    if names == ['cuda']:
+        return [str(d) for d in parallel.get_devices('cuda')]
+    return names
 
 
 def train_options(kwargs, echo=print):
@@ -493,16 +505,39 @@ def train_options(kwargs, echo=print):
     return Options(d_params=d_params, mode='train')
 
 
-def run_train(kwargs, echo=print):
-    """``train``: the options, printed, then ``train_loop.train_model``;
-    returns its (state, metrics)."""
+def run_train(kwargs, echo=print, launch=None):
+    """``train``: the options, printed, then training; returns this
+    process's (state, metrics). Without ``launch``, on this host's devices
+    (``train_loop.train_on_devices``: several cards spawn one rank each).
+    With ``launch`` (rank, world, local_rank, local_world: a torchrun
+    process, ``trainlaunch``), this process joins the group from the
+    torchrun environment and trains on card ``local_rank`` of its devices
+    (the CPU with ``--device cpu``; ``--gpu-ids`` may name a card twice,
+    two ranks on it over gloo); the group is left at the end. A group that
+    cannot start raises."""
     from .config import print_options
-    from .train_loop import check_trainable, train_model
+    from .train_loop import check_trainable, train_in_group, train_on_devices
 
     opt = train_options(kwargs, echo)
     check_trainable(opt)
-    print_options(opt)
-    return train_model(opt)
+    if launch is None:
+        print_options(opt)
+        return train_on_devices(opt, train_devices(opt.device), echo)
+    rank, world, local_rank, local_world = launch
+    devices = train_devices(opt.device)
+    if devices != ['cpu'] and local_rank >= len(devices):
+        raise ValueError(f'local rank {local_rank} has no card: the devices '
+                         f'are {devices}')
+    opt.device = devices[0] if devices == ['cpu'] else devices[local_rank]
+    device = opt.device
+    if rank == 0:
+        print_options(opt)
+    echo(f'process group: rank {rank} of {world} (local rank {local_rank} '
+         f'of {local_world}) on {device}')
+    # NCCL takes one rank a card: a card named twice (two ranks on it)
+    # joins over gloo
+    return train_in_group(opt, device, local_world, backend='gloo' if len(
+        set(devices)) < len(devices) else None)
 
 
 def make_cli():
@@ -855,7 +890,7 @@ def _train_command(cli, click):
         ('--debug-data-size', dict(default=10, type=int)),
         ('--verbose', dict(is_flag=True, help='print parameter counts per net')),
         ('--load-iter', dict(default=0, type=int, help='resume from the iter_<N> checkpoint (with --save-by-iter)')),
-        ('--gpu-ids', dict(default=None, help='one card number: train on cuda:<n> (several raise NotImplementedError)')),
+        ('--gpu-ids', dict(default=None, help='card numbers, e.g. 0,2: train on those cards, one spawned rank each, data parallel where the batch divides by their count (default: every visible card)')),
         ('--display-server', dict(default=None, help='ignored (no visdom)')),
         ('--display-port', dict(default=None, help='ignored (no visdom)')),
         ('--display-env', dict(default=None, help='ignored (no visdom)')),
@@ -872,12 +907,32 @@ def _train_command(cli, click):
     ]
 
     def train(**kwargs):
-        """Train a model of any family on one device."""
+        """Train a model of any family on this host's cards (data parallel
+        over several), or on the CPU."""
         run_train(kwargs, echo=click.echo)
 
     for flag, kw in reversed(options):
         train = click.option(flag, **kw)(train)
-    cli.command()(train)
+    train_cmd = cli.command()(train)
+
+    @cli.command(add_help_option=False,
+                 context_settings=dict(ignore_unknown_options=True,
+                                       allow_extra_args=True))
+    @click.pass_context
+    def trainlaunch(ctx):
+        """Multi-node training launcher: run under torchrun (one process per
+        card; RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR,
+        MASTER_PORT), each process joins the group and runs `train` with
+        the remaining arguments on card LOCAL_RANK. Without that
+        environment it says so and runs `train` on this host's cards."""
+        from . import parallel
+        launch = parallel.torchrun_env()
+        if launch is None:
+            click.echo('no torchrun environment (RANK, WORLD_SIZE, '
+                       'LOCAL_RANK, MASTER_ADDR, MASTER_PORT); running train '
+                       'on this host')
+        with train_cmd.make_context('train', list(ctx.args)) as sub:
+            return run_train(sub.params, echo=click.echo, launch=launch)
 
 
 def main():

@@ -1254,16 +1254,15 @@ int num_sms() {
   return n_sm;
 }
 
+// The dynamic shared memory attribute is set on every launch: it belongs to
+// the current device, and a process may launch on several (one replica per
+// card); the call costs about a microsecond of host time.
 template <class G>
 cudaError_t launch(const Params& P, int n_sm, cudaStream_t st) {
-  static bool attr = false;   // per instantiation, once a process
-  if (!attr) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        conv_s8_gather_kernel<G>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
-    if (err != cudaSuccess) return err;
-    attr = true;
-  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      conv_s8_gather_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      G::SMEM);
+  if (err != cudaSuccess) return err;
   const int grid = P.n_items < n_sm ? P.n_items : n_sm;
   if (grid > 0) conv_s8_gather_kernel<G><<<grid, NT, G::SMEM, st>>>(P);
   return cudaGetLastError();
@@ -1272,14 +1271,10 @@ cudaError_t launch(const Params& P, int n_sm, cudaStream_t st) {
 template <int BN, int S, int NTAP, bool DYN>
 cudaError_t launch_slab(const Params& P, int n_sm, cudaStream_t st) {
   constexpr int TW = BN == 64 ? 2 : 1;
-  static bool attr = false;   // per instantiation, once a process
-  if (!attr) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        conv_s8_slab_kernel<BN, TW, S, NTAP, DYN>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
-    if (err != cudaSuccess) return err;
-    attr = true;
-  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      conv_s8_slab_kernel<BN, TW, S, NTAP, DYN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  if (err != cudaSuccess) return err;
   const int grid = P.n_items < n_sm ? P.n_items : n_sm;
   if (grid > 0)
     conv_s8_slab_kernel<BN, TW, S, NTAP, DYN>

@@ -4,8 +4,12 @@ background prefetch, the port's own copy of deepliif_tpu/data/__init__.py.
 Replaces the reference CustomDatasetDataLoader / torch DataLoader /
 DistributedSampler stack (reference deepliif/data/__init__.py:58-131) with
 a thread-prefetched numpy loader, seeded as the JAX package's is, so both
-packages give the same batches for one seed. One process: the rank and
-world size are the options' (``rank`` / ``world_size``), default 0 of 1.
+packages give the same batches for one seed. A node's loader strides the
+shuffled indices by node (the options' ``rank`` / ``world_size``, default
+0 of 1), as a JAX process strides them by ``process_index`` /
+``process_count``, and yields ``batch_size`` samples a step per node;
+under data parallelism each local rank (``local_rank`` of
+``local_world``) takes and loads only its contiguous slice of that batch.
 """
 
 from __future__ import annotations
@@ -20,10 +24,15 @@ from .aligned import AlignedDataset, SingleDataset, UnalignedDataset
 from .transforms import apply_transform, get_params  # noqa: F401
 
 
-def create_dataset(opt, phase='train'):
+def create_dataset(opt, phase='train', rank=None, world_size=None,
+                   local_rank=0, local_world=1):
     """The loader of ``opt.dataset_mode``: 'single' (``SingleDataset``),
     'unaligned' or any mode of a CycleGAN model (``UnalignedDataset``),
-    else 'aligned' (``AlignedDataset``), as the JAX package picks it."""
+    else 'aligned' (``AlignedDataset``), as the JAX package picks it; for
+    node ``rank`` of ``world_size`` (the options' ``rank`` / ``world_size``
+    win where set, as in the JAX package; default 0 of 1), each step's
+    node batch cut to slice ``local_rank`` of ``local_world``
+    (``Loader``)."""
     mode = getattr(opt, 'dataset_mode', 'aligned')
     if mode == 'single':
         ds = SingleDataset(opt, phase)
@@ -36,11 +45,17 @@ def create_dataset(opt, phase='train'):
         batch_size=getattr(opt, 'batch_size', 1),
         shuffle=(phase == 'train') and not getattr(opt, 'serial_batches', False),
         seed=getattr(opt, 'seed', None),
-        rank=getattr(opt, 'rank', None) or 0,
-        world_size=getattr(opt, 'world_size', None) or 1,
+        rank=_first_set(getattr(opt, 'rank', None), rank, 0),
+        world_size=_first_set(getattr(opt, 'world_size', None), world_size,
+                              1),
+        local_rank=local_rank, local_world=local_world,
         num_workers=getattr(opt, 'num_threads', 2),
         max_dataset_size=getattr(opt, 'max_dataset_size', None),
     )
+
+
+def _first_set(*values):
+    return next(v for v in values if v is not None)
 
 
 def _collate(samples):
@@ -63,12 +78,22 @@ class Loader:
     ``num_workers`` sizes the prefetch QUEUE (batches decoded ahead), not
     a decode pool: get_params draws from the seeded global RNG, so a
     single decode thread is what keeps `--seed` runs deterministic (the
-    reference gets the same property from seeded DataLoader workers)."""
+    reference gets the same property from seeded DataLoader workers).
+
+    ``rank`` / ``world_size`` stride the indices by node; each step's
+    batch of ``batch_size`` (the node's) is cut into ``local_world``
+    contiguous slices, and this loader loads and yields slice
+    ``local_rank`` alone."""
 
     def __init__(self, dataset, batch_size=1, shuffle=True, seed=None,
-                 rank=0, world_size=1, num_workers=2, max_dataset_size=None):
+                 rank=0, world_size=1, num_workers=2, max_dataset_size=None,
+                 local_rank=0, local_world=1):
+        if batch_size % local_world:
+            raise ValueError(f'a node batch of {batch_size} does not split '
+                             f'into {local_world} equal slices')
         self.dataset = dataset
         self.batch_size = batch_size
+        self.local_rank, self.local_world = local_rank, local_world
         self.shuffle = shuffle
         self.seed = seed
         self.rank = rank
@@ -109,6 +134,9 @@ class Loader:
                 and len(batches[-1]) < self.batch_size:
             last = batches[-1]
             batches[-1] = (last * self.batch_size)[:self.batch_size]
+        k = self.batch_size // self.local_world
+        batches = [b[self.local_rank * k:(self.local_rank + 1) * k]
+                   for b in batches]
         q = queue.Queue(maxsize=self.prefetch)
         stop = object()
         cancel = threading.Event()

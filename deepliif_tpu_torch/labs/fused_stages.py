@@ -174,7 +174,7 @@ def conv3x3_s2_stats(x, w, *, in_scale=None, in_bias=None, in_relu=False):
                          f'{x.device}')
     out = _launch('conv3x3_s2_stats', x, w, in_scale, in_bias, in_relu,
                   (x.shape[1] // 2, x.shape[2] // 2))
-    conv3x3_s2_stats.launches += 1
+    cuda_build.count(conv3x3_s2_stats)
     return out
 
 
@@ -201,7 +201,7 @@ def convtranspose3_s2_stats(x, w, *, in_scale=None, in_bias=None,
                          f'{x.device}')
     out = _launch('convtranspose3_s2_stats', x, w, in_scale, in_bias,
                   in_relu, (2 * x.shape[1], 2 * x.shape[2]))
-    convtranspose3_s2_stats.launches += 1
+    cuda_build.count(convtranspose3_s2_stats)
     return out
 
 
@@ -312,7 +312,7 @@ def tail_s2d_fused(x, w, b=None, *, in_scale=None, in_bias=None,
         raise ValueError(f'tail_s2d_fused runs on cpu or cuda, got '
                          f'{x.device}')
     y = _tail_launch(x, w, b, in_scale, in_bias, in_relu, padding, True)
-    tail_s2d_fused.launches += 1
+    cuda_build.count(tail_s2d_fused)
     return y
 
 
@@ -336,7 +336,7 @@ def tail_s2d_block(x, w, *, in_scale=None, in_bias=None, in_relu=False,
         raise ValueError(f'tail_s2d_block runs on cpu or cuda, got '
                          f'{x.device}')
     y = _tail_launch(x, w, None, in_scale, in_bias, in_relu, padding, False)
-    tail_s2d_block.launches += 1
+    cuda_build.count(tail_s2d_block)
     return _to_blocks(y)
 
 

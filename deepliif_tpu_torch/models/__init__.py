@@ -60,24 +60,40 @@ full batch (``_BatchFloors``; bf16 convs run one sample at a time,
 ``nets.layers._per_sample``), so a tile's outputs depend neither on the
 batch it rides in nor on its place there.
 
-The device is always explicit (``device='cuda'`` by default, never chosen
-by what is available). Not ported yet (ROADMAP.md): the TPU engine's mesh
-(mesh-sharded labeling included; ``DEEPLIIF_INFER_DEVICES`` above 1 raises
-NotImplementedError, "Serving").
+Several cards (the JAX session's mesh, ``parallel.make_sharded_forward``):
+``device='cuda'`` (the default) means every visible card, as the JAX
+session's ``len(jax.devices())``; ``n_devices=N`` or
+``DEEPLIIF_INFER_DEVICES=N`` takes the first N, clamped to [1, count];
+``cuda:N`` one card, ``cpu`` the CPU; ``devices=`` a list (a card may
+appear twice: two replicas on it). The session holds one replica of the
+nets per device, ``max_batch`` defaults to the per-card default times
+their count, and a bucket (a multiple of the count) runs as contiguous
+per-card shards, one host thread per card, each card with its own
+two-deep pipeline; the outputs are byte-equal to the one-card session's
+(the per-card batch is one card's, and each card's buckets are probed at
+it). The device is never chosen by what is available: an n-card request
+that finds fewer cards clamps and says so in ``n_devices``, and never
+runs on the CPU. Not ported yet (ROADMAP.md, "Serving"): mesh-sharded
+labeling (``DEEPLIIF_QUANT_MESH=1`` with several cards raises
+NotImplementedError); the device quantifier runs on the session's first
+card.
 """
 
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import copy
 import functools
 import os
+import threading
 import time
 
 import numpy as np
 import torch
 
+from .. import parallel, roadmap
 from ..config import get_opt
 from ..nets import ResnetGenerator, layers as L
 from ..ops import quant
@@ -101,12 +117,15 @@ def family_module(model):
         _FAMILIES.get(model, 'deepliif')]
 
 
-def _bucket(n, max_batch=16):
-    """Pad a batch count to a power-of-two bucket, clamped to max_batch."""
-    b = 1
+def _bucket(n, max_batch=16, multiple=1):
+    """Pad a batch count to a power-of-two bucket, clamped to max_batch;
+    ``multiple`` (the card count) is the least bucket, so that every
+    bucket splits evenly over the cards, and wins over max_batch where
+    they conflict (the JAX session's ``_bucket``)."""
+    b = max(1, multiple)
     while b < n and b < max_batch:
         b *= 2
-    return min(b, max_batch)
+    return max(multiple, min(b, max_batch))
 
 
 # default tile-batch cap (--max-batch overrides): on one H100 the batch
@@ -148,19 +167,29 @@ class InferenceSession:
     scales on the first tiles where the model dir has none, at the
     ``int8_calib_pct`` percentile (100: the max). ``fuse_stages`` (default:
     the model dir's option, else False) runs the translators' fused stages;
-    it needs bfloat16 and raises ValueError otherwise."""
+    it needs bfloat16 and raises ValueError otherwise.
+
+    ``devices`` (the session's, ``parallel.get_devices``): every visible
+    card for ``device`` 'cuda', else ``device``, or the ``devices`` list;
+    the first ``n_devices`` (default ``DEEPLIIF_INFER_DEVICES`` where no
+    list is given). ``max_batch`` (default ``DEFAULT_MAX_BATCH`` per
+    device) must divide by their count."""
 
     def __init__(self, model_dir, opt=None, phase='test', max_batch=None,
                  epoch='latest', precision=None, device='cuda',
                  int8_scope=None, fuse_stages=None, int8_calibrate=True,
-                 int8_calib_pct=100.0):
-        n_devices = os.environ.get('DEEPLIIF_INFER_DEVICES')
-        if n_devices and int(n_devices) > 1:
-            # the JAX session's mesh over N chips (its n_devices)
-            from .. import roadmap
-            raise roadmap.not_ported(f'DEEPLIIF_INFER_DEVICES={n_devices} '
-                                     '(replicas on several devices)',
-                                     roadmap.SERVING)
+                 int8_calib_pct=100.0, n_devices=None, devices=None):
+        if n_devices is None and devices is None:
+            env = os.environ.get('DEEPLIIF_INFER_DEVICES')
+            n_devices = int(env) if env else None
+        self.devices = parallel.get_devices(device, n_devices, devices)
+        self.n_devices = len(self.devices)
+        self.device = self.devices[0]
+        if self.n_devices > 1 and os.environ.get('DEEPLIIF_QUANT_MESH') == '1':
+            # the JAX package's labeling sharded over the mesh
+            raise roadmap.not_ported(
+                f'DEEPLIIF_QUANT_MESH=1 (labeling sharded over '
+                f'{self.n_devices} cards)', roadmap.SERVING)
         self.model_dir = model_dir
         self.opt = opt if opt is not None else get_opt(model_dir, mode=phase)
         for name, value in (('precision', precision),
@@ -183,10 +212,16 @@ class InferenceSession:
         self.int8_calibrate = bool(int8_calibrate)
         self.int8_calib_pct = float(int8_calib_pct)
         self.epoch = str(epoch)
-        self.device = torch.device(device)
         configure_device(self.device)
         self.d = _FAMILY_MODULES[self.family].def_from_opt(self.opt)
-        self.max_batch = DEFAULT_MAX_BATCH if max_batch is None else max_batch
+        self.max_batch = (DEFAULT_MAX_BATCH * self.n_devices
+                          if max_batch is None else max_batch)
+        if self.max_batch < 1 or self.max_batch % self.n_devices:
+            raise ValueError(f'max_batch {self.max_batch} does not split '
+                             f'over {self.n_devices} devices')
+        # one card's full batch: every forward on a card runs this many
+        # tiles or a probed bucket below it
+        self.card_batch = self.max_batch // self.n_devices
         # {(tile shape, forward path): {bucket: probe}}, batch_size's probes,
         # and per (tile shape, forward path) the probe's full batch
         self.bucket_probes, self._probe_refs = {}, {}
@@ -195,17 +230,24 @@ class InferenceSession:
         if self.d.quant_int8:
             self.act_scales = quant.load_act_scales(model_dir)
             dl.quantize_nets(nets_, self.int8_scope, self.act_scales)
-        self.nets = nets_.to(self.device).eval()
+        # one replica per device (copied before the first is moved)
+        copies = [copy.deepcopy(nets_) for _ in self.devices[1:]]
+        self.replicas = [r.to(dev).eval() for r, dev in zip(
+            [nets_] + copies, self.devices)]
+        self.nets = self.replicas[0]
 
     def build_kernels(self):
         """Build and load now (nvcc, once per process and source hash) the
         CUDA libraries that this session's forward launches: the trunk and
         norm statistics kernels, the fused stages' with ``fuse_stages``,
-        ``conv_s8`` at int8 scope 'all'. A server calls this before it
-        answers, so that no request waits on a build. Nothing to build on
-        the CPU; returns {name: ctypes handle}."""
+        ``conv_s8`` at int8 scope 'all'; and start every card of the
+        session. A server calls this before it answers, so that no request
+        waits on a build. Nothing to build on the CPU; returns {name:
+        ctypes handle}."""
         if self.device.type != 'cuda':
             return {}
+        for dev in self.devices:
+            torch.zeros(1, device=dev)
         from ..labs import fused_stages
         from ..nets import layers
         from ..ops import conv_int8, cuda_build, fused_resblock
@@ -237,7 +279,8 @@ class InferenceSession:
                                     per_channel=per_channel, pct=pct)
         self.act_scales = {k: (v.tolist() if hasattr(v, 'tolist') else v)
                            for k, v in scales.items()}
-        dl.quantize_nets(self.nets, self.int8_scope, self.act_scales)
+        for nets_ in self.replicas:
+            dl.quantize_nets(nets_, self.int8_scope, self.act_scales)
         self.bucket_probes.clear()       # the nets changed: probe again
         self._probe_refs.clear()
         if save:
@@ -283,7 +326,9 @@ class InferenceSession:
     def _load_nets(self, model_dir):
         ep = self.epoch
         native = checkpoints.has_native_checkpoint(model_dir, ep)
-        nets_ = self._make_nets(model_dir, native)
+        # built without torch's default init (``deepliif.unset``): every
+        # tensor is then set by a strict load
+        nets_ = dl.unset(lambda: self._make_nets(model_dir, native))
         groups = [(name, group) for name, group in nets_.named_groups()
                   if len(group)]
         if native:
@@ -336,26 +381,30 @@ class InferenceSession:
     _PROBED_DEVICES = ('cuda',)
 
     def batch_size(self, n, shape, path):
-        """Tiles per forward for ``n`` waiting tiles of ``shape`` (s, s, C)
+        """Tiles per bucket for ``n`` waiting tiles of ``shape`` (s, s, C)
         on forward ``path`` (``forward``'s keywords; short batches are
-        padded): the JAX engine's power-of-two bucket, clamped to
+        padded), over all the session's devices: the JAX engine's
+        power-of-two bucket, a multiple of the device count, clamped to
         ``max_batch``. On CUDA the smallest such bucket at or above it
-        that holds (``probe_bucket``), else ``max_batch``."""
-        b = _bucket(n, self.max_batch)
+        whose per-card shard holds (``probe_bucket``), else
+        ``max_batch``."""
+        b = _bucket(n, self.max_batch, self.n_devices)
         if self.device.type not in self._PROBED_DEVICES:
             return b
-        while b < self.max_batch and not self.probe_bucket(shape, path,
-                                                           b)['holds']:
+        while b < self.max_batch and not self.probe_bucket(
+                shape, path, b // self.n_devices)['holds']:
             b *= 2
         return min(b, self.max_batch)
 
     def probe_bucket(self, shape, path, b):
-        """Whether bucket ``b`` (below ``max_batch``) gives a tile of
-        ``shape`` the bytes it gets in a batch of ``max_batch`` on forward
-        ``path``, probed once per session: ``max_batch`` seeded random
+        """Whether a card's bucket ``b`` (below ``card_batch``, one card's
+        full batch: ``max_batch`` over the device count) gives a tile of
+        ``shape`` the bytes it gets in a batch of ``card_batch`` on forward
+        ``path``, probed once per session on its first card (every card
+        runs the same nets): ``card_batch`` seeded random
         tiles run at once (once per shape and path), then their first b
         and their last b in forwards of b, each float32 library call of
-        them run both as it is and zero-padded to ``max_batch``, the padded
+        them run both as it is and zero-padded to ``card_batch``, the padded
         result kept where the two differ (those calls, and every bf16
         library call, run padded in that bucket from then on:
         ``_BatchFloors``); the
@@ -373,13 +422,13 @@ class InferenceSession:
         if key not in self._probe_refs:
             t0 = time.perf_counter()
             tiles = torch.from_numpy(np.random.default_rng(0).integers(
-                0, 256, (self.max_batch,) + key[0], dtype=np.uint8))
+                0, 256, (self.card_batch,) + key[0], dtype=np.uint8))
             full = self.forward(tiles, raw=True, **path)
             self._probe_refs[key] = (tiles, full, time.perf_counter() - t0)
         tiles, full, ref_seconds = self._probe_refs[key]
         t0 = time.perf_counter()
-        floors, differs = _BatchFloors(self.max_batch, check=True), set()
-        for start in (0, self.max_batch - b):
+        floors, differs = _BatchFloors(self.card_batch, check=True), set()
+        for start in (0, self.card_batch - b):
             with L.cudnn_hook(floors):
                 part = self.forward(tiles[start:start + b], raw=True, **path)
             differs |= {k for k, v in part.items() if not _bitwise_equal(
@@ -391,47 +440,50 @@ class InferenceSession:
         return probes[b]
 
     def _bucket_hook(self, shape, path, b):
-        """The ``layers.cudnn_hook`` of a forward of ``b`` tiles: the
+        """The ``layers.cudnn_hook`` of a card's forward of ``b`` tiles: the
         bucket's padded cuDNN calls (None where there are none)."""
         probes = self.bucket_probes.get((tuple(int(v) for v in shape),
                                          _path_key(path)), {})
         padded = probes.get(b, {}).get('padded')
-        return _BatchFloors(self.max_batch, padded) if padded else None
+        return _BatchFloors(self.card_batch, padded) if padded else None
 
     def forward(self, tiles_u8, seg_weights=None, mod_only=False,
                 seg_only=False, return_intermediate=False, marker_index=None,
-                raw=False):
+                raw=False, replica=0):
         """One batch (B, s, s, C) uint8 on any device -> dict of uint8
-        outputs on the session's device: 'mods' (M, B, s, s, 3), 'seg',
-        'segs' (the DeepLIIF intermediates, or DeepLIIFExt's seg per
-        modality); with ``seg_only`` (DeepLIIF) 'seg' and 'marker' (the
-        modality ``marker_index``) alone. ``raw``: the outputs in the
-        compute dtype, before the uint8 cast (``probe_bucket``)."""
+        outputs on the device of replica ``replica`` (default the first):
+        'mods' (M, B, s, s, 3), 'seg', 'segs' (the DeepLIIF intermediates,
+        or DeepLIIFExt's seg per modality); with ``seg_only`` (DeepLIIF)
+        'seg' and 'marker' (the modality ``marker_index``) alone. ``raw``:
+        the outputs in the compute dtype, before the uint8 cast
+        (``probe_bucket``)."""
+        nets_ = self.replicas[replica]
         # normalized in float32, then cast to the compute dtype
-        x = (tiles_u8.to(self.device).float() / 127.5 - 1.0).to(self.d.dtype)
+        x = (tiles_u8.to(self.devices[replica]).float() / 127.5
+             - 1.0).to(self.d.dtype)
         seg_gen = self.d.seg_gen and not mod_only
         with torch.no_grad():
             if self.family == 'deepliif' and seg_only:
                 seg, marker = dl.seg_only_forward(
-                    self.nets, x, self.d, seg_weights=seg_weights,
+                    nets_, x, self.d, seg_weights=seg_weights,
                     marker_index=marker_index)
                 res = {'seg': seg}
                 if marker is not None:
                     res['marker'] = marker
             elif self.family == 'deepliif':
                 res = dl.inference_forward(
-                    self.nets, x, self.d, seg_weights=seg_weights,
+                    nets_, x, self.d, seg_weights=seg_weights,
                     seg_gen=seg_gen, return_intermediate=return_intermediate)
             elif self.family == 'ext':
-                mods, segs = ext.generator_forward(self.nets, x, self.d,
+                mods, segs = ext.generator_forward(nets_, x, self.d,
                                                    seg_gen=seg_gen)
                 res = {'mods': mods} if segs is None else {'mods': mods,
                                                            'segs': segs}
             elif self.family == 'sdg':
-                res = {'mods': sdg.generator_forward(self.nets, x, self.d)}
+                res = {'mods': sdg.generator_forward(nets_, x, self.d)}
             else:
                 res = {'mods': cg.inference_forward(
-                    self.nets, x, self.d,
+                    nets_, x, self.d,
                     bto_a=getattr(self.opt, 'BtoA', False))}
         if raw:
             return res
@@ -536,34 +588,67 @@ class InferenceSession:
                     key = f'GS{i}' if deepliif else f'GS_{i + 1}'
                     out[key][idx] = host['segs'][i][:nvalid]
 
-        # two batches in flight (the JAX engine's pending deque): batch i+1
-        # is launched before batch i is collected
-        pipe = _Pipeline(self.device)
+        if self.n_devices == 1:
+            self._run_card(0, plan, tiles_u8, nonempty, path, collect,
+                           dev_out)
+        else:
+            # one host thread per card, each on its shard of every bucket
+            lock = threading.Lock()
+            with concurrent.futures.ThreadPoolExecutor(self.n_devices) as ex:
+                runs = [ex.submit(self._run_card, i, plan, tiles_u8,
+                                  nonempty, path, collect, dev_out, lock)
+                        for i in range(self.n_devices)]
+            for run in runs:
+                run.result()
+        return (out, dev_out) if device_keys else out
+
+
+    def _run_card(self, i, plan, tiles_u8, nonempty, path, collect,
+                  dev_out, lock=None):
+        """Replica ``i``'s part of ``run_tiles``: for each planned batch
+        (tiles, bucket) its contiguous shard i (bucket / device count
+        tiles, zero-padded), two shards in flight (the JAX engine's pending
+        deque: shard i+1 is launched before shard i is collected), the
+        outputs collected into ``run_tiles``'s host arrays; a device-kept
+        seg is scattered into ``dev_out['GS']`` on the first card (under
+        ``lock`` where several threads write it)."""
+        device = self.devices[i]
+        pipe = _Pipeline(device)
         pending = collections.deque()
+        shape = tiles_u8.shape[1:]
+        on_card = (torch.cuda.device(device) if device.type == 'cuda'
+                   else contextlib.nullcontext())
         pos = 0
-        try:
-            for nvalid, b in plan:
-                idx = nonempty[pos:pos + nvalid]
-                x = pipe.upload(tiles_u8, idx, b)
-                with L.cudnn_hook(self._bucket_hook(tiles_u8.shape[1:], path,
-                                                    b)):
-                    res = self.forward(x, **path)
-                if 'GS' in dev_out:
-                    # kept on the device: scattered there, never copied
-                    dev_out['GS'][pipe.to_device(idx)] = \
-                        res.pop('seg')[:nvalid]
-                pending.append((idx, pipe.fetch(res)))
-                if len(pending) == 2:
+        with on_card:
+            try:
+                for nvalid, b in plan:
+                    k = b // self.n_devices
+                    idx = nonempty[pos:pos + nvalid][i * k:(i + 1) * k]
+                    x = pipe.upload(tiles_u8, idx, k)
+                    with L.cudnn_hook(self._bucket_hook(shape, path, k)):
+                        res = self.forward(x, replica=i, **path)
+                    if 'GS' in dev_out:
+                        # kept on the device: scattered there, never copied
+                        # to the host
+                        seg = res.pop('seg')[:len(idx)]
+                        with lock or contextlib.nullcontext():
+                            if i == 0:
+                                dev_out['GS'][pipe.to_device(idx)] = seg
+                            elif len(idx):
+                                dst = dev_out['GS'].device
+                                dev_out['GS'][torch.from_numpy(idx).to(
+                                    dst)] = seg.to(dst)
+                    pending.append((idx, pipe.fetch(res)))
+                    if len(pending) == 2:
+                        idx_i, fetched = pending.popleft()
+                        collect(idx_i, pipe.wait(fetched))
+                    pos += nvalid
+                while pending:
                     idx_i, fetched = pending.popleft()
                     collect(idx_i, pipe.wait(fetched))
-                pos += nvalid
-            while pending:
-                idx_i, fetched = pending.popleft()
-                collect(idx_i, pipe.wait(fetched))
-        except BaseException:
-            pipe.settle(fetched for _, fetched in pending)
-            raise
-        return (out, dev_out) if device_keys else out
+            except BaseException:
+                pipe.settle(fetched for _, fetched in pending)
+                raise
 
 
 class _Pipeline:
@@ -718,23 +803,30 @@ def _quantize_u8(y):
 
 def init_nets(model_dir, phase='test', epoch='latest', max_batch=None,
               precision=None, device='cuda', int8_scope=None,
-              fuse_stages=None, int8_calibrate=True, int8_calib_pct=100.0):
-    """Cached session construction, one per (model dir, options, device)."""
+              fuse_stages=None, int8_calibrate=True, int8_calib_pct=100.0,
+              n_devices=None):
+    """Cached session construction, one per (model dir, options, device,
+    device count: ``n_devices``, else ``DEEPLIIF_INFER_DEVICES`` as it is
+    now)."""
+    if n_devices is None and os.environ.get('DEEPLIIF_INFER_DEVICES'):
+        n_devices = int(os.environ['DEEPLIIF_INFER_DEVICES'])
     return _init_nets_cached(model_dir, phase, str(epoch), max_batch,
                              precision, str(device), int8_scope, fuse_stages,
-                             bool(int8_calibrate), float(int8_calib_pct))
+                             bool(int8_calibrate), float(int8_calib_pct),
+                             n_devices)
 
 
 @functools.lru_cache(maxsize=8)
 def _init_nets_cached(model_dir, phase, epoch, max_batch, precision, device,
                       int8_scope, fuse_stages, int8_calibrate,
-                      int8_calib_pct):
+                      int8_calib_pct, n_devices):
     return InferenceSession(model_dir, phase=phase, epoch=epoch,
                             max_batch=max_batch, precision=precision,
                             device=device, int8_scope=int8_scope,
                             fuse_stages=fuse_stages,
                             int8_calibrate=int8_calibrate,
-                            int8_calib_pct=int8_calib_pct)
+                            int8_calib_pct=int8_calib_pct,
+                            n_devices=n_devices)
 
 
 def find_marker_key(d):

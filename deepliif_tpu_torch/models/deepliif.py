@@ -68,7 +68,7 @@ import functools
 import torch
 from torch import nn
 
-from .. import nets, roadmap
+from .. import nets, parallel, roadmap
 from ..nets import layers as L, losses, vgg
 from ..ops import quant
 
@@ -617,10 +617,13 @@ def create_train_state(d: DeepLIIFDef, opt, steps_per_epoch=1, seed=0,
 
 def set_grads(params, loss):
     """p.grad = d loss / d p for every p (zeros where p does not reach the
-    loss, as JAX's grad gives)."""
+    loss, as JAX's grad gives); under data parallelism then the mean over
+    ranks (``parallel.all_reduce_grads``: the gradient of the global
+    batch's loss, each rank's loss a mean over its equal shard)."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     for p, g in zip(params, grads):
         p.grad = torch.zeros_like(p) if g is None else g
+    parallel.all_reduce_grads(params)
 
 
 def detached(metrics):

@@ -82,6 +82,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import parallel
 from ..ops import conv_int8, cuda_build, quant
 from ..utils.checkpoints import weight_from_hwio, weight_to_hwio
 
@@ -236,7 +237,7 @@ def _nhwc(x):
     memory, else a copy counted in ``int8_input.relayouts``."""
     xh = x.permute(0, 2, 3, 1)
     if not xh.is_contiguous():
-        int8_input.relayouts += 1
+        cuda_build.count(int8_input, 'relayouts')
         xh = xh.contiguous()
     return xh
 
@@ -482,7 +483,7 @@ def plane_mean_var(x):
             raise ValueError(f'the plane_stats kernel reads channels_last '
                              f'memory with C % {16 // elem} == 0 at '
                              f'{x.dtype}, or NCHW memory; got C={c}')
-        plane_mean_var.relayouts += 1
+        cuda_build.count(plane_mean_var, 'relayouts')
         x = x.contiguous(memory_format=torch.channels_last)
         nchw = False
     g, rows, chunk, n_chunks = _plane_geometry(h * w, c, elem, nchw)
@@ -499,7 +500,7 @@ def plane_mean_var(x):
     if err != 0:
         raise RuntimeError(f'plane_stats kernel launch failed: cudaError '
                            f'{err}')
-    plane_mean_var.launches += 1
+    cuda_build.count(plane_mean_var)
     return stats
 
 
@@ -571,8 +572,11 @@ def train_batch_norm(x, scale, bias, eps=1e-5):
     """Train-mode BatchNorm2d: statistics over (B, H, W), coupling the
     samples (the JAX ``batch_stat_norm(per_sample=False)``), from one
     ``plane_mean_var_train`` call: mean the mean of the per-sample means,
-    var the mean of (var_s + (mean_s - mean)^2)."""
-    st = plane_mean_var_train(x)
+    var the mean of (var_s + (mean_s - mean)^2). Under data parallelism
+    (``parallel.data_parallel``) the per-sample statistics of every rank,
+    in rank order (``parallel.gather_rows``): the global batch's, as the
+    JAX step's under GSPMD."""
+    st = parallel.gather_rows(plane_mean_var_train(x))
     mean_s, var_s = st[:, 0], st[:, 1]
     mean = mean_s.mean(0)
     var = (var_s + (mean_s - mean) ** 2).mean(0)
@@ -811,13 +815,25 @@ def dropout(x, rng, rate=0.5, train=False):
     ``rate``, the kept values divided by 1 - ``rate``; the mask drawn from
     ``rng``, a ``torch.Generator`` on x's device. x as it is outside
     ``train`` or at rate 0; in ``train`` without a generator it raises, so
-    that a missing ``rng`` cannot switch dropout off."""
+    that a missing ``rng`` cannot switch dropout off. Under data
+    parallelism the mask is this rank's rows of the global batch's mask
+    (``parallel.global_rows``), the one-device step's."""
     if not train or rate == 0.0:
         return x
     if rng is None:
         raise ValueError('train-mode dropout needs a torch.Generator (rng)')
-    keep = torch.empty_like(x, dtype=torch.float32).uniform_(
-        generator=rng) < 1.0 - rate
+
+    def draw(shape):
+        if tuple(shape) == tuple(x.shape):
+            t = torch.empty_like(x, dtype=torch.float32)
+        else:   # the global batch's mask, laid out as x is
+            cl = (x.dim() == 4 and not x.is_contiguous()
+                  and x.is_contiguous(memory_format=torch.channels_last))
+            t = torch.empty(shape, dtype=torch.float32, device=x.device,
+                            memory_format=torch.channels_last if cl
+                            else torch.contiguous_format)
+        return t.uniform_(generator=rng)
+    keep = parallel.global_rows(draw, x.shape) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

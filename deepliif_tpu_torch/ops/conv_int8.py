@@ -156,7 +156,7 @@ def sample_absmax(x):
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f'conv_s8_absmax launch failed: cudaError {err}')
-    sample_absmax.launches += 1
+    cuda_build.count(sample_absmax)
     return amax
 
 
@@ -225,7 +225,7 @@ def conv_s8(x, qc, bias, *, stride, dil, pad, out_hw):
             split, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f'conv_s8 kernel launch failed: cudaError {err}')
-    conv_s8.launches += 1
+    cuda_build.count(conv_s8)
     return y
 
 

@@ -96,6 +96,18 @@ def _build_locked(libs):
     return {name: _loaded[name] for name in libs}
 
 
+_count_lock = threading.Lock()
+
+
+def count(fn, attr='launches'):
+    """Add one to the counter ``attr`` of a kernel wrapper ``fn`` (its
+    launches, or its input relayouts) under a lock: a session's replicas
+    launch from one host thread per card, and ``fn.launches += 1`` is a
+    read and a write that two threads can interleave."""
+    with _count_lock:
+        setattr(fn, attr, getattr(fn, attr) + 1)
+
+
 def load(name, sources):
     """ctypes handle of library ``name`` built from ``sources`` (file names
     under csrc/). Builds once per process and per source hash."""

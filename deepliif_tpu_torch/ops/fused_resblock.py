@@ -259,9 +259,9 @@ def conv3x3_stats(x, w, *, padding='reflect', in_scale=None, in_bias=None,
                            f'{err} (1000 + a CUresult if x\'s TMA tensor map '
                            'was refused)')
     if bf16:
-        conv3x3_stats.launches_bf16 += 1
+        cuda_build.count(conv3x3_stats, 'launches_bf16')
     else:
-        conv3x3_stats.launches += 1
+        cuda_build.count(conv3x3_stats)
     return y, stats
 
 
@@ -419,7 +419,7 @@ def conv3x3_stats_int8(x, w_q, deq, inv_a=None, *, padding='reflect',
         raise RuntimeError(f'conv3x3_stats_int8 kernel launch failed: '
                            f'cudaError {err} (1000 + a CUresult if the '
                            'quantized blocks\' TMA tensor map was refused)')
-    conv3x3_stats_int8.launches += 1
+    cuda_build.count(conv3x3_stats_int8)
     return y, stats
 
 

@@ -136,7 +136,7 @@ def label_components(fg, conn8=True):
                               torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f'label_cc kernel launch failed: cudaError {err}')
-    label_components.launches += 1
+    cuda_build.count(label_components)
     return labels
 
 

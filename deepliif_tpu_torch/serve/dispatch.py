@@ -13,13 +13,16 @@ grouped by those settings; requests for device-kept outputs or the seg
 intermediates bypass coalescing.
 
 On a CUDA session every device call runs inside
-``torch.cuda.device(session.device)``: the hand kernels launch on
+``torch.cuda.device(session.device)`` (its first card; a session of
+several replicas runs each replica's shard in a thread of its own, inside
+that replica's card): the hand kernels launch on
 ``torch.cuda.current_stream()``, and the CUDA runtime's current device is
-per thread. A coalesced request gets the bytes it would get alone, because
-a CUDA session runs a short batch in a smaller bucket only where its probe
-shows the bucket's outputs bitwise equal to a full batch's
-(``InferenceSession.batch_size``), and a CPU session runs each conv on one
-sample.
+per thread. A call takes up to the session's ``max_batch`` tiles, the
+per-card default times its cards. A coalesced request gets the bytes it
+would get alone, because a CUDA session runs a short batch in a smaller
+bucket only where its probe shows the bucket's outputs bitwise equal to a
+full batch's (``InferenceSession.batch_size``), and a CPU session runs
+each conv on one sample.
 """
 
 from __future__ import annotations

@@ -16,20 +16,29 @@ RMSE against val/metrics.json through the port's host quantifier) and
 
 The device is explicit (``opt.device``, default cuda): on a CUDA device
 TF32 is turned off first (``models.configure_device``), since cuDNN would
-otherwise train the float32 convs in TF32. One loop for every family, as
-in the JAX package: DeepLIIF, DeepLIIFKD, DeepLIIFExt and SDG run their
-family's ``make_train_step`` (DeepLIIFKD with its frozen teacher, loaded
-once from ``--model-dir-teacher``); CycleGAN's step (``cyclegan_step``)
-runs its G step, queries the host image pools (seeded seed + i and seed
-+ 100 + i) and runs its D step. --with-val computes every family's
-validation losses, and the cell-count RMSE for DeepLIIF and DeepLIIFKD.
+otherwise train the float32 convs in TF32. In a ``torch.distributed``
+process group (one process per card: ``cli``'s ``train`` on several
+cards, ``trainlaunch`` under torchrun) the loop runs data parallel
+(``data_parallel_plan``): each node's loader strides the indices by node
+and yields ``batch_size`` samples a step, each rank loads its contiguous
+slice, and the step runs inside ``parallel.data_parallel`` (global-batch
+norm statistics and dropout masks, gradients averaged over ranks before
+each update); the metrics are the global means. Printing, the visualizer,
+--with-val and checkpoints run on each node's local rank 0. One loop for
+every family, as in the JAX package: DeepLIIF, DeepLIIFKD, DeepLIIFExt and
+SDG run their family's ``make_train_step`` (DeepLIIFKD with its frozen
+teacher, loaded once from ``--model-dir-teacher``); CycleGAN's step
+(``cyclegan_step``) runs its G step, queries the host image pools
+(seeded seed + i and seed + 100 + i) and runs its D step. --with-val
+computes every family's validation losses, and the cell-count RMSE for
+DeepLIIF and DeepLIIFKD.
 What this loop does not run raises NotImplementedError (ROADMAP.md,
-"Training"): orbax checkpoints (and, in ``cli.train_device``, several
-cards; ``trainlaunch`` in ``cli``).
+"Training"): orbax checkpoints.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -38,7 +47,7 @@ import time
 import numpy as np
 import torch
 
-from . import roadmap
+from . import parallel, roadmap
 from .config import save_options
 from .data import create_dataset
 from .models import configure_device, deepliif as dl, family_module
@@ -140,7 +149,9 @@ def cyclegan_step(cg, d, vgg_net, opt, seed):
     """CycleGAN's step for the loop: step(state, batch, rng) -> (state,
     metrics, {'mods': fake_bs}): the G step, each modality's fakes through
     its host image pool (fake B through pools_b[i], seeded seed + 100 + i;
-    fake A through pools_a[i], seed + i), the D step on the pooled fakes."""
+    fake A through pools_a[i], seed + i), the D step on the pooled fakes.
+    Data parallel (one node), each rank gathers the fakes and queries its
+    identical pools with the global batch's, then keeps its shard."""
     g_step, d_step = cg.make_train_steps(d, vgg_net)
     pool_size = getattr(opt, 'pool_size', 50)
     m = d.modalities_no
@@ -148,9 +159,14 @@ def cyclegan_step(cg, d, vgg_net, opt, seed):
     pools_b = [cg.ImagePool(pool_size, seed + 100 + i) for i in range(m)]
 
     def pooled(pools, fakes):
-        return torch.stack([torch.from_numpy(np.asarray(pool.query(
-            f.cpu().numpy()))) for pool, f in zip(pools, fakes)]).to(
+        # data parallel: every rank queries its identical pools with the
+        # global batch's fakes (in rank order) and keeps its shard
+        full = parallel.gather_detached(fakes, dim=1)
+        out = torch.stack([torch.from_numpy(np.asarray(pool.query(
+            f.cpu().numpy()))) for pool, f in zip(pools, full)]).to(
                 fakes.device)
+        dp, b = parallel.current(), fakes.shape[1]
+        return out if dp is None else out.narrow(1, dp.rank * b, b)
 
     def step(state, batch, rng=None):
         real_as, real_bs = cg.real_pair(batch, d)
@@ -176,11 +192,62 @@ def _scalar(v):
     return float(v) if v.dim() == 0 else float(v.float().mean())
 
 
-def train_model(opt):
+class _Silent:
+    """The visualizer of a rank that does not report: every call does
+    nothing."""
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
+
+
+def data_parallel_plan(model, batch, local_world=None):
+    """How this process trains: (``parallel.DataParallel`` or None, the
+    loader's node and local-rank keywords (``data.create_dataset``),
+    whether it steps at all). Outside a process group: alone. In one
+    (``local_world`` ranks a node, default all): data parallel where the
+    global batch (``batch`` a node) divides by the card count, as the JAX
+    loop's ``use_mesh``; else, and for CycleGAN over several nodes (its
+    host pools sit between its two steps), each node's local rank 0 steps
+    alone on the node's batch, without gradient sync (the JAX loop's
+    per-host stepping), and the others do nothing; a line says which."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        return None, {}, True
+    rank, world = dist.get_rank(), dist.get_world_size()
+    local_world = local_world or world
+    dp = parallel.DataParallel(rank, world, rank % local_world, local_world)
+    node = dict(rank=dp.node, world_size=dp.nodes)
+    if model == 'CycleGAN' and dp.nodes > 1:
+        why = ('CycleGAN queries its host image pools between its two steps '
+               f'and runs data parallel on one node, not {dp.nodes}')
+    elif batch % local_world:
+        why = (f'the global batch ({batch * dp.nodes}) does not divide by '
+               f'the card count ({world})')
+    else:
+        if rank == 0:
+            print(f'data-parallel over {world} cards ({dp.nodes} node(s) of '
+                  f'{local_world})')
+        return dp, dict(node, local_rank=dp.local_rank,
+                        local_world=local_world), True
+    if dp.local_rank == 0:
+        print(f'{why}: node {dp.node} trains on one card, without gradient '
+              'sync')
+    return None, node, dp.local_rank == 0
+
+
+def train_model(opt, local_world=None):
     """Run the whole training of ``opt.model``; returns (the final
-    ``models.deepliif.TrainState``, the last step's metrics)."""
+    ``models.deepliif.TrainState``, the last step's metrics (global means
+    under data parallelism)). In a ``torch.distributed`` process group of
+    one process per card (``local_world`` a node, default all) it trains
+    as ``data_parallel_plan`` says; a process that does not step returns
+    (None, {})."""
     check_trainable(opt)
     device = torch.device(getattr(opt, 'device', None) or 'cuda')
+    if device.type == 'cuda' and device.index is None:
+        # one card (the KD teacher's session too, which would take every
+        # visible card for a bare 'cuda')
+        device = torch.device('cuda', torch.cuda.current_device())
     configure_device(device)
     model = getattr(opt, 'model', 'DeepLIIF')
     fam = family_module(model)
@@ -197,12 +264,21 @@ def train_model(opt):
         raise ValueError('DeepLIIFKD trains against a teacher: pass '
                          '--model-dir-teacher')
 
-    dataset = create_dataset(opt, phase='train')
     batch = getattr(opt, 'batch_size', 1)
-    steps_per_epoch = max(1, len(dataset) // max(1, batch))
-    print(f'The number of training images = {len(dataset)}')
+    dp, loader_kw, steps = data_parallel_plan(model, batch, local_world)
+    if not steps:
+        return None, {}
+    main = dp is None or dp.local_rank == 0
+    say = print if main else (lambda *args, **kwargs: None)
+    dataset = create_dataset(opt, phase='train', **loader_kw)
+    # the schedule advances by global steps: a node takes batch_size
+    # samples of its stride a step
+    steps_per_epoch = max(1, len(dataset) // max(
+        1, batch * loader_kw.get('world_size', 1)))
+    say(f'The number of training images = {len(dataset)}')
 
-    save_options(opt)
+    if main:
+        save_options(opt)
 
     seed = getattr(opt, 'seed', None) or 0
     vgg_net = vgg.VGG19Features().to(device)
@@ -210,7 +286,7 @@ def train_model(opt):
                if model == 'DeepLIIFKD' else None)
     state = fam.create_train_state(d, opt, steps_per_epoch, seed, device)
 
-    if getattr(opt, 'verbose', False):
+    if getattr(opt, 'verbose', False) and main:
         for name, group in state.nets.named_groups():
             n = sum(p.numel() for p in group.parameters())
             print(f'[network {name}] parameters: {n / 1e6:.3f} M')
@@ -226,11 +302,11 @@ def train_model(opt):
         except FileNotFoundError as e:
             raise FileNotFoundError(f'--continue-train set but checkpoint '
                                     f'missing: {e}')
-        print(f'resumed networks from {save_dir} @ {epoch}')
+        say(f'resumed networks from {save_dir} @ {epoch}')
         optim_path = os.path.join(save_dir, f'{epoch}_optim.npz')
         if os.path.exists(optim_path):
             checkpoints.load_optim(optim_path, state, plateau is not None)
-            print(f'resumed optimizer state @ step {state.step}')
+            say(f'resumed optimizer state @ step {state.step}')
         if str(epoch).isdigit():
             epoch_base = int(epoch)
 
@@ -239,7 +315,7 @@ def train_model(opt):
     eval_fam = dl if model in ('DeepLIIF', 'DeepLIIFKD') else fam
     eval_fn = (eval_fam.make_eval_losses(d, vgg_net)
                if getattr(opt, 'with_val', False) else None)
-    visualizer = Visualizer(opt)
+    visualizer = Visualizer(opt) if main else _Silent()
     rng = torch.Generator(device).manual_seed(seed + 1)
 
     total_iters = 0
@@ -256,99 +332,166 @@ def train_model(opt):
     lr_sched = make_lr_schedule(opt, steps_per_epoch)
 
     def save(suffix):
+        if not main:
+            return
         _save_state(save_dir, state, suffix,
                     getattr(opt, 'remote_transfer_cmd', None),
                     plateau is not None)
 
-    metrics = {}
-    # plateau without validation monitors the mean train loss_G of the
-    # epoch, a per-step read of the device: only under that policy
-    track_epoch_loss = plateau is not None and eval_fn is None
-    for epoch in range(epoch_count, n_epochs + n_epochs_decay + 1):
-        epoch_start = time.time()
-        iter_data_time = time.time()
-        epoch_iter = 0
-        epoch_g_sum, epoch_g_n = 0.0, 0
-        visualizer.reset()
-        dataset.set_epoch(epoch)
-
-        for data in dataset:
-            iter_start = time.time()
-            t_data = iter_start - iter_data_time
-            total_iters += batch
-            epoch_iter += batch
-
-            state, metrics, g_out = step_fn(
-                state, batch_to_device(data, device), rng)
-            if track_epoch_loss:
-                epoch_g_sum += _scalar(metrics['loss_G'])
-                epoch_g_n += 1
-
-            if total_iters % print_freq == 0:
-                m = {k: _scalar(v) for k, v in metrics.items()}
-                t_comp = (time.time() - iter_start) / batch
-                visualizer.print_current_losses(epoch, epoch_iter, m, t_comp, t_data)
-                visualizer.plot_current_losses(
-                    epoch, epoch_iter / max(1, len(dataset)), m)
-
-            monitor = getattr(opt, 'monitor_image', None)
-            display_now = (total_iters % display_freq == 0 if monitor is None
-                           else data['A_paths'][0].endswith(monitor))
-            if display_now:
-                vis = {'real_A': np.asarray(data['A'][0][..., :3])}
-                mods = g_out['mods'].cpu().numpy()
-                for i in range(mods.shape[0]):
-                    vis[f'fake_B_{i+1}'] = mods[i][0]
-                if 'seg' in g_out:
-                    vis['fake_B_S'] = g_out['seg'].cpu().numpy()[0]
-                if 'segs' in g_out:
-                    segs = g_out['segs'].cpu().numpy()
-                    for i in range(segs.shape[0]):
-                        vis[f'fake_BS_{i+1}'] = segs[i][0]
-                visualizer.display_current_results(vis, epoch, True)
-
-            if total_iters % save_latest_freq == 0:
-                # --save-by-iter keeps every snapshot under iter_<N> instead
-                # of overwriting latest (reference cli.py:472-475)
-                save(f'iter_{total_iters}' if save_by_iter else 'latest')
+    with parallel.data_parallel(dp):
+        metrics = {}
+        # plateau without validation monitors the mean train loss_G of the
+        # epoch, a per-step read of the device: only under that policy
+        track_epoch_loss = plateau is not None and eval_fn is None
+        for epoch in range(epoch_count, n_epochs + n_epochs_decay + 1):
+            epoch_start = time.time()
             iter_data_time = time.time()
+            epoch_iter = 0
+            epoch_g_sum, epoch_g_n = 0.0, 0
+            visualizer.reset()
+            dataset.set_epoch(epoch)
 
-            if (getattr(opt, 'debug', False)
-                    and epoch_iter >= getattr(opt, 'debug_data_size', 10)):
-                # reference cli.py:479-481: debug mode caps each epoch
-                print(f'debug mode, epoch {epoch} stopped at epoch iter '
-                      f'{epoch_iter}')
-                break
+            for data in dataset:
+                iter_start = time.time()
+                t_data = iter_start - iter_data_time
+                total_iters += batch
+                epoch_iter += batch
 
-        if epoch % save_epoch_freq == 0:
-            save('latest')
-            save(str(epoch + epoch_base))
+                state, metrics, g_out = step_fn(
+                    state, batch_to_device(data, device), rng)
+                metrics = parallel.mean_over_ranks(metrics)
+                if track_epoch_loss:
+                    epoch_g_sum += _scalar(metrics['loss_G'])
+                    epoch_g_n += 1
 
-        val_losses = None
-        if eval_fn is not None:
-            val_losses = _run_validation(opt, d, state, eval_fn, visualizer,
-                                         epoch, rng, device)
+                if total_iters % print_freq == 0:
+                    m = {k: _scalar(v) for k, v in metrics.items()}
+                    t_comp = (time.time() - iter_start) / batch
+                    visualizer.print_current_losses(epoch, epoch_iter, m, t_comp, t_data)
+                    visualizer.plot_current_losses(
+                        epoch, epoch_iter / max(1, len(dataset)), m)
 
-        if plateau is not None:
-            monitored = (float(np.mean(list(val_losses.values())))
-                         if val_losses else
-                         (epoch_g_sum / epoch_g_n if epoch_g_n else 0.0))
-            if plateau.step(monitored):
-                for optimizer, lr0 in ((state.g_opt, lr_g0),
-                                       (state.d_opt, lr_d0)):
-                    for group in optimizer.param_groups:
-                        group['lr'] = lr0 * plateau.mult
-                print(f'plateau: reducing learning rate (metric {monitored:.4f})')
-            lr_now = lr_g0 * plateau.mult
-        else:
-            lr_now = lr_g0 * float(lr_sched(state.step))
-        print(f'learning rate = {lr_now:.7f}')
-        print(f'End of epoch {epoch} / {n_epochs + n_epochs_decay} \t '
-              f'Time Taken: {time.time() - epoch_start:.0f} sec')
+                monitor = getattr(opt, 'monitor_image', None)
+                display_now = (total_iters % display_freq == 0 if monitor is None
+                               else data['A_paths'][0].endswith(monitor))
+                if display_now:
+                    vis = {'real_A': np.asarray(data['A'][0][..., :3])}
+                    mods = g_out['mods'].cpu().numpy()
+                    for i in range(mods.shape[0]):
+                        vis[f'fake_B_{i+1}'] = mods[i][0]
+                    if 'seg' in g_out:
+                        vis['fake_B_S'] = g_out['seg'].cpu().numpy()[0]
+                    if 'segs' in g_out:
+                        segs = g_out['segs'].cpu().numpy()
+                        for i in range(segs.shape[0]):
+                            vis[f'fake_BS_{i+1}'] = segs[i][0]
+                    visualizer.display_current_results(vis, epoch, True)
 
-    save('latest')
-    visualizer.plot_to_png()
+                if total_iters % save_latest_freq == 0:
+                    # --save-by-iter keeps every snapshot under iter_<N> instead
+                    # of overwriting latest (reference cli.py:472-475)
+                    save(f'iter_{total_iters}' if save_by_iter else 'latest')
+                iter_data_time = time.time()
+
+                if (getattr(opt, 'debug', False)
+                        and epoch_iter >= getattr(opt, 'debug_data_size', 10)):
+                    # reference cli.py:479-481: debug mode caps each epoch
+                    say(f'debug mode, epoch {epoch} stopped at epoch iter '
+                        f'{epoch_iter}')
+                    break
+
+            if epoch % save_epoch_freq == 0:
+                save('latest')
+                save(str(epoch + epoch_base))
+
+            val_losses = None
+            if eval_fn is not None and main:
+                with parallel.data_parallel(None):   # this rank alone
+                    val_losses = _run_validation(opt, d, state, eval_fn,
+                                                 visualizer, epoch, rng,
+                                                 device)
+            if eval_fn is not None and dp is not None:
+                # validation drew dropout masks on rank 0 alone: every rank
+                # goes on from its generator state, as one device would
+                rng.set_state(parallel.broadcast(rng.get_state()))
+
+            if plateau is not None:
+                monitored = (float(np.mean(list(val_losses.values())))
+                             if val_losses else
+                             (epoch_g_sum / epoch_g_n if epoch_g_n else 0.0))
+                # every rank takes rank 0's decision (its validation)
+                monitored = parallel.broadcast(monitored)
+                if plateau.step(monitored):
+                    for optimizer, lr0 in ((state.g_opt, lr_g0),
+                                           (state.d_opt, lr_d0)):
+                        for group in optimizer.param_groups:
+                            group['lr'] = lr0 * plateau.mult
+                    say(f'plateau: reducing learning rate (metric {monitored:.4f})')
+                lr_now = lr_g0 * plateau.mult
+            else:
+                lr_now = lr_g0 * float(lr_sched(state.step))
+            say(f'learning rate = {lr_now:.7f}')
+            say(f'End of epoch {epoch} / {n_epochs + n_epochs_decay} \t '
+                  f'Time Taken: {time.time() - epoch_start:.0f} sec')
+
+        save('latest')
+        visualizer.plot_to_png()
     return state, metrics
+
+
+def train_on_devices(opt, devices, echo=print):
+    """``train`` on ``devices`` of this host (the JAX command's
+    ``jax.devices()``): one device, or a global batch (``batch_size``)
+    that does not divide by the card count, trains in this process on the
+    first (a line says why); else one spawned process per device, joined
+    in a process group (NCCL on distinct cards, gloo on the CPU or with a
+    card twice), each running ``train_model`` data parallel. Returns this
+    process's (state, metrics), or (None, {}) after the spawned ranks
+    ended; a rank's failure raises here."""
+    batch = getattr(opt, 'batch_size', 1)
+    if len(devices) > 1 and batch % len(devices):
+        echo(f'the global batch ({batch}) does not divide by the card count '
+             f'({len(devices)}): training on {devices[0]} alone')
+    if len(devices) == 1 or batch % len(devices):
+        opt = copy.copy(opt)
+        opt.device = str(devices[0])
+        return train_model(opt)
+    import torch.multiprocessing as mp
+    cuda = all(torch.device(d).type == 'cuda' for d in devices)
+    backend = 'nccl' if cuda and len(set(map(str, devices))) == len(
+        devices) else 'gloo'
+    echo(f'spawning {len(devices)} ranks ({backend}) on '
+         f'{", ".join(map(str, devices))}')
+    mp.start_processes(_spawned_rank, args=(
+        [str(d) for d in devices], f'tcp://localhost:{parallel.free_port()}',
+        backend, opt), nprocs=len(devices), join=True,
+        start_method='spawn')
+    return None, {}
+
+
+def _spawned_rank(rank, devices, init_method, backend, opt):
+    """A rank of ``train_on_devices``: devices[rank] in a process group of
+    len(devices)."""
+    train_in_group(opt, devices[rank], rank=rank, world=len(devices),
+                   init_method=init_method, backend=backend)
+
+
+def train_in_group(opt, device, local_world=None, **group):
+    """``train_model`` on ``device`` in a process group that this process
+    joins first (``parallel.init_process_group``'s ``group`` keywords; by
+    default from the torchrun environment) and leaves at the end;
+    ``local_world`` ranks a node (default all)."""
+    device = torch.device(device)
+    if device.type == 'cuda':
+        torch.cuda.set_device(device)
+    parallel.init_process_group(device, **group)
+    try:
+        opt = copy.copy(opt)
+        opt.device = str(device)
+        return train_model(opt, local_world)
+    finally:
+        import torch.distributed as dist
+        dist.destroy_process_group()
 
 
 def _save_state(save_dir, state, suffix, remote_transfer_cmd=None,

@@ -26,7 +26,8 @@ from deepliif_tpu import native as native_jax, postprocessing as pp_jax
 from deepliif_tpu import utils as utils_jax
 from deepliif_tpu.utils import tiler as tiler_jax
 from deepliif_tpu_torch import cli, config, models as M, native
-from deepliif_tpu_torch import nets, postprocessing as pp, roadmap, utils
+from deepliif_tpu_torch import nets, parallel, postprocessing as pp, roadmap
+from deepliif_tpu_torch import utils
 from deepliif_tpu_torch.utils import tiler, wsi
 from test_inference import TINY_CFG
 
@@ -257,13 +258,15 @@ def test_not_ported_messages_name_roadmap_headings(tmp_path, monkeypatch):
                 torch.zeros(1, 3, 16, 16)),
             lambda: _int8(nets.define_g(3, 3, 8, 'unet_32'))(
                 torch.zeros(1, 3, 32, 32)),
-            lambda: cli.make_cli().main(['trainlaunch'],
-                                        standalone_mode=False),
-            lambda: cli.train_device('cuda', '0,1'),
+            lambda: cli.make_cli().main(
+                ['train', '--dataroot', str(tmp_path), '--device', 'cpu',
+                 '--checkpoint-format', 'orbax'], standalone_mode=False),
+            lambda: parallel.spatial_halo_apply(None, None),
             lambda: wsi.WSIReader(str(tmp_path / 'slide.czi')),
-            lambda: M.InferenceSession(str(tmp_path), device='cpu')):
+            lambda: M.InferenceSession(str(tmp_path),
+                                       devices=('cpu', 'cpu'))):
         with monkeypatch.context() as mp:
-            mp.setenv('DEEPLIIF_INFER_DEVICES', '2')
+            mp.setenv('DEEPLIIF_QUANT_MESH', '1')
             with pytest.raises(NotImplementedError) as e:
                 call()
         errors.append(str(e.value))

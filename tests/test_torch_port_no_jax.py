@@ -16,8 +16,11 @@ its teacher) one step each, one step each at bfloat16, with spectral
 norm and with attention U-Net seg nets, runs ``eval``,
 ``prepare-training-data``,
 ``prepare-testing-data``, ``register`` and ``visualize`` through the CLI,
-traces a call with ``utils.profiling``, and finds no ``jax``, ``jaxlib`` or
-``deepliif_tpu`` / ``deepliif_tpu.*`` module loaded."""
+traces a call with ``utils.profiling``, runs a session of two replicas
+and a data-parallel training run of two spawned ranks
+(``deepliif_tpu_torch.parallel``, gloo), and finds no ``jax``, ``jaxlib``
+or ``deepliif_tpu`` / ``deepliif_tpu.*`` module loaded, in this process
+and in a spawned rank."""
 
 import json
 import os
@@ -223,6 +226,26 @@ assert os.path.exists(os.path.join(md, 'web', 'index.html'))
 with profiling.trace(cuda=False) as tr:
     models.InferenceSession(md, device='cpu').run_tiles(tiles)
 assert tr.window is not None
+# several devices: two replicas of a session, and a data-parallel run of
+# two spawned gloo ranks on the CPU, whose rank 0 writes the modules it
+# loaded (--remote-transfer-cmd; the ranks import this script's sys.path)
+from deepliif_tpu_torch import parallel
+out4 = models.InferenceSession(md, devices=('cpu', 'cpu')).run_tiles(tiles)
+assert sorted(out4) == ['G1', 'GS'], sorted(out4)
+sys.path.insert(0, os.path.join(os.getcwd(), 'tests'))
+train_cmd = cli.make_cli().commands['train']
+with train_cmd.make_context('train', [
+        '--dataroot', os.path.dirname(rows), '--checkpoints-dir',
+        os.path.join(md, 'ckpt'), '--name', 'dp', '--modalities-no', '1',
+        '--net-g', 'resnet_2blocks', '--net-gs', 'unet_32', '--ngf', '8',
+        '--ndf', '8', '--load-size', '64', '--crop-size', '64',
+        '--batch-size', '2', '--n-epochs', '1', '--n-epochs-decay', '0',
+        '--remote-transfer-cmd', 'torch_dp_worker.record_modules',
+        '--device', 'cpu']) as ctx:
+    opt = cli.train_options(ctx.params)
+train_loop.train_on_devices(opt, ['cpu', 'cpu'])
+with open(os.path.join(md, 'ckpt', 'dp', 'modules.json')) as f:
+    assert json.load(f) == [], 'a data-parallel rank loaded jax'
 print(json.dumps(sorted(m for m in sys.modules
                         if m in ('jax', 'deepliif_tpu')
                         or m.startswith(('jax.', 'jaxlib', 'deepliif_tpu.')))))

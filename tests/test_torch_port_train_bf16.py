@@ -47,7 +47,9 @@ that feeds a train-mode batch norm, whose gradient is 0 up to rounding,
 held against its conv weight's max |g|; the parameters after one step
 within 1e-6 wherever JAX's gradient exceeds that tolerance, within 2 lr
 everywhere; step 2 from JAX's state read through its files within 2.12
-lr. Each JAX function is compiled once for the file."""
+lr. Each JAX function is compiled once for the file; the G loss's own
+forward gives the D losses their fakes, and JAX's float64 gradients run in
+a thread beside the rest (``torch_train_helpers.jax_g_grads_f64``)."""
 
 import contextlib
 import os
@@ -159,14 +161,12 @@ def run(tmp_path_factory):
     jb = H.jax_batch(arrays)
     grads = {}
     for name, jdef in (('float32', jdl.DeepLIIFDef(**KW)), ('bfloat16', jd)):
-        mods, seg = jax.jit(lambda g, x, jdef=jdef: jdl.generator_forward(
-            g, x, jdef, train=True, rng=jax.random.PRNGKey(0)))(gp, jb['A'])
+        # the G loss's own forward gives the D loss its fakes
+        (_, (_, fakes)), gg = jax.jit(
+            jax.value_and_grad(jdl.g_loss_fn, has_aux=True),
+            static_argnums=3)(gp, dp, jb, jdef, vp, jax.random.PRNGKey(0))
         _, dg = jax.jit(jax.value_and_grad(jdl.d_loss_fn, has_aux=True),
-                        static_argnums=3)(dp, {'mods': mods, 'seg': seg}, jb,
-                                          jdef)
-        _, gg = jax.jit(jax.value_and_grad(jdl.g_loss_fn, has_aux=True),
-                        static_argnums=3)(gp, dp, jb, jdef, vp,
-                                          jax.random.PRNGKey(0))
+                        static_argnums=3)(dp, fakes, jb, jdef)
         grads[f'jax {name}'] = {**H.flat(dg), **H.flat(gg)}
     grads['port bfloat16'] = port_grads(torch.bfloat16, vnet, arrays)
     grads['port faulty'] = port_grads(torch.bfloat16, vnet, arrays,
@@ -411,39 +411,28 @@ def att(tmp_path_factory):
     state, metrics, _ = step(state, H.torch_batch(a))
     H.record(out, jstate, jm, state, metrics)
     out['port_d_grads_own'] = H.grads_jax_layout(state.nets, ('D', 'DS'))
-    mods, segs = jax.jit(lambda g, x: jext.generator_forward(
-        g, x, jd, train=True, rng=jax.random.PRNGKey(0)))(gp, jb['A'])
+    d1 = jax.tree_util.tree_map(jnp.copy, jstate.d_params)
+    # JAX's G gradients in float64 (under x64, in a thread of their own
+    # beside the rest; its norm statistics stay float32)
+    f64_grads = H.jax_g_grads_f64(jext.g_loss_fn, (gp, d1, jb, jd),
+                                  jax.random.PRNGKey(0))
+    # the G loss's own forward (at the initial generators) gives the fakes
+    (_, (_, fakes)), ggrads = jax.jit(
+        jax.value_and_grad(jext.g_loss_fn, has_aux=True), static_argnums=3)(
+            gp, d1, jb, jd, jax.random.PRNGKey(0))
     # the D gradients of the port at JAX's fakes: the attention U-Net's
     # batch norm over the two values of its 1x1 innermost level amplifies
     # rounding (the outputs of the two packages 1e-5 apart), and the
     # discriminators' leaky ReLUs turn that into percent of single
     # gradient elements
     fresh = ext.create_train_state(d, opt, 1, 0)
-    fakes = {'mods': torch.from_numpy(np.asarray(mods)),
-             'segs': torch.from_numpy(np.asarray(segs))}
     dl.set_grads(fresh.d_params, ext.d_loss_fn(
-        fresh.nets, fakes, H.torch_batch(a), d)[0])
+        fresh.nets, {k: torch.from_numpy(np.array(v))
+                     for k, v in fakes.items()}, H.torch_batch(a), d)[0])
     out['port_d_grads'] = H.grads_jax_layout(fresh.nets, ('D', 'DS'))
     _, dgrads = jax.jit(jax.value_and_grad(jext.d_loss_fn, has_aux=True),
-                        static_argnums=3)(dp, {'mods': mods, 'segs': segs},
-                                          jb, jd)
-    d1 = jax.tree_util.tree_map(jnp.copy, jstate.d_params)
-    g_loss = jax.jit(jax.value_and_grad(jext.g_loss_fn, has_aux=True),
-                     static_argnums=3)
-    _, ggrads = g_loss(gp, d1, jb, jd, jax.random.PRNGKey(0))
+                        static_argnums=3)(dp, fakes, jb, jd)
     out['jax_grads'] = (H.flat(dgrads), H.flat(ggrads))
-    # JAX's G gradients in float64 (under x64; its norm statistics stay
-    # float32)
-    jax.config.update('jax_enable_x64', True)
-    try:
-        def f64(tree):
-            return jax.tree_util.tree_map(
-                lambda v: jnp.asarray(np.asarray(v, np.float64)), tree)
-        _, gg = g_loss(f64(gp), f64(d1), f64(jb), jd, jax.random.PRNGKey(0))
-        out['jax_g_grads_f64'] = {k: v.astype(np.float64)
-                                  for k, v in H.flat(gg).items()}
-    finally:
-        jax.config.update('jax_enable_x64', False)
 
     def g_grads(dtype):
         st = ext.create_train_state(d, opt, 1, 0)
@@ -460,6 +449,7 @@ def att(tmp_path_factory):
     jstate, jm, _ = jstep(jstate, H.jax_batch(a), jax.random.PRNGKey(1))
     state, metrics, _ = step(state, H.torch_batch(a))
     H.record(out, jstate, jm, state, metrics)
+    out['jax_g_grads_f64'] = f64_grads.result()
     return out
 
 

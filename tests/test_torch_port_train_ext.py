@@ -83,14 +83,13 @@ def step_case(kw, ckpt_dir=None):
     out['port_d_grads'] = H.grads_jax_layout(state.nets, ('D', 'DS'))
     out['g_out_keys'] = sorted(g_out)
 
-    mods, segs = jax.jit(lambda g, x: jext.generator_forward(
-        g, x, jd, train=True, rng=jax.random.PRNGKey(0)))(gp, jb['A'])
+    # the G loss's own forward (the initial generators, rng 0) gives the D
+    # loss its fakes
+    (_, (_, fakes)), ggrads = jax.jit(
+        jax.value_and_grad(jext.g_loss_fn, has_aux=True), static_argnums=3)(
+            gp, jstate.d_params, jb, jd, jax.random.PRNGKey(0))
     _, dgrads = jax.jit(jax.value_and_grad(jext.d_loss_fn, has_aux=True),
-                        static_argnums=3)(dp, {'mods': mods, 'segs': segs},
-                                          jb, jd)
-    _, ggrads = jax.jit(jax.value_and_grad(jext.g_loss_fn, has_aux=True),
-                        static_argnums=3)(gp, jstate.d_params, jb, jd,
-                                          jax.random.PRNGKey(0))
+                        static_argnums=3)(dp, fakes, jb, jd)
     out['jax_grads'] = (H.flat(dgrads), H.flat(ggrads))
     out['port_grads_same_d'] = H.port_g_grads(
         lambda: ext.create_train_state(d, opt, 1, 0), out['jax'][0]['d'],

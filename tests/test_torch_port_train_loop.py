@@ -306,19 +306,24 @@ def test_train_device_and_gpu_ids():
     assert cli.train_device(None, None) == 'cuda'
     assert cli.train_device('cuda', '1') == 'cuda:1'
     assert cli.train_device('cpu', '') == 'cpu'
-    with pytest.raises(NotImplementedError, match='"Training"'):
-        cli.train_device('cuda', '0,1')
+    # several cards: one spawned rank each (train_loop.train_on_devices)
+    assert cli.train_device('cuda', '0,2') == 'cuda:0,cuda:2'
+    assert cli.train_devices('cuda:0,cuda:2') == ['cuda:0', 'cuda:2']
+    assert cli.train_devices('cpu') == ['cpu']
     for device, ids in (('cuda', '-1'), ('cuda', 'a'), ('cpu', '0')):
         with pytest.raises(ValueError):
             cli.train_device(device, ids)
 
 
 @pytest.mark.parametrize('extra', [
-    ['--checkpoint-format', 'orbax'], ['--gpu-ids', '0,1'],
+    ['--checkpoint-format', 'orbax'],
+    ['--gpu-ids', '0,1', '--device', 'cuda', '--checkpoint-format', 'orbax'],
     ['--model', 'CycleGAN', '--checkpoint-format', 'orbax'],
-    ['--model', 'DeepLIIFExt', '--gpu-ids', '0,1'],
+    ['--model', 'DeepLIIFExt', '--gpu-ids', '0,1', '--device', 'cuda',
+     '--checkpoint-format', 'orbax'],
     ['--precision', 'bfloat16', '--checkpoint-format', 'orbax']])
 def test_what_training_does_not_run_raises(tmp_path, extra):
+    """Refused before any rank is spawned, on several cards too."""
     _rows(str(tmp_path / 'data' / 'train'), count=1)
     with pytest.raises(NotImplementedError, match=r'ROADMAP\.md, "Training"'):
         _train(tmp_path, *extra)

@@ -82,13 +82,14 @@ def step_case(kw, ckpt_dir=None):
     H.record(out, jstate, jm, state, metrics)
     out['port_d_grads'] = H.grads_jax_layout(state.nets, ('D',))
 
-    mods, _ = jax.jit(lambda g, x: jsdg.generator_forward(
-        g, x, jd, train=True, rng=jax.random.PRNGKey(0)))(gp, jb['A'])
+    # the G loss's own forward (the initial generators, rng 0) gives the D
+    # loss its fakes
+    (_, (_, fakes)), ggrads = jax.jit(
+        jax.value_and_grad(jsdg.g_loss_fn, has_aux=True), static_argnums=3)(
+            gp, jstate.d_params, jb, jd, vp, jax.random.PRNGKey(0))
+    mods = fakes['mods']
     _, dgrads = jax.jit(jax.value_and_grad(jsdg.d_loss_fn, has_aux=True),
-                        static_argnums=3)(dp, {'mods': mods}, jb, jd)
-    _, ggrads = jax.jit(jax.value_and_grad(jsdg.g_loss_fn, has_aux=True),
-                        static_argnums=3)(gp, jstate.d_params, jb, jd, vp,
-                                          jax.random.PRNGKey(0))
+                        static_argnums=3)(dp, fakes, jb, jd)
     w = jd.lambda_feat * jnp.asarray(jd.loss_g_weights)
     up = np.array(jax.jit(jax.grad(H.jax_vgg_term))(
         mods, vp, jb['B_mods'][:M2], w))

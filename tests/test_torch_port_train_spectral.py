@@ -86,28 +86,14 @@ def shapes(tree):
 
 @pytest.fixture(scope='module')
 def spec(tmp_path_factory):
-    out = H.step_case(KW, str(tmp_path_factory.mktemp('jax_step1')))
+    # with JAX's G gradients of the same loss in float64 (under x64; JAX
+    # keeps sigma and the loss reductions in float32)
+    out = H.step_case(KW, str(tmp_path_factory.mktemp('jax_step1')),
+                      f64=True)
     mods, up, arrays = out['vgg_upstream']
     out['port_grads_same_d_f64'] = H._g_grads_at(
         dl.DeepLIIFDef(**KW), vgg_t.VGG19Features(), out['jax'][0]['d'],
         arrays, up, torch.float64)
-    # JAX's G gradients of the same loss in float64 (under x64; JAX keeps
-    # sigma and the loss reductions in float32)
-    g0, d1 = out['g_grad_at']
-    jax.config.update('jax_enable_x64', True)
-    try:
-        def f64(tree):
-            return jax.tree_util.tree_map(
-                lambda a: jnp.asarray(np.asarray(a, np.float64)), tree)
-        _, gg = jax.jit(jax.value_and_grad(jdl.g_loss_fn, has_aux=True),
-                        static_argnums=3)(
-            f64(g0), f64(d1), f64(H.jax_batch(arrays)),
-            jdl.DeepLIIFDef(**KW), f64(H.vgg_jax(vgg_t.VGG19Features())),
-            jax.random.PRNGKey(0))
-        out['jax_g_grads_f64'] = {k: v.astype(np.float64)
-                                  for k, v in H.flat(gg).items()}
-    finally:
-        jax.config.update('jax_enable_x64', False)
     return out
 
 

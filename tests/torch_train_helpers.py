@@ -98,7 +98,7 @@ def grads_jax_layout(nets_, names):
 LR = 2e-4
 
 
-def step_case(kw, ckpt_dir=None, size=SIZE):
+def step_case(kw, ckpt_dir=None, size=SIZE, f64=False):
     """Step 1 of the model ``kw`` (DeepLIIFDef fields) in each package from
     the same state, with JAX's gradients of its losses (jitted): D at the
     initial parameters, G against JAX's updated discriminators, and the
@@ -107,7 +107,9 @@ def step_case(kw, ckpt_dir=None, size=SIZE):
     carried into the port through the JAX package's checkpoint files and
     step 2 runs in each package from that shared state: the optimizer is
     held apart from the gradients (after a free step 1 the two states
-    differ by the sign flips of Adam's first update)."""
+    differ by the sign flips of Adam's first update). With ``f64``, also
+    JAX's G gradients in float64 at the same point ('jax_g_grads_f64'),
+    computed in a thread beside the rest (``jax_g_grads_f64``)."""
     torch.set_num_threads(2)
     opt = Options(d_params=dict(TRAIN_DEFAULTS))
     d, jd = dl.DeepLIIFDef(**kw), jdl.DeepLIIFDef(**kw)
@@ -139,22 +141,25 @@ def step_case(kw, ckpt_dir=None, size=SIZE):
     arrays = batch_arrays(1, m, size)
     jb = jax_batch(arrays)
     jstate, jm, _ = jstep(jstate, jb, jax.random.PRNGKey(0))
+    if f64:
+        f64_grads = jax_g_grads_f64(jdl.g_loss_fn, (
+            gp, jstate.d_params, jb, jd, vp), jax.random.PRNGKey(0))
     state, metrics, _ = step(state, torch_batch(arrays))
     record(jstate, jm, state, metrics)
     out['port_d_grads'] = grads_jax_layout(state.nets, ('D', 'DS'))
 
-    mods, seg = jax.jit(lambda g, a: jdl.generator_forward(
-        g, a, jd, train=True, rng=jax.random.PRNGKey(0)))(gp, jb['A'])
+    # the G loss's own forward (at the initial generators, rng 0) gives
+    # the fakes of the D gradients: no second forward is compiled
+    (_, (_, fakes)), ggrads = jax.jit(
+        jax.value_and_grad(jdl.g_loss_fn, has_aux=True), static_argnums=3)(
+            gp, jstate.d_params, jb, jd, vp, jax.random.PRNGKey(0))
+    mods = fakes['mods']
     _, dgrads = jax.jit(jax.value_and_grad(jdl.d_loss_fn, has_aux=True),
-                        static_argnums=3)(dp, {'mods': mods, 'seg': seg},
-                                          jb, jd)
-    _, ggrads = jax.jit(jax.value_and_grad(jdl.g_loss_fn, has_aux=True),
-                        static_argnums=3)(gp, jstate.d_params, jb, jd, vp,
-                                          jax.random.PRNGKey(0))
+                        static_argnums=3)(dp, fakes, jb, jd)
     w_feat = jd.lambda_feat * jnp.asarray(jd.loss_g_weights[:m])
-    up = jax.jit(jax.grad(lambda x: (jax.vmap(
-        lambda a, b: jvgg.vgg_loss(vp, a, b))(x, jb['B_mods'])
-        * w_feat).sum()))(mods)
+    # every input an argument: a closure over the VGG and the batch made
+    # XLA constant-fold the VGG convs (~20 s a compile)
+    up = jax.jit(jax.grad(jax_vgg_term))(mods, vp, jb['B_mods'], w_feat)
     out['jax_grads'] = (flat(dgrads), flat(ggrads))
     out['vgg_upstream'] = (np.asarray(mods), np.asarray(up), arrays)
     # the trees of the G gradients: the initial generators, JAX's
@@ -164,6 +169,8 @@ def step_case(kw, ckpt_dir=None, size=SIZE):
     out['port_grads_same_d'] = _g_grads_at(
         d, vnet, out['jax'][0]['d'], arrays, np.asarray(up))
     if ckpt_dir is None:
+        if f64:
+            out['jax_g_grads_f64'] = f64_grads.result()
         return out
 
     jck.save_networks(ckpt_dir, {**jstate.g_params, **jstate.d_params})
@@ -180,6 +187,8 @@ def step_case(kw, ckpt_dir=None, size=SIZE):
     jstate, jm, _ = jstep(jstate, jax_batch(arrays), jax.random.PRNGKey(1))
     state, metrics, _ = step(state, torch_batch(arrays))
     record(jstate, jm, state, metrics)
+    if f64:
+        out['jax_g_grads_f64'] = f64_grads.result()
     return out
 
 
@@ -310,6 +319,33 @@ def record(out, jstate, jm, state, metrics):
         metrics={k: v.numpy() for k, v in metrics.items()},
         g=flat(jax_params(state.nets, group_names(state, False))),
         d=flat(jax_params(state.nets, group_names(state, True)))))
+
+
+def jax_g_grads_f64(g_loss_fn, args, rng):
+    """JAX's gradients of ``g_loss_fn(g_params, d_params, batch, d, *rest,
+    rng)`` (``args`` up to the rng; the def at index 3 static) w.r.t. the
+    generators in float64, in a thread of their own under x64 (JAX's
+    ``enable_x64`` holds for that thread alone): a future of the flat
+    float64 gradients. XLA's float64 convs on the CPU are slow (tens of
+    seconds at 256^2), so the caller goes on meanwhile."""
+    import concurrent.futures
+    # host copies now: the caller's jitted steps may donate the buffers
+    host = [a if i == 3 else jax.tree_util.tree_map(np.asarray, a)
+            for i, a in enumerate(args)]
+
+    def run():
+        with jax.enable_x64(True):
+            def f64(tree):
+                return jax.tree_util.tree_map(
+                    lambda v: jnp.asarray(np.asarray(v, np.float64)), tree)
+            conv = [a if i == 3 else f64(a) for i, a in enumerate(host)]
+            _, gg = jax.jit(jax.value_and_grad(g_loss_fn, has_aux=True),
+                            static_argnums=3)(*conv, rng)
+            return {k: v.astype(np.float64) for k, v in flat(gg).items()}
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(run)
+    pool.shutdown(wait=False)
+    return future
 
 
 def jax_vgg_term(x, vp, real, w):
